@@ -1,0 +1,133 @@
+"""The scan carry as two packed planes (own port of
+``repro.core.fastpath._PlaneLayout`` / ``_make_state0`` / ``_make_planes``
+for the base pull segment).
+
+Every float entry of a cell's carry flattens into one **clocks plane**
+(``clk``, float32) and every int/bool entry into one **counters plane**
+(``ctr``, int32), in sorted-key order.  The layout is a pure function of the
+carry's shapes, so the packer here and the kernel's unpacker (the CUDA
+``event_step`` takes the offsets as launch arguments) agree by construction,
+and the offsets equal the JAX package's for the same bucket.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# per-key kind: "f" float (clk plane), "i" int32 / "b" bool (ctr plane)
+_FLOAT, _INT, _BOOL = "f", "i", "b"
+
+
+def carry_spec(*, n_nodes: int, n_slots: int, window: int,
+               n_fns: int) -> dict[str, tuple[tuple[int, ...], str]]:
+    """Shapes and kinds of one base-pull cell's carry: slots, queue heads,
+    channel clocks and the controller's estimator ring (one estimator, so
+    the estimator axis has length 1)."""
+    return {
+        "ai": ((), _INT),
+        "head": ((n_fns,), _INT),
+        "fin_s": ((n_nodes, n_slots), _FLOAT),
+        "idx_s": ((n_nodes, n_slots), _INT),
+        "busy": ((n_nodes,), _INT),
+        "qn": ((n_nodes,), _INT),
+        "chan": ((n_nodes,), _FLOAT),
+        "ring": ((1, n_fns, window), _FLOAT),
+        "rsum": ((1, n_fns), _FLOAT),
+        "rlen": ((1, n_fns), _INT),
+        "rpos": ((1, n_fns), _INT),
+        "last_t": ((1, n_fns), _FLOAT),
+        "prev_t": ((1, n_fns), _FLOAT),
+        "narr": ((1, n_fns), _INT),
+    }
+
+
+class PlaneLayout:
+    """Offsets of each carry entry in the ``(clk, ctr)`` plane pair.
+
+    ``fparts`` holds ``(key, lo, hi, shape)`` and ``iparts``
+    ``(key, lo, hi, shape, isbool)``, in the JAX package's tuple form."""
+
+    __slots__ = ("fparts", "iparts", "f_len", "i_len")
+
+    def __init__(self, spec: dict[str, tuple[tuple[int, ...], str]]):
+        self.fparts: list[tuple[str, int, int, tuple]] = []
+        self.iparts: list[tuple[str, int, int, tuple, bool]] = []
+        fo = io = 0
+        for k in sorted(spec):
+            shape, kind = spec[k]
+            size = 1
+            for d in shape:
+                size *= int(d)
+            if kind == _FLOAT:
+                self.fparts.append((k, fo, fo + size, tuple(shape)))
+                fo += size
+            else:
+                self.iparts.append((k, io, io + size, tuple(shape),
+                                    kind == _BOOL))
+                io += size
+        self.f_len, self.i_len = fo, io
+
+    def offsets(self) -> dict[str, int]:
+        """Start offset of every entry within its plane."""
+        return {k: lo for k, lo, *_ in self.fparts + self.iparts}
+
+    def pack(self, st: dict[str, torch.Tensor]):
+        """Batched carry dict (leading cell axis) -> ``(clk, ctr)``."""
+        clk = torch.cat([st[k].reshape(st[k].shape[0], -1)
+                         for k, *_ in self.fparts], dim=1)
+        ctr = torch.cat([st[k].reshape(st[k].shape[0], -1).to(torch.int32)
+                         for k, *_ in self.iparts], dim=1)
+        return clk, ctr
+
+    def unpack(self, clk: torch.Tensor, ctr: torch.Tensor) -> dict:
+        """``(clk, ctr)`` -> batched carry dict of views into the planes
+        (bool entries come back as new tensors)."""
+        B = clk.shape[0]
+        st = {}
+        for k, lo, hi, shape in self.fparts:
+            st[k] = clk[:, lo:hi].reshape(B, *shape)
+        for k, lo, hi, shape, isbool in self.iparts:
+            v = ctr[:, lo:hi].reshape(B, *shape)
+            st[k] = v.to(torch.bool) if isbool else v
+        return st
+
+
+def carry_layout(*, n_nodes: int, n_slots: int, window: int,
+                 n_fns: int) -> PlaneLayout:
+    return PlaneLayout(carry_spec(n_nodes=n_nodes, n_slots=n_slots,
+                                  window=window, n_fns=n_fns))
+
+
+def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
+                window: int) -> dict[str, torch.Tensor]:
+    """Initial batched carry of a base-pull bucket: empty slots and queues,
+    idle channels, and the estimator ring from the bucket's inputs."""
+    t = inp["t"]
+    B, ft, dev = t.shape[0], t.dtype, t.device
+    n_fns = inp["ring0"].shape[2]
+    i32 = dict(dtype=torch.int32, device=dev)
+    return {
+        "ai": torch.zeros(B, **i32),
+        "head": torch.zeros(B, n_fns, **i32),
+        "fin_s": torch.full((B, n_nodes, n_slots), float("inf"), dtype=ft,
+                            device=dev),
+        "idx_s": torch.zeros(B, n_nodes, n_slots, **i32),
+        "busy": torch.zeros(B, n_nodes, **i32),
+        "qn": torch.zeros(B, n_nodes, **i32),
+        "chan": torch.zeros(B, n_nodes, dtype=ft, device=dev),
+        "ring": inp["ring0"], "rsum": inp["rsum0"],
+        "rlen": inp["rlen0"], "rpos": inp["rpos0"],
+        "last_t": torch.zeros(B, 1, n_fns, dtype=ft, device=dev),
+        "prev_t": torch.zeros(B, 1, n_fns, dtype=ft, device=dev),
+        "narr": torch.zeros(B, 1, n_fns, **i32),
+    }
+
+
+def make_planes(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
+                window: int):
+    """Per-cell initial carry of a bucket as the packed ``(clk, ctr)``
+    planes, shapes ``(B, f_len)`` float32 and ``(B, i_len)`` int32."""
+    layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
+                          n_fns=inp["ring0"].shape[2])
+    return layout.pack(make_state0(inp, n_nodes=n_nodes, n_slots=n_slots,
+                                   window=window))

@@ -1,0 +1,166 @@
+"""Scenario grids for the port's cluster scan.
+
+Counterpart of the parts of ``repro.core.sweep`` that the interactive-sweep
+path uses: :class:`SweepCell` restricted to the fields of a uniform-arrival
+pull cell, a :class:`SweepSpec` over the axes of the mega grid, whose
+``cells()`` yields the JAX package's cells in the JAX package's order, and
+:func:`run_cells_scan`, which runs a list of cells through the bucketed
+scan and returns one metrics row per cell.
+"""
+
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .fastpath import (
+    ScanMetrics,
+    cluster_scan_eligible,
+    simulate_cluster_cells_scan,
+)
+from .metrics import summarize_arrays
+from .request import Request
+from .workload import STRETCH_REFERENCE_S, generate_burst
+
+
+@dataclass(frozen=True)
+class SweepCell:
+    """One uniform-arrival pull scenario (field names and defaults as in
+    ``repro.core.sweep.SweepCell``)."""
+
+    policy: str = "fifo"          # fifo|sept|eect|rect|fc
+    assignment: str = "pull"
+    arrival: str = "uniform"
+    intensity: int = 30
+    cores: int = 10               # per node
+    nodes: int = 1
+    seed: int = 0
+    duration_s: float = 60.0
+    workload_cores: int | None = None  # burst sized for this many cores
+                                       # (default: cores * nodes)
+
+    def label(self) -> str:
+        parts = [f"ours-{self.policy}", f"c{self.cores}",
+                 f"v{self.intensity}"]
+        if self.nodes != 1:
+            parts.append(f"n{self.nodes}")
+        return "_".join(parts)
+
+
+@dataclass
+class SweepSpec:
+    """Cartesian grid over the mega grid's axes; ``cells()`` expands it."""
+
+    policies: Sequence[str] = ("fifo",)
+    intensities: Sequence[int] = (30,)
+    cores: Sequence[int] = (10,)
+    nodes: Sequence[int] = (1,)
+    seeds: int | Sequence[int] = 3
+    base_seed: int = 0
+    duration_s: float = 60.0
+    workload_cores: int | None = None
+
+    def seed_list(self) -> list[int]:
+        if isinstance(self.seeds, int):
+            return [self.base_seed + s for s in range(self.seeds)]
+        return [self.base_seed + s for s in self.seeds]
+
+    def cells(self) -> list[SweepCell]:
+        return [SweepCell(policy=pol, intensity=inten, cores=c, nodes=n,
+                          seed=seed, duration_s=self.duration_s,
+                          workload_cores=self.workload_cores)
+                for pol, inten, c, n, seed in itertools.product(
+                    self.policies, self.intensities, self.cores,
+                    self.nodes, self.seed_list())]
+
+
+def make_workload(cell: SweepCell) -> list[Request]:
+    """Deterministic workload of a cell; cells differing only in policy or
+    fleet share the same burst (paired common random numbers)."""
+    if cell.arrival != "uniform":
+        raise ValueError(f"arrival {cell.arrival!r} is not ported yet")
+    wcores = cell.workload_cores or cell.cores * cell.nodes
+    return generate_burst(cores=wcores, intensity=cell.intensity,
+                          seed=cell.seed, duration_s=cell.duration_s)
+
+
+def _workload_key(cell: SweepCell) -> tuple:
+    """Identity of a cell's workload: equal keys, bit-identical bursts."""
+    wcores = cell.workload_cores or cell.cores * cell.nodes
+    return (cell.arrival, cell.intensity, cell.seed, cell.duration_s, wcores)
+
+
+def _metrics_from_scan(cell: SweepCell, mo: ScanMetrics) -> dict[str, float]:
+    """Metrics row from a metrics-only scan result, with the keys and the
+    arithmetic of the JAX package's rows."""
+    s = summarize_arrays(mo.resp, mo.stretch, mo.max_c)
+    metrics: dict[str, float] = {
+        "R_avg": s.response_avg, "S_avg": s.stretch_avg,
+        "max_c": s.max_completion, "cold": float(mo.cold_starts),
+        "n": float(s.n), "failures": float(mo.failures),
+        "backups": float(mo.backups), "steals": float(mo.steals),
+        "nodes_used": float(mo.nodes_used),
+    }
+    for p, v in s.response_pct.items():
+        metrics[f"R_p{p}"] = v
+    for p, v in s.stretch_pct.items():
+        metrics[f"S_p{p}"] = v
+    return metrics
+
+
+def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
+                   device: str | torch.device | None = None,
+                   timings: dict | None = None) -> list[dict[str, float]]:
+    """Run cells through the bucketed scan on ``device`` and return their
+    metrics rows in order.
+
+    Every cell must be a cluster pull cell (``nodes > 1``; single-node cells
+    run the frozen-priority regime, which is not ported yet) in the warm
+    regime; anything else raises ``ValueError``.  ``metrics_only=True``
+    shares one generated burst between cells with the same workload and
+    never writes back requests; the rows equal the write-back rows.
+    ``timings`` accumulates ``fill_s``, ``device_s`` and ``fold_s``."""
+    dev = resolve_device(device)
+    workloads: dict[tuple, list[Request]] = {}
+    batch = []
+    for cell in cells:
+        if cell.assignment != "pull" or cell.nodes < 2:
+            raise ValueError(f"cell {cell.label()} is not a cluster pull "
+                             "cell of the port's scan")
+        if metrics_only:
+            key = _workload_key(cell)
+            reqs = workloads.get(key)
+            if reqs is None:
+                reqs = workloads[key] = make_workload(cell)
+        else:
+            reqs = make_workload(cell)       # write-back mutates: no sharing
+        if not cluster_scan_eligible(reqs, cell.nodes, cell.cores,
+                                     cell.policy):
+            raise ValueError(f"cell {cell.label()} is not scan-eligible")
+        batch.append((reqs, cell.nodes, cell.cores, cell.policy))
+    results = simulate_cluster_cells_scan(batch, validate=False,
+                                          metrics_only=metrics_only,
+                                          device=dev, timings=timings)
+    if metrics_only:
+        return [_metrics_from_scan(c, r) for c, r in zip(cells, results)]
+    return [_metrics_from_scan(c, _result_metrics(r))
+            for c, r in zip(cells, results)]
+
+
+def _result_metrics(res) -> ScanMetrics:
+    """Request-order arrays of a written-back result, as the JAX package's
+    ``_cell_metrics`` reads them."""
+    reqs = res.requests
+    resp = np.array([q.c - q.r for q in reqs], dtype=np.float64)
+    den = np.array([max(STRETCH_REFERENCE_S.get(q.fn) or q.p_true, 1e-9)
+                    for q in reqs])
+    fns = tuple(sorted({q.fn for q in reqs}))
+    return ScanMetrics(resp=resp, stretch=resp / den,
+                       max_c=max(q.c for q in reqs),
+                       fnids=np.array([fns.index(q.fn) for q in reqs]),
+                       fns=fns, nodes_used=res.nodes_used)

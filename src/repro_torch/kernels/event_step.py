@@ -1,0 +1,181 @@
+"""Batched base-pull cluster event scan: the plain PyTorch version.
+
+Counterpart of ``repro.kernels.event_step`` and of the base-pull step of the
+JAX oracle ``repro.core.fastpath._scan_cell_kernel``.  One cell is a cluster
+of ``nodes`` invokers with ``cores`` slots each, fed by one controller queue
+(pull assignment).  Every step takes one event -- the next arrival or the
+earliest completion, an arrival winning an exact tie -- and then lets the
+most-free invoker pull the best queued call, ranked at pull time by
+
+    prio = c0 * t + c1 * prev_t + (c2 + c3 * FC-count) * E[p]
+
+from the controller's last-``window`` runtime ring.  Each function's queue is
+the contiguous tail of its arrival sequence ``fn_ev[f]``, so the global best
+is found over the F queue heads, ties going to the smallest event index.
+
+This version is batched over cells (every tensor has a leading cell axis)
+and runs on any device; ``repro_torch.kernels.ops.event_step`` sends CPU
+tensors here and CUDA tensors to the CUDA kernel in ``csrc/event_step.cu``.
+Rows ``[:n]`` of its outputs are bit-identical to the JAX oracle's: every
+floating-point operation is written separately in the oracle's order (no
+fused multiply-add), and every argmin/argmax takes the first index.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.planes import carry_layout
+
+
+def event_step_supported(*, freeze, use_fc, fc_push, dyn, het, hedge, cold,
+                         dup, stream=False, res=False, **_static) -> bool:
+    """True when the static feature set is the base pull configuration, with
+    or without FC pull counts (``use_fc``) -- the scope of the JAX package's
+    Pallas ``event_step``.  ``res`` is named here because the port has no
+    resilience segment; the JAX scope never meets it without ``freeze``."""
+    del use_fc
+    return not (freeze or fc_push or dyn or het or hedge or cold or dup
+                or stream or res)
+
+
+def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
+                   window: int, use_fc: bool, horizon: float,
+                   n_steps: int):
+    """Plain PyTorch event scan of a bucket of cells.
+
+    ``clk``/``ctr`` are the ``(B, f_len)`` / ``(B, i_len)`` initial carry
+    planes (``repro_torch.core.planes.make_planes``), left unchanged;
+    ``inp`` holds ``t``/``p``/``cost`` ``(B, n+1)`` float32 (``t`` sorted,
+    ``+inf`` padded), ``fnid`` ``(B, n+1)``, ``coef`` ``(B, >=4)``,
+    ``cores``/``nodes`` ``(B,)``, ``cumf`` ``(B, n+1 | 1, F)`` and ``fn_ev``
+    ``(B, F, kq)``.  Returns ``(start, finish, prio, node)``, each
+    ``(B, n+1)``; row ``n`` is the sentinel that no-op events write."""
+    t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
+    coef, cumf, fn_ev = inp["coef"], inp["cumf"], inp["fn_ev"].long()
+    cores, nodes = inp["cores"].long(), inp["nodes"].long()
+    B, n1 = t.shape
+    n = n1 - 1
+    n_fns, kq = fn_ev.shape[1], fn_ev.shape[2]
+    dev, ft = t.device, t.dtype
+    layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
+                          n_fns=n_fns)
+    st = {k: v.clone() for k, v in layout.unpack(clk, ctr).items()}
+    ai = st["ai"].long()
+    head = st["head"].long()
+    fin_s, idx_s = st["fin_s"], st["idx_s"].long()
+    busy, qn, chan = st["busy"].long(), st["qn"].long(), st["chan"]
+    # one controller estimator: drop the estimator axis of length 1
+    ring, rsum = st["ring"][:, 0], st["rsum"][:, 0]
+    rlen, rpos = st["rlen"][:, 0].long(), st["rpos"][:, 0].long()
+    last_t, prev_t, narr = (st["last_t"][:, 0], st["prev_t"][:, 0],
+                            st["narr"][:, 0].long())
+
+    rows = torch.arange(B, device=dev)
+    node_ids = torch.arange(n_nodes, device=dev)[None]
+    slot_ids = torch.arange(n_slots, device=dev)[None, None]
+    fn_ids = torch.arange(n_fns, device=dev)[None]
+    win_ids = torch.arange(window, device=dev)[None, None]
+    inf = torch.tensor(float("inf"), dtype=ft, device=dev)
+    zero = torch.tensor(0.0, dtype=ft, device=dev)
+    active = node_ids < nodes[:, None]
+    c0, c1, c2, c3 = (coef[:, i:i + 1] for i in range(4))
+    start = torch.zeros(B, n1, dtype=ft, device=dev)
+    finish = torch.zeros(B, n1, dtype=ft, device=dev)
+    prio = torch.zeros(B, n1, dtype=ft, device=dev)
+    node = torch.zeros(B, n1, dtype=torch.int32, device=dev)
+
+    for _ in range(n_steps):
+        # -- event selection: arrival vs earliest completion ---------------
+        t_a = t[rows, ai]
+        flat = fin_s.reshape(B, -1)
+        kflat = flat.argmin(1)
+        t_c = flat[rows, kflat]
+        arr_first = t_a <= t_c
+        now = torch.where(arr_first, t_a, t_c)
+        none_left = torch.isinf(now)
+        if bool(none_left.all()):
+            break                # no event left anywhere: the carry is fixed
+        do_arr = arr_first & ~none_left
+        do_comp = ~arr_first & ~none_left
+
+        # -- completion: free the slot, feed the controller ring -----------
+        kn = kflat // n_slots
+        ks = kflat % n_slots
+        j_done = idx_s.reshape(B, -1)[rows, kflat]
+        f_done = fnid[rows, j_done]
+        m_cf = (fn_ids == f_done[:, None]) & do_comp[:, None]
+        pos = rpos[rows, f_done]
+        v = p[rows, j_done]
+        old = ring[rows, f_done, pos]
+        full = rlen[rows, f_done] == window
+        rsum = torch.where(
+            m_cf, rsum + v[:, None] - torch.where(full, old, zero)[:, None],
+            rsum)
+        ring = torch.where(m_cf[:, :, None] & (win_ids == pos[:, None, None]),
+                           v[:, None, None], ring)
+        rlen = torch.where(m_cf & ~full[:, None], rlen + 1, rlen)
+        rpos = torch.where(m_cf, (rpos + 1) % window, rpos)
+        m_kn = (node_ids == kn[:, None]) & do_comp[:, None]
+        busy = busy - m_kn.long()
+        fin_s = torch.where(m_kn[:, :, None] & (slot_ids == ks[:, None, None]),
+                            inf, fin_s)
+
+        # -- arrival: enqueue, observe on the controller estimator ---------
+        i_ins = ai.clamp(max=n)
+        f_i = fnid[rows, i_ins]
+        first = narr[rows, f_i] == 0
+        prev_used = torch.where(first, now, last_t[rows, f_i])
+        m_af = (fn_ids == f_i[:, None]) & do_arr[:, None]
+        prev_t = torch.where(m_af, prev_used[:, None], prev_t)
+        last_t = torch.where(m_af, now[:, None], last_t)
+        narr = narr + m_af.long()
+        qn = qn + ((node_ids == 0) & do_arr[:, None]).long()
+        ai = ai + do_arr.long()
+
+        # -- dispatch: the most-free invoker pulls the global best head ----
+        fs = torch.where(active, cores[:, None] - busy, -1)
+        k_d = fs.argmax(1)
+        est_f = torch.where(rlen > 0, rsum / rlen.clamp(min=1).to(ft), zero)
+        idx_f = fn_ev.gather(2, head.clamp(max=kq - 1)[:, :, None])[:, :, 0]
+        valid = head < narr
+        if use_fc:
+            # FC window count from the static stream: calls of f among the
+            # arrivals in (now - horizon, now]
+            k0 = torch.searchsorted(t, (now - horizon)[:, None],
+                                    right=True)[:, 0]
+            k0 = k0.clamp(max=cumf.shape[1] - 1)
+            cnt_f = cumf[rows, ai] - cumf[rows, k0]
+            w_est = c2 + c3 * cnt_f
+        else:
+            w_est = c2
+        base_f = c1 * prev_t + w_est * est_f
+        prio_f = c0 * t.gather(1, idx_f) + base_f
+        prio_f = torch.where(valid, prio_f, inf)
+        best = prio_f.min(1).values
+        j = torch.where(valid & (prio_f == best[:, None]), idx_f,
+                        n).min(1).values
+        has_q = j < n
+        can = ~none_left & (busy[rows, k_d] < cores) & has_q
+        exec_start = torch.maximum(now, chan[rows, k_d]) + cost[rows, j]
+        m_kd = (node_ids == k_d[:, None]) & can[:, None]
+        chan = torch.where(m_kd, exec_start[:, None], chan)
+        fin_j = exec_start + p[rows, j]
+        slot_free = (torch.isinf(fin_s[rows, k_d])
+                     & (slot_ids[:, 0] < cores[:, None]))
+        s = slot_free.to(torch.int32).argmax(1)
+        m_ds = m_kd[:, :, None] & (slot_ids == s[:, None, None])
+        fin_s = torch.where(m_ds, fin_j[:, None, None], fin_s)
+        idx_s = torch.where(m_ds, j[:, None, None], idx_s)
+        busy = busy + m_kd.long()
+        qn = qn - m_kd.long()
+        head = head + ((fn_ids == fnid[rows, j][:, None])
+                       & can[:, None]).long()
+
+        # -- per-dispatch record; no-op events land on sentinel row n ------
+        jn = torch.where(can, j, n)
+        start[rows, jn] = exec_start
+        finish[rows, jn] = fin_j
+        prio[rows, jn] = best
+        node[rows, jn] = k_d.to(torch.int32)
+    return start, finish, prio, node

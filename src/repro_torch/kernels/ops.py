@@ -1,0 +1,141 @@
+"""Dispatch of the port's kernels: the CUDA kernel for CUDA tensors, the
+plain PyTorch version for CPU tensors.
+
+Counterpart of ``repro.kernels.ops``.  There is no fallback: a CUDA tensor
+goes to the kernel or the call raises, and the plain version runs on the
+card only when the caller asks for it with ``force="ref"``.
+
+``KERNEL_LAUNCHES`` and ``REF_LAUNCHES`` count the calls that launched the
+CUDA kernel and the calls that ran the plain version; a caller sets them to
+0 before a run and reads them after it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.planes import carry_layout
+from .event_step import event_step_ref, event_step_supported
+
+KERNEL_LAUNCHES = 0
+REF_LAUNCHES = 0
+
+# carry entries in the order of ``struct Layout`` in csrc/event_step.cu
+EVENT_STEP_LAYOUT = ("chan", "fin_s", "last_t", "prev_t", "ring", "rsum",
+                     "ai", "busy", "head", "idx_s", "narr", "qn", "rlen",
+                     "rpos")
+
+_event_step_fn = None
+
+
+def _event_step_lib():
+    global _event_step_fn
+    if _event_step_fn is None:
+        from .build import load
+
+        fn = load("event_step").event_step_launch
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_float,
+                                                ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _event_step_fn = fn
+    return _event_step_fn
+
+
+def _checked(x: torch.Tensor, name: str, dtype: torch.dtype,
+             shape: tuple, device: torch.device) -> torch.Tensor:
+    """``x`` as a contiguous tensor of ``dtype`` on ``device`` with
+    ``shape``.  Integer inputs are converted (torch indexes in int64, the
+    kernel in int32); anything else that does not match raises."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if dtype == torch.int32 and x.dtype in (torch.int64, torch.int16,
+                                            torch.int8, torch.uint8):
+        x = x.to(torch.int32)
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    return x.contiguous()
+
+
+def _event_step_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
+                     horizon, n_steps):
+    dev = clk.device
+    B, n1 = inp["t"].shape
+    n_fns, kq = inp["fn_ev"].shape[1], inp["fn_ev"].shape[2]
+    nc, ncoef = inp["cumf"].shape[1], inp["coef"].shape[1]
+    layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
+                          n_fns=n_fns)
+    if use_fc and nc != n1:
+        raise ValueError(f"use_fc needs cumf rows = {n1}, got {nc}")
+    if ncoef < 4:
+        raise ValueError(f"coef needs at least 4 columns, got {ncoef}")
+    f32, i32 = torch.float32, torch.int32
+    args = [
+        _checked(clk, "clk", f32, (B, layout.f_len), dev),
+        _checked(ctr, "ctr", i32, (B, layout.i_len), dev),
+        _checked(inp["t"], "t", f32, (B, n1), dev),
+        _checked(inp["fnid"], "fnid", i32, (B, n1), dev),
+        _checked(inp["p"], "p", f32, (B, n1), dev),
+        _checked(inp["cost"], "cost", f32, (B, n1), dev),
+        _checked(inp["coef"], "coef", f32, (B, ncoef), dev),
+        _checked(inp["cores"], "cores", i32, (B,), dev),
+        _checked(inp["nodes"], "nodes", i32, (B,), dev),
+        _checked(inp["cumf"], "cumf", f32, (B, nc, n_fns), dev),
+        _checked(inp["fn_ev"], "fn_ev", i32, (B, n_fns, kq), dev),
+    ]
+    outs = [torch.zeros(B, n1, dtype=f32, device=dev) for _ in range(3)]
+    outs.append(torch.zeros(B, n1, dtype=i32, device=dev))
+    offs = layout.offsets()
+    lay = (ctypes.c_int * len(EVENT_STEP_LAYOUT))(
+        *(offs[k] for k in EVENT_STEP_LAYOUT))
+    dims = (ctypes.c_int * 13)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
+                               kq, nc, ncoef, layout.f_len, layout.i_len,
+                               int(bool(use_fc)), n_steps)
+    fn = _event_step_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(a.data_ptr() for a in args + outs),
+                 ctypes.addressof(lay), ctypes.addressof(dims),
+                 float(horizon), stream)
+    if err != 0:
+        raise RuntimeError(f"event_step kernel launch failed: CUDA error "
+                           f"{err}")
+    return tuple(outs)
+
+
+def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
+               n_slots: int, window: int, use_fc: bool, horizon: float,
+               n_steps: int, **flags):
+    """Batched base-pull cluster event scan -- the simulator's hot path.
+
+    ``clk``/``ctr`` are the ``(B, f_len)`` / ``(B, i_len)`` carry planes
+    (``repro_torch.core.planes.make_planes``) and ``inp`` the bucket's input
+    tensors; ``flags`` are the JAX package's feature flags (``freeze``,
+    ``fc_push``, ``dyn``, ...), which must describe the base pull
+    configuration or the call raises ``NotImplementedError``.  Returns
+    ``(start, finish, prio, node, aux)`` like ``repro.kernels.ops.
+    event_step``, with ``aux == {}``; rows ``[:n]`` are the per-request
+    records and row ``n`` is the no-op sentinel.
+
+    ``force``: ``None`` runs the CUDA kernel on CUDA tensors and the plain
+    version on CPU tensors; ``"ref"`` runs the plain version on any
+    device."""
+    global KERNEL_LAUNCHES, REF_LAUNCHES
+    if force not in (None, "ref"):
+        raise ValueError(f"force must be None or 'ref', not {force!r}")
+    if not event_step_supported(use_fc=use_fc, **flags):
+        raise NotImplementedError(
+            "event_step covers only the base pull configuration (no "
+            "freeze/fc_push/dyn/het/hedge/cold/dup/stream/res)")
+    static = dict(n_nodes=n_nodes, n_slots=n_slots, window=window,
+                  use_fc=use_fc, horizon=horizon, n_steps=n_steps)
+    if force == "ref" or clk.device.type != "cuda":
+        REF_LAUNCHES += 1
+        return (*event_step_ref(clk, ctr, inp, **static), {})
+    out = _event_step_cuda(clk, ctr, inp, **static)
+    KERNEL_LAUNCHES += 1
+    return (*out, {})
