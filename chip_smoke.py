@@ -2,13 +2,20 @@
 
     python3 chip_smoke.py [--seeds N]
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain PyTorch version on the card at the main
-path's shapes, then drives the main path -- ``run_cells_scan(metrics_only=
-True)`` over the mega grid's axes (5 policies x {2, 4} nodes x 8 cores x
-intensities 10-30, bursts sized for 16 cores) -- and checks what comes out.
-The mega grid has 2,000 seeds; the default of 40 seeds (2,000 cells) is a
-cut of it, and ``--seeds`` raises it.
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+drives the port's two paths, each kernel held against its plain PyTorch
+version on the card first:
+
+1. The sweep path: ``event_step`` at the mega bucket's shapes, then
+   ``run_cells_scan(metrics_only=True)`` over the mega grid's axes (5
+   policies x {2, 4} nodes x 8 cores x intensities 10-30, bursts sized for
+   16 cores).  The mega grid has 2,000 seeds; the default of 40 seeds
+   (2,000 cells) is a cut of it, and ``--seeds`` raises it.
+2. The serving path at the full width of qwen3_1_7b: ``decode_attention``
+   and ``flash_attention`` at the decode_32k and prefill widths; the model
+   in float32, kernels against plain versions end to end; then the serving
+   engine in bfloat16 (two endpoints, estimator warm-up, a burst of 12
+   calls, policy fc), and one 2,048-token prefill with 16 decode steps.
 
 Any failure exits non-zero.  The last lines are the card's name and power
 limit, one JSON object with each kernel's numbers, and
@@ -19,6 +26,7 @@ the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -28,16 +36,32 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import fastpath  # noqa: E402
 from repro_torch.core import sweep  # noqa: E402
 from repro_torch.core.planes import make_planes  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import decode_step, init, init_cache  # noqa: E402
+from repro_torch.models import prefill  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
 
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_S = 67e12        # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_S = 989e12       # H100 SXM dense bf16 tensor-core rate
+PEAK_OPS = {torch.float32: FP32_OPS_S, torch.bfloat16: BF16_OPS_S}
+# attention kernel against its plain version: tests/test_kernels.py's
+ATTN_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+# model logits, kernels against plain versions, float32 end to end: the two
+# attention versions differ by ~1e-6 and 28 layers carry that to the logits
+LOGIT_TOL = 2e-3
+QWEN3_LAYERS = 28
 
 
 def card_line() -> str:
@@ -192,6 +216,280 @@ def plain_rows(cells, dev) -> list[dict]:
             rows[i] = sweep._metrics_from_scan(cells[i], mo)
     return rows
 
+def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate
+    or operations over the peak rate of ``dtype``, whichever is larger."""
+    t_b = nbytes / HBM_BYTES_S * 1e3
+    t_o = flops / PEAK_OPS[dtype] * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def randn(gen, shape, dtype, dev) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def attn_err(got, want, dtype, what: str) -> float:
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= ATTN_TOL[dtype]:
+        raise AssertionError(f"{what}: max |kernel - plain| = {err} above "
+                             f"{ATTN_TOL[dtype]}")
+    return err
+
+
+def check_decode(B, Sk, Hq, Hkv, dh, dtype, lengths, dev, gen,
+                 timed=True) -> dict:
+    """decode_attention against its plain version; timed beside SDPA on
+    K / V repeated to Hq heads with a boolean mask of the lengths."""
+    q = randn(gen, (B, Hq, dh), dtype, dev)
+    k = randn(gen, (B, Sk, Hkv, dh), dtype, dev)
+    v = randn(gen, (B, Sk, Hkv, dh), dtype, dev)
+    L = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    want = ops.decode_attention(q, k, v, L, force="ref")
+    k0 = ops.DECODE_LAUNCHES
+    got = ops.decode_attention(q, k, v, L)
+    torch.cuda.synchronize()
+    if ops.DECODE_LAUNCHES != k0 + 1:
+        raise AssertionError("decode_attention did not launch the kernel")
+    shape = f"B={B} Sk={Sk} {Hq}/{Hkv}/{dh} {str(dtype)[6:]}"
+    out = {"shape": shape, "lengths": list(lengths),
+           "max_abs_err": attn_err(got, want, dtype, f"decode {shape}")}
+    if timed:
+        keys = sum(min(max(n, 0), Sk) for n in lengths)
+        es = q.element_size()
+        nbytes = keys * Hkv * dh * 2 * es + 2 * B * Hq * dh * es + 4 * B
+        out["bound_ms"], out["bound_by"] = bound(nbytes, 4 * keys * Hq * dh,
+                                                 dtype)
+        out["ms"] = time_call(lambda: ops.decode_attention(q, k, v, L), 20)
+        out["plain_ms"] = time_call(lambda: ops.decode_attention(
+            q, k, v, L, force="ref"), 3)
+        G = Hq // Hkv
+        kr = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        vr = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        mask = (torch.arange(Sk, device=dev)[None, :]
+                < L[:, None].long())[:, None, None, :]
+        qs = q[:, :, None, :]
+        out["library_ms"] = time_call(lambda: F.scaled_dot_product_attention(
+            qs, kr, vr, attn_mask=mask), 20)
+    return out
+
+
+def check_flash(B, Sq, Sk, Hq, Hkv, dh, dtype, dev, gen, causal=True,
+                window=-1, timed=True) -> dict:
+    """flash_attention against its plain version; timed beside SDPA
+    (``enable_gqa``; ``is_causal`` for a square causal mask, else a boolean
+    mask)."""
+    q = randn(gen, (B, Sq, Hq, dh), dtype, dev)
+    k = randn(gen, (B, Sk, Hkv, dh), dtype, dev)
+    v = randn(gen, (B, Sk, Hkv, dh), dtype, dev)
+    kw = dict(causal=causal, window=window)
+    want = ops.flash_attention(q, k, v, force="ref", **kw)
+    k0 = ops.FLASH_LAUNCHES
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if ops.FLASH_LAUNCHES != k0 + 1:
+        raise AssertionError("flash_attention did not launch the kernel")
+    shape = (f"B={B} Sq={Sq} Sk={Sk} {Hq}/{Hkv}/{dh} {str(dtype)[6:]} "
+             f"{'causal' if causal else 'bidirectional'}"
+             + (f" window={window}" if window > 0 else ""))
+    out = {"shape": shape,
+           "max_abs_err": attn_err(got, want, dtype, f"flash {shape}")}
+    if timed:
+        q_pos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+        k_pos = torch.arange(Sk, device=dev)[None, :]
+        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window > 0:
+            mask &= (q_pos - k_pos) < window
+        pairs = int(mask.sum())
+        es = q.element_size()
+        nbytes = (2 * B * Sq * Hq + 2 * B * Sk * Hkv) * dh * es
+        out["bound_ms"], out["bound_by"] = bound(
+            nbytes, 4 * dh * Hq * B * pairs, dtype)
+        out["ms"] = time_call(lambda: ops.flash_attention(q, k, v, **kw), 10)
+        out["plain_ms"] = time_call(lambda: ops.flash_attention(
+            q, k, v, force="ref", **kw), 3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if causal and window <= 0 and Sq == Sk:
+            lib = dict(is_causal=True)
+        elif not causal and window <= 0:
+            lib = {}
+        else:
+            lib = dict(attn_mask=mask)
+        out["library_ms"] = time_call(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **lib), 10)
+    return out
+
+
+def model_f32(dev) -> dict:
+    """qwen3_1_7b at full width in float32: a 512-token prefill and 8
+    decode steps through the kernels and through the plain versions, both
+    fed the kernel run's greedy tokens; logits must agree within
+    LOGIT_TOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3_1_7b"), dtype="float32")
+    params = init(cfg, 0, dev)
+    tokens = torch.randint(0, cfg.vocab, (1, 512),
+                           generator=torch.Generator().manual_seed(1))
+    runs, feed = {}, []
+    for force in (None, "ref"):
+        cache = init_cache(cfg, 1, 512 + 8, device=dev)
+        logits, cache = prefill(params, cfg, {"tokens": tokens.to(dev)},
+                                cache, force=force)
+        seq = [logits]
+        for i in range(8):
+            if force is None:
+                feed.append(logits.argmax(-1).to(torch.int32))
+            logits, cache = decode_step(params, cfg, feed[i], cache, 512 + i,
+                                        force=force)
+            seq.append(logits)
+        runs[force] = torch.stack(seq).float()
+    torch.cuda.synchronize()
+    got, want = runs[None], runs["ref"]
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("model f32: non-finite logits")
+    err = float((got - want).abs().max())
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"model f32: logits differ by {err} "
+                             f"(tolerance {LOGIT_TOL})")
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    del params
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "tol": LOGIT_TOL,
+            "max_abs_logit": float(want.abs().max()),
+            "argmax_equal": f"{same}/{got.shape[0]}"}
+
+
+def decode_step_time(params, cfg, dev, n=8) -> dict:
+    """Where a full-width decode step's time goes.  wall: n steps enqueued
+    back to back, one synchronise at the end.  host: the same n calls timed
+    on the host without a synchronise (host ~ wall: the host sets the
+    pace).  device: one step captured in a CUDA graph and replayed n times,
+    timed by CUDA events: the card's work with no gaps between launches.
+    attn_call_us / op_us: host time of one decode_attention call at this
+    shape and of one small PyTorch op, without a synchronise."""
+    cache = init_cache(cfg, 1, 64, device=dev)
+    tok = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    def steps():
+        t, c = tok, cache
+        for i in range(n):
+            logits, c = decode_step(params, cfg, t, c, i)
+            t = logits.argmax(-1).to(torch.int32)
+
+    steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_step(params, cfg, tok, cache, 5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        decode_step(params, cfg, tok, cache, 5)
+    dev_ms = time_call(graph.replay, n)
+
+    k = cache["groups"]["pos0"]["k"][0]
+    q = torch.zeros((1, cfg.n_heads, cfg.head_dim), dtype=k.dtype,
+                    device=dev)
+    lengths = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        ops.decode_attention(q, k, k, lengths)
+    attn_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        q.add(q)
+    op_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
+    return {"wall_ms": wall / n * 1e3, "host_ms": host / n * 1e3,
+            "device_ms": dev_ms,
+            "device_idle_share": 1 - dev_ms / (wall / n * 1e3),
+            "attn_call_us": attn_us, "op_us": op_us}
+
+
+def serving_path(dev) -> dict:
+    """The serving main path at full width, bfloat16: the launcher's two
+    endpoints, slots 2, policy fc, estimator warm-up 3 + 3, a burst of 12
+    calls (30% heavy); then one 2,048-token prefill and 16 decode steps."""
+    short, long_ = serve.make_endpoints("qwen3_1_7b", full_width=True)
+    cfg = short.cfg
+    if cfg.n_layers != QWEN3_LAYERS or cfg.dtype != "bfloat16":
+        raise AssertionError(f"unexpected config {cfg}")
+    t0 = time.perf_counter()
+    eng = ServingEngine([short, long_], slots=2, policy="fc", seed=0,
+                        device=dev)
+    warm_s = time.perf_counter() - t0
+    steps0 = eng.decode_steps
+    ops.reset_launches()
+    summ = serve.run_burst(eng, short.name, long_.name, 12, 0.3)
+    n = ops.launches()
+    steps = eng.decode_steps - steps0
+    want = {"kernel": steps * QWEN3_LAYERS, "plain": 0}
+    if n["decode_attention"] != want:
+        raise AssertionError(f"serving burst: decode_attention launches "
+                             f"{n['decode_attention']}, expected {want}")
+    if n["flash_attention"] != {"kernel": 0, "plain": 0}:
+        raise AssertionError(f"serving burst ran flash_attention: {n}")
+    if summ["n"] != 12:
+        raise AssertionError(f"serving burst completed {summ['n']} of 12")
+    for key in ("R_avg", "R_p50", "R_p95"):
+        if not math.isfinite(summ[key]) or summ[key] <= 0:
+            raise AssertionError(f"serving burst: {key} = {summ[key]}")
+    out = {"burst": summ, "decode_launches": n["decode_attention"]["kernel"],
+           "prewarm_s": warm_s,
+           "ms_per_decode_step": summ["wall_s"] / summ["decode_steps"] * 1e3,
+           "tokens_per_s": summ["decode_steps"] / summ["wall_s"]}
+
+    # one long prompt through flash_attention, then decode from its cache
+    params = short.params
+    tokens = torch.randint(0, cfg.vocab, (1, 2048),
+                           generator=torch.Generator().manual_seed(2))
+    cache = init_cache(cfg, 1, 2048 + 16, device=dev)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": tokens.to(dev)}, cache)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    seq = [logits]
+    t0 = time.perf_counter()
+    for i in range(16):
+        logits, cache = decode_step(params, cfg,
+                                    logits.argmax(-1).to(torch.int32),
+                                    cache, 2048 + i)
+        seq.append(logits)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    n = ops.launches()
+    if n["flash_attention"] != {"kernel": QWEN3_LAYERS, "plain": 0}:
+        raise AssertionError(f"prefill: flash_attention launches "
+                             f"{n['flash_attention']}")
+    if n["decode_attention"] != {"kernel": 16 * QWEN3_LAYERS, "plain": 0}:
+        raise AssertionError(f"decode after prefill: decode_attention "
+                             f"launches {n['decode_attention']}")
+    seq = torch.stack(seq)
+    if seq.shape != (17, 1, cfg.padded_vocab) or not torch.isfinite(
+            seq.float()).all():
+        raise AssertionError(f"prefill/decode logits: shape {seq.shape}, "
+                             "or not finite")
+    out |= {"prefill_launches": n["flash_attention"]["kernel"],
+            "prefill_2048_ms": t_prefill * 1e3,
+            "decode_after_prefill_ms_per_step": t_decode / 16 * 1e3,
+            "step": decode_step_time(params, cfg, dev)}
+    del eng, short, long_, params, cache
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -210,6 +508,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     ops._event_step_lib()
+    dec_mod._lib()
+    flash_mod._lib()
     print(f"build: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(logs) or 'cached'})", flush=True)
     for src, log in logs.items():
@@ -288,8 +588,86 @@ def main() -> int:
             "bound_ms_4096": fc["bound_ms_4096"],
             "sept_ms_4096": sept["ms_4096"],
             "sept_bound_ms_4096": sept["bound_ms_4096"]}
+
+    # -- 4. attention kernels vs plain on the card ------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+    full = [1, 300, 32768, 17000, 4096, 32768, 9999, 32768]
+    dec = {
+        "decode_32k": check_decode(8, 32768, 16, 8, 128, bf, full, dev, gen),
+        "f32_4k": check_decode(8, 4096, 16, 8, 128, f32,
+                               [min(n, 4096) for n in full], dev, gen),
+        "serving": check_decode(1, 36, 16, 8, 128, bf, [20], dev, gen),
+        "deepseek_mha": check_decode(4, 4096, 32, 32, 128, bf,
+                                     [4096, 1, 2500, 4000], dev, gen),
+        "zero_and_odd": check_decode(3, 1000, 16, 8, 128, bf, [0, 1000, 537],
+                                     dev, gen, timed=False),
+    }
+    fl = {
+        "prefill_4k": check_flash(1, 4096, 4096, 16, 8, 128, bf, dev, gen),
+        "serving_2k": check_flash(1, 2048, 2048, 16, 8, 128, bf, dev, gen),
+        "window": check_flash(1, 2048, 2048, 16, 8, 128, bf, dev, gen,
+                              window=1024),
+        "bidirectional": check_flash(1, 1024, 1024, 16, 8, 128, bf, dev,
+                                     gen, causal=False),
+        "sq_lt_sk": check_flash(1, 512, 2048, 16, 8, 128, bf, dev, gen),
+        "odd_f32": check_flash(1, 1000, 1000, 16, 8, 128, f32, dev, gen),
+        "odd_bf16": check_flash(2, 777, 777, 16, 8, 128, bf, dev, gen,
+                                timed=False),
+        "deepseek_mha": check_flash(1, 2048, 2048, 32, 32, 128, bf, dev,
+                                    gen),
+        "masked_rows": check_flash(1, 300, 200, 16, 8, 128, f32, dev, gen,
+                                   timed=False),
+    }
+    for case, r in dec.items():
+        print(f"decode_attention vs plain [{case}]: " + json.dumps(r),
+              flush=True)
+    for case, r in fl.items():
+        print(f"flash_attention vs plain [{case}]: " + json.dumps(r),
+              flush=True)
+
+    # -- 5. the model at full width, float32, kernels vs plain -------------
+    mf = model_f32(dev)
+    print("qwen3_1_7b float32, 512-token prefill + 8 decode steps, kernels "
+          "vs plain versions: " + json.dumps(mf), flush=True)
+
+    # -- 6. the serving main path at full width, bfloat16 -------------------
+    sv = serving_path(dev)
+    b = sv["burst"]
+    print(f"serving main path: qwen3_1_7b bf16, 2 endpoints, slots 2, fc: "
+          f"n={b['n']} R_avg={b['R_avg'] * 1e3:.3f} ms R_p50="
+          f"{b['R_p50'] * 1e3:.3f} ms R_p95={b['R_p95'] * 1e3:.3f} ms "
+          f"cold_starts={b['cold_starts']} decode_steps="
+          f"{b['decode_steps']} ({sv['ms_per_decode_step']:.3f} ms per "
+          f"step, {sv['tokens_per_s']:.1f} tokens/s); decode_attention "
+          f"kernel launches {sv['decode_launches']}, plain 0", flush=True)
+    print("serving details: " + json.dumps(sv), flush=True)
+
+    def attn_row(name, main, side, side_name, launches, replaces, cases):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"], "shape": main["shape"],
+                f"{side_name}_shape": side["shape"],
+                f"{side_name}_ms": side["ms"],
+                f"{side_name}_plain_ms": side["plain_ms"],
+                f"{side_name}_bound_ms": side["bound_ms"],
+                f"{side_name}_library_ms": side["library_ms"]}
+
+    kernels = [
+        kern,
+        attn_row("flash_attention", fl["prefill_4k"], fl["serving_2k"],
+                 "main_path", sv["prefill_launches"],
+                 "src/repro/kernels/flash_attention.py:28", fl),
+        attn_row("decode_attention", dec["decode_32k"], dec["serving"],
+                 "main_path", sv["decode_launches"],
+                 "src/repro/kernels/decode_attention.py:27", dec),
+    ]
     print(card)
-    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

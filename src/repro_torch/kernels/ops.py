@@ -5,9 +5,11 @@ Counterpart of ``repro.kernels.ops``.  There is no fallback: a CUDA tensor
 goes to the kernel or the call raises, and the plain version runs on the
 card only when the caller asks for it with ``force="ref"``.
 
-``KERNEL_LAUNCHES`` and ``REF_LAUNCHES`` count the calls that launched the
-CUDA kernel and the calls that ran the plain version; a caller sets them to
-0 before a run and reads them after it.
+Each kernel counts the calls that launched it and the calls that ran its
+plain version: ``KERNEL_LAUNCHES`` / ``REF_LAUNCHES`` for ``event_step``,
+``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
+``DECODE_REF_LAUNCHES`` for the attention kernels.  A caller sets them to 0
+before a run (``reset_launches``) and reads them after it (``launches``).
 """
 
 from __future__ import annotations
@@ -17,10 +19,41 @@ import ctypes
 import torch
 
 from ..core.planes import carry_layout
+from .decode_attention import decode_attention_cuda, decode_attention_ref
 from .event_step import event_step_ref, event_step_supported
+from .flash_attention import flash_attention_cuda, flash_attention_ref
 
 KERNEL_LAUNCHES = 0
 REF_LAUNCHES = 0
+FLASH_LAUNCHES = 0
+FLASH_REF_LAUNCHES = 0
+DECODE_LAUNCHES = 0
+DECODE_REF_LAUNCHES = 0
+
+
+def reset_launches() -> None:
+    """Set every kernel's counts to 0."""
+    global KERNEL_LAUNCHES, REF_LAUNCHES, FLASH_LAUNCHES, FLASH_REF_LAUNCHES
+    global DECODE_LAUNCHES, DECODE_REF_LAUNCHES
+    KERNEL_LAUNCHES = REF_LAUNCHES = 0
+    FLASH_LAUNCHES = FLASH_REF_LAUNCHES = 0
+    DECODE_LAUNCHES = DECODE_REF_LAUNCHES = 0
+
+
+def launches() -> dict:
+    """``{kernel: {"kernel": n, "plain": n}}`` since the last reset."""
+    return {
+        "event_step": {"kernel": KERNEL_LAUNCHES, "plain": REF_LAUNCHES},
+        "flash_attention": {"kernel": FLASH_LAUNCHES,
+                            "plain": FLASH_REF_LAUNCHES},
+        "decode_attention": {"kernel": DECODE_LAUNCHES,
+                             "plain": DECODE_REF_LAUNCHES},
+    }
+
+
+def _check_force(force) -> None:
+    if force not in (None, "ref"):
+        raise ValueError(f"force must be None or 'ref', not {force!r}")
 
 # carry entries in the order of ``struct Layout`` in csrc/event_step.cu
 EVENT_STEP_LAYOUT = ("chan", "fin_s", "last_t", "prev_t", "ring", "rsum",
@@ -125,8 +158,7 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     version on CPU tensors; ``"ref"`` runs the plain version on any
     device."""
     global KERNEL_LAUNCHES, REF_LAUNCHES
-    if force not in (None, "ref"):
-        raise ValueError(f"force must be None or 'ref', not {force!r}")
+    _check_force(force)
     if not event_step_supported(use_fc=use_fc, **flags):
         raise NotImplementedError(
             "event_step covers only the base pull configuration (no "
@@ -139,3 +171,38 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     out = _event_step_cuda(clk, ctr, inp, **static)
     KERNEL_LAUNCHES += 1
     return (*out, {})
+
+
+def flash_attention(q, k, v, *, causal=True, window=-1, softmax_scale=None,
+                    force: str | None = None):
+    """Attention of q (B, Sq, Hq, dh) over k / v (B, Sk, Hkv, dh), positions
+    suffix-aligned -- the model's prefill path (see ``flash_attention``'s
+    module).  ``force``: ``None`` runs the CUDA kernel on CUDA tensors and
+    the plain version on CPU tensors; ``"ref"`` the plain version on any
+    device."""
+    global FLASH_LAUNCHES, FLASH_REF_LAUNCHES
+    _check_force(force)
+    kw = dict(causal=causal, window=window, softmax_scale=softmax_scale)
+    if force == "ref" or q.device.type != "cuda":
+        FLASH_REF_LAUNCHES += 1
+        return flash_attention_ref(q, k, v, **kw)
+    out = flash_attention_cuda(q, k, v, **kw)
+    FLASH_LAUNCHES += 1
+    return out
+
+
+def decode_attention(q, k, v, lengths, *, softmax_scale=None,
+                     force: str | None = None):
+    """One new token q (B, Hq, dh) over the first ``lengths[b]`` entries of
+    the cache k / v (B, Sk, Hkv, dh) -- the model's decode path.  ``force``
+    as for ``flash_attention``."""
+    global DECODE_LAUNCHES, DECODE_REF_LAUNCHES
+    _check_force(force)
+    if force == "ref" or q.device.type != "cuda":
+        DECODE_REF_LAUNCHES += 1
+        return decode_attention_ref(q, k, v, lengths,
+                                    softmax_scale=softmax_scale)
+    out = decode_attention_cuda(q, k, v, lengths,
+                                softmax_scale=softmax_scale)
+    DECODE_LAUNCHES += 1
+    return out
