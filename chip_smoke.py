@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seeds N]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the port's two paths, each kernel held against its plain PyTorch
+drives the port's paths, each kernel held against its plain PyTorch
 version on the card first:
 
 1. The sweep path: ``event_step`` at the mega bucket's shapes, then
@@ -16,6 +16,16 @@ version on the card first:
    in float32, kernels against plain versions end to end; then the serving
    engine in bfloat16 (two endpoints, estimator warm-up, a burst of 12
    calls, policy fc), and one 2,048-token prefill with 16 decode steps.
+3. The serving path at the full widths of recurrentgemma_9b (RG-LRU,
+   RG-LRU, MQA attention with window 2,048, head_dim 256; 38 layers) and
+   rwkv6_3b (32 RWKV-6 layers, 40 heads of 64): ``rglru_scan`` and
+   ``rwkv6_scan`` at the prefill width (S = 4,096) and at S = 1, the
+   attention kernels at recurrentgemma's width; each model in float32, a
+   512-token prefill and 8 decode steps, kernels against plain versions
+   (rwkv6_3b also against its scan in float64); each served in bfloat16
+   as in 2; and one 4,096-token bf16 prefill with 16 decode steps on
+   recurrentgemma, which wraps its window-2,048 ring, kernels against
+   plain versions, one kernel at a time and float32.
 
 Any failure exits non-zero.  The last lines are the card's name and power
 limit, one JSON object with each kernel's numbers, and
@@ -26,6 +36,7 @@ the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -47,9 +58,12 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.kernels import rglru_scan as rglru_mod  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rwkv6_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import decode_step, init, init_cache  # noqa: E402
 from repro_torch.models import prefill  # noqa: E402
+from repro_torch.models.model import torch_dtype  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
@@ -61,7 +75,22 @@ ATTN_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # model logits, kernels against plain versions, float32 end to end: the two
 # attention versions differ by ~1e-6 and 28 layers carry that to the logits
 LOGIT_TOL = 2e-3
+# the same in bfloat16, relative to the largest |logit|: the bf16
+# tolerance tests/test_torch_model.py holds the port to the JAX model with
+BF16_LOGIT_RTOL = 5e-2
+# rwkv6_scan against its plain version, relative and absolute (|kernel -
+# plain| <= tol + tol |plain|): the sum over a head runs in another order
+# (float32); bf16 outputs may round one ulp apart, tests/test_kernels.py's
+# bf16 tolerance
+RWKV6_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# a kernel run may lie at most this many times as far from a run of
+# higher precision (float64 scan, float32 model) as the plain run does:
+# farther is a fault, not rounding in another order
+WITNESS_RATIO = 2.0
 QWEN3_LAYERS = 28
+# the kernel a decode step launches once for each layer of a kind
+KIND_KERNEL = {"attn": "decode_attention", "rglru": "rglru_scan",
+               "rwkv": "rwkv6_scan"}
 
 
 def card_line() -> str:
@@ -321,44 +350,206 @@ def check_flash(B, Sq, Sk, Hq, Hkv, dh, dtype, dev, gen, causal=True,
     return out
 
 
-def model_f32(dev) -> dict:
-    """qwen3_1_7b at full width in float32: a 512-token prefill and 8
-    decode steps through the kernels and through the plain versions, both
-    fed the kernel run's greedy tokens; logits must agree within
-    LOGIT_TOL."""
+def check_rglru(B, S, W, dtype, dev, gen, timed=True) -> dict:
+    """rglru_scan against its plain version: bit-identical (both take the
+    same float32 steps, each product and sum rounded)."""
+    a = (0.8 + 0.199 * torch.rand((B, S, W), generator=gen,
+                                  device=dev)).to(dtype)
+    gx = randn(gen, (B, S, W), dtype, dev) * 0.1
+    h0 = randn(gen, (B, W), dtype, dev) * 0.1
+    want = ops.rglru_scan(a, gx, h0, force="ref")
+    k0 = ops.RGLRU_LAUNCHES
+    got = ops.rglru_scan(a, gx, h0)
+    torch.cuda.synchronize()
+    if ops.RGLRU_LAUNCHES != k0 + 1:
+        raise AssertionError("rglru_scan did not launch the kernel")
+    shape = f"B={B} S={S} W={W} {str(dtype)[6:]}"
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"rglru_scan {shape}: kernel differs from the "
+                             f"plain version by {err}")
+    out = {"shape": shape, "max_abs_err": err}
+    if timed:
+        es = a.element_size()
+        # a, gx read and hs written once, h0 read and hT written once;
+        # a product and a sum per step and channel, in float32
+        nbytes = 3 * B * S * W * es + 2 * B * W * es
+        out["bound_ms"], out["bound_by"] = bound(nbytes, 2 * B * S * W,
+                                                 torch.float32)
+        out["ms"] = time_call(lambda: ops.rglru_scan(a, gx, h0), 20)
+        out["plain_ms"] = time_call(lambda: ops.rglru_scan(
+            a, gx, h0, force="ref"), 2)
+        out["library_ms"] = None
+    return out
+
+
+def check_rwkv6(B, S, H, dh, dtype, dev, gen, timed=True) -> dict:
+    """rwkv6_scan against its plain version from a nonzero state; outputs
+    within RWKV6_TOL, the last state within 1e-5 (float32)."""
+    r = randn(gen, (B, S, H, dh), dtype, dev)
+    k = randn(gen, (B, S, H, dh), dtype, dev) * 0.2
+    v = randn(gen, (B, S, H, dh), dtype, dev) * 0.2
+    w = 0.9 + 0.099 * torch.rand((B, S, H, dh), generator=gen, device=dev)
+    u = randn(gen, (H, dh), dtype, dev) * 0.1
+    s0 = randn(gen, (B, H, dh, dh), torch.float32, dev)
+    want = ops.rwkv6_scan(r, k, v, w, u, s0, force="ref")
+    k0 = ops.RWKV6_LAUNCHES
+    got = ops.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    if ops.RWKV6_LAUNCHES != k0 + 1:
+        raise AssertionError("rwkv6_scan did not launch the kernel")
+    shape = f"B={B} S={S} H={H} dh={dh} {str(dtype)[6:]}"
+
+    def excess(g, w, tol):
+        """max |g - w| and its largest ratio to tol + tol |w|"""
+        d = (g.float() - w.float()).abs()
+        return float(d.max()), float((d / (tol + tol * w.float().abs()))
+                                     .max())
+
+    err, over = excess(got[0], want[0], RWKV6_TOL[dtype])
+    err_s, over_s = excess(got[1], want[1], RWKV6_TOL[torch.float32])
+    if not (over <= 1 and over_s <= 1):
+        raise AssertionError(f"rwkv6_scan {shape}: |kernel - plain| = {err} "
+                             f"(out), {err_s} (state), {max(over, over_s)} "
+                             "times the tolerance")
+    out = {"shape": shape, "max_abs_err": err, "state_max_abs_err": err_s}
+    if timed:
+        es = r.element_size()
+        n = B * S * H * dh
+        # r, k, v read and out written (model dtype), w read (float32),
+        # u read, s0 read and sT written (float32).  Float32 flops per head
+        # and step: 3 dh^2 for the update w S + k v^T, 2 dh^2 for r . S,
+        # and 5 dh for the bonus, (sum_i r_i u_i k_i) v added to out (the
+        # kernel's own 7 dh^2 forms u k v per element: more than needed)
+        nbytes = 4 * n * es + 4 * n + H * dh * es + 2 * B * H * dh * dh * 4
+        out["bound_ms"], out["bound_by"] = bound(
+            nbytes, B * S * H * (5 * dh * dh + 5 * dh), torch.float32)
+        out["ms"] = time_call(lambda: ops.rwkv6_scan(r, k, v, w, u, s0), 10)
+        out["plain_ms"] = time_call(lambda: ops.rwkv6_scan(
+            r, k, v, w, u, s0, force="ref"), 1)
+        out["library_ms"] = None
+    return out
+
+
+@contextlib.contextmanager
+def swapped(name, fn):
+    """``ops.<name>`` is ``fn`` while the block runs: the model looks its
+    kernels up in ``ops`` at every call, so this changes one kernel of a
+    run and leaves the others as they are."""
+    kept = getattr(ops, name)
+    setattr(ops, name, fn)
+    try:
+        yield kept
+    finally:
+        setattr(ops, name, kept)
+
+
+def plain_version(name):
+    """``ops.<name>`` run as its plain version whatever the caller asks."""
+    kernel = getattr(ops, name)
+    return lambda *a, force=None, **kw: kernel(*a, force="ref", **kw)
+
+
+def model_f32(arch, dev) -> dict:
+    """``arch`` at full width in float32: a 512-token prefill and 8 decode
+    steps through the kernels and through the plain versions, both fed the
+    kernel run's greedy tokens; logits must agree within LOGIT_TOL.  For a
+    model with RWKV-6 layers, ``scan_f64_witness`` too."""
     torch.backends.cuda.matmul.allow_tf32 = False     # full float32
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("qwen3_1_7b"), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
     params = init(cfg, 0, dev)
     tokens = torch.randint(0, cfg.vocab, (1, 512),
                            generator=torch.Generator().manual_seed(1))
-    runs, feed = {}, []
-    for force in (None, "ref"):
+    feed = []
+
+    def run(force):
         cache = init_cache(cfg, 1, 512 + 8, device=dev)
         logits, cache = prefill(params, cfg, {"tokens": tokens.to(dev)},
                                 cache, force=force)
         seq = [logits]
         for i in range(8):
-            if force is None:
+            if len(feed) == i:
                 feed.append(logits.argmax(-1).to(torch.int32))
             logits, cache = decode_step(params, cfg, feed[i], cache, 512 + i,
                                         force=force)
             seq.append(logits)
-        runs[force] = torch.stack(seq).float()
+        return torch.stack(seq).float()
+
+    t0 = time.perf_counter()
+    got, want = run(None), run("ref")
     torch.cuda.synchronize()
-    got, want = runs[None], runs["ref"]
+    wall = time.perf_counter() - t0
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-        raise AssertionError("model f32: non-finite logits")
+        raise AssertionError(f"{arch} f32: non-finite logits")
     err = float((got - want).abs().max())
     if not err <= LOGIT_TOL:
-        raise AssertionError(f"model f32: logits differ by {err} "
+        raise AssertionError(f"{arch} f32: logits differ by {err} "
                              f"(tolerance {LOGIT_TOL})")
     same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    out = {"layers": cfg.n_layers, "max_abs_err": err, "tol": LOGIT_TOL,
+           "max_abs_logit": float(want.abs().max()),
+           "argmax_equal": f"{same}/{got.shape[0]}", "wall_s": wall,
+           "param_gb": sum(t.numel() for t in _leaves(params)) * 4 / 1e9}
+    if any(spec.kind == "rwkv" for spec in cfg.period):
+        out["scan_f64_witness"] = scan_f64_witness(run, got, want)
     del params
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "tol": LOGIT_TOL,
-            "max_abs_logit": float(want.abs().max()),
-            "argmax_equal": f"{same}/{got.shape[0]}"}
+    return out
+
+
+def scan_f64_witness(run, got, want) -> dict:
+    """Where a float32 model's kernel-vs-plain gap comes from when it runs
+    ``rwkv6_scan``.  The model runs once more with every ``rwkv6_scan``
+    call done in float64 (the plain version on float64 copies, rounded
+    back to float32) and everything else as before.  ``per_call``: over
+    the run's calls, the largest distance of the kernel and of the plain
+    version from that float64 scan on the model's own inputs, over the
+    call's largest |out|.  ``logits``: the distance of the kernel run and of
+    the plain run from the float64-scan run.  If each call lies within
+    float32 rounding of float64 and the kernel run about as far as the
+    plain run, the gap between them is float32 rounding of the scan (each
+    sums in its own order) that the model carries to its logits.  Fails
+    if the kernel lies farther than
+    RWKV6_TOL (float32) from the float64 scan in a call, or farther than
+    WITNESS_RATIO times the plain run from the float64-scan run."""
+    per_call = {"kernel": 0.0, "plain": 0.0}
+
+    def scan64(r, k, v, w, u, s0, *, force=None):
+        exact, sT = rwkv6_mod.rwkv6_scan_ref(
+            *(x.double() for x in (r, k, v, w, u, s0)))
+        scale = float(exact.abs().max())
+        for side, f in (("kernel", None), ("plain", "ref")):
+            o = kernel(r, k, v, w, u, s0, force=f)[0]
+            per_call[side] = max(per_call[side], float(
+                (o.double() - exact).abs().max()) / scale)
+        return exact.to(r.dtype), sT.float()
+
+    with swapped("rwkv6_scan", scan64) as kernel:
+        wit = run(None)
+    logits = {"kernel": float((got - wit).abs().max()),
+              "plain": float((want - wit).abs().max())}
+    if not (per_call["kernel"] <= RWKV6_TOL[torch.float32]
+            and logits["kernel"] <= WITNESS_RATIO * logits["plain"]):
+        raise AssertionError(f"rwkv6_scan against a float64 scan: per call "
+                             f"{per_call}, at the logits {logits}")
+    return {"per_call_rel": per_call, "logits_abs": logits}
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def step_launches(cfg) -> dict:
+    """Launches of each kernel in one decode step of ``cfg``: one for each
+    layer of the kind the kernel serves."""
+    out = dict.fromkeys(KIND_KERNEL.values(), 0)
+    for spec in cfg.layer_specs():
+        out[KIND_KERNEL[spec.kind]] += 1
+    return out
 
 
 def decode_step_time(params, cfg, dev, n=8) -> dict:
@@ -368,7 +559,8 @@ def decode_step_time(params, cfg, dev, n=8) -> dict:
     pace).  device: one step captured in a CUDA graph and replayed n times,
     timed by CUDA events: the card's work with no gaps between launches.
     attn_call_us / op_us: host time of one decode_attention call at this
-    shape and of one small PyTorch op, without a synchronise."""
+    shape (models with attention) and of one small PyTorch op, without a
+    synchronise."""
     cache = init_cache(cfg, 1, 64, device=dev)
     tok = torch.zeros((1,), dtype=torch.int32, device=dev)
 
@@ -395,35 +587,39 @@ def decode_step_time(params, cfg, dev, n=8) -> dict:
     with torch.cuda.graph(graph):
         decode_step(params, cfg, tok, cache, 5)
     dev_ms = time_call(graph.replay, n)
+    out = {"wall_ms": wall / n * 1e3, "host_ms": host / n * 1e3,
+           "device_ms": dev_ms,
+           "device_idle_share": 1 - dev_ms / (wall / n * 1e3)}
 
-    k = cache["groups"]["pos0"]["k"][0]
-    q = torch.zeros((1, cfg.n_heads, cfg.head_dim), dtype=k.dtype,
-                    device=dev)
-    lengths = torch.full((1,), 8, dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(100):
-        ops.decode_attention(q, k, k, lengths)
-    attn_us = (time.perf_counter() - t0) * 1e4
+    q = torch.zeros((1, cfg.n_heads, cfg.head_dim),
+                    dtype=torch_dtype(cfg.dtype), device=dev)
+    kc = [c["k"][0] for c in cache["groups"].values() if "k" in c]
+    if kc:
+        lengths = torch.full((1,), 8, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            ops.decode_attention(q, kc[0], kc[0], lengths)
+        out["attn_call_us"] = (time.perf_counter() - t0) * 1e4
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(100):
         q.add(q)
-    op_us = (time.perf_counter() - t0) * 1e4
+    out["op_us"] = (time.perf_counter() - t0) * 1e4
     torch.cuda.synchronize()
-    return {"wall_ms": wall / n * 1e3, "host_ms": host / n * 1e3,
-            "device_ms": dev_ms,
-            "device_idle_share": 1 - dev_ms / (wall / n * 1e3),
-            "attn_call_us": attn_us, "op_us": op_us}
+    del graph
+    return out
 
 
-def serving_path(dev) -> dict:
-    """The serving main path at full width, bfloat16: the launcher's two
-    endpoints, slots 2, policy fc, estimator warm-up 3 + 3, a burst of 12
-    calls (30% heavy); then one 2,048-token prefill and 16 decode steps."""
-    short, long_ = serve.make_endpoints("qwen3_1_7b", full_width=True)
+def serving_burst(arch, dev) -> tuple[dict, list]:
+    """The serving main path of ``arch`` at full width, bfloat16: the
+    launcher's two endpoints, slots 2, policy fc, estimator warm-up 3 + 3,
+    a burst of 12 calls (30% heavy).  Every decode step must launch each of
+    its kernels once for each layer of the kernel's kind, and no plain
+    version.  Returns the numbers and the endpoints."""
+    short, long_ = serve.make_endpoints(arch, full_width=True)
     cfg = short.cfg
-    if cfg.n_layers != QWEN3_LAYERS or cfg.dtype != "bfloat16":
+    if cfg.dtype != "bfloat16" or cfg != get_config(arch):
         raise AssertionError(f"unexpected config {cfg}")
     t0 = time.perf_counter()
     eng = ServingEngine([short, long_], slots=2, policy="fc", seed=0,
@@ -434,21 +630,50 @@ def serving_path(dev) -> dict:
     summ = serve.run_burst(eng, short.name, long_.name, 12, 0.3)
     n = ops.launches()
     steps = eng.decode_steps - steps0
-    want = {"kernel": steps * QWEN3_LAYERS, "plain": 0}
-    if n["decode_attention"] != want:
-        raise AssertionError(f"serving burst: decode_attention launches "
-                             f"{n['decode_attention']}, expected {want}")
-    if n["flash_attention"] != {"kernel": 0, "plain": 0}:
-        raise AssertionError(f"serving burst ran flash_attention: {n}")
+    per_step = step_launches(cfg)
+    for name, got in n.items():
+        want = {"kernel": steps * per_step.get(name, 0), "plain": 0}
+        if got != want:
+            raise AssertionError(f"{arch} serving burst: {name} launches "
+                                 f"{got}, expected {want}")
     if summ["n"] != 12:
-        raise AssertionError(f"serving burst completed {summ['n']} of 12")
+        raise AssertionError(f"{arch} serving burst completed {summ['n']} "
+                             "of 12")
     for key in ("R_avg", "R_p50", "R_p95"):
         if not math.isfinite(summ[key]) or summ[key] <= 0:
-            raise AssertionError(f"serving burst: {key} = {summ[key]}")
-    out = {"burst": summ, "decode_launches": n["decode_attention"]["kernel"],
+            raise AssertionError(f"{arch} serving burst: {key} = "
+                                 f"{summ[key]}")
+    out = {"arch": arch, "burst": summ, "steps": steps,
+           "per_step_launches": {k: v for k, v in per_step.items() if v},
+           "launches": {k: v["kernel"] for k, v in n.items()
+                        if v["kernel"]},
            "prewarm_s": warm_s,
            "ms_per_decode_step": summ["wall_s"] / summ["decode_steps"] * 1e3,
            "tokens_per_s": summ["decode_steps"] / summ["wall_s"]}
+    del eng
+    return out, [short, long_]
+
+
+def print_burst(sv: dict) -> None:
+    b = sv["burst"]
+    kern = ", ".join(f"{k} kernel launches {v} ({sv['per_step_launches'][k]}"
+                     f" a step), plain 0" for k, v in sv["launches"].items())
+    print(f"serving main path: {sv['arch']} bf16, 2 endpoints, slots 2, fc: "
+          f"n={b['n']} R_avg={b['R_avg'] * 1e3:.3f} ms R_p50="
+          f"{b['R_p50'] * 1e3:.3f} ms R_p95={b['R_p95'] * 1e3:.3f} ms "
+          f"cold_starts={b['cold_starts']} decode_steps="
+          f"{b['decode_steps']} ({sv['ms_per_decode_step']:.3f} ms per "
+          f"step, {sv['tokens_per_s']:.1f} tokens/s); {kern}", flush=True)
+    print(f"serving details [{sv['arch']}]: " + json.dumps(sv), flush=True)
+
+
+def serving_path(dev) -> dict:
+    """qwen3_1_7b's serving main path (``serving_burst``), then one
+    2,048-token prefill and 16 decode steps."""
+    out, (short, long_) = serving_burst("qwen3_1_7b", dev)
+    cfg = short.cfg
+    if cfg.n_layers != QWEN3_LAYERS:
+        raise AssertionError(f"unexpected config {cfg}")
 
     # one long prompt through flash_attention, then decode from its cache
     params = short.params
@@ -486,7 +711,139 @@ def serving_path(dev) -> dict:
             "prefill_2048_ms": t_prefill * 1e3,
             "decode_after_prefill_ms_per_step": t_decode / 16 * 1e3,
             "step": decode_step_time(params, cfg, dev)}
-    del eng, short, long_, params, cache
+    del short, long_, params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_prompt(params, cfg, dev, S=4096, n=16) -> dict:
+    """An S-token bf16 prefill and n decode steps through the kernels and
+    through the plain versions (fed the kernel run's greedy tokens);
+    logits within BF16_LOGIT_RTOL of the largest |logit|.  With S past
+    recurrentgemma's window of 2,048 its ring wraps in prefill (position s
+    in slot s % 2,048) and every decode step overwrites the oldest slot.
+    ``carriers`` says which kernel carries the gap (``gap_carriers``)."""
+    tokens = torch.randint(0, cfg.vocab, (1, S),
+                           generator=torch.Generator().manual_seed(3))
+    feed = []
+
+    def run(params, cfg, force):
+        """(logits (n + 1, 1, V) float32, prefill s, decode s a step, the
+        last cache)"""
+        cache = init_cache(cfg, 1, S + n, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, {"tokens": tokens.to(dev)},
+                                cache, force=force)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        seq = [logits]
+        t0 = time.perf_counter()
+        for i in range(n):
+            if len(feed) == i:
+                feed.append(logits.argmax(-1).to(torch.int32))
+            logits, cache = decode_step(params, cfg, feed[i], cache, S + i,
+                                        force=force)
+            seq.append(logits)
+        torch.cuda.synchronize()
+        t_decode = (time.perf_counter() - t0) / n
+        return torch.stack(seq).float(), t_prefill, t_decode, cache
+
+    runs, out = {}, {}
+    per_step = step_launches(cfg)
+    n_attn = per_step["decode_attention"]
+    for force in (None, "ref"):
+        ops.reset_launches()
+        seq, t_prefill, t_decode, cache = run(params, cfg, force)
+        got = ops.launches()
+        side = "kernel" if force is None else "plain"
+        want = {"event_step": 0, "flash_attention": n_attn,
+                "decode_attention": n * n_attn,
+                "rglru_scan": (n + 1) * per_step["rglru_scan"],
+                "rwkv6_scan": (n + 1) * per_step["rwkv6_scan"]}
+        for name, v in want.items():
+            exp = {"kernel": 0, "plain": 0} | {side: v}
+            if got[name] != exp:
+                raise AssertionError(f"{S}-token prefill + {n} steps "
+                                     f"({side}): {name} launches "
+                                     f"{got[name]}, expected {exp}")
+        runs[side] = seq
+        out[side] = {"prefill_ms": t_prefill * 1e3,
+                     "decode_ms_per_step": t_decode * 1e3,
+                     "launches": {k: v[side] for k, v in got.items()
+                                  if v[side]}}
+    ring = {c["k"].shape[2] for c in cache["groups"].values() if "k" in c}
+    del cache
+    got, want = runs["kernel"], runs["plain"]
+    if got.shape != (n + 1, 1, cfg.padded_vocab) or not (
+            torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{S}-token prefill: logits {got.shape} or not "
+                             "finite")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not err <= BF16_LOGIT_RTOL * scale:
+        raise AssertionError(f"{S}-token prefill + {n} steps: kernels and "
+                             f"plain differ by {err} (largest |logit| "
+                             f"{scale}, tolerance {BF16_LOGIT_RTOL})")
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    out |= {"S": S, "decode_steps": n, "ring_slots": sorted(ring),
+            "max_abs_err": err, "max_abs_logit": scale,
+            "rel_err": err / scale, "rtol": BF16_LOGIT_RTOL,
+            "argmax_equal": f"{same}/{got.shape[0]}"}
+    out["carriers"] = gap_carriers(run, params, cfg, runs)
+    torch.cuda.empty_cache()
+    return out
+
+
+def gap_carriers(run, params, cfg, runs) -> dict:
+    """Which kernel carries the kernel-vs-plain gap of ``long_prompt``.
+    The kernel run once more for each kernel of the path with that one
+    kernel swapped to its plain version, and the plain versions in float32
+    on the same weights (the bf16 weights widened, exactly), a yardstick
+    with little rounding.  For each bf16 run: its distance from the plain
+    run and from the float32 run, over the largest |logit| of the plain
+    run, at the prefill's logits and over the decode steps.  Fails if the
+    kernel run lies farther than WITNESS_RATIO times the plain run from
+    the float32 run."""
+    def dist(a, b):
+        scale = float(runs["plain"].abs().max())
+        d = (a - b).abs()
+        return {"prefill": float(d[0].max()) / scale,
+                "decode": float(d[1:].max()) / scale}
+
+    def widen(tree):
+        if isinstance(tree, dict):
+            return {k: widen(v) for k, v in tree.items()}
+        return tree.float()
+
+    for name in ("flash_attention", "decode_attention", "rglru_scan"):
+        with swapped(name, plain_version(name)):
+            runs[f"{name} plain"] = run(params, cfg, None)[0]
+    params32 = widen(params)
+    f32 = run(params32, dataclasses.replace(cfg, dtype="float32"), "ref")[0]
+    del params32
+    out = {label: {"vs_plain": dist(seq, runs["plain"]),
+                   "vs_f32": dist(seq, f32)}
+           for label, seq in runs.items()}
+    near, plain = out["kernel"]["vs_f32"], out["plain"]["vs_f32"]
+    if any(near[k] > WITNESS_RATIO * plain[k] for k in near):
+        raise AssertionError(f"bf16 kernel run {near} from the float32 "
+                             f"run, the plain run {plain}")
+    return out
+
+
+def recurrent_serving(arch, dev) -> dict:
+    """``arch``'s serving main path (``serving_burst``), its decode-step
+    breakdown, and for recurrentgemma the 4,096-token prefill of
+    ``long_prompt``."""
+    out, eps = serving_burst(arch, dev)
+    params, cfg = eps[0].params, eps[0].cfg
+    del eps         # the batch endpoint's weights: room for a float32 copy
+    torch.cuda.empty_cache()
+    if arch == "recurrentgemma_9b":
+        out["long_prompt"] = long_prompt(params, cfg, dev)
+    out["step"] = decode_step_time(params, cfg, dev)
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -510,6 +867,8 @@ def main() -> int:
     ops._event_step_lib()
     dec_mod._lib()
     flash_mod._lib()
+    rglru_mod._lib()
+    rwkv6_mod._lib()
     print(f"build: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(logs) or 'cached'})", flush=True)
     for src, log in logs.items():
@@ -602,6 +961,13 @@ def main() -> int:
                                      [4096, 1, 2500, 4000], dev, gen),
         "zero_and_odd": check_decode(3, 1000, 16, 8, 128, bf, [0, 1000, 537],
                                      dev, gen, timed=False),
+        # recurrentgemma_9b: MQA, 16 query heads of 256; its full window
+        # ring and its serving cache
+        "rg_ring_2k": check_decode(1, 2048, 16, 1, 256, bf, [2048], dev,
+                                   gen),
+        "rg_serving": check_decode(1, 36, 16, 1, 256, bf, [20], dev, gen),
+        "rg_f32_odd": check_decode(3, 1000, 16, 1, 256, f32, [0, 1000, 537],
+                                   dev, gen, timed=False),
     }
     fl = {
         "prefill_4k": check_flash(1, 4096, 4096, 16, 8, 128, bf, dev, gen),
@@ -618,6 +984,11 @@ def main() -> int:
                                     gen),
         "masked_rows": check_flash(1, 300, 200, 16, 8, 128, f32, dev, gen,
                                    timed=False),
+        # recurrentgemma_9b's prefill width: window 2,048, 16/1/256
+        "rg_prefill_4k": check_flash(1, 4096, 4096, 16, 1, 256, bf, dev, gen,
+                                     window=2048),
+        "rg_f32_odd": check_flash(1, 1000, 1000, 16, 1, 256, f32, dev, gen,
+                                  window=300, timed=False),
     }
     for case, r in dec.items():
         print(f"decode_attention vs plain [{case}]: " + json.dumps(r),
@@ -626,45 +997,88 @@ def main() -> int:
         print(f"flash_attention vs plain [{case}]: " + json.dumps(r),
               flush=True)
 
-    # -- 5. the model at full width, float32, kernels vs plain -------------
-    mf = model_f32(dev)
-    print("qwen3_1_7b float32, 512-token prefill + 8 decode steps, kernels "
-          "vs plain versions: " + json.dumps(mf), flush=True)
+    # -- 5. the recurrence kernels vs plain on the card --------------------
+    # recurrentgemma_9b's RG-LRU width (4,096) and rwkv6_3b's heads (40 of
+    # 64), at the prefill length of 4,096 and at one decode step
+    rg = {
+        "prefill_4k": check_rglru(1, 4096, 4096, bf, dev, gen),
+        "decode": check_rglru(1, 1, 4096, bf, dev, gen),
+        "f32_odd": check_rglru(3, 333, 1000, f32, dev, gen, timed=False),
+        "slots": check_rglru(2, 1, 4096, bf, dev, gen, timed=False),
+    }
+    rw = {
+        "prefill_4k": check_rwkv6(1, 4096, 40, 64, bf, dev, gen),
+        "decode": check_rwkv6(1, 1, 40, 64, bf, dev, gen),
+        "f32_odd": check_rwkv6(2, 77, 40, 64, f32, dev, gen, timed=False),
+    }
+    for case, r in rg.items():
+        print(f"rglru_scan vs plain [{case}]: " + json.dumps(r), flush=True)
+    for case, r in rw.items():
+        print(f"rwkv6_scan vs plain [{case}]: " + json.dumps(r), flush=True)
 
-    # -- 6. the serving main path at full width, bfloat16 -------------------
+    # -- 6. the models at full width, float32, kernels vs plain ------------
+    for arch in ("qwen3_1_7b", "recurrentgemma_9b", "rwkv6_3b"):
+        mf = model_f32(arch, dev)
+        print(f"{arch} float32, 512-token prefill + 8 decode steps, kernels "
+              "vs plain versions: " + json.dumps(mf), flush=True)
+
+    # -- 7. the serving main paths at full width, bfloat16 ------------------
+    # each burst runs with every count set to 0 just before it and read
+    # just after (serving_burst)
     sv = serving_path(dev)
-    b = sv["burst"]
-    print(f"serving main path: qwen3_1_7b bf16, 2 endpoints, slots 2, fc: "
-          f"n={b['n']} R_avg={b['R_avg'] * 1e3:.3f} ms R_p50="
-          f"{b['R_p50'] * 1e3:.3f} ms R_p95={b['R_p95'] * 1e3:.3f} ms "
-          f"cold_starts={b['cold_starts']} decode_steps="
-          f"{b['decode_steps']} ({sv['ms_per_decode_step']:.3f} ms per "
-          f"step, {sv['tokens_per_s']:.1f} tokens/s); decode_attention "
-          f"kernel launches {sv['decode_launches']}, plain 0", flush=True)
-    print("serving details: " + json.dumps(sv), flush=True)
+    print_burst(sv)
+    rec = {arch: recurrent_serving(arch, dev)
+           for arch in ("recurrentgemma_9b", "rwkv6_3b")}
+    for r in rec.values():
+        print_burst(r)
+    lp = rec["recurrentgemma_9b"]["long_prompt"]
+    print(f"recurrentgemma_9b bf16, {lp['S']}-token prefill (ring of "
+          f"{lp['ring_slots']} slots) + {lp['decode_steps']} decode steps, "
+          f"kernels vs plain versions: " + json.dumps(lp), flush=True)
 
-    def attn_row(name, main, side, side_name, launches, replaces, cases):
-        return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
-                "ms": main["ms"], "plain_ms": main["plain_ms"],
-                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main["library_ms"], "shape": main["shape"],
-                f"{side_name}_shape": side["shape"],
-                f"{side_name}_ms": side["ms"],
-                f"{side_name}_plain_ms": side["plain_ms"],
-                f"{side_name}_bound_ms": side["bound_ms"],
-                f"{side_name}_library_ms": side["library_ms"]}
+    # kernel launches of each serving path, by kernel
+    paths = {
+        "qwen3_1_7b burst": sv["launches"],
+        "qwen3_1_7b 2048-token prefill + 16 steps": {
+            "flash_attention": sv["prefill_launches"],
+            "decode_attention": 16 * QWEN3_LAYERS},
+        "recurrentgemma_9b burst": rec["recurrentgemma_9b"]["launches"],
+        "recurrentgemma_9b 4096-token prefill + 16 steps":
+            lp["kernel"]["launches"],
+        "rwkv6_3b burst": rec["rwkv6_3b"]["launches"],
+    }
+
+    def by_path(name):
+        return {p: n[name] for p, n in paths.items() if n.get(name)}
+
+    def row(name, main, side, replaces, cases):
+        out = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+               "replaces": replaces,
+               "launches": sum(by_path(name).values()),
+               "launches_by_path": by_path(name),
+               "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+               "ms": main["ms"], "plain_ms": main["plain_ms"],
+               "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+               "library_ms": main["library_ms"], "shape": main["shape"]}
+        for side_name, r in side.items():
+            out |= {f"{side_name}_{k}": r[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+        return out
 
     kernels = [
         kern,
-        attn_row("flash_attention", fl["prefill_4k"], fl["serving_2k"],
-                 "main_path", sv["prefill_launches"],
-                 "src/repro/kernels/flash_attention.py:28", fl),
-        attn_row("decode_attention", dec["decode_32k"], dec["serving"],
-                 "main_path", sv["decode_launches"],
-                 "src/repro/kernels/decode_attention.py:27", dec),
+        row("flash_attention", fl["prefill_4k"],
+            {"main_path": fl["serving_2k"], "rg": fl["rg_prefill_4k"]},
+            "src/repro/kernels/flash_attention.py:28", fl),
+        row("decode_attention", dec["decode_32k"],
+            {"main_path": dec["serving"], "rg": dec["rg_ring_2k"],
+             "rg_main_path": dec["rg_serving"]},
+            "src/repro/kernels/decode_attention.py:27", dec),
+        row("rglru_scan", rg["prefill_4k"], {"decode": rg["decode"]},
+            "src/repro/kernels/rglru_scan.py:23", rg),
+        row("rwkv6_scan", rw["prefill_4k"], {"decode": rw["decode"]},
+            "src/repro/kernels/rwkv6_scan.py:27", rw),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Own copies of the JAX package's configurations for the dense
-full-attention families that the serving slice runs.  The other families
-of ``repro.configs`` need modules the port does not have yet, and
+Own copies of the JAX package's configurations for the families the
+serving slices run: the dense full-attention ones, the RG-LRU hybrid
+recurrentgemma_9b and the RWKV-6 rwkv6_3b.  The other families of
+``repro.configs`` need modules the port does not have yet, and
 ``get_config`` names the ROADMAP item that brings each.
 """
 
@@ -12,7 +13,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ["qwen3_1_7b", "deepseek_7b", "qwen2_5_14b"]
+ARCHS = ["qwen3_1_7b", "deepseek_7b", "qwen2_5_14b", "recurrentgemma_9b",
+         "rwkv6_3b"]
 
 # dashed aliases as the JAX registry lists them
 ALIASES = {
@@ -30,9 +32,8 @@ ALIASES = {
 
 # families not ported yet -> the ROADMAP item (queue 1 of ROADMAP.md)
 NOT_PORTED = {
-    "recurrentgemma_9b": "RG-LRU layers and the rglru_scan kernel",
-    "rwkv6_3b": "RWKV-6 layers and the rwkv6_scan kernel",
-    "gemma3_27b": "windowed ring-buffer decode",
+    "gemma3_27b": "its registry entry and parity test (its layers are "
+                  "ported)",
     "llama4_scout_17b_a16e": "MoE layers",
     "qwen2_moe_a2_7b": "MoE layers",
     "qwen2_vl_7b": "M-RoPE",

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FAILED: dict[str, str] = {}      # source -> nvcc log of a failed build
 
 
 def build_dir() -> Path:
@@ -66,7 +67,7 @@ def build_all() -> dict[str, str]:
     procs = {}
     for src in sorted(CSRC.glob("*.cu")):
         lib = lib_path(src.stem)
-        if lib.exists():
+        if lib.exists() or src.stem in _FAILED:
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         procs[src.stem] = (subprocess.Popen(
@@ -78,6 +79,7 @@ def build_all() -> dict[str, str]:
         logs[name] = proc.communicate()[0]
         if proc.returncode:
             failed.append(name)
+            _FAILED[name] = logs[name]
         else:
             os.replace(tmp, lib)
     if failed:
@@ -90,6 +92,8 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
+        if name in _FAILED:     # not compiled again in this process
+            raise RuntimeError(f"nvcc failed for {name}:\n{_FAILED[name]}")
         path = lib_path(name)
         if not path.exists():
             build_all()

@@ -9,12 +9,15 @@
 //
 // Layout, as the JAX package passes it: q (B, Hq, dh), k / v (B, Sk, Hkv,
 // dh), lengths (B,) int32, out (B, Hq, dh) in q's type.  Types: float32 or
-// bfloat16 in, float32 accumulation.  dh is 32, 64 or 128; G = Hq / Hkv is
-// at most 8.
+// bfloat16 in, float32 accumulation.  dh is 32, 64, 128 or 256; G = Hq / Hkv
+// is at most 16.
 //
-// Design.  One block of 8 warps per (batch row, KV head); it computes all G
-// query heads of the group, so each K / V row is read from device memory
-// once for G heads.  Lane l of a warp holds dims [l·E, l·E + E) of q, of
+// Design.  One block of 8 warps per (batch row, KV head, part of the
+// group); it computes up to GB query heads of the group, so each K / V row
+// is read from device memory once for GB heads.  GB is 8, and 4 at dh =
+// 256, where 8 heads would need 128 floats of q and accumulator a lane and
+// 64 KB of shared memory for the merge (the 48 KB static limit); a group
+// of 16 (recurrentgemma's MQA) takes 2 blocks at dh <= 128 and 4 at 256.  Lane l of a warp holds dims [l·E, l·E + E) of q, of
 // the K / V rows and of the output accumulators (E = dh / 32), so a warp
 // reads a whole row in one coalesced load.  Warp w takes the keys
 // [4w, 4w + 4), [4w + 32, 4w + 36), ...: it loads four K and four V rows,
@@ -96,17 +99,23 @@ __global__ void __launch_bounds__(WARPS * 32)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths, T* __restrict__ out,
-                        int Sk, int Hq, int Hkv, int G, float scale) {
+                        int Sk, int Hq, int Hkv, int Gfull, int parts,
+                        float scale) {
   constexpr int DH = 32 * E;
   __shared__ float sm_m[WARPS][MAXG];
   __shared__ float sm_l[WARPS][MAXG];
   __shared__ float sm_acc[WARPS][MAXG][DH];
 
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x % Hkv;
+  const int part = blockIdx.x % parts;
+  const int b = blockIdx.x / parts / Hkv;
+  const int h = blockIdx.x / parts % Hkv;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int len = max(0, min(lengths[b], Sk));
+  // this block's query heads: h · Gfull + g0 + [0, G)
+  const int g0 = part * MAXG;
+  const int G = min(MAXG, Gfull - g0);
+  const size_t qh0 = (size_t)b * Hq + (size_t)h * Gfull + g0;
 
   float qr[MAXG][E];
   float m[MAXG], l[MAXG], acc[MAXG][E];
@@ -120,8 +129,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       acc[g][e] = 0.f;
     }
     if (g < G)
-      load_vec<T, E>(q + ((size_t)b * Hq + (size_t)h * G + g) * DH + lane * E,
-                     qr[g]);
+      load_vec<T, E>(q + (qh0 + g) * DH + lane * E, qr[g]);
   }
 
   const size_t row = (size_t)Hkv * DH;  // stride between keys
@@ -208,8 +216,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       L += c * sm_l[w][g];
       O += c * sm_acc[w][g][d];
     }
-    out[((size_t)b * Hq + (size_t)h * G + g) * DH + d] =
-        from_f<T>(O / (L == 0.f ? 1.f : L));
+    out[(qh0 + g) * DH + d] = from_f<T>(O / (L == 0.f ? 1.f : L));
   }
 }
 
@@ -217,10 +224,13 @@ template <typename T, int E, int MAXG>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
            void* out, int B, int Hq, int Hkv, int Sk, float scale,
            cudaStream_t stream) {
-  decode_attention_kernel<T, E, MAXG><<<B * Hkv, WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), Sk, Hq, Hkv,
-      Hq / Hkv, scale);
+  const int G = Hq / Hkv;
+  const int parts = (G + MAXG - 1) / MAXG;
+  decode_attention_kernel<T, E, MAXG>
+      <<<B * Hkv * parts, WARPS * 32, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), lengths, static_cast<T*>(out), Sk, Hq,
+          Hkv, G, parts, scale);
   return (int)cudaGetLastError();
 }
 
@@ -232,7 +242,12 @@ int launch_g(const void* q, const void* k, const void* v, const int* lengths,
   if (G <= 1) return launch<T, E, 1>(q, k, v, lengths, out, B, Hq, Hkv, Sk, scale, stream);
   if (G <= 2) return launch<T, E, 2>(q, k, v, lengths, out, B, Hq, Hkv, Sk, scale, stream);
   if (G <= 4) return launch<T, E, 4>(q, k, v, lengths, out, B, Hq, Hkv, Sk, scale, stream);
-  return launch<T, E, 8>(q, k, v, lengths, out, B, Hq, Hkv, Sk, scale, stream);
+  // at dh = 256 a block takes at most 4 heads (8 would need 64 KB of
+  // shared memory for the merge)
+  if constexpr (E > 4)
+    return launch<T, E, 4>(q, k, v, lengths, out, B, Hq, Hkv, Sk, scale, stream);
+  else
+    return launch<T, E, 8>(q, k, v, lengths, out, B, Hq, Hkv, Sk, scale, stream);
 }
 
 template <typename T>
@@ -243,6 +258,7 @@ int launch_e(const void* q, const void* k, const void* v, const int* lengths,
     case 32: return launch_g<T, 1>(q, k, v, lengths, out, B, Hq, Hkv, Sk, scale, stream);
     case 64: return launch_g<T, 2>(q, k, v, lengths, out, B, Hq, Hkv, Sk, scale, stream);
     case 128: return launch_g<T, 4>(q, k, v, lengths, out, B, Hq, Hkv, Sk, scale, stream);
+    case 256: return launch_g<T, 8>(q, k, v, lengths, out, B, Hq, Hkv, Sk, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -258,7 +274,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        void* out, int B, int Hq, int Hkv,
                                        int Sk, int dh, float scale, int dtype,
                                        void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 8 || Sk < 0)
+  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 16 || Sk < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -12,7 +12,7 @@
 //
 // Layout, as the JAX package passes it: q (B, Sq, Hq, dh), k / v (B, Sk,
 // Hkv, dh), out (B, Sq, Hq, dh) in q's type.  float32 or bfloat16 in,
-// float32 accumulation; dh is 32, 64 or 128; any Sq and Sk.
+// float32 accumulation; dh is 32, 64, 128 or 256; any Sq and Sk.
 //
 // Design.  One block of 256 threads per (tile of 64 queries, query head,
 // batch row).  Four threads share a query: thread `sub` holds dims
@@ -20,8 +20,12 @@
 // each reads K / V rows from shared memory as float4, and the four lanes
 // reading one row hit sixteen consecutive words (no bank conflict; the 8
 // queries of a warp read the same words, a broadcast).  The block walks
-// only the KV tiles its queries can see (causal and window bounds), 32 keys
-// a tile, staged in shared memory as float32 with 16-byte loads.  Scores of
+// only the KV tiles its queries can see (causal and window bounds), BK keys
+// a tile, staged in shared memory as float32 with 16-byte loads: BK = 32,
+// and 16 at dh = 256, where two 32 × 256 float tiles (64 KB) would pass the
+// 48 KB of static shared memory a block may have.  At dh = 256 a thread
+// holds 64 floats of q and 64 of the accumulator in registers (the
+// -Xptxas=-v report of the build shows whether they spill).  Scores of
 // 8 keys at a time are reduced over the four lanes with two shuffles, then
 // one online-softmax update (running max, sum, rescale of the accumulator)
 // covers the 8 keys.  In bf16, p is rounded to bf16 before the P·V product
@@ -44,7 +48,6 @@ constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;       // queries a block
 constexpr int TPQ = 4;       // threads a query
 constexpr int THREADS = BQ * TPQ;
-constexpr int BK = 32;       // keys a shared-memory tile
 constexpr int KC = 8;        // keys an online-softmax update
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -65,7 +68,7 @@ template <typename T> __device__ __forceinline__ float round_as(float x) {
 }
 
 // Rows [t0, t0 + BK) of one KV head into a float tile; rows past Sk are 0.
-template <typename T, int DH>
+template <typename T, int DH, int BK>
 __device__ __forceinline__ void stage(const T* __restrict__ src,
                                       float (*dst)[DH], int t0, int Sk,
                                       size_t row) {
@@ -98,6 +101,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int Sk, int Hq, int Hkv, float scale, int causal,
                        int window) {
   constexpr int NI = DH / 16;       // float4 groups a thread holds
+  // keys a shared-memory tile: K and V tiles in float32 stay within 32 KB
+  constexpr int BK = DH <= 128 ? 32 : 16;
   __shared__ __align__(16) float Ks[BK][DH];
   __shared__ __align__(16) float Vs[BK][DH];
 
@@ -134,8 +139,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + ((size_t)b * Sk * Hkv + kvh) * DH;
   for (int t0 = (kv_begin / BK) * BK; t0 < kv_end; t0 += BK) {
     __syncthreads();  // the previous tile is no longer read
-    stage<T, DH>(kb, Ks, t0, Sk, row);
-    stage<T, DH>(vb, Vs, t0, Sk, row);
+    stage<T, DH, BK>(kb, Ks, t0, Sk, row);
+    stage<T, DH, BK>(vb, Vs, t0, Sk, row);
     __syncthreads();
 #pragma unroll
     for (int c0 = 0; c0 < BK; c0 += KC) {
@@ -229,6 +234,7 @@ int launch_dh(const void* q, const void* k, const void* v, void* out, int B,
     case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, causal, window, stream);
     case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, causal, window, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, causal, window, stream);
+    case 256: return launch<T, 256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

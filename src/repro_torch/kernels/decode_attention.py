@@ -20,7 +20,7 @@ import torch
 from .flash_attention import (NEG_INF, check_kernel_shape, cuda_operand,
                               softmax_weights)
 
-MAX_GROUP = 8        # query heads a KV head the kernel takes
+MAX_GROUP = 16       # query heads a KV head the kernel takes
 
 _fn = None
 

@@ -21,9 +21,10 @@ import math
 
 import torch
 
+from ._operand import DTYPE_CODE, check_operand
+
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 
 _fn = None
 
@@ -63,17 +64,10 @@ def flash_attention_ref(q, k, v, *, causal=True, window=-1,
 
 def cuda_operand(x: torch.Tensor, name: str, like: torch.Tensor,
                  shape: tuple) -> torch.Tensor:
-    """Raise unless ``x`` can go to a kernel beside ``like`` (the query):
-    same CUDA device and dtype, ``shape``, contiguous, 16-byte aligned."""
-    if x.device != like.device:
-        raise ValueError(f"{name} is on {x.device}, q on {like.device}")
-    if x.dtype != like.dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, q has {like.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
+    """Raise unless ``x`` can go to an attention kernel beside ``like``
+    (the query): same CUDA device and dtype, ``shape``, contiguous, and
+    16-byte aligned for the kernels' vector loads."""
+    check_operand(x, name, like.device, like.dtype, shape)
     if x.data_ptr() % 16:
         raise ValueError(f"{name} is not 16-byte aligned")
     return x
@@ -81,7 +75,7 @@ def cuda_operand(x: torch.Tensor, name: str, like: torch.Tensor,
 
 def check_kernel_shape(q: torch.Tensor, Hq: int, Hkv: int, dh: int) -> int:
     """The kernels' dtype code; raise for what they do not take."""
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in DTYPE_CODE:
         raise TypeError(f"the attention kernels take float32 or bfloat16, "
                         f"not {q.dtype}")
     if dh not in KERNEL_HEAD_DIMS:
@@ -89,7 +83,7 @@ def check_kernel_shape(q: torch.Tensor, Hq: int, Hkv: int, dh: int) -> int:
                          f"{KERNEL_HEAD_DIMS}, not {dh}")
     if Hkv <= 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not fold onto {Hkv} KV heads")
-    return _DTYPE_CODE[q.dtype]
+    return DTYPE_CODE[q.dtype]
 
 
 def _lib():

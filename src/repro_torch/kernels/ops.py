@@ -8,8 +8,10 @@ card only when the caller asks for it with ``force="ref"``.
 Each kernel counts the calls that launched it and the calls that ran its
 plain version: ``KERNEL_LAUNCHES`` / ``REF_LAUNCHES`` for ``event_step``,
 ``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
-``DECODE_REF_LAUNCHES`` for the attention kernels.  A caller sets them to 0
-before a run (``reset_launches``) and reads them after it (``launches``).
+``DECODE_REF_LAUNCHES`` for the attention kernels, ``RGLRU_LAUNCHES`` /
+``RGLRU_REF_LAUNCHES`` and ``RWKV6_LAUNCHES`` / ``RWKV6_REF_LAUNCHES`` for
+the recurrences.  A caller sets them to 0 before a run
+(``reset_launches``) and reads them after it (``launches``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from ..core.planes import carry_layout
 from .decode_attention import decode_attention_cuda, decode_attention_ref
 from .event_step import event_step_ref, event_step_supported
 from .flash_attention import flash_attention_cuda, flash_attention_ref
+from .rglru_scan import rglru_scan_cuda, rglru_scan_ref
+from .rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_ref
 
 KERNEL_LAUNCHES = 0
 REF_LAUNCHES = 0
@@ -29,15 +33,22 @@ FLASH_LAUNCHES = 0
 FLASH_REF_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 DECODE_REF_LAUNCHES = 0
+RGLRU_LAUNCHES = 0
+RGLRU_REF_LAUNCHES = 0
+RWKV6_LAUNCHES = 0
+RWKV6_REF_LAUNCHES = 0
 
 
 def reset_launches() -> None:
     """Set every kernel's counts to 0."""
     global KERNEL_LAUNCHES, REF_LAUNCHES, FLASH_LAUNCHES, FLASH_REF_LAUNCHES
-    global DECODE_LAUNCHES, DECODE_REF_LAUNCHES
+    global DECODE_LAUNCHES, DECODE_REF_LAUNCHES, RGLRU_LAUNCHES
+    global RGLRU_REF_LAUNCHES, RWKV6_LAUNCHES, RWKV6_REF_LAUNCHES
     KERNEL_LAUNCHES = REF_LAUNCHES = 0
     FLASH_LAUNCHES = FLASH_REF_LAUNCHES = 0
     DECODE_LAUNCHES = DECODE_REF_LAUNCHES = 0
+    RGLRU_LAUNCHES = RGLRU_REF_LAUNCHES = 0
+    RWKV6_LAUNCHES = RWKV6_REF_LAUNCHES = 0
 
 
 def launches() -> dict:
@@ -48,6 +59,8 @@ def launches() -> dict:
                             "plain": FLASH_REF_LAUNCHES},
         "decode_attention": {"kernel": DECODE_LAUNCHES,
                              "plain": DECODE_REF_LAUNCHES},
+        "rglru_scan": {"kernel": RGLRU_LAUNCHES, "plain": RGLRU_REF_LAUNCHES},
+        "rwkv6_scan": {"kernel": RWKV6_LAUNCHES, "plain": RWKV6_REF_LAUNCHES},
     }
 
 
@@ -205,4 +218,35 @@ def decode_attention(q, k, v, lengths, *, softmax_scale=None,
     out = decode_attention_cuda(q, k, v, lengths,
                                 softmax_scale=softmax_scale)
     DECODE_LAUNCHES += 1
+    return out
+
+
+def rglru_scan(a, gx, h0, *, force: str | None = None):
+    """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + gx_t`` over a, gx
+    (B, S, W) from h0 (B, W), the float32 carry -> (hs (B, S, W), hT (B,
+    W)) in a's dtype -- the RG-LRU block's path (see ``rglru_scan``'s
+    module).  ``force`` as for ``flash_attention``."""
+    global RGLRU_LAUNCHES, RGLRU_REF_LAUNCHES
+    _check_force(force)
+    if force == "ref" or a.device.type != "cuda":
+        RGLRU_REF_LAUNCHES += 1
+        return rglru_scan_ref(a, gx, h0)
+    out = rglru_scan_cuda(a, gx, h0)
+    RGLRU_LAUNCHES += 1
+    return out
+
+
+def rwkv6_scan(r, k, v, w, u, s0=None, *, force: str | None = None):
+    """The RWKV-6 time-mix recurrence over r, k, v, w (B, S, H, dh) with
+    bonus u (H, dh) from the float32 state s0 (B, H, dh, dh; zeros when
+    None) -> (out (B, S, H, dh) in r's dtype, sT) -- the time mix's path
+    (see ``rwkv6_scan``'s module).  ``force`` as for
+    ``flash_attention``."""
+    global RWKV6_LAUNCHES, RWKV6_REF_LAUNCHES
+    _check_force(force)
+    if force == "ref" or r.device.type != "cuda":
+        RWKV6_REF_LAUNCHES += 1
+        return rwkv6_scan_ref(r, k, v, w, u, s0)
+    out = rwkv6_scan_cuda(r, k, v, w, u, s0)
+    RWKV6_LAUNCHES += 1
     return out

@@ -1,13 +1,19 @@
-"""Decoder stack of the dense full-attention families (port of
+"""Decoder stack of the dense, windowed and recurrent families (port of
 ``repro.models.model``).
 
 Parameters are the JAX package's tree under the same names: ``embed``,
-``final_norm``, ``lm_head`` (untied models) and ``groups/pos{i}``, whose
-leaves are stacked over the ``n_groups`` repetitions of the period.  The
-stack runs as a Python loop over the groups (JAX scans).  Caches are trees
-of the same kind, ``groups/pos{i}/{k, v}`` of shape (n_groups, B, Sc, Hkv,
-dh); ``prefill`` and ``decode_step`` write them in place and return them,
-where JAX returns new arrays.
+``final_norm``, ``lm_head`` (untied models), ``groups/pos{i}``, whose
+leaves are stacked over the ``n_groups`` repetitions of the period, and
+``tail/layer{i}`` for the layers past the last whole period (a
+``n_layers`` that is not a multiple of the period, as recurrentgemma_9b's
+38 = 12 x 3 + 2).  A layer holds ``attn`` + ``mlp``, ``rglru`` + ``mlp`` or
+RWKV-6 ``tm`` + ``cm``.  The stack runs as a Python loop over the groups
+(JAX scans), then the tail.  Caches are trees of the same kind: ``k``, ``v``
+(B, Sc, Hkv, dh) for attention, where a windowed layer keeps a ring of
+``Sc = min(window, cache_len)`` entries; ``h`` (B, w) and ``conv`` (B,
+width - 1, w) for RG-LRU; ``shift``, ``wkv`` (B, H, dh, dh, float32) and
+``cm_shift`` for RWKV-6.  ``prefill`` and ``decode_step`` write them in
+place and return them, where JAX returns new arrays.
 
 Public entry points:
   init(cfg, seed, device)                       -> params
@@ -16,8 +22,7 @@ Public entry points:
   decode_step(params, cfg, tokens, cache, pos)  -> logits, cache
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-windowed layers and the ring-buffer decode, int8 KV, MoE, M-RoPE, RG-LRU,
-RWKV, encoder-decoder models, the period tail and the training
+int8 KV, MoE, M-RoPE, encoder-decoder models and the training
 ``forward``.
 """
 
@@ -30,7 +35,7 @@ import torch
 
 from ..device import resolve_device
 from . import layers as L
-from .config import ATTN, ModelConfig
+from .config import ATTN, RGLRU, RWKV, LayerSpec, ModelConfig
 
 _ROADMAP = "(ROADMAP.md, queue 1)"
 
@@ -38,13 +43,8 @@ _ROADMAP = "(ROADMAP.md, queue 1)"
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     for spec in cfg.period:
-        if spec.kind != ATTN:
-            raise NotImplementedError(
-                f"{spec.kind} layers are not ported yet {_ROADMAP}")
-        if spec.window > 0:
-            raise NotImplementedError(
-                f"windowed layers and the ring-buffer decode are not ported "
-                f"yet {_ROADMAP}")
+        if spec.kind not in (ATTN, RGLRU, RWKV):
+            raise ValueError(f"unknown layer kind {spec.kind!r}")
         if spec.moe:
             raise NotImplementedError(f"MoE layers are not ported yet "
                                       f"{_ROADMAP}")
@@ -56,10 +56,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(f"int8 KV caches are not ported yet "
                                   f"{_ROADMAP}")
-    if cfg.n_tail:
-        raise NotImplementedError(
-            f"a period tail (n_layers not a multiple of the period) is not "
-            f"ported yet {_ROADMAP}")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -81,22 +77,42 @@ def _stack(shapes: dict, n: int) -> dict:
 # ---------------------------------------------------------------------------
 # parameters and caches
 # ---------------------------------------------------------------------------
-def _layer_shapes(cfg: ModelConfig) -> dict:
+def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
     d = cfg.d_model
-    return {"ln1": (d,), "ln2": (d,), "attn": L.attn_params_shapes(cfg),
-            "mlp": L.mlp_params_shapes(cfg)}
+    shapes: dict = {"ln1": (d,), "ln2": (d,)}
+    if spec.kind == ATTN:
+        shapes["attn"] = L.attn_params_shapes(cfg)
+    elif spec.kind == RGLRU:
+        shapes["rglru"] = L.rglru_params_shapes(cfg)
+    if spec.kind == RWKV:
+        rwkv = L.rwkv_params_shapes(cfg)
+        shapes["tm"] = {k: v for k, v in rwkv.items()
+                        if not k.startswith("cm_")}
+        shapes["cm"] = {k: v for k, v in rwkv.items() if k.startswith("cm_")}
+    else:
+        shapes["mlp"] = L.mlp_params_shapes(cfg)
+    return shapes
+
+
+def _with_tail(cfg: ModelConfig, layer_tree) -> dict:
+    """``groups/pos{i}`` stacked over the groups, and ``tail/layer{i}`` for
+    the layers past the last whole period; ``layer_tree(spec)`` gives one
+    layer's tree."""
+    tree: dict = {"groups": {
+        f"pos{i}": _stack(layer_tree(spec), cfg.n_groups)
+        for i, spec in enumerate(cfg.period)}}
+    if cfg.n_tail:
+        tree["tail"] = {f"layer{i}": layer_tree(cfg.period[i])
+                        for i in range(cfg.n_tail)}
+    return tree
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """Full parameter shape tree (leaves are shape tuples)."""
     check_supported(cfg)
     d, V = cfg.d_model, cfg.padded_vocab
-    tree: dict = {
-        "embed": (V, d),
-        "final_norm": (d,),
-        "groups": {f"pos{i}": _stack(_layer_shapes(cfg), cfg.n_groups)
-                   for i in range(len(cfg.period))},
-    }
+    tree: dict = {"embed": (V, d), "final_norm": (d,)}
+    tree |= _with_tail(cfg, lambda spec: _layer_shapes(cfg, spec))
     if not cfg.tie_embeddings:
         tree["lm_head"] = (d, V)
     return tree
@@ -124,19 +140,40 @@ def init(cfg: ModelConfig, seed: int | torch.Generator, device=None) -> dict:
     return _map(make, param_shapes(cfg))
 
 
+def _layer_cache_shapes(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                        cache_len: int) -> dict:
+    if spec.kind == ATTN:
+        s = cache_len if spec.window <= 0 else min(spec.window, cache_len)
+        kv = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": kv, "v": kv}
+    if spec.kind == RGLRU:
+        w = cfg.lru_dim
+        return {"h": (batch, w), "conv": (batch, cfg.conv1d_width - 1, w)}
+    dh = cfg.rwkv_head_size
+    return {"shift": (batch, cfg.d_model),
+            "wkv": (batch, cfg.rwkv_heads, dh, dh),
+            "cm_shift": (batch, cfg.d_model)}
+
+
 def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
     check_supported(cfg)
-    kv = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"groups": {f"pos{i}": _stack({"k": kv, "v": kv}, cfg.n_groups)
-                       for i in range(len(cfg.period))}}
+    return _with_tail(cfg, lambda spec: _layer_cache_shapes(
+        cfg, spec, batch, cache_len))
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                device=None) -> dict:
+    """Zeros in the model dtype (``dtype`` overrides it), the RWKV state
+    ``wkv`` in float32 as in JAX."""
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
-    return _map(lambda s: torch.zeros(s, dtype=dt, device=dev),
-                cache_shapes(cfg, batch, cache_len))
+
+    def make(tree):
+        return {k: make(v) if isinstance(v, dict) else torch.zeros(
+            v, dtype=torch.float32 if k == "wkv" else dt, device=dev)
+            for k, v in tree.items()}
+
+    return make(cache_shapes(cfg, batch, cache_len))
 
 
 # ---------------------------------------------------------------------------
@@ -148,27 +185,39 @@ class Ctx:
     positions: torch.Tensor       # (B, S)
     mode: str                     # "prefill" | "decode"
     pos: int = 0                  # decode write index
-    lengths: torch.Tensor | None = None   # decode: keys each row sees
+    lengths: dict | None = None   # decode: cache length Sc -> keys seen,
+                                  # made by the first layer of that Sc
     cos_sin: tuple | None = None  # RoPE tables shared by all layers
     force: str | None = None      # kernel dispatch ("ref": plain versions)
 
 
-def _attn_sublayer(p, x, ctx: Ctx, cache: dict):
+def _attn_sublayer(p, spec: LayerSpec, x, ctx: Ctx, cache: dict):
     cfg = ctx.cfg
     B, S, _ = x.shape
     q, k_new, v_new = L.attn_project_qkv(p["attn"], x, cfg, ctx.positions,
                                          cos_sin=ctx.cos_sin)
     Sc = cache["k"].shape[1]
     if ctx.mode == "decode":
-        # the JAX slot min(pos, Sc - 1); keys idx <= pos, i.e. the first
-        # min(pos + 1, Sc) entries, are the lengths
-        slot = min(ctx.pos, Sc - 1)
+        # a window that fits the cache makes it a ring: position pos lives
+        # in slot pos % Sc, and the valid keys are the first min(pos + 1,
+        # Sc) slots, all within the window.  Otherwise the JAX slot
+        # min(pos, Sc - 1) and the keys idx <= pos: the same lengths.
+        if 0 < spec.window <= Sc:
+            slot = ctx.pos % Sc
+        else:
+            slot = min(ctx.pos, Sc - 1)
         cache["k"][:, slot] = k_new[:, 0]
         cache["v"][:, slot] = v_new[:, 0]
-        out = L.attention(q, cache["k"], cache["v"], ctx.lengths,
-                          force=ctx.force)
+        lengths = ctx.lengths.get(Sc)
+        if lengths is None:
+            lengths = ctx.lengths[Sc] = torch.full(
+                (B,), min(ctx.pos + 1, Sc), dtype=torch.int32,
+                device=x.device)
+        out = L.attention(q, cache["k"], cache["v"], lengths,
+                          window=spec.window, force=ctx.force)
     else:
-        out = L.attention(q, k_new, v_new, causal=True, force=ctx.force)
+        out = L.attention(q, k_new, v_new, causal=True, window=spec.window,
+                          force=ctx.force)
         for name, new in (("k", k_new), ("v", v_new)):
             if S >= Sc:     # position s lands in slot s % Sc, as in JAX
                 cache[name].copy_(torch.roll(new[:, -Sc:], S % Sc, dims=1))
@@ -178,11 +227,33 @@ def _attn_sublayer(p, x, ctx: Ctx, cache: dict):
     return out @ p["attn"]["wo"]
 
 
-def apply_layer(p: dict, x: torch.Tensor, ctx: Ctx,
+def _write(cache: dict, new: dict) -> None:
+    for name, value in new.items():
+        cache[name].copy_(value)
+
+
+def apply_layer(p: dict, spec: LayerSpec, x: torch.Tensor, ctx: Ctx,
                 cache: dict) -> torch.Tensor:
-    """Pre-norm residual attention + SwiGLU layer; writes ``cache``."""
-    x = x + _attn_sublayer(p, L.rms_norm(x, p["ln1"]), ctx, cache)
-    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(x, p["ln2"]))
+    """Pre-norm residual layer: attention, RG-LRU or RWKV-6 time mix, then
+    SwiGLU or the RWKV-6 channel mix; writes ``cache``."""
+    cfg = ctx.cfg
+    h = L.rms_norm(x, p["ln1"])
+    if spec.kind == ATTN:
+        out = _attn_sublayer(p, spec, h, ctx, cache)
+    elif spec.kind == RGLRU:
+        out, new = L.rglru_block(p["rglru"], h, cfg, cache, force=ctx.force)
+        _write(cache, new)
+    else:
+        out, new = L.rwkv_time_mix(p["tm"], h, cfg, cache, force=ctx.force)
+        _write(cache, new)
+    x = x + out
+    h = L.rms_norm(x, p["ln2"])
+    if spec.kind == RWKV:
+        out, new = L.rwkv_channel_mix(p["cm"], h, cache)
+        _write(cache, new)
+    else:
+        out = L.swiglu_mlp(p["mlp"], h)
+    return x + out
 
 
 def _take(tree, g: int):
@@ -192,13 +263,18 @@ def _take(tree, g: int):
 
 
 def _run_stack(params: dict, x: torch.Tensor, ctx: Ctx, cache: dict):
-    """The groups in order, each the period's layers (JAX scans them)."""
+    """The groups in order, each the period's layers (JAX scans them),
+    then the tail."""
     cfg = ctx.cfg
     for g in range(cfg.n_groups):
-        for i in range(len(cfg.period)):
+        for i, spec in enumerate(cfg.period):
             key = f"pos{i}"
-            x = apply_layer(_take(params["groups"][key], g), x, ctx,
+            x = apply_layer(_take(params["groups"][key], g), spec, x, ctx,
                             _take(cache["groups"][key], g))
+    for i in range(cfg.n_tail):
+        key = f"layer{i}"
+        x = apply_layer(params["tail"][key], cfg.period[i], x, ctx,
+                        cache["tail"][key])
     return x
 
 
@@ -220,9 +296,10 @@ def _default_positions(B: int, S: int, offset: int = 0, device=None):
 
 
 def _context(cfg, positions, mode, force, **kw) -> Ctx:
-    dtype = torch_dtype(cfg.dtype)
-    cos_sin = L.rope_cos_sin(positions, cfg.head_dim // 2, cfg.rope_theta,
-                             dtype)
+    cos_sin = None
+    if any(spec.kind == ATTN for spec in cfg.period):
+        cos_sin = L.rope_cos_sin(positions, cfg.head_dim // 2,
+                                 cfg.rope_theta, torch_dtype(cfg.dtype))
     return Ctx(cfg=cfg, positions=positions, mode=mode, cos_sin=cos_sin,
                force=force, **kw)
 
@@ -252,18 +329,16 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict, *,
 def decode_step(params: dict, cfg: ModelConfig, tokens, cache: dict,
                 pos: int, *, force: str | None = None):
     """One decode step on the parameters' device.  ``tokens`` (B,) int;
-    ``pos`` the current index (a Python int).  Writes the new K / V into
-    ``cache`` in place and returns (logits (B, V), cache)."""
+    ``pos`` the current index (a Python int).  Writes the new K / V and
+    recurrent states into ``cache`` in place and returns (logits (B, V),
+    cache)."""
     check_supported(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     B = tokens.shape[0]
     pos = int(pos)
-    Sc = cache["groups"]["pos0"]["k"].shape[2]
-    lengths = torch.full((B,), min(pos + 1, Sc), dtype=torch.int32,
-                         device=dev)
     ctx = _context(cfg, _default_positions(B, 1, pos, dev), "decode", force,
-                   pos=pos, lengths=lengths)
+                   pos=pos, lengths={})
     x = _run_stack(params, _embed(params, tokens[:, None]), ctx, cache)
     return _unembed(params, x)[:, 0, :], cache
 

@@ -53,6 +53,10 @@ def _close(got, want, dtype):
     (3, 300, 16, 8, 128),     # qwen3 heads, odd Sk
     (2, 77, 8, 8, 32),        # odd Sk, small heads
     (2, 100, 16, 2, 128),     # group of 8
+    (2, 300, 16, 1, 256),     # recurrentgemma: MQA group of 16, dh 256
+    (3, 129, 16, 1, 128),     # group of 16 over two blocks
+    (2, 64, 12, 2, 256),      # group of 6, dh 256: blocks of 4 and 2
+    (2, 2048, 16, 1, 256),    # recurrentgemma's full window ring
 ])
 def test_decode_matches_plain(cuda, B, Sk, Hq, Hkv, dh, dtype):
     q, k, v = _rand(cuda, Sk, (B, Hq, dh), (B, Sk, Hkv, dh),
@@ -83,6 +87,9 @@ def test_decode_matches_plain(cuda, B, Sk, Hq, Hkv, dh, dtype):
     (1, 128, 256, 2, 2, 64, True, -1),       # Sq < Sk
     (1, 77, 133, 4, 2, 32, True, 20),        # odd S and Sk, window
     (2, 70, 70, 4, 2, 32, False, 16),        # bidirectional window
+    (1, 300, 300, 16, 1, 256, True, 64),     # recurrentgemma: dh 256, MQA
+    (1, 128, 128, 4, 2, 256, True, -1),      # dh 256, causal
+    (2, 77, 133, 4, 4, 256, True, 20),       # dh 256, odd S and Sk
 ])
 def test_flash_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, dh, causal, window,
                              dtype):
@@ -126,10 +133,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ops.flash_attention(q[:, :, :3].contiguous(), k, v)
     with pytest.raises(ValueError, match="on"):
         ops.decode_attention(q[:, 0], k, v, torch.tensor([8]))
-    q16, = _rand(cuda, 3, (1, 16, 64), dtype=torch.float32)
+    q32, = _rand(cuda, 3, (1, 32, 64), dtype=torch.float32)
     k1, = _rand(cuda, 4, (1, 8, 1, 64), dtype=torch.float32)
     with pytest.raises(ValueError, match="at most"):
-        ops.decode_attention(q16, k1, k1, torch.tensor([8], device=cuda))
+        ops.decode_attention(q32, k1, k1, torch.tensor([8], device=cuda))
 
 
 @pytest.mark.gpu

@@ -187,6 +187,29 @@ def test_launcher_on_cpu(capsys):
     assert "n=4 " in out and "device=cpu" in out
 
 
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "recurrentgemma_9b"])
+def test_launcher_serves_the_recurrent_families(arch, capsys):
+    """``--arch`` takes both recurrent families: 12 calls complete on the
+    CPU, every decode step through the plain recurrences (and, for
+    recurrentgemma, the plain decode attention of its window layers)."""
+    ops.reset_launches()
+    serve.main(["--arch", arch, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "n=12 " in out and "device=cpu" in out
+    steps = int(out.split("decode_steps=")[1].split()[0])
+    cfg = scale_down(get_config(arch))
+    per_step = {k: sum(s.kind == k for s in cfg.layer_specs())
+                for k in ("attn", "rglru", "rwkv")}
+    n = ops.launches()
+    assert n["rglru_scan"]["kernel"] == n["rwkv6_scan"]["kernel"] == 0
+    # the warm-up calls step too: at least the burst's steps per layer
+    assert n["rglru_scan"]["plain"] >= steps * per_step["rglru"]
+    assert n["rwkv6_scan"]["plain"] >= steps * per_step["rwkv"]
+    assert n["decode_attention"]["plain"] >= steps * per_step["attn"]
+    assert (n["rglru_scan"]["plain"] > 0) == (arch == "recurrentgemma_9b")
+    assert (n["rwkv6_scan"]["plain"] > 0) == (arch == "rwkv6_3b")
+
+
 def test_samplers():
     logits = torch.tensor([[0.1, 3.0, -1.0, 2.9], [5.0, 0.0, 0.0, 0.0]])
     assert sampler.greedy(logits).tolist() == [1, 0]
