@@ -12,7 +12,10 @@ version on the card first:
    16 cores).  The mega grid has 2,000 seeds; the default of 40 seeds
    (2,000 cells) is a cut of it, and ``--seeds`` raises it.
 2. The serving path at the full width of qwen3_1_7b: ``decode_attention``
-   and ``flash_attention`` at the decode_32k and prefill widths; the model
+   (split over the cache and merged, flash-decoding) and ``flash_attention``
+   (bfloat16 on the tensor cores, float32 on the CUDA cores) at the
+   decode_32k and prefill widths, each timed case with its achieved rate
+   and share of its bound; the model
    in float32, kernels against plain versions end to end; then the serving
    engine in bfloat16 (two endpoints, estimator warm-up, a burst of 12
    calls, policy fc), and one 2,048-token prefill with 16 decode steps.
@@ -57,6 +60,7 @@ from repro_torch.core.planes import make_planes  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
+from repro_torch.kernels.decode_attention import split_plan  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import rglru_scan as rglru_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv6_mod  # noqa: E402
@@ -127,6 +131,21 @@ def bucket_tensors(key, host, dev):
                            n_slots=static["n_slots"],
                            window=static["window"])
     return inp, clk, ctr, static
+
+
+def time_graph(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` captured once in a CUDA graph and
+    replayed: the card's time without the host's launch gaps, which set
+    ``time_call`` for a kernel of a few microseconds."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_call(graph.replay, reps)
 
 
 def time_call(fn, reps: int) -> float:
@@ -289,6 +308,11 @@ def check_decode(B, Sk, Hq, Hkv, dh, dtype, lengths, dev, gen,
         out["bound_ms"], out["bound_by"] = bound(nbytes, 4 * keys * Hq * dh,
                                                  dtype)
         out["ms"] = time_call(lambda: ops.decode_attention(q, k, v, L), 20)
+        out["device_ms"] = time_graph(
+            lambda: ops.decode_attention(q, k, v, L), 20)
+        out["n_split"], out["chunk"] = split_plan(Sk, B, Hkv)
+        out["gb_s"] = nbytes / out["ms"] / 1e6
+        out["bound_share"] = out["bound_ms"] / out["ms"]
         out["plain_ms"] = time_call(lambda: ops.decode_attention(
             q, k, v, L, force="ref"), 3)
         G = Hq // Hkv
@@ -333,9 +357,12 @@ def check_flash(B, Sq, Sk, Hq, Hkv, dh, dtype, dev, gen, causal=True,
         pairs = int(mask.sum())
         es = q.element_size()
         nbytes = (2 * B * Sq * Hq + 2 * B * Sk * Hkv) * dh * es
-        out["bound_ms"], out["bound_by"] = bound(
-            nbytes, 4 * dh * Hq * B * pairs, dtype)
+        flops = 4 * dh * Hq * B * pairs
+        out["bound_ms"], out["bound_by"] = bound(nbytes, flops, dtype)
         out["ms"] = time_call(lambda: ops.flash_attention(q, k, v, **kw), 10)
+        out["kernel_source"] = flash_mod.SOURCE[dtype] + ".cu"
+        out["tflop_s"] = flops / out["ms"] / 1e9
+        out["bound_share"] = out["bound_ms"] / out["ms"]
         out["plain_ms"] = time_call(lambda: ops.flash_attention(
             q, k, v, force="ref", **kw), 3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -707,8 +734,18 @@ def serving_path(dev) -> dict:
             seq.float()).all():
         raise AssertionError(f"prefill/decode logits: shape {seq.shape}, "
                              "or not finite")
+    # the same prompt again into a fresh cache: the first prefill at this
+    # length also pays for its allocations and the matrix library's plans
+    warm_cache = init_cache(cfg, 1, 2048 + 16, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, cfg, {"tokens": tokens.to(dev)}, warm_cache)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    del warm_cache
     out |= {"prefill_launches": n["flash_attention"]["kernel"],
             "prefill_2048_ms": t_prefill * 1e3,
+            "prefill_2048_warm_ms": t_warm * 1e3,
             "decode_after_prefill_ms_per_step": t_decode / 16 * 1e3,
             "step": decode_step_time(params, cfg, dev)}
     del short, long_, params, cache
@@ -866,7 +903,8 @@ def main() -> int:
     logs = build.build_all()
     ops._event_step_lib()
     dec_mod._lib()
-    flash_mod._lib()
+    for dtype in flash_mod.SOURCE:
+        flash_mod._lib(dtype)
     rglru_mod._lib()
     rwkv6_mod._lib()
     print(f"build: {time.perf_counter() - t0:.3f} s "
@@ -1066,11 +1104,18 @@ def main() -> int:
                 "shape", "ms", "plain_ms", "bound_ms", "library_ms")}
         return out
 
+    flash_row = row("flash_attention", fl["prefill_4k"],
+                    {"main_path": fl["serving_2k"], "rg": fl["rg_prefill_4k"]},
+                    "src/repro/kernels/flash_attention.py:28", fl)
+    # bfloat16 (every timed case and the serving path) on the tensor cores,
+    # float32 on the CUDA cores
+    flash_row["source"] = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
+    flash_row["sources"] = {
+        str(dtype)[6:]: f"src/repro_torch/kernels/csrc/{name}.cu"
+        for dtype, name in flash_mod.SOURCE.items()}
     kernels = [
         kern,
-        row("flash_attention", fl["prefill_4k"],
-            {"main_path": fl["serving_2k"], "rg": fl["rg_prefill_4k"]},
-            "src/repro/kernels/flash_attention.py:28", fl),
+        flash_row,
         row("decode_attention", dec["decode_32k"],
             {"main_path": dec["serving"], "rg": dec["rg_ring_2k"],
              "rg_main_path": dec["rg_serving"]},

@@ -1,5 +1,6 @@
-"""Flash-attention forward: the plain PyTorch version and the launcher of
-``csrc/flash_attention.cu``.
+"""Flash-attention forward: the plain PyTorch version and the launchers of
+``csrc/flash_attention_wgmma.cu`` (bfloat16, on the tensor cores) and
+``csrc/flash_attention.cu`` (float32, on the CUDA cores).
 
 Counterpart of ``repro.kernels.flash_attention``: q (B, Sq, Hq, dh), k / v
 (B, Sk, Hkv, dh) -> (B, Sq, Hq, dh) in q's dtype.  Positions are aligned
@@ -26,7 +27,11 @@ from ._operand import DTYPE_CODE, check_operand
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 
-_fn = None
+# the kernel source that takes each dtype
+SOURCE = {torch.bfloat16: "flash_attention_wgmma",
+          torch.float32: "flash_attention"}
+
+_fns: dict = {}
 
 
 def softmax_weights(s: torch.Tensor, dtype: torch.dtype):
@@ -86,39 +91,46 @@ def check_kernel_shape(q: torch.Tensor, Hq: int, Hkv: int, dh: int) -> int:
     return DTYPE_CODE[q.dtype]
 
 
-def _lib():
-    global _fn
-    if _fn is None:
+def _lib(dtype: torch.dtype):
+    """The launcher of the kernel that takes ``dtype``."""
+    name = SOURCE[dtype]
+    fn = _fns.get(name)
+    if fn is None:
         from .build import load
 
-        fn = load("flash_attention").flash_attention_launch
+        fn = getattr(load(name), f"{name}_launch")
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=-1,
                          softmax_scale=None):
-    """Launch ``csrc/flash_attention.cu`` on the current stream."""
+    """Launch the kernel of q's dtype on the current stream: bfloat16 goes
+    to ``csrc/flash_attention_wgmma.cu``, float32 to
+    ``csrc/flash_attention.cu``."""
     B, Sq, Hq, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
         raise ValueError(f"q is on {q.device}, the kernel needs CUDA")
-    code = check_kernel_shape(q, Hq, Hkv, dh)
+    check_kernel_shape(q, Hq, Hkv, dh)
     cuda_operand(q, "q", q, (B, Sq, Hq, dh))
     cuda_operand(k, "k", q, (B, Sk, Hkv, dh))
     cuda_operand(v, "v", q, (B, Sk, Hkv, dh))
     scale = softmax_scale or (1.0 / math.sqrt(dh))
     out = torch.empty_like(q)
-    fn = _lib()
+    fn = _lib(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Sk, Hq, Hkv, dh, float(scale), int(bool(causal)),
-                 int(window), code, stream)
+                 int(window), stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention: a TMA tensor map could not be "
+                           f"encoded (CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

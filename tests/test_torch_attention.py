@@ -23,6 +23,7 @@ from repro.kernels import ref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import ops
+from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models import layers as TL
@@ -192,6 +193,86 @@ class TestDecode:
         one = ops.decode_attention(tq[:, -1].contiguous(), tk, tv,
                                    torch.tensor([64, 64]))
         torch.testing.assert_close(one, full[:, -1], rtol=1e-6, atol=1e-6)
+
+
+# cache shapes of chip_smoke.py's decode cases: (B, Sk, Hq, Hkv, dh)
+DECODE_32K = (8, 32768, 16, 8, 128)
+RG_RING_2K = (1, 2048, 16, 1, 256)
+
+
+def _live_blocks(lengths, B, Sk, Hq, Hkv, dh, heads_per_block):
+    """Blocks of the split kernel that hold keys for these lengths, with
+    ``heads_per_block`` query heads of a group in a block."""
+    n_split, chunk = dec.split_plan(Sk, B, Hkv)
+    per_row = Hkv * -(-(Hq // Hkv) // heads_per_block)
+    return sum(min(n_split, -(-n // chunk)) for n in lengths) * per_row
+
+
+class TestSplitPlan:
+    """``split_plan`` picks how many blocks share a cache row, from Sk and
+    the launch geometry only."""
+
+    @pytest.mark.parametrize("Hkv", [8, 1, 32, 2])
+    def test_one_split_for_short_caches(self, Hkv):
+        """The serving caches (36 slots) and every Sk up to ONE_SPLIT_KEYS
+        take one split: one launch, no scratch."""
+        assert dec.split_plan(36, 1, Hkv) == (1, 36)
+        for Sk in range(1, dec.ONE_SPLIT_KEYS + 1):
+            for B in (1, 2, 8):
+                n_split, chunk = dec.split_plan(Sk, B, Hkv)
+                assert n_split == 1 and chunk >= Sk
+
+    @pytest.mark.parametrize("B,Sk,Hq,Hkv,dh", [
+        DECODE_32K, RG_RING_2K, (8, 4096, 16, 8, 128), (4, 4096, 32, 32, 128),
+        (1, 2064, 16, 8, 128), (3, 1000, 16, 1, 256), (2, 65, 4, 2, 64),
+        (64, 32768, 16, 8, 128)])
+    def test_chunks_cover_the_cache(self, B, Sk, Hq, Hkv, dh):
+        n_split, chunk = dec.split_plan(Sk, B, Hkv)
+        assert 1 <= n_split and n_split * chunk >= Sk
+        assert (n_split == 1) == (Sk <= chunk)
+        if n_split > 1:
+            assert chunk % dec.KEY_STRIDE == 0
+            assert (n_split - 1) * chunk < Sk     # no split is empty when full
+
+    def test_enough_blocks_at_decode_32k(self):
+        """chip_smoke.py's ragged decode_32k rows fill 2 x 132 blocks or
+        more (64 blocks with one split a row)."""
+        lengths = [1, 300, 32768, 17000, 4096, 32768, 9999, 32768]
+        assert _live_blocks(lengths, *DECODE_32K, heads_per_block=2) \
+            >= 2 * dec.SMS
+
+    def test_enough_blocks_on_the_recurrentgemma_ring(self):
+        """One full ring of 2,048 slots, 16 query heads on one KV head of
+        256: 4 blocks with one split; splits of one warp step (32 keys)
+        give 256, about 2 x 132."""
+        blocks = _live_blocks([2048], *RG_RING_2K, heads_per_block=4)
+        assert blocks == 4 * 2048 // dec.KEY_STRIDE >= 1.9 * dec.SMS
+
+
+class TestDecodeSplitRef:
+    """``decode_attention_split_ref``, the kernel's split-and-merge
+    arithmetic in plain PyTorch, against the plain version and the Pallas
+    kernel, on lengths at the chunk edges."""
+
+    @pytest.mark.parametrize("split", ["plan", "uneven", "one"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_plain_and_pallas(self, dtype, split):
+        B, Sk, Hq, Hkv, dh = 6, 1024, 4, 2, 64
+        n_split, chunk = {"plan": dec.split_plan(Sk, B, Hkv),
+                          "uneven": (3, 352), "one": (1, Sk)}[split]
+        (jq, tq), (jk, tk), (jv, tv) = _inputs(
+            31, (B, Hq, dh), (B, Sk, Hkv, dh), (B, Sk, Hkv, dh), dtype=dtype)
+        lengths = np.array([0, 1, chunk - 1, chunk, chunk + 1, Sk], np.int32)
+        tl = torch.from_numpy(lengths)
+        got = dec.decode_attention_split_ref(tq, tk, tv, tl, n_split, chunk)
+        assert got.dtype == tq.dtype and got.shape == tq.shape
+        assert not _np(got)[0].any()                  # length 0 gives 0
+        plain = ops.decode_attention(tq, tk, tv, tl)
+        tol = ORACLE_TOL if dtype == "float32" else _tol(dtype)
+        np.testing.assert_allclose(_np(got), _np(plain), **tol)
+        pallas = pallas_decode(jq, jk, jv, jnp.asarray(lengths),
+                               interpret=True)
+        np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
 
 
 class TestDispatch:

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import split_plan
 from repro_torch.models import decode_step, init, init_cache, prefill
 from repro_torch.models import scale_down
 
@@ -115,6 +116,121 @@ def test_flash_fully_masked_rows_are_zero(cuda, dtype):
     assert not got[:, :128].float().any()
 
 
+# Sq and Sk around the bf16 kernel's tiles (128 query rows, 128 keys at
+# dh 64); B = 3, so a tail read from the next batch row would show
+EDGES = [1, 63, 64, 65, 127, 128, 129, 777]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sk", EDGES)
+@pytest.mark.parametrize("Sq", EDGES)
+def test_flash_bf16_tile_edges(cuda, Sq, Sk):
+    q, k, v = _rand(cuda, 7 * Sq + Sk, (3, Sq, 4, 64), (3, Sk, 2, 64),
+                    (3, Sk, 2, 64), dtype=torch.bfloat16)
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q, k, v, force="ref")
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16)
+    if Sq > Sk:                 # the first Sq - Sk queries precede every key
+        assert not got[:, :Sq - Sk].float().any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh,window", [(64, 70), (128, 200), (256, 100)])
+def test_flash_bf16_window_mid_tile(cuda, dh, window, causal):
+    """Windows whose first key falls inside a KV tile (BK 128, 64 at dh
+    256), Sq < Sk."""
+    q, k, v = _rand(cuda, window, (2, 333, 4, dh), (2, 517, 2, dh),
+                    (2, 517, 2, dh), dtype=torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q, k, v, force="ref", **kw)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("G", [1, 2, 8, 16])
+def test_flash_bf16_groups(cuda, G, dh):
+    Hkv = 2 if G < 16 else 1
+    q, k, v = _rand(cuda, G, (2, 200, G * Hkv, dh), (2, 200, Hkv, dh),
+                    (2, 200, Hkv, dh), dtype=torch.bfloat16)
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q, k, v, force="ref")
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+def test_flash_bf16_head_dims(cuda, dh, causal):
+    q, k, v = _rand(cuda, dh, (3, 257, 4, dh), (3, 257, 2, dh),
+                    (3, 257, 2, dh), dtype=torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention(q, k, v, causal=causal, force="ref")
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Hq,Hkv,dh", [(16, 8, 128), (16, 1, 256), (8, 8, 64)])
+def test_decode_split_edges(cuda, Hq, Hkv, dh, dtype):
+    """Lengths one short of a split's chunk C, at it and one past it, 0, 1
+    and the whole cache, on a cache cut into at least 3 splits."""
+    B, Sk = 6, 4096
+    n_split, C = split_plan(Sk, B, Hkv)
+    assert n_split >= 3
+    q, k, v = _rand(cuda, dh, (B, Hq, dh), (B, Sk, Hkv, dh),
+                    (B, Sk, Hkv, dh), dtype=dtype)
+    lengths = torch.tensor([C - 1, C, C + 1, 0, 1, Sk], dtype=torch.int32,
+                           device=cuda)
+    k0 = ops.DECODE_LAUNCHES
+    got = ops.decode_attention(q, k, v, lengths)
+    want = ops.decode_attention(q, k, v, lengths, force="ref")
+    torch.cuda.synchronize()
+    assert ops.DECODE_LAUNCHES == k0 + 1
+    _close(got, want, dtype)
+    assert not got[3].float().any()                 # length 0 gives 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Sk", [36, 64])
+def test_decode_one_split_allocates_no_scratch(cuda, Sk, dtype):
+    """A cache that fits one chunk (the serving caches hold 36 slots):
+    one split, and the call allocates its output and nothing else."""
+    B, Hq, Hkv, dh = 1, 16, 8, 128
+    assert split_plan(Sk, B, Hkv) == (1, Sk)
+    q, k, v = _rand(cuda, Sk, (B, Hq, dh), (B, Sk, Hkv, dh),
+                    (B, Sk, Hkv, dh), dtype=dtype)
+    lengths = torch.tensor([Sk - 5], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = ops.decode_attention(q, k, v, lengths)
+    n1 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert n1 - n0 == 1
+    _close(got, ops.decode_attention(q, k, v, lengths, force="ref"), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_recurrentgemma_ring(cuda, dtype):
+    """recurrentgemma_9b's full window ring: one row, 2,048 keys, 16 query
+    heads on one KV head of 256."""
+    q, k, v = _rand(cuda, 2048, (1, 16, 256), (1, 2048, 1, 256),
+                    (1, 2048, 1, 256), dtype=dtype)
+    assert split_plan(2048, 1, 1)[0] > 1
+    lengths = torch.tensor([2048], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lengths)
+    want = ops.decode_attention(q, k, v, lengths, force="ref")
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+
+
 @pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, k, v = _rand(cuda, 2, (1, 8, 4, 64), (1, 8, 2, 64), (1, 8, 2, 64),
@@ -137,6 +253,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     k1, = _rand(cuda, 4, (1, 8, 1, 64), dtype=torch.float32)
     with pytest.raises(ValueError, match="at most"):
         ops.decode_attention(q32, k1, k1, torch.tensor([8], device=cuda))
+
+
+@pytest.mark.gpu
+def test_bf16_flash_refuses_what_the_wgmma_kernel_does_not_take(cuda):
+    """A bf16 CUDA tensor the tensor-core kernel does not take raises; it
+    reaches neither the float32 kernel nor the plain version."""
+    q, k, v = _rand(cuda, 5, (1, 8, 4, 64), (1, 8, 2, 64), (1, 8, 2, 64),
+                    dtype=torch.bfloat16)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q[..., :16].contiguous(),
+                            k[..., :16].contiguous(),
+                            v[..., :16].contiguous())
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = flat[1:].view(q.shape)            # 2 bytes off 16
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(shifted, k, v)
+    assert ops.launches()["flash_attention"] == {"kernel": 0, "plain": 0}
 
 
 @pytest.mark.gpu
