@@ -22,13 +22,16 @@ version on the card first:
 3. The serving path at the full widths of recurrentgemma_9b (RG-LRU,
    RG-LRU, MQA attention with window 2,048, head_dim 256; 38 layers) and
    rwkv6_3b (32 RWKV-6 layers, 40 heads of 64): ``rglru_scan`` and
-   ``rwkv6_scan`` at the prefill width (S = 4,096) and at S = 1, the
-   attention kernels at recurrentgemma's width; each model in float32, a
-   512-token prefill and 8 decode steps, kernels against plain versions
-   (rwkv6_3b also against its scan in float64); each served in bfloat16
-   as in 2; and one 4,096-token bf16 prefill with 16 decode steps on
-   recurrentgemma, which wraps its window-2,048 ring, kernels against
-   plain versions, one kernel at a time and float32.
+   ``rwkv6_scan`` at the prefill width (S = 4,096) and at S = 1 (card
+   time by CUDA-graph replay beside the call time), at B = 2, at widths
+   whose rows are not 16-byte aligned (RG-LRU 700 and 1), float32 at
+   S = 4,096, and with RWKV-6 decays from 0 to 1 at the chunk's edges;
+   the attention kernels at recurrentgemma's width; each model in
+   float32, a 512-token prefill and 8 decode steps, kernels against plain
+   versions (rwkv6_3b also against its scan in float64); each served in
+   bfloat16 as in 2; and for each, one 4,096-token bf16 prefill with 16
+   decode steps (recurrentgemma's wraps its window-2,048 ring), kernels
+   against plain versions, one kernel at a time and float32.
 
 Any failure exits non-zero.  The last lines are the card's name and power
 limit, one JSON object with each kernel's numbers, and
@@ -95,6 +98,16 @@ QWEN3_LAYERS = 28
 # the kernel a decode step launches once for each layer of a kind
 KIND_KERNEL = {"attn": "decode_attention", "rglru": "rglru_scan",
                "rwkv": "rwkv6_scan"}
+# calls of a decode-step kernel captured in one CUDA graph for its card time
+GRAPH_CALLS = 50
+# models whose 4,096-token bf16 long prompt gates kernels against plain
+# versions at BF16_LOGIT_RTOL.  Not rwkv6_3b: with its random weights the
+# bf16 prefill is chaotic at that length (the plain bf16 run lies about
+# the largest |logit| from the plain float32 run, as far as from any run
+# that sums in another order), so the gate could pass only a kernel that
+# sums in the plain version's own order; there the per-call float64 and
+# the float32 witnesses decide (``long_prompt``)
+LOGIT_GATED = {"recurrentgemma_9b"}
 
 
 def card_line() -> str:
@@ -133,10 +146,11 @@ def bucket_tensors(key, host, dev):
     return inp, clk, ctr, static
 
 
-def time_graph(fn, reps: int) -> float:
-    """Milliseconds per call of ``fn`` captured once in a CUDA graph and
-    replayed: the card's time without the host's launch gaps, which set
-    ``time_call`` for a kernel of a few microseconds."""
+def time_graph(fn, reps: int, calls: int = 1) -> float:
+    """Milliseconds per call of ``fn``, ``calls`` calls captured in one CUDA
+    graph and replayed: the card's time without the host's launch gaps,
+    which set ``time_call`` for a kernel of a few microseconds (and with
+    ``calls`` > 1 the graph's own launch spread over its calls)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -144,8 +158,9 @@ def time_graph(fn, reps: int) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return time_call(graph.replay, reps)
+        for _ in range(calls):
+            fn()
+    return time_call(graph.replay, reps) / calls
 
 
 def time_call(fn, reps: int) -> float:
@@ -405,19 +420,37 @@ def check_rglru(B, S, W, dtype, dev, gen, timed=True) -> dict:
         out["bound_ms"], out["bound_by"] = bound(nbytes, 2 * B * S * W,
                                                  torch.float32)
         out["ms"] = time_call(lambda: ops.rglru_scan(a, gx, h0), 20)
+        out["device_ms"] = time_graph(lambda: ops.rglru_scan(a, gx, h0), 20,
+                                      GRAPH_CALLS if S == 1 else 1)
         out["plain_ms"] = time_call(lambda: ops.rglru_scan(
             a, gx, h0, force="ref"), 2)
         out["library_ms"] = None
     return out
 
 
-def check_rwkv6(B, S, H, dh, dtype, dev, gen, timed=True) -> dict:
+def extreme_decays(gen, shape, dev) -> torch.Tensor:
+    """w = exp(-exp(x)), x uniform in [-6, 4] (the model's decay form, from
+    ~1e-24 to ~0.9975), with exact zeros, float32 denormals and exact ones
+    mixed in."""
+    w = torch.exp(-torch.exp(-6.0 + 10.0 * torch.rand(
+        shape, generator=gen, device=dev)))
+    pick = torch.rand(shape, generator=gen, device=dev)
+    w[pick < 0.05] = 0.0
+    w[(pick >= 0.05) & (pick < 0.08)] = 1e-40
+    w[pick >= 0.92] = 1.0
+    return w
+
+
+def check_rwkv6(B, S, H, dh, dtype, dev, gen, timed=True,
+                extreme=False) -> dict:
     """rwkv6_scan against its plain version from a nonzero state; outputs
-    within RWKV6_TOL, the last state within 1e-5 (float32)."""
+    within RWKV6_TOL, the last state within 1e-5 (float32).  Decays in
+    [0.9, 0.999), or from 0 to 1 (``extreme_decays``)."""
     r = randn(gen, (B, S, H, dh), dtype, dev)
     k = randn(gen, (B, S, H, dh), dtype, dev) * 0.2
     v = randn(gen, (B, S, H, dh), dtype, dev) * 0.2
-    w = 0.9 + 0.099 * torch.rand((B, S, H, dh), generator=gen, device=dev)
+    w = (extreme_decays(gen, (B, S, H, dh), dev) if extreme else
+         0.9 + 0.099 * torch.rand((B, S, H, dh), generator=gen, device=dev))
     u = randn(gen, (H, dh), dtype, dev) * 0.1
     s0 = randn(gen, (B, H, dh, dh), torch.float32, dev)
     want = ops.rwkv6_scan(r, k, v, w, u, s0, force="ref")
@@ -426,7 +459,11 @@ def check_rwkv6(B, S, H, dh, dtype, dev, gen, timed=True) -> dict:
     torch.cuda.synchronize()
     if ops.RWKV6_LAUNCHES != k0 + 1:
         raise AssertionError("rwkv6_scan did not launch the kernel")
-    shape = f"B={B} S={S} H={H} dh={dh} {str(dtype)[6:]}"
+    shape = (f"B={B} S={S} H={H} dh={dh} {str(dtype)[6:]}"
+             + (" decays 0..1" if extreme else ""))
+    if not (torch.isfinite(got[0].float()).all()
+            and torch.isfinite(got[1]).all()):
+        raise AssertionError(f"rwkv6_scan {shape}: not finite")
 
     def excess(g, w, tol):
         """max |g - w| and its largest ratio to tol + tol |w|"""
@@ -453,6 +490,9 @@ def check_rwkv6(B, S, H, dh, dtype, dev, gen, timed=True) -> dict:
         out["bound_ms"], out["bound_by"] = bound(
             nbytes, B * S * H * (5 * dh * dh + 5 * dh), torch.float32)
         out["ms"] = time_call(lambda: ops.rwkv6_scan(r, k, v, w, u, s0), 10)
+        out["device_ms"] = time_graph(
+            lambda: ops.rwkv6_scan(r, k, v, w, u, s0), 10,
+            GRAPH_CALLS if S == 1 else 1)
         out["plain_ms"] = time_call(lambda: ops.rwkv6_scan(
             r, k, v, w, u, s0, force="ref"), 1)
         out["library_ms"] = None
@@ -520,27 +560,29 @@ def model_f32(arch, dev) -> dict:
            "argmax_equal": f"{same}/{got.shape[0]}", "wall_s": wall,
            "param_gb": sum(t.numel() for t in _leaves(params)) * 4 / 1e9}
     if any(spec.kind == "rwkv" for spec in cfg.period):
-        out["scan_f64_witness"] = scan_f64_witness(run, got, want)
+        out["scan_f64_witness"] = scan_f64_witness(lambda: run(None), got,
+                                                   want, torch.float32)
     del params
     torch.cuda.empty_cache()
     return out
 
 
-def scan_f64_witness(run, got, want) -> dict:
-    """Where a float32 model's kernel-vs-plain gap comes from when it runs
-    ``rwkv6_scan``.  The model runs once more with every ``rwkv6_scan``
-    call done in float64 (the plain version on float64 copies, rounded
-    back to float32) and everything else as before.  ``per_call``: over
-    the run's calls, the largest distance of the kernel and of the plain
-    version from that float64 scan on the model's own inputs, over the
-    call's largest |out|.  ``logits``: the distance of the kernel run and of
-    the plain run from the float64-scan run.  If each call lies within
-    float32 rounding of float64 and the kernel run about as far as the
-    plain run, the gap between them is float32 rounding of the scan (each
-    sums in its own order) that the model carries to its logits.  Fails
-    if the kernel lies farther than
-    RWKV6_TOL (float32) from the float64 scan in a call, or farther than
-    WITNESS_RATIO times the plain run from the float64-scan run."""
+def scan_f64_witness(run, got, want, dtype) -> dict:
+    """Where a model's kernel-vs-plain gap comes from when it runs
+    ``rwkv6_scan``.  ``run()``, the kernel run returning its logits, runs
+    once more with every ``rwkv6_scan`` call done in float64 (the plain
+    version on float64 copies, rounded back to the model's ``dtype``) and
+    everything else as before.  ``per_call``: over the run's calls, the
+    largest distance of the kernel and of the plain version from that
+    float64 scan on the model's own inputs, over the call's largest |out|.
+    ``logits``: the distance of the kernel run and of the plain run from
+    the float64-scan run.  If each call lies within the dtype's rounding
+    of float64 and the kernel run about as far as the
+    plain run, the gap between them is rounding of the scan (each sums in
+    its own order) that the model carries to its logits.  Fails if the
+    kernel lies farther than RWKV6_TOL[dtype] from the float64 scan in a
+    call, or farther than WITNESS_RATIO times the plain run from the
+    float64-scan run."""
     per_call = {"kernel": 0.0, "plain": 0.0}
 
     def scan64(r, k, v, w, u, s0, *, force=None):
@@ -554,10 +596,10 @@ def scan_f64_witness(run, got, want) -> dict:
         return exact.to(r.dtype), sT.float()
 
     with swapped("rwkv6_scan", scan64) as kernel:
-        wit = run(None)
+        wit = run()
     logits = {"kernel": float((got - wit).abs().max()),
               "plain": float((want - wit).abs().max())}
-    if not (per_call["kernel"] <= RWKV6_TOL[torch.float32]
+    if not (per_call["kernel"] <= RWKV6_TOL[dtype]
             and logits["kernel"] <= WITNESS_RATIO * logits["plain"]):
         raise AssertionError(f"rwkv6_scan against a float64 scan: per call "
                              f"{per_call}, at the logits {logits}")
@@ -753,13 +795,18 @@ def serving_path(dev) -> dict:
     return out
 
 
-def long_prompt(params, cfg, dev, S=4096, n=16) -> dict:
+def long_prompt(params, cfg, dev, S=4096, n=16, gate_logits=True) -> dict:
     """An S-token bf16 prefill and n decode steps through the kernels and
     through the plain versions (fed the kernel run's greedy tokens);
-    logits within BF16_LOGIT_RTOL of the largest |logit|.  With S past
-    recurrentgemma's window of 2,048 its ring wraps in prefill (position s
-    in slot s % 2,048) and every decode step overwrites the oldest slot.
-    ``carriers`` says which kernel carries the gap (``gap_carriers``)."""
+    logits within BF16_LOGIT_RTOL of the largest |logit| where
+    ``gate_logits``.  With S past recurrentgemma's window of 2,048 its
+    ring wraps in prefill (position s in slot s % 2,048) and every decode
+    step overwrites the oldest slot.  ``carriers`` says which kernel
+    carries the gap (``gap_carriers``, which fails a kernel run farther
+    from the float32 run than WITNESS_RATIO times the plain run); a model
+    with RWKV-6 layers also runs ``scan_f64_witness`` (each call and the
+    logits against a float64 scan).  Without ``gate_logits`` the
+    kernel-vs-plain gap is reported, and those two witnesses decide."""
     tokens = torch.randint(0, cfg.vocab, (1, S),
                            generator=torch.Generator().manual_seed(3))
     feed = []
@@ -818,7 +865,7 @@ def long_prompt(params, cfg, dev, S=4096, n=16) -> dict:
                              "finite")
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    if not err <= BF16_LOGIT_RTOL * scale:
+    if gate_logits and not err <= BF16_LOGIT_RTOL * scale:
         raise AssertionError(f"{S}-token prefill + {n} steps: kernels and "
                              f"plain differ by {err} (largest |logit| "
                              f"{scale}, tolerance {BF16_LOGIT_RTOL})")
@@ -826,18 +873,24 @@ def long_prompt(params, cfg, dev, S=4096, n=16) -> dict:
     out |= {"S": S, "decode_steps": n, "ring_slots": sorted(ring),
             "max_abs_err": err, "max_abs_logit": scale,
             "rel_err": err / scale, "rtol": BF16_LOGIT_RTOL,
+            "logits_gated": gate_logits,
             "argmax_equal": f"{same}/{got.shape[0]}"}
-    out["carriers"] = gap_carriers(run, params, cfg, runs)
+    if any(spec.kind == "rwkv" for spec in cfg.period):
+        out["scan_f64_witness"] = scan_f64_witness(
+            lambda: run(params, cfg, None)[0], got, want,
+            torch_dtype(cfg.dtype))
+    out["carriers"] = gap_carriers(run, params, cfg, runs,
+                                   list(out["kernel"]["launches"]))
     torch.cuda.empty_cache()
     return out
 
 
-def gap_carriers(run, params, cfg, runs) -> dict:
+def gap_carriers(run, params, cfg, runs, names) -> dict:
     """Which kernel carries the kernel-vs-plain gap of ``long_prompt``.
-    The kernel run once more for each kernel of the path with that one
-    kernel swapped to its plain version, and the plain versions in float32
-    on the same weights (the bf16 weights widened, exactly), a yardstick
-    with little rounding.  For each bf16 run: its distance from the plain
+    The kernel run once more for each kernel of the path (``names``) with
+    that one kernel swapped to its plain version, and the plain versions
+    in float32 on the same weights (the bf16 weights widened, exactly), a
+    yardstick with little rounding.  For each bf16 run: its distance from the plain
     run and from the float32 run, over the largest |logit| of the plain
     run, at the prefill's logits and over the decode steps.  Fails if the
     kernel run lies farther than WITNESS_RATIO times the plain run from
@@ -853,7 +906,7 @@ def gap_carriers(run, params, cfg, runs) -> dict:
             return {k: widen(v) for k, v in tree.items()}
         return tree.float()
 
-    for name in ("flash_attention", "decode_attention", "rglru_scan"):
+    for name in names:
         with swapped(name, plain_version(name)):
             runs[f"{name} plain"] = run(params, cfg, None)[0]
     params32 = widen(params)
@@ -871,14 +924,13 @@ def gap_carriers(run, params, cfg, runs) -> dict:
 
 def recurrent_serving(arch, dev) -> dict:
     """``arch``'s serving main path (``serving_burst``), its decode-step
-    breakdown, and for recurrentgemma the 4,096-token prefill of
-    ``long_prompt``."""
+    breakdown, and the 4,096-token prefill of ``long_prompt``."""
     out, eps = serving_burst(arch, dev)
     params, cfg = eps[0].params, eps[0].cfg
     del eps         # the batch endpoint's weights: room for a float32 copy
     torch.cuda.empty_cache()
-    if arch == "recurrentgemma_9b":
-        out["long_prompt"] = long_prompt(params, cfg, dev)
+    out["long_prompt"] = long_prompt(params, cfg, dev,
+                                     gate_logits=arch in LOGIT_GATED)
     out["step"] = decode_step_time(params, cfg, dev)
     del params
     torch.cuda.empty_cache()
@@ -1038,16 +1090,28 @@ def main() -> int:
     # -- 5. the recurrence kernels vs plain on the card --------------------
     # recurrentgemma_9b's RG-LRU width (4,096) and rwkv6_3b's heads (40 of
     # 64), at the prefill length of 4,096 and at one decode step
+    # (B = 2, widths whose rows are not 16-byte aligned, decays from 0 to
+    # 1 at the edges of rwkv6_scan's chunks, float32 at S = 4,096)
+    C = rwkv6_mod.CHUNK
     rg = {
         "prefill_4k": check_rglru(1, 4096, 4096, bf, dev, gen),
         "decode": check_rglru(1, 1, 4096, bf, dev, gen),
         "f32_odd": check_rglru(3, 333, 1000, f32, dev, gen, timed=False),
         "slots": check_rglru(2, 1, 4096, bf, dev, gen, timed=False),
+        "b2_4k": check_rglru(2, 4096, 4096, bf, dev, gen, timed=False),
+        "w700": check_rglru(1, 4096, 700, bf, dev, gen, timed=False),
+        "w1": check_rglru(1, 4096, 1, bf, dev, gen, timed=False),
     }
     rw = {
         "prefill_4k": check_rwkv6(1, 4096, 40, 64, bf, dev, gen),
         "decode": check_rwkv6(1, 1, 40, 64, bf, dev, gen),
         "f32_odd": check_rwkv6(2, 77, 40, 64, f32, dev, gen, timed=False),
+        "f32_prefill_4k": check_rwkv6(1, 4096, 40, 64, f32, dev, gen),
+        **{f"extreme_{S}": check_rwkv6(2, S, 40, 64, f32, dev, gen,
+                                       timed=False, extreme=True)
+           for S in (C - 1, C, C + 1, 4096)},
+        "extreme_4096_bf16": check_rwkv6(2, 4096, 40, 64, bf, dev, gen,
+                                         timed=False, extreme=True),
     }
     for case, r in rg.items():
         print(f"rglru_scan vs plain [{case}]: " + json.dumps(r), flush=True)
@@ -1073,6 +1137,12 @@ def main() -> int:
     print(f"recurrentgemma_9b bf16, {lp['S']}-token prefill (ring of "
           f"{lp['ring_slots']} slots) + {lp['decode_steps']} decode steps, "
           f"kernels vs plain versions: " + json.dumps(lp), flush=True)
+    lpw = rec["rwkv6_3b"]["long_prompt"]
+    print(f"rwkv6_3b bf16, {lpw['S']}-token prefill + "
+          f"{lpw['decode_steps']} decode steps, kernels vs plain versions: "
+          f"prefill_ms {lpw['kernel']['prefill_ms']:.3f} (plain "
+          f"{lpw['plain']['prefill_ms']:.3f}); " + json.dumps(lpw),
+          flush=True)
 
     # kernel launches of each serving path, by kernel
     paths = {
@@ -1084,6 +1154,7 @@ def main() -> int:
         "recurrentgemma_9b 4096-token prefill + 16 steps":
             lp["kernel"]["launches"],
         "rwkv6_3b burst": rec["rwkv6_3b"]["launches"],
+        "rwkv6_3b 4096-token prefill + 16 steps": lpw["kernel"]["launches"],
     }
 
     def by_path(name):
@@ -1099,9 +1170,12 @@ def main() -> int:
                "ms": main["ms"], "plain_ms": main["plain_ms"],
                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                "library_ms": main["library_ms"], "shape": main["shape"]}
+        if "device_ms" in main:
+            out["device_ms"] = main["device_ms"]
         for side_name, r in side.items():
             out |= {f"{side_name}_{k}": r[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+                "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                "library_ms") if k in r}
         return out
 
     flash_row = row("flash_attention", fl["prefill_4k"],
@@ -1122,7 +1196,8 @@ def main() -> int:
             "src/repro/kernels/decode_attention.py:27", dec),
         row("rglru_scan", rg["prefill_4k"], {"decode": rg["decode"]},
             "src/repro/kernels/rglru_scan.py:23", rg),
-        row("rwkv6_scan", rw["prefill_4k"], {"decode": rw["decode"]},
+        row("rwkv6_scan", rw["prefill_4k"],
+            {"decode": rw["decode"], "f32": rw["f32_prefill_4k"]},
             "src/repro/kernels/rwkv6_scan.py:27", rw),
     ]
     print(card)

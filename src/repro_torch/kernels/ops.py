@@ -10,8 +10,11 @@ plain version: ``KERNEL_LAUNCHES`` / ``REF_LAUNCHES`` for ``event_step``,
 ``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
 ``DECODE_REF_LAUNCHES`` for the attention kernels, ``RGLRU_LAUNCHES`` /
 ``RGLRU_REF_LAUNCHES`` and ``RWKV6_LAUNCHES`` / ``RWKV6_REF_LAUNCHES`` for
-the recurrences.  A caller sets them to 0 before a run
-(``reset_launches``) and reads them after it (``launches``).
+the recurrences.  A count is one per call of the wrapper, however many
+kernels the call launches (``decode_attention`` a split and a merge
+kernel, ``rwkv6_scan`` three chunked passes at S > 16).  A caller sets
+them to 0 before a run (``reset_launches``) and reads them after it
+(``launches``).
 """
 
 from __future__ import annotations

@@ -7,7 +7,10 @@ gx_t`` per channel with h carried in float32, as the Pallas kernel carries
 it.  (The JAX model's own ``layers.rglru_scan`` carries h in the model
 dtype and rounds it every step; in float32 the two are the same.)  Any S,
 S = 1 included, and any W: the Pallas kernel's block asserts are not
-carried over.
+carried over.  The CUDA side has two kernels: a direct one for a decode
+step or a short prompt (S <= ``DIRECT_MAX_S``) and one that stages time
+tiles through shared memory for longer runs; both take the same float32
+steps as the plain version.
 """
 
 from __future__ import annotations
@@ -17,6 +20,10 @@ import ctypes
 import torch
 
 from ._operand import DTYPE_CODE, check_operand
+
+# S at or below which the direct kernel runs (its U = 8 steps of loads in
+# one round trip), above it the staged kernel
+DIRECT_MAX_S = 8
 
 _fn = None
 
@@ -38,7 +45,7 @@ def _lib():
         from .build import load
 
         fn = load("rglru_scan").rglru_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -46,7 +53,8 @@ def _lib():
 
 
 def rglru_scan_cuda(a, gx, h0):
-    """Launch ``csrc/rglru_scan.cu`` on the current stream."""
+    """Launch ``csrc/rglru_scan.cu`` on the current stream: the direct
+    kernel for S <= ``DIRECT_MAX_S``, else the staged one."""
     if a.device.type != "cuda":
         raise ValueError(f"a is on {a.device}, the kernel needs CUDA")
     if a.dtype not in DTYPE_CODE:
@@ -64,7 +72,8 @@ def rglru_scan_cuda(a, gx, h0):
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), gx.data_ptr(), h0.data_ptr(), hs.data_ptr(),
-                 hT.data_ptr(), B, S, W, DTYPE_CODE[a.dtype], stream)
+                 hT.data_ptr(), B, S, W, DTYPE_CODE[a.dtype],
+                 int(S <= DIRECT_MAX_S), stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")

@@ -19,6 +19,12 @@ Tolerances:
   Pallas kernels, so bfloat16 is held to them.
 - the oracle ``rwkv6_ref`` is the only JAX function that takes a state s0
   and returns sT, so a nonzero s0 and sT are held to it (float32, 1e-5).
+- ``TestChunkedAlgebra``: a plain mirror of the CUDA kernel's chunked
+  passes (``_chunked_rwkv6``) against ``rwkv6_scan_ref`` in float64 within
+  1e-10 (the same function summed in another order: float64 rounding), and
+  against ``rwkv6_scan_ref`` and ``ref.rwkv6_ref`` in float32 within 1e-5,
+  ``chip_smoke.py``'s float32 ``RWKV6_TOL``.  ``ref.rwkv6_ref`` casts to
+  float32 inside, so it is not a float64 yardstick.
 """
 
 import jax.numpy as jnp
@@ -34,7 +40,7 @@ from repro.kernels.rwkv6_scan import rwkv6_scan as pallas_rwkv6
 from repro.models import layers as JL
 from repro_torch.kernels import ops
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_ref
 from repro_torch.models import layers as TL
 
 ORACLE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -211,6 +217,118 @@ class TestRWKV6:
         torch.testing.assert_close(torch.cat(outs, 1), whole, rtol=1e-6,
                                    atol=1e-6)
         torch.testing.assert_close(s, sT, rtol=1e-6, atol=1e-6)
+
+
+def _chunked_rwkv6(r, k, v, w, u, s0, C):
+    """The chunked passes of ``csrc/rwkv6_scan.cu`` in plain PyTorch, chunk
+    length C, in float32 (float64 for float64 inputs).  Decays are only
+    multiplied, as in the kernel.
+
+    A, per chunk c: D_c = prod_{tau in c} w_tau and K_c = sum_s (k_s *
+    prod_{tau in c, tau > s} w_tau) v_s^T, by a running product backwards.
+    B: S_{c+1} = D_c S_c + K_c from s0, each chunk's start state kept.
+    C: out_t = (r_t * P_t) S_c + sum_{s <= t} A[t, s] v_s, P_t = prod_{tau
+    in c, tau < t} w_tau by a running product forwards, A[t, s] (s < t) =
+    r_t . (k_s * prod_{s < tau < t} w_tau) by a running product over t for
+    each s, and A[t, t] the bonus r_t . (u * k_t)."""
+    B, S, H, dh = r.shape
+    acc = torch.promote_types(r.dtype, torch.float32)
+    rf, kf, vf, wf = (x.to(acc) for x in (r, k, v, w))
+    uf = u.to(acc)
+    bounds = [(c, min(S, c + C)) for c in range(0, S, C)]
+    decays, sums = [], []
+    for lo, hi in bounds:                                   # pass A
+        g = torch.ones(B, H, dh, dtype=acc)
+        kd = torch.empty_like(kf[:, lo:hi])
+        for s in reversed(range(hi - lo)):
+            kd[:, s] = kf[:, lo + s] * g
+            g = g * wf[:, lo + s]
+        decays.append(g)
+        sums.append(torch.einsum("bshi,bshj->bhij", kd, vf[:, lo:hi]))
+    st = s0.to(acc).clone()
+    starts = []
+    for d, kc in zip(decays, sums):                         # pass B
+        starts.append(st)
+        st = d[..., None] * st + kc
+    out = torch.empty_like(r)
+    for (lo, hi), sc in zip(bounds, starts):                # pass C
+        rc, kc, vc, wc = (x[:, lo:hi] for x in (rf, kf, vf, wf))
+        n = hi - lo
+        A = torch.zeros(B, H, n, n, dtype=acc)
+        q = torch.zeros_like(kc)
+        p = torch.ones(B, H, dh, dtype=acc)
+        rp = torch.empty_like(rc)
+        for t in range(n):
+            if t:
+                A[:, :, t, :t] = torch.einsum("bhi,bshi->bhs", rc[:, t],
+                                              q[:, :t])
+                q[:, :t] = q[:, :t] * wc[:, t, None]
+            q[:, t] = kc[:, t]
+            A[:, :, t, t] = (rc[:, t] * uf * kc[:, t]).sum(-1)
+            rp[:, t] = rc[:, t] * p
+            p = p * wc[:, t]
+        o = (torch.einsum("bthi,bhij->bthj", rp, sc)
+             + torch.einsum("bhts,bshj->bthj", A, vc))
+        out[:, lo:hi] = o.to(r.dtype)
+    return out, st
+
+
+def _extreme_decays(rng, shape):
+    """w = exp(-exp(x)), x uniform in [-6, 4] (w from ~1e-24 to ~0.9975),
+    with exact zeros, float32 denormals and exact ones mixed in."""
+    w = np.exp(-np.exp(rng.uniform(-6.0, 4.0, shape))).astype(np.float32)
+    pick = rng.random(shape)
+    w[pick < 0.05] = 0.0
+    w[(pick >= 0.05) & (pick < 0.08)] = np.float32(1e-40)
+    w[pick >= 0.92] = 1.0
+    return w
+
+
+def _chunk_cases():
+    cases = []
+    for C in (1, 16, 64):
+        for S in sorted({1, C - 1, C, C + 1, 3 * C + 5}):
+            cases.append((C, S))
+    return cases
+
+
+class TestChunkedAlgebra:
+    """The chunked form the CUDA kernel computes, held to the step-by-step
+    recurrence on the CPU, from a nonzero state, with decays from 0 to 1
+    (zeros, denormals and ones included)."""
+
+    @staticmethod
+    def _inputs(seed, B, S, H, dh):
+        rng = np.random.default_rng(seed)
+        r = rng.standard_normal((B, S, H, dh)).astype(np.float32)
+        k = (0.2 * rng.standard_normal((B, S, H, dh))).astype(np.float32)
+        v = (0.2 * rng.standard_normal((B, S, H, dh))).astype(np.float32)
+        w = _extreme_decays(rng, (B, S, H, dh))
+        u = (0.1 * rng.standard_normal((H, dh))).astype(np.float32)
+        s0 = rng.standard_normal((B, H, dh, dh)).astype(np.float32)
+        return r, k, v, w, u, s0
+
+    @pytest.mark.parametrize("C,S", _chunk_cases())
+    def test_float64_matches_the_recurrence(self, C, S):
+        ins = [torch.from_numpy(x).double()
+               for x in self._inputs(100 + S, 2, S, 3, 16)]
+        out, sT = _chunked_rwkv6(*ins, C)
+        wout, wsT = rwkv6_scan_ref(*ins)
+        assert out.dtype == sT.dtype == torch.float64
+        torch.testing.assert_close(out, wout, rtol=1e-10, atol=1e-10)
+        torch.testing.assert_close(sT, wsT, rtol=1e-10, atol=1e-10)
+
+    @pytest.mark.parametrize("C,S", _chunk_cases())
+    def test_float32_matches_plain_and_oracle(self, C, S):
+        np_ins = self._inputs(200 + S, 2, S, 3, 16)
+        ins = [torch.from_numpy(x) for x in np_ins]
+        out, sT = _chunked_rwkv6(*ins, C)
+        wout, wsT = rwkv6_scan_ref(*ins)
+        torch.testing.assert_close(out, wout, **ORACLE_TOL)
+        torch.testing.assert_close(sT, wsT, **ORACLE_TOL)
+        eout, esT = ref.rwkv6_ref(*(jnp.asarray(x) for x in np_ins))
+        np.testing.assert_allclose(_np(out), _np(eout), **ORACLE_TOL)
+        np.testing.assert_allclose(_np(sT), _np(esT), **ORACLE_TOL)
 
 
 class TestWideAttention:

@@ -15,6 +15,12 @@ Tolerances:
   version's einsum), and 2e-2 in bfloat16 on outputs (the same float32
   values rounded to bf16 may land one ulp apart), the tolerance
   ``tests/test_kernels.py`` uses for bf16 kernels.
+
+Both kernels have two paths (``rglru_scan.DIRECT_MAX_S``,
+``rwkv6_scan.DIRECT_MAX_S``; rwkv6's chunks of ``rwkv6_scan.CHUNK``
+steps): the cases below take each path, its edges (tile and chunk
+boundaries, one past the direct path), rows that are not 16-byte aligned
+(RG-LRU widths 700 and 1), and RWKV-6 decays from 0 to 1.
 """
 
 import dataclasses
@@ -24,6 +30,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6_scan as rwkv6_mod
 from repro_torch.models import decode_step, init, init_cache, prefill
 from repro_torch.models import scale_down
 
@@ -71,6 +78,14 @@ def _rwkv6_inputs(cuda, seed, B, S, H, dh, dtype, state=False):
     (3, 100, 700),       # B > 1, W not a multiple of 128
     (2, 1, 4096),        # one decode step
     (1, 13, 1),          # one channel
+    (2, 4096, 4096),     # recurrentgemma's prefill width, B = 2
+    (1, 4096, 700),      # rows not 16-byte aligned in bf16
+    (1, 300, 1),         # one channel past the direct path
+    (1, 8, 700),         # the direct path's last S
+    (1, 9, 700),         # the staged path's first S
+    (3, 129, 333),       # one past a bf16 tile (128 steps), odd width
+    (2, 65, 96),         # one past a float32 tile (64 steps)
+    (1, 1000, 4100),     # a last block of 4 channels
 ])
 def test_rglru_matches_plain(cuda, B, S, W, dtype):
     a, gx, h0 = _rglru_inputs(cuda, S + W, B, S, W, dtype)
@@ -93,6 +108,15 @@ def test_rglru_matches_plain(cuda, B, S, W, dtype):
     (3, 1, 40, 64, True),       # one decode step, B > 1
     (2, 33, 3, 16, True),       # small heads (the scaled-down models)
     (1, 20, 2, 128, True),      # wide heads
+    (1, 16, 40, 64, True),      # the direct path's last S
+    (1, 17, 40, 64, True),      # the chunked path's first S
+    (2, 63, 40, 64, True),      # one chunk short of 64 steps
+    (2, 64, 40, 64, True),      # one chunk
+    (2, 65, 40, 64, True),      # one step into a second chunk
+    (2, 4096, 40, 64, True),    # rwkv6_3b's prefill width, B = 2
+    (2, 100, 3, 16, True),      # chunked, every head size
+    (1, 150, 4, 32, True),
+    (1, 130, 2, 128, True),
 ])
 def test_rwkv6_matches_plain(cuda, B, S, H, dh, state, dtype):
     r, k, v, w, u, s0 = _rwkv6_inputs(cuda, S + H, B, S, H, dh, dtype,
@@ -111,6 +135,66 @@ def test_rwkv6_matches_plain(cuda, B, S, H, dh, state, dtype):
     torch.testing.assert_close(sT, wsT, rtol=1e-5, atol=1e-5)
     if s0 is not None:
         assert torch.equal(s0, before)              # s0 is not written
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", [1, 16, 63, 64, 65, 4096])
+def test_rwkv6_decay_extremes(cuda, S, dtype):
+    """w = exp(-exp(x)), x uniform in [-6, 4], with exact zeros, float32
+    denormals and exact ones mixed in (the model's decay can reach each):
+    a chunked form that divided decays would give 0/0 or inf here."""
+    B, H, dh = 2, 40, 64
+    r, k, v, _, u, s0 = _rwkv6_inputs(cuda, 1000 + S, B, S, H, dh, dtype,
+                                      True)
+    g = _gen(cuda, 2000 + S)
+    w = torch.exp(-torch.exp(-6.0 + 10.0 * torch.rand(
+        B, S, H, dh, generator=g, device=cuda)))
+    pick = torch.rand(B, S, H, dh, generator=g, device=cuda)
+    w[pick < 0.05] = 0.0
+    w[(pick >= 0.05) & (pick < 0.08)] = 1e-40
+    w[pick >= 0.92] = 1.0
+    out, sT = ops.rwkv6_scan(r, k, v, w, u, s0)
+    wout, wsT = ops.rwkv6_scan(r, k, v, w, u, s0, force="ref")
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(sT).all()
+    tol = RWKV6_TOL[dtype]
+    torch.testing.assert_close(out.float(), wout.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(sT, wsT, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16,
+                                     torch.float16])
+@pytest.mark.parametrize("S", [1, 100])
+def test_rwkv6_u_in_any_float_dtype(cuda, S, u_dtype):
+    """The kernels read u in r's dtype or float32; another dtype is cast to
+    float32 first.  Both paths, bf16 r, k, v."""
+    r, k, v, w, u, s0 = _rwkv6_inputs(cuda, 11 + S, 1, S, 40, 64,
+                                      torch.bfloat16, True)
+    u = u.float().to(u_dtype)
+    out, sT = ops.rwkv6_scan(r, k, v, w, u, s0)
+    wout, wsT = ops.rwkv6_scan(r, k, v, w, u, s0, force="ref")
+    torch.cuda.synchronize()
+    tol = RWKV6_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), wout.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(sT, wsT, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_rwkv6_paths_meet_at_the_threshold(cuda):
+    """One more step than the direct path takes runs the chunked path; the
+    two agree on the steps they share."""
+    S = rwkv6_mod.DIRECT_MAX_S
+    r, k, v, w, u, s0 = _rwkv6_inputs(cuda, 7, 1, S + 1, 40, 64,
+                                      torch.float32, True)
+    long_out, _ = ops.rwkv6_scan(r, k, v, w, u, s0)
+    short = [x[:, :S].contiguous() for x in (r, k, v, w)]
+    short_out, _ = ops.rwkv6_scan(*short, u, s0)
+    torch.testing.assert_close(long_out[:, :S], short_out, rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,174 @@
+"""Card times of the port's two recurrence kernels, to compare two trees.
+
+    python3 tools/scan_bench.py [--src DIR] [--profile]
+
+Imports ``repro_torch`` from DIR (default: the ``src`` of the checkout
+this script is in), builds its kernels, and prints one JSON line per case
+with the kernel's time by CUDA events over back-to-back calls (``ms``) and
+by CUDA-graph replay (``card_ms``: the card's time without the host's
+launch gaps, which set ``ms`` at S = 1), each case's least time on the
+card (``bound_ms``, as ``chip_smoke.py`` counts it) and the largest
+|kernel - plain| of one call.  The cases are recurrentgemma_9b's RG-LRU
+width and rwkv6_3b's heads at the 4,096-token prefill and at one decode
+step (B = 1 and the engine's 2 slots).  ``--profile`` adds each launched
+kernel's device time from ``torch.profiler``.  At S = 1,
+``card_ms`` is the time a call of 50 captured in one graph.  Run it once
+per tree in one call (parent, change, change, parent) to compare them on
+one card; the first line is the card's name and power limit.  Exits 1
+without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
+FP32_OPS_S = 67e12        # H100 SXM float32 rate outside the tensor cores
+
+
+def time_call(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def time_graph(fn, reps: int, calls: int = 1) -> float:
+    """Milliseconds per call of ``fn``, ``calls`` calls captured in one CUDA
+    graph and replayed ``reps`` times: no host launch gaps, and the graph's
+    own launch spread over ``calls`` calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_call(graph.replay, reps) / calls
+
+
+def kernel_times(fn, reps: int = 5) -> dict:
+    """Device milliseconds per call of each CUDA kernel ``fn`` launches,
+    from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "device_time_total", None)
+        if t is None:
+            t = getattr(evt, "cuda_time_total", 0)
+        if t:
+            out[evt.key[:60]] = t / reps / 1e3
+    return out
+
+
+def bound_ms(nbytes: float, flops: float) -> float:
+    return max(nbytes / HBM_BYTES_S, flops / FP32_OPS_S) * 1e3
+
+
+def rglru_case(ops, B, S, W, dtype, gen, reps):
+    dev = "cuda"
+    a = (0.8 + 0.199 * torch.rand((B, S, W), generator=gen,
+                                  device=dev)).to(dtype)
+    gx = (0.1 * torch.randn((B, S, W), generator=gen, device=dev)).to(dtype)
+    h0 = (0.1 * torch.randn((B, W), generator=gen, device=dev)).to(dtype)
+    got = ops.rglru_scan(a, gx, h0)
+    want = ops.rglru_scan(a, gx, h0, force="ref")
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    es = a.element_size()
+    fn = lambda: ops.rglru_scan(a, gx, h0)  # noqa: E731
+    return {"kernel": "rglru_scan",
+            "shape": f"B={B} S={S} W={W} {str(dtype)[6:]}",
+            "ms": time_call(fn, reps),
+            "card_ms": time_graph(fn, reps, 1 if S > 1 else 50),
+            "bound_ms": bound_ms(3 * B * S * W * es + 2 * B * W * es,
+                                 2 * B * S * W),
+            "max_abs_err": err, "fn": fn}
+
+
+def rwkv6_case(ops, B, S, H, dh, dtype, gen, reps):
+    dev = "cuda"
+    r = torch.randn((B, S, H, dh), generator=gen, device=dev).to(dtype)
+    k = (0.2 * torch.randn((B, S, H, dh), generator=gen,
+                           device=dev)).to(dtype)
+    v = (0.2 * torch.randn((B, S, H, dh), generator=gen,
+                           device=dev)).to(dtype)
+    w = 0.9 + 0.099 * torch.rand((B, S, H, dh), generator=gen, device=dev)
+    u = (0.1 * torch.randn((H, dh), generator=gen, device=dev)).to(dtype)
+    s0 = torch.randn((B, H, dh, dh), generator=gen, device=dev)
+    got = ops.rwkv6_scan(r, k, v, w, u, s0)
+    want = ops.rwkv6_scan(r, k, v, w, u, s0, force="ref")
+    err = float((got[0].float() - want[0].float()).abs().max())
+    es = r.element_size()
+    n = B * S * H * dh
+    fn = lambda: ops.rwkv6_scan(r, k, v, w, u, s0)  # noqa: E731
+    return {"kernel": "rwkv6_scan",
+            "shape": f"B={B} S={S} H={H} dh={dh} {str(dtype)[6:]}",
+            "ms": time_call(fn, reps),
+            "card_ms": time_graph(fn, reps, 1 if S > 1 else 50),
+            "bound_ms": bound_ms(
+                4 * n * es + 4 * n + H * dh * es + 2 * B * H * dh * dh * 4,
+                B * S * H * (5 * dh * dh + 5 * dh)),
+            "max_abs_err": err, "fn": fn}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
+                                         / "src"))
+    ap.add_argument("--profile", action="store_true",
+                    help="add each kernel's device time at S > 1 "
+                         "(torch.profiler)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("scan_bench: no CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, args.src)
+    from repro_torch.kernels import ops
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("prefill_4k", rglru_case, (1, 4096, 4096, bf), 20),
+        ("decode", rglru_case, (1, 1, 4096, bf), 200),
+        ("slots", rglru_case, (2, 1, 4096, bf), 200),
+        ("prefill_4k", rwkv6_case, (1, 4096, 40, 64, bf), 10),
+        ("f32_prefill_4k", rwkv6_case, (1, 4096, 40, 64, f32), 10),
+        ("decode", rwkv6_case, (1, 1, 40, 64, bf), 200),
+        ("slots", rwkv6_case, (2, 1, 40, 64, bf), 200),
+    ]
+    for name, case, shape, reps in cases:
+        out = case(ops, *shape, gen, reps)
+        fn = out.pop("fn")
+        if args.profile and shape[1] > 1:
+            out["kernels_ms"] = kernel_times(fn)
+        out = {"src": args.src, "case": name} | out
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
