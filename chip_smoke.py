@@ -31,7 +31,9 @@ version on the card first:
    versions (rwkv6_3b also against its scan in float64); each served in
    bfloat16 as in 2; and for each, one 4,096-token bf16 prefill with 16
    decode steps (recurrentgemma's wraps its window-2,048 ring), kernels
-   against plain versions, one kernel at a time and float32.
+   against plain versions, one kernel at a time and float32; rwkv6_3b's
+   logits are gated on its first layer alone (RWKV6_GATED_LAYERS) at
+   RWKV6_GATED_S tokens instead.
 
 Any failure exits non-zero.  The last lines are the card's name and power
 limit, one JSON object with each kernel's numbers, and
@@ -108,6 +110,14 @@ GRAPH_CALLS = 50
 # sums in the plain version's own order; there the per-call float64 and
 # the float32 witnesses decide (``long_prompt``)
 LOGIT_GATED = {"recurrentgemma_9b"}
+# rwkv6_3b's logits are gated where its plain bf16 run stays within
+# BF16_LOGIT_RTOL of its plain float32 run on the card
+# (tools/rwkv6_horizon.py): at no prompt length with all 32 layers (even one
+# token lies ~1 of the largest |logit| away: the gap grows with depth, not
+# length), and at every length up to 4,096 with its first layer.  So the
+# gated run is rwkv6_3b cut to RWKV6_GATED_LAYERS at RWKV6_GATED_S tokens.
+RWKV6_GATED_LAYERS = 1
+RWKV6_GATED_S = 4096
 
 
 def card_line() -> str:
@@ -117,17 +127,19 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def mega_bucket(policy: str, n_cells: int, seed0: int = 0):
+def mega_bucket(policy: str, n_cells: int, seed0: int = 0, nodes: int = 4,
+                cores: int = 8):
     """Host inputs of a real mega-grid bucket: intensity 30 on 4 nodes x 8
-    cores, bursts sized for 16 cores (n_b = 1024)."""
+    cores (or ``nodes`` x ``cores``), bursts sized for 16 cores (n_b =
+    1024)."""
     cells = []
     for s in range(seed0, seed0 + n_cells):
-        c = sweep.SweepCell(policy=policy, nodes=4, cores=8, intensity=30,
-                            seed=s, workload_cores=16)
+        c = sweep.SweepCell(policy=policy, nodes=nodes, cores=cores,
+                            intensity=30, seed=s, workload_cores=16)
         reqs = sweep.make_workload(c)
         cells.append(fastpath._ScanCell(
             requests=reqs, feats=fastpath._arrival_features(reqs),
-            cores=8, nodes=4, policy=policy))
+            cores=cores, nodes=nodes, policy=policy))
     keys = {c.bucket() for c in cells}
     if len(keys) != 1:
         raise AssertionError(f"cells span several bucket shapes: {keys}")
@@ -177,27 +189,28 @@ def time_call(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def needed_bytes(cells, f_len: int, i_len: int, use_fc: bool) -> int:
+def needed_bytes(cells, f_len: int, i_len: int) -> int:
     """Bytes the scan of ``cells`` must move, each read once and each write
     once, counted from each cell's own size rather than the bucket's padded
-    one.  A cell of ``n`` calls over ``F`` functions reads its carry planes,
-    rows ``[:n+1]`` of t / fnid / p / cost (row ``n`` is the +inf tail and
-    the no-op index), the ``(n+1) x F`` counts it looks up with FC (none
-    without), the ``n`` queue entries of ``fn_ev``, four coefficients,
-    cores and nodes, and writes rows ``[:n]`` of the four outputs."""
+    one.  A cell of ``n`` calls reads its carry planes, rows ``[:n+1]`` of
+    t / fnid / p / cost (row ``n`` is the +inf tail and the no-op index),
+    the ``n`` queue entries of ``fn_ev``, four coefficients, cores and
+    nodes, and writes rows ``[:n]`` of the four outputs.  The FC counts
+    ``cumf`` are not among them: the kernel counts the FC window from t and
+    fnid and does not read them."""
     total = 0
     for c in cells:
-        n, n_fns = len(c.feats.t), len(c.feats.fns)
+        n = len(c.feats.t)
         total += 4 * (f_len + i_len + 4 * (n + 1) + n + 4 + 2 + 4 * n)
-        if use_fc:
-            total += 4 * (n + 1) * n_fns
     return total
 
 
-def check_kernel(policy: str, n_cells: int, dev, timed: bool) -> dict:
+def check_kernel(policy: str, n_cells: int, dev, timed: bool,
+                 **shape) -> dict:
     """Kernel against the plain version on the card: rows [:n_b] of all
-    four outputs must be bit-identical."""
-    key, cells, host = mega_bucket(policy, n_cells)
+    four outputs must be bit-identical.  ``shape``: ``nodes`` / ``cores``
+    of the bucket (``mega_bucket``)."""
+    key, cells, host = mega_bucket(policy, n_cells, **shape)
     inp, clk, ctr, static = bucket_tensors(key, host, dev)
     n_b = key[1]
     ref = ops.event_step(clk, ctr, inp, force="ref", **static)
@@ -221,14 +234,20 @@ def check_kernel(policy: str, n_cells: int, dev, timed: bool) -> dict:
         if not (np.isfinite(fin[b, :n]).all() and (fin[b, :n] > 0).all()):
             raise AssertionError(f"cell {b} has unfinished requests")
     out = {"policy": policy, "cells": len(cells), "bsz": int(clk.shape[0]),
-           "n_b": n_b, "max_abs_err": err}
+           "n_b": n_b, "max_abs_err": err,
+           "plan": ops.event_step_plan(
+               n1=n_b + 1, n_nodes=static["n_nodes"],
+               n_slots=static["n_slots"], n_fns=key[4],
+               window=static["window"])}
     if timed:
         out["ms"] = time_call(lambda: ops.event_step(
             clk, ctr, inp, **static), reps=20)
+        # one event a step: the longest cell takes 2 n steps
+        steps = 2 * max(n_real)
+        out["ns_per_step"] = out["ms"] * 1e6 / steps
         out["plain_ms"] = time_call(lambda: ops.event_step(
             clk, ctr, inp, force="ref", **static), reps=1)
-        moved = needed_bytes(cells, int(clk.shape[1]), int(ctr.shape[1]),
-                             static["use_fc"])
+        moved = needed_bytes(cells, int(clk.shape[1]), int(ctr.shape[1]))
         # floating-point operations this data needs: 2 n events per cell;
         # per event a ring update (2) and the dispatch (3), and per queued
         # function its estimate and priority (6, 9 with FC counts)
@@ -242,6 +261,7 @@ def check_kernel(policy: str, n_cells: int, dev, timed: bool) -> dict:
         wclk, wctr = clk.repeat(16, 1), ctr.repeat(16, 1)
         out["ms_4096"] = time_call(lambda: ops.event_step(
             wclk, wctr, wide, **static), reps=5)
+        out["ns_per_step_4096"] = out["ms_4096"] * 1e6 / steps
         out["bytes"] = moved
         out["operations"] = ops_n
         t_bytes = moved / HBM_BYTES_S * 1e3
@@ -250,6 +270,29 @@ def check_kernel(policy: str, n_cells: int, dev, timed: bool) -> dict:
         out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         out["bound_ms_4096"] = 16 * out["bound_ms"]
     return out
+
+
+def main_sweep(seeds: int, dev):
+    """The sweep's main path: ``run_cells_scan(metrics_only=True)`` over the
+    mega grid's axes cut to ``seeds`` seeds, the event_step counts set to 0
+    just before it and read just after.  Returns (cells, rows, wall s,
+    timings, kernel launches, plain launches)."""
+    spec = sweep.SweepSpec(policies=("fifo", "sept", "eect", "rect", "fc"),
+                           nodes=(2, 4), cores=(8,),
+                           intensities=(10, 15, 20, 25, 30),
+                           seeds=seeds, workload_cores=16)
+    cells = spec.cells()
+    timings: dict = {}
+    ops.KERNEL_LAUNCHES = 0
+    ops.REF_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = sweep.run_cells_scan(cells, metrics_only=True, device=dev,
+                                timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (cells, rows, wall, timings, ops.KERNEL_LAUNCHES,
+            ops.REF_LAUNCHES)
 
 
 def plain_rows(cells, dev) -> list[dict]:
@@ -567,6 +610,22 @@ def model_f32(arch, dev) -> dict:
     return out
 
 
+def cut_depth(params, cfg, layers: int):
+    """``params`` and ``cfg`` of a model whose period is one layer (as
+    rwkv6_3b's), cut to its first ``layers`` layers: the groups' stacked
+    leaves are sliced (views), everything else is shared."""
+    if len(cfg.period) != 1 or not 1 <= layers <= cfg.n_layers:
+        raise ValueError(f"cannot cut {cfg.name} to {layers} layers")
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:layers]
+
+    return (params | {"groups": cut(params["groups"])},
+            dataclasses.replace(cfg, n_layers=layers))
+
+
 def scan_f64_witness(run, got, want, dtype) -> dict:
     """Where a model's kernel-vs-plain gap comes from when it runs
     ``rwkv6_scan``.  ``run()``, the kernel run returning its logits, runs
@@ -795,6 +854,39 @@ def serving_path(dev) -> dict:
     return out
 
 
+def prompt_run(params, cfg, dev, tokens, n, feed, force):
+    """A prefill of ``tokens`` (1, S) and ``n`` greedy decode steps: (logits
+    (n + 1, 1, V) float32, prefill s, decode s a step, the last cache).
+    Step i is fed ``feed[i]``, which the first run to reach it appends (its
+    own greedy token), so later runs are fed the first run's tokens."""
+    S = tokens.shape[1]
+    cache = init_cache(cfg, 1, S + n, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": tokens.to(dev)}, cache,
+                            force=force)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    seq = [logits]
+    t0 = time.perf_counter()
+    for i in range(n):
+        if len(feed) == i:
+            feed.append(logits.argmax(-1).to(torch.int32))
+        logits, cache = decode_step(params, cfg, feed[i], cache, S + i,
+                                    force=force)
+        seq.append(logits)
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / max(n, 1)
+    return torch.stack(seq).float(), t_prefill, t_decode, cache
+
+
+def widen(tree):
+    """A parameter tree in float32 (bf16 widens exactly)."""
+    if isinstance(tree, dict):
+        return {k: widen(v) for k, v in tree.items()}
+    return tree.float()
+
+
 def long_prompt(params, cfg, dev, S=4096, n=16, gate_logits=True) -> dict:
     """An S-token bf16 prefill and n decode steps through the kernels and
     through the plain versions (fed the kernel run's greedy tokens);
@@ -812,26 +904,7 @@ def long_prompt(params, cfg, dev, S=4096, n=16, gate_logits=True) -> dict:
     feed = []
 
     def run(params, cfg, force):
-        """(logits (n + 1, 1, V) float32, prefill s, decode s a step, the
-        last cache)"""
-        cache = init_cache(cfg, 1, S + n, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = prefill(params, cfg, {"tokens": tokens.to(dev)},
-                                cache, force=force)
-        torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
-        seq = [logits]
-        t0 = time.perf_counter()
-        for i in range(n):
-            if len(feed) == i:
-                feed.append(logits.argmax(-1).to(torch.int32))
-            logits, cache = decode_step(params, cfg, feed[i], cache, S + i,
-                                        force=force)
-            seq.append(logits)
-        torch.cuda.synchronize()
-        t_decode = (time.perf_counter() - t0) / n
-        return torch.stack(seq).float(), t_prefill, t_decode, cache
+        return prompt_run(params, cfg, dev, tokens, n, feed, force)
 
     runs, out = {}, {}
     per_step = step_launches(cfg)
@@ -901,11 +974,6 @@ def gap_carriers(run, params, cfg, runs, names) -> dict:
         return {"prefill": float(d[0].max()) / scale,
                 "decode": float(d[1:].max()) / scale}
 
-    def widen(tree):
-        if isinstance(tree, dict):
-            return {k: widen(v) for k, v in tree.items()}
-        return tree.float()
-
     for name in names:
         with swapped(name, plain_version(name)):
             runs[f"{name} plain"] = run(params, cfg, None)[0]
@@ -931,6 +999,9 @@ def recurrent_serving(arch, dev) -> dict:
     torch.cuda.empty_cache()
     out["long_prompt"] = long_prompt(params, cfg, dev,
                                      gate_logits=arch in LOGIT_GATED)
+    if arch == "rwkv6_3b":
+        out["gated_prompt"] = long_prompt(
+            *cut_depth(params, cfg, RWKV6_GATED_LAYERS), dev, S=RWKV6_GATED_S)
     out["step"] = decode_step_time(params, cfg, dev)
     del params
     torch.cuda.empty_cache()
@@ -969,25 +1040,16 @@ def main() -> int:
     sept = check_kernel("sept", 256, dev, timed=True)
     fc = check_kernel("fc", 256, dev, timed=True)
     pad = check_kernel("rect", 100, dev, timed=False)   # 28 padded cells
-    for r in (sept, fc, pad):
+    # 16 nodes x 18 cores pad to 512 slots: the wide path
+    wide = check_kernel("fc", 20, dev, timed=False, nodes=16, cores=18)
+    if not wide["plan"]["wide"]:
+        raise AssertionError(f"16 x 18 cores: plan {wide['plan']}")
+    for r in (sept, fc, pad, wide):
         print("event_step vs plain: " + json.dumps(r), flush=True)
 
     # -- 3. the main path --------------------------------------------------
-    spec = sweep.SweepSpec(policies=("fifo", "sept", "eect", "rect", "fc"),
-                           nodes=(2, 4), cores=(8,),
-                           intensities=(10, 15, 20, 25, 30),
-                           seeds=args.seeds, workload_cores=16)
-    cells = spec.cells()
-    timings: dict = {}
-    ops.KERNEL_LAUNCHES = 0
-    ops.REF_LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rows = sweep.run_cells_scan(cells, metrics_only=True, device=dev,
-                                timings=timings)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, ref_launches = ops.KERNEL_LAUNCHES, ops.REF_LAUNCHES
+    cells, rows, wall, timings, launches, ref_launches = main_sweep(
+        args.seeds, dev)
     if launches == 0 or ref_launches != 0:
         raise AssertionError(f"main path launches: kernel {launches}, "
                              f"plain {ref_launches}")
@@ -1002,7 +1064,8 @@ def main() -> int:
                                      f"{r[k]}")
     print(f"main path: {len(cells)} cells in {wall:.3f} s = "
           f"{len(cells) / wall:.1f} cells/s (fill {timings['fill_s']:.3f} s, "
-          f"device {timings['device_s']:.3f} s, fold "
+          f"device {timings['device_s']:.3f} s = "
+          f"{timings['device_s'] / wall:.1%} of the wall, fold "
           f"{timings['fold_s']:.3f} s, other "
           f"{wall - sum(timings.values()):.3f} s); kernel launches "
           f"{launches}, plain launches {ref_launches}", flush=True)
@@ -1026,7 +1089,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/event_step.py:52",
             "launches": launches,
             "max_abs_err": max(sept["max_abs_err"], fc["max_abs_err"],
-                               pad["max_abs_err"]),
+                               pad["max_abs_err"], wide["max_abs_err"]),
             "ms": fc["ms"], "plain_ms": fc["plain_ms"],
             "bound_ms": fc["bound_ms"], "bound_by": fc["bound_by"],
             "library_ms": None,
@@ -1036,7 +1099,13 @@ def main() -> int:
             "sept_bound_ms": sept["bound_ms"], "ms_4096": fc["ms_4096"],
             "bound_ms_4096": fc["bound_ms_4096"],
             "sept_ms_4096": sept["ms_4096"],
-            "sept_bound_ms_4096": sept["bound_ms_4096"]}
+            "sept_bound_ms_4096": sept["bound_ms_4096"],
+            "ns_per_step": fc["ns_per_step"],
+            "ns_per_step_4096": fc["ns_per_step_4096"],
+            "sept_ns_per_step": sept["ns_per_step"],
+            "plan": fc["plan"], "sweep_cells_per_s": len(cells) / wall,
+            "sweep_device_s": timings["device_s"],
+            "sweep_device_share": timings["device_s"] / wall}
 
     # -- 4. attention kernels vs plain on the card ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1143,6 +1212,11 @@ def main() -> int:
           f"prefill_ms {lpw['kernel']['prefill_ms']:.3f} (plain "
           f"{lpw['plain']['prefill_ms']:.3f}); " + json.dumps(lpw),
           flush=True)
+    gp = rec["rwkv6_3b"]["gated_prompt"]
+    print(f"rwkv6_3b bf16 cut to {RWKV6_GATED_LAYERS} layer(s), {gp['S']}-"
+          f"token prefill + {gp['decode_steps']} decode steps, kernels vs "
+          f"plain versions, logits gated: rel_err {gp['rel_err']:.4g} (rtol "
+          f"{gp['rtol']}); " + json.dumps(gp), flush=True)
 
     # kernel launches of each serving path, by kernel
     paths = {
@@ -1155,6 +1229,8 @@ def main() -> int:
             lp["kernel"]["launches"],
         "rwkv6_3b burst": rec["rwkv6_3b"]["launches"],
         "rwkv6_3b 4096-token prefill + 16 steps": lpw["kernel"]["launches"],
+        f"rwkv6_3b ({RWKV6_GATED_LAYERS} layer) {gp['S']}-token prefill + "
+        "16 steps (gated)": gp["kernel"]["launches"],
     }
 
     def by_path(name):

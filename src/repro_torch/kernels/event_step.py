@@ -39,6 +39,22 @@ def event_step_supported(*, freeze, use_fc, fc_push, dyn, het, hedge, cold,
                 or stream or res)
 
 
+def fc_prefix_counts(t: torch.Tensor, fnid: torch.Tensor,
+                     n_fns: int) -> torch.Tensor:
+    """The FC counts ``cumf`` that ``t`` and ``fnid`` (B, n+1) define:
+    ``(B, n+1, n_fns)`` float32, entry ``[b, k, f]`` the calls of ``f``
+    among rows ``[:k]`` whose ``t`` is finite.  The plain version reads
+    ``cumf``; the CUDA kernel counts its window from ``t`` and ``fnid`` by
+    this definition instead, so the two agree only on a bucket whose
+    ``cumf`` equals it (``core.fastpath._fill_bucket`` fills it so)."""
+    real = torch.isfinite(t[:, :-1])
+    hot = torch.nn.functional.one_hot(fnid[:, :-1].long(), n_fns)
+    out = torch.zeros(t.shape + (n_fns,), dtype=torch.float32,
+                      device=t.device)
+    out[:, 1:] = (hot * real[..., None]).cumsum(1).to(torch.float32)
+    return out
+
+
 def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                    window: int, use_fc: bool, horizon: float,
                    n_steps: int):

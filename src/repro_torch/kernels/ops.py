@@ -76,7 +76,64 @@ EVENT_STEP_LAYOUT = ("chan", "fin_s", "last_t", "prev_t", "ring", "rsum",
                      "ai", "busy", "head", "idx_s", "narr", "qn", "rlen",
                      "rpos")
 
+# slots, nodes and functions one lane of the kernel holds in registers
+# (``PL`` in csrc/event_step.cu): up to 32 * 8 = 256 of each a cell; a wider
+# cell keeps them in device memory (the wide path)
+EVENT_STEP_PER_LANE = (1, 2, 4, 8)
+# lane-owned arrays of the wide path (``kWideArrays``)
+EVENT_STEP_WIDE_ARRAYS = 20
+# shared memory one block may take on sm_90 (227 KB, opted in)
+SMEM_BLOCK_BYTES = 232448
+
 _event_step_fn = None
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def event_step_cell_bytes(staged: bool, n1: int, n_fns: int,
+                          window: int) -> int:
+    """Shared-memory bytes of one cell in the kernel (``cell_bytes`` in
+    csrc/event_step.cu): the runtime ring, and when ``staged`` the rows t /
+    p / cost (float32) and fnid (8-bit); the queue sequences ``fn_ev`` stay
+    in device memory."""
+    nbytes = 4 * _round_up(n_fns * window, 4)
+    if staged:
+        nbytes += 12 * _round_up(n1, 4) + _round_up(n1, 16)
+    return nbytes
+
+
+def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
+                    window: int) -> dict:
+    """How the kernel runs a bucket of this shape, from the shape alone.
+
+    ``per_lane``: slots, nodes and functions each lane owns (the least of
+    ``EVENT_STEP_PER_LANE`` that covers all of them across 32 lanes).
+    ``staged``: the cell's rows go to shared memory when they fit in one
+    block's (n_b up to ~17,800); a longer bucket reads them from device
+    memory.  ``cell_bytes``: the shared memory each cell (warp) takes.
+    ``wide``: a cell of more than 256 slots, nodes or functions, or whose
+    runtime ring does not fit in shared memory, keeps what its lanes own
+    (``per_lane`` = ceil(widest / 32)) and the ring in a device-memory
+    scratch of ``scratch_words`` 32-bit words a cell, and reads its rows
+    from device memory; every width is taken."""
+    widest = max(n_nodes * n_slots, n_nodes, n_fns)
+    per_lane = next((pl for pl in EVENT_STEP_PER_LANE if 32 * pl >= widest),
+                    None)
+    if (per_lane is not None and event_step_cell_bytes(
+            False, n1, n_fns, window) <= SMEM_BLOCK_BYTES):
+        staged = event_step_cell_bytes(True, n1, n_fns,
+                                       window) <= SMEM_BLOCK_BYTES
+        return {"per_lane": per_lane, "wide": False, "staged": staged,
+                "cell_bytes": event_step_cell_bytes(staged, n1, n_fns,
+                                                    window),
+                "scratch_words": 0}
+    per_lane = max(1, -(-widest // 32))
+    return {"per_lane": per_lane, "wide": True, "staged": False,
+            "cell_bytes": 0,
+            "scratch_words": (EVENT_STEP_WIDE_ARRAYS * 32 * per_lane
+                              + n_fns * window)}
 
 
 def _event_step_lib():
@@ -85,7 +142,7 @@ def _event_step_lib():
         from .build import load
 
         fn = load("event_step").event_step_launch
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_float,
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_float,
                                                 ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _event_step_fn = fn
@@ -122,6 +179,8 @@ def _event_step_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
         raise ValueError(f"use_fc needs cumf rows = {n1}, got {nc}")
     if ncoef < 4:
         raise ValueError(f"coef needs at least 4 columns, got {ncoef}")
+    plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
+                           n_fns=n_fns, window=window)
     f32, i32 = torch.float32, torch.int32
     args = [
         _checked(clk, "clk", f32, (B, layout.f_len), dev),
@@ -138,18 +197,24 @@ def _event_step_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
     ]
     outs = [torch.zeros(B, n1, dtype=f32, device=dev) for _ in range(3)]
     outs.append(torch.zeros(B, n1, dtype=i32, device=dev))
+    # the wide path's lane-owned state and ring (the kernel fills it)
+    scratch = (torch.empty(B * plan["scratch_words"], dtype=i32, device=dev)
+               if plan["wide"] else None)
     offs = layout.offsets()
     lay = (ctypes.c_int * len(EVENT_STEP_LAYOUT))(
         *(offs[k] for k in EVENT_STEP_LAYOUT))
     dims = (ctypes.c_int * 13)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
                                kq, nc, ncoef, layout.f_len, layout.i_len,
                                int(bool(use_fc)), n_steps)
+    plan_c = (ctypes.c_int * 4)(plan["per_lane"], int(plan["staged"]),
+                                plan["cell_bytes"], plan["scratch_words"])
     fn = _event_step_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(a.data_ptr() for a in args + outs),
+                 None if scratch is None else scratch.data_ptr(),
                  ctypes.addressof(lay), ctypes.addressof(dims),
-                 float(horizon), stream)
+                 ctypes.addressof(plan_c), float(horizon), stream)
     if err != 0:
         raise RuntimeError(f"event_step kernel launch failed: CUDA error "
                            f"{err}")
@@ -168,7 +233,13 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     configuration or the call raises ``NotImplementedError``.  Returns
     ``(start, finish, prio, node, aux)`` like ``repro.kernels.ops.
     event_step``, with ``aux == {}``; rows ``[:n]`` are the per-request
-    records and row ``n`` is the no-op sentinel.
+    records and row ``n`` is the no-op sentinel (the kernel leaves it 0).
+    The kernel keeps the FC counts itself from ``t`` and ``fnid`` and does
+    not read ``cumf``, which must equal ``event_step.fc_prefix_counts`` of
+    them (their prefix count over the real rows), as the bucket runner
+    fills it.  Whether it stages a
+    cell's rows in shared memory depends on the shape alone
+    (``event_step_plan``).
 
     ``force``: ``None`` runs the CUDA kernel on CUDA tensors and the plain
     version on CPU tensors; ``"ref"`` runs the plain version on any

@@ -1,21 +1,42 @@
-"""Card times of the port's two recurrence kernels, to compare two trees.
+"""Card times of the port's kernels, to compare two trees.
 
-    python3 tools/scan_bench.py [--src DIR] [--profile]
+    python3 tools/scan_bench.py [--src DIR]
+                                [--mode scans|event_step|sweep]
+                                [--profile] [--repeat N]
 
 Imports ``repro_torch`` from DIR (default: the ``src`` of the checkout
 this script is in), builds its kernels, and prints one JSON line per case
-with the kernel's time by CUDA events over back-to-back calls (``ms``) and
-by CUDA-graph replay (``card_ms``: the card's time without the host's
-launch gaps, which set ``ms`` at S = 1), each case's least time on the
-card (``bound_ms``, as ``chip_smoke.py`` counts it) and the largest
-|kernel - plain| of one call.  The cases are recurrentgemma_9b's RG-LRU
-width and rwkv6_3b's heads at the 4,096-token prefill and at one decode
-step (B = 1 and the engine's 2 slots).  ``--profile`` adds each launched
-kernel's device time from ``torch.profiler``.  At S = 1,
-``card_ms`` is the time a call of 50 captured in one graph.  Run it once
-per tree in one call (parent, change, change, parent) to compare them on
-one card; the first line is the card's name and power limit.  Exits 1
-without a card.
+with the kernel's time by CUDA events over back-to-back calls (``ms``),
+each case's least time on the card (``bound_ms``, as ``chip_smoke.py``
+counts it) and the largest |kernel - plain| of one call.
+
+``--mode scans`` (the default): the two recurrence kernels at
+recurrentgemma_9b's RG-LRU width and rwkv6_3b's heads, at the 4,096-token
+prefill and at one decode step (B = 1 and the engine's 2 slots), also
+timed by CUDA-graph replay (``card_ms``: the card's time without the
+host's launch gaps, which set ``ms`` at S = 1; a call of 50 in one graph
+there).  ``--profile`` adds each launched kernel's device time from
+``torch.profiler``.
+
+``--mode event_step``: the event scan on the mega grid's buckets as
+``chip_smoke.py`` checks them (256 cells of intensity 30 on 4 nodes x 8
+cores, n_b = 1,024, SEPT and FC) and each tiled to 4,096 cells, with
+``ns_per_step``: kernel time over the longest cell's 2 n event steps.
+Its ``bound_ms`` is the bytes' time (its operations take less), the bytes
+counted by ``chip_smoke.needed_bytes``.
+
+``--mode sweep``: the sweep's main path as ``chip_smoke.py`` runs it
+(``chip_smoke.main_sweep``, 2,000 cells), once on one seed to warm up and
+then ``--repeat`` times, one JSON line each: cells/s and the host and
+device phases.  Several such processes, alternating between two trees,
+give each tree's spread in one call.
+
+With ``--src``, ``repro_torch`` comes from DIR; ``chip_smoke.py`` (from
+this script's checkout) is imported after it and so runs DIR's code.
+
+Run it once per tree in one call (parent, change, change, parent) to
+compare them on one card; the first line is the card's name and power
+limit.  Exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -28,6 +49,7 @@ from pathlib import Path
 
 import torch
 
+ROOT = Path(__file__).resolve().parents[1]
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_S = 67e12        # H100 SXM float32 rate outside the tensor cores
 
@@ -133,10 +155,57 @@ def rwkv6_case(ops, B, S, H, dh, dtype, gen, reps):
             "max_abs_err": err, "fn": fn}
 
 
+def event_step_cases(needed_bytes, reps: int = 20):
+    """(name, fn, check, longest n, bytes) of each event scan case: the
+    mega grid's SEPT and FC buckets (256 cells) and each tiled to 4,096
+    cells.  ``check()`` returns the largest |kernel - plain| (the plain
+    version on the 256-cell buckets)."""
+    from repro_torch.core import fastpath, sweep
+    from repro_torch.core.planes import make_planes
+    from repro_torch.kernels import ops
+
+    for policy in ("sept", "fc"):
+        cells = []
+        for seed in range(256):
+            c = sweep.SweepCell(policy=policy, nodes=4, cores=8,
+                                intensity=30, seed=seed, workload_cores=16)
+            reqs = sweep.make_workload(c)
+            cells.append(fastpath._ScanCell(
+                requests=reqs, feats=fastpath._arrival_features(reqs),
+                cores=8, nodes=4, policy=policy))
+        (key,) = {c.bucket() for c in cells}
+        static = fastpath._scan_static(key)
+        inp = {k: torch.from_numpy(v).cuda()
+               for k, v in fastpath._fill_bucket(key, cells).items()}
+        clk, ctr = make_planes(inp, n_nodes=static["n_nodes"],
+                               n_slots=static["n_slots"],
+                               window=static["window"])
+        n_max = max(len(c.feats.t) for c in cells)
+        nbytes = needed_bytes(cells, clk.shape[1], ctr.shape[1])
+
+        def check(clk=clk, ctr=ctr, inp=inp, static=static, n=key[1]):
+            ref = ops.event_step(clk, ctr, inp, force="ref", **static)
+            got = ops.event_step(clk, ctr, inp, **static)
+            return max(float((a[:, :n].double() - b[:, :n].double())
+                             .abs().max()) for a, b in zip(ref[:4], got[:4]))
+
+        yield (f"{policy}_256", lambda clk=clk, ctr=ctr, inp=inp,
+               static=static: ops.event_step(clk, ctr, inp, **static),
+               check, n_max, nbytes, reps)
+        wide = {k: v.repeat(16, *([1] * (v.dim() - 1)))
+                for k, v in inp.items()}
+        wclk, wctr = clk.repeat(16, 1), ctr.repeat(16, 1)
+        yield (f"{policy}_4096", lambda: ops.event_step(
+            wclk, wctr, wide, **static), None, n_max, 16 * nbytes, 5)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
-                                         / "src"))
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--mode", choices=("scans", "event_step", "sweep"),
+                    default="scans")
+    ap.add_argument("--repeat", type=int, default=3,
+                    help="timed sweeps after the warm-up (--mode sweep)")
     ap.add_argument("--profile", action="store_true",
                     help="add each kernel's device time at S > 1 "
                          "(torch.profiler)")
@@ -146,9 +215,37 @@ def main() -> int:
         return 1
     sys.path.insert(0, args.src)
     from repro_torch.kernels import ops
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if args.mode == "sweep":
+        dev = torch.device("cuda")
+        chip_smoke.main_sweep(1, dev)
+        for i in range(args.repeat):
+            cells, _, wall, tm, launches, plain = chip_smoke.main_sweep(
+                40, dev)
+            print(json.dumps({
+                "src": args.src, "run": i, "cells": len(cells),
+                "cells_per_s": len(cells) / wall, "wall_s": wall,
+                "fill_s": tm["fill_s"], "device_s": tm["device_s"],
+                "fold_s": tm["fold_s"],
+                "other_s": wall - sum(tm.values()),
+                "launches": launches, "plain_launches": plain}),
+                flush=True)
+        return 0
+    if args.mode == "event_step":
+        for name, fn, check, n_max, nbytes, reps in event_step_cases(
+                chip_smoke.needed_bytes):
+            out = {"src": args.src, "kernel": "event_step", "case": name}
+            if check is not None:
+                out["max_abs_err"] = check()
+            out["ms"] = time_call(fn, reps)
+            out["ns_per_step"] = out["ms"] * 1e6 / (2 * n_max)
+            out["bound_ms"] = nbytes / HBM_BYTES_S * 1e3
+            print(json.dumps(out), flush=True)
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
     cases = [
