@@ -35,6 +35,20 @@ version on the card first:
    logits are gated on its first layer alone (RWKV6_GATED_LAYERS) at
    RWKV6_GATED_S tokens instead.
 
+4. The frozen-priority paths (single-node and push cells) through
+   ``event_step``'s freeze kernel: the kernel against its plain version,
+   bit for bit, on Table 3's largest single-node buckets (10 cores at
+   intensity 120, FC and SEPT), on push FC at the mega shape (4 x 8 cores,
+   bursts for 16 cores; least-loaded and home), on Fig 6's fleet (4 x 18
+   cores, a 72-core burst; home) and on one push cell of 16 x 18 cores
+   (the wide path); then ``run_cells_scan(metrics_only=True)`` over
+   Table 3's ours grid at 10 cores (5 policies at intensities 30 / 60 /
+   120; 48 seeds, 720 cells; its 20-core row is outside the warm regime
+   the scan models) and over
+   the mega grid's axes under push (both balancers, 20 seeds, 2,000
+   cells), each with a sample of rows recomputed through the plain
+   version.
+
 Any failure exits non-zero.  The last lines are the card's name and power
 limit, one JSON object with each kernel's numbers, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -61,7 +75,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import fastpath  # noqa: E402
 from repro_torch.core import sweep  # noqa: E402
-from repro_torch.core.planes import make_planes  # noqa: E402
+from repro_torch.core.planes import carry_layout, make_planes  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
@@ -154,7 +168,9 @@ def bucket_tensors(key, host, dev):
     inp = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
     clk, ctr = make_planes(inp, n_nodes=static["n_nodes"],
                            n_slots=static["n_slots"],
-                           window=static["window"])
+                           window=static["window"], freeze=static["freeze"],
+                           fc_push=static["fc_push"],
+                           fc_ring=static["fc_ring"])
     return inp, clk, ctr, static
 
 
@@ -175,9 +191,11 @@ def time_graph(fn, reps: int, calls: int = 1) -> float:
     return time_call(graph.replay, reps) / calls
 
 
-def time_call(fn, reps: int) -> float:
-    """Milliseconds per call by CUDA events, after one warm-up call."""
-    fn()
+def time_call(fn, reps: int, warmup: bool = True) -> float:
+    """Milliseconds per call by CUDA events, after one warm-up call (none
+    without ``warmup``: a slow plain version timed on its only call)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -189,27 +207,45 @@ def time_call(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def needed_bytes(cells, f_len: int, i_len: int) -> int:
-    """Bytes the scan of ``cells`` must move, each read once and each write
-    once, counted from each cell's own size rather than the bucket's padded
-    one.  A cell of ``n`` calls reads its carry planes, rows ``[:n+1]`` of
-    t / fnid / p / cost (row ``n`` is the +inf tail and the no-op index),
-    the ``n`` queue entries of ``fn_ev``, four coefficients, cores and
-    nodes, and writes rows ``[:n]`` of the four outputs.  The FC counts
-    ``cumf`` are not among them: the kernel counts the FC window from t and
-    fnid and does not read them."""
+def needed_bytes(cells, static: dict) -> int:
+    """Bytes the scan of ``cells`` (a bucket of static arguments
+    ``static``) must move, each read once and each write once, counted
+    from each cell's own size rather than the bucket's padded one.  A cell
+    of ``n`` calls reads its carry planes at its own widths (its nodes,
+    cores and functions; under ``freeze`` its ``n + 1`` queue entries and,
+    with ``fc_push``, rings of the entries its FC window needs), rows
+    ``[:n+1]`` of t / fnid / p / cost (row ``n`` is the +inf tail and the
+    no-op index), four coefficients, cores and nodes, and writes rows
+    ``[:n]`` of the four outputs.  The pull kernel also reads the ``n``
+    queue entries of ``fn_ev``, but not the FC counts ``cumf`` (it counts
+    the FC window from t and fnid); the freeze kernel reads the route, and
+    single-node FC's counts and the home route's start nodes where the
+    cell reads them."""
+    freeze, fc_push = static["freeze"], static["fc_push"]
     total = 0
     for c in cells:
         n = len(c.feats.t)
-        total += 4 * (f_len + i_len + 4 * (n + 1) + n + 4 + 2 + 4 * n)
+        lay = carry_layout(
+            n_nodes=c.nodes, n_slots=c.cores, window=static["window"],
+            n_fns=len(c.feats.fns), freeze=freeze, fc_push=fc_push,
+            n1=n + 1, fc_ring=int(c.feats.count.max()) if fc_push else 1)
+        if freeze:
+            rows = n * ((c.policy == "fc" and not fc_push)
+                        + (c.lb == "home" and c.assignment == "push"))
+            scalars = 3
+        else:
+            rows, scalars = n, 2
+        total += 4 * (lay.f_len + lay.i_len + 4 * (n + 1) + rows + 4
+                      + scalars + 4 * n)
     return total
 
 
 def check_kernel(policy: str, n_cells: int, dev, timed: bool,
-                 **shape) -> dict:
+                 tile: bool = True, **shape) -> dict:
     """Kernel against the plain version on the card: rows [:n_b] of all
     four outputs must be bit-identical.  ``shape``: ``nodes`` / ``cores``
-    of the bucket (``mega_bucket``)."""
+    of the bucket (``mega_bucket``).  ``tile``: when timed, also time the
+    bucket tiled to 16 times its cells."""
     key, cells, host = mega_bucket(policy, n_cells, **shape)
     inp, clk, ctr, static = bucket_tensors(key, host, dev)
     n_b = key[1]
@@ -247,28 +283,27 @@ def check_kernel(policy: str, n_cells: int, dev, timed: bool,
         out["ns_per_step"] = out["ms"] * 1e6 / steps
         out["plain_ms"] = time_call(lambda: ops.event_step(
             clk, ctr, inp, force="ref", **static), reps=1)
-        moved = needed_bytes(cells, int(clk.shape[1]), int(ctr.shape[1]))
+        moved = needed_bytes(cells, static)
         # floating-point operations this data needs: 2 n events per cell;
         # per event a ring update (2) and the dispatch (3), and per queued
         # function its estimate and priority (6, 9 with FC counts)
         per_fn = 9 if static["use_fc"] else 6
         ops_n = sum(2 * n * (5 + len(c.feats.fns) * per_fn)
                     for n, c in zip(n_real, cells))
-        # occupancy: the same bucket tiled to 4096 cells, enough one-warp
-        # blocks to fill every SM
-        wide = {k: v.repeat(16, *([1] * (v.dim() - 1)))
-                for k, v in inp.items()}
-        wclk, wctr = clk.repeat(16, 1), ctr.repeat(16, 1)
-        out["ms_4096"] = time_call(lambda: ops.event_step(
-            wclk, wctr, wide, **static), reps=5)
-        out["ns_per_step_4096"] = out["ms_4096"] * 1e6 / steps
+        if tile:
+            # occupancy: the same bucket tiled to 4096 cells, enough
+            # one-warp blocks to fill every SM
+            wide = {k: v.repeat(16, *([1] * (v.dim() - 1)))
+                    for k, v in inp.items()}
+            wclk, wctr = clk.repeat(16, 1), ctr.repeat(16, 1)
+            out["ms_4096"] = time_call(lambda: ops.event_step(
+                wclk, wctr, wide, **static), reps=5)
+            out["ns_per_step_4096"] = out["ms_4096"] * 1e6 / steps
         out["bytes"] = moved
         out["operations"] = ops_n
-        t_bytes = moved / HBM_BYTES_S * 1e3
-        t_ops = ops_n / FP32_OPS_S * 1e3
-        out["bound_ms"] = max(t_bytes, t_ops)
-        out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        out["bound_ms_4096"] = 16 * out["bound_ms"]
+        out["bound_ms"], out["bound_by"] = bound(moved, ops_n, torch.float32)
+        if tile:
+            out["bound_ms_4096"] = 16 * out["bound_ms"]
     return out
 
 
@@ -295,6 +330,16 @@ def main_sweep(seeds: int, dev):
             ops.REF_LAUNCHES)
 
 
+def scan_cell(c) -> "fastpath._ScanCell":
+    """The bucket runner's prepared cell of a SweepCell: a single-node cell
+    at ``nodes == 1``, else a pull or push cluster cell."""
+    reqs = sweep.make_workload(c)
+    return fastpath._ScanCell(
+        requests=reqs, feats=fastpath._arrival_features(reqs),
+        cores=c.cores, nodes=c.nodes, policy=c.policy,
+        assignment="single" if c.nodes == 1 else c.assignment, lb=c.lb)
+
+
 def plain_rows(cells, dev) -> list[dict]:
     """Metrics rows of ``cells`` through the plain version on the card,
     composed from the bucket runner's own steps (bucket, fill, planes, scan,
@@ -302,11 +347,7 @@ def plain_rows(cells, dev) -> list[dict]:
     groups: dict[tuple, list[int]] = {}
     prepared = []
     for i, c in enumerate(cells):
-        reqs = sweep.make_workload(c)
-        sc = fastpath._ScanCell(requests=reqs,
-                                feats=fastpath._arrival_features(reqs),
-                                cores=c.cores, nodes=c.nodes,
-                                policy=c.policy)
+        sc = scan_cell(c)
         prepared.append(sc)
         groups.setdefault(sc.bucket(), []).append(i)
     rows: list = [None] * len(cells)
@@ -321,6 +362,162 @@ def plain_rows(cells, dev) -> list[dict]:
                 part[b], finish[b].astype(np.float64), {})
             rows[i] = sweep._metrics_from_scan(cells[i], mo)
     return rows
+
+def freeze_bucket(specs, n_b: int | None = None):
+    """Host inputs of a frozen-priority bucket, one cell for each ``(policy,
+    nodes, cores, intensity, seed, lb, burst cores)`` of ``specs`` (``lb``
+    None: a single-node cell), under the widest key of its cells (or rows
+    ``n_b`` long)."""
+    cells = []
+    for policy, nodes, cores, intensity, seed, lb, wcores in specs:
+        c = sweep.SweepCell(policy=policy, nodes=nodes, cores=cores,
+                            intensity=intensity, seed=seed,
+                            workload_cores=wcores,
+                            assignment="push" if lb else "pull",
+                            lb=lb or "least_loaded")
+        cells.append(scan_cell(c))
+    keys = {c.bucket() for c in cells}
+    if len({k[0] for k in keys}) != 1:
+        raise AssertionError(f"cells of several feature sets: {keys}")
+    key = tuple(max(col) for col in zip(*keys))
+    if n_b is not None:
+        key = key[:1] + (n_b,) + key[2:]
+    return key, cells, fastpath._fill_bucket(key, cells)
+
+
+def check_freeze(case: str, specs, dev, n_b: int | None = None) -> dict:
+    """The freeze kernel against its plain version on the card: rows
+    [:n_b] of start, finish, prio and node bit-identical; then its time,
+    ns an event step, the plain version's time (the comparison run) and
+    the bound of this bucket's work."""
+    key, cells, host = freeze_bucket(specs, n_b)
+    inp, clk, ctr, static = bucket_tensors(key, host, dev)
+    if not static["freeze"]:
+        raise AssertionError(f"{case}: not a frozen-priority bucket")
+    n1 = key[1] + 1
+    plain = []                       # the plain version, run once
+    plain_ms = time_call(lambda: plain.append(ops.event_step(
+        clk, ctr, inp, force="ref", **static)), reps=1, warmup=False)
+    ref = plain[0]
+    k0 = ops.FREEZE_LAUNCHES
+    got = ops.event_step(clk, ctr, inp, **static)
+    torch.cuda.synchronize()
+    if ops.FREEZE_LAUNCHES != k0 + 1:
+        raise AssertionError(f"{case}: event_step did not launch the freeze "
+                             "kernel")
+    err = 0.0
+    for name, a, b in zip(("start", "finish", "prio", "node"), ref, got):
+        a, b = a[:, :n1 - 1], b[:, :n1 - 1]
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:5].tolist()
+            raise AssertionError(f"freeze event_step {name} differs from the "
+                                 f"plain version ({case}) at {bad}")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    n_real = [len(c.feats.t) for c in cells]
+    fin = got[1][:len(cells)].cpu().numpy()
+    for b, n in enumerate(n_real):
+        if not (np.isfinite(fin[b, :n]).all() and (fin[b, :n] > 0).all()):
+            raise AssertionError(f"{case}: cell {b} has unfinished calls")
+    out = {"case": case, "cells": len(cells), "bsz": int(clk.shape[0]),
+           "n_b": key[1], "nodes": key[2], "slots": key[3],
+           "fc_push": static["fc_push"], "fc_ring": static["fc_ring"],
+           "max_abs_err": err,
+           "plan": ops.event_step_plan(
+               n1=n1, n_nodes=static["n_nodes"], n_slots=static["n_slots"],
+               n_fns=key[4], window=static["window"], freeze=True,
+               fc_push=static["fc_push"], fc_ring=static["fc_ring"])}
+    out["ms"] = time_call(lambda: ops.event_step(clk, ctr, inp, **static),
+                          reps=10)
+    out["plain_ms"] = plain_ms
+    steps = 2 * max(n_real)          # one event a step
+    out["ns_per_step"] = out["ms"] * 1e6 / steps
+    moved = needed_bytes(cells, static)
+    # floating-point operations this data needs, per call: its completion's
+    # ring update (2), its priority (7) and estimate (1), and its dispatch
+    # (2)
+    ops_n = sum(12 * n for n in n_real)
+    out["bytes"], out["operations"] = moved, ops_n
+    out["bound_ms"], out["bound_by"] = bound(moved, ops_n, torch.float32)
+    return out
+
+
+def freeze_path(name: str, cells, dev) -> dict:
+    """One frozen-priority main path: ``run_cells_scan(metrics_only=True)``
+    over ``cells``, every count set to 0 just before it and read just
+    after; its rows checked (burst sizes, finite metrics) and a sample
+    recomputed through the plain version.  Returns its numbers."""
+    timings: dict = {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = sweep.run_cells_scan(cells, metrics_only=True, device=dev,
+                                timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    fz = counts["event_step_freeze"]
+    if fz["kernel"] == 0 or fz["plain"] != 0 or any(
+            v["kernel"] or v["plain"] for k, v in counts.items()
+            if k != "event_step_freeze"):
+        raise AssertionError(f"{name} launches: {counts}")
+    for c, r in zip(cells, rows):
+        wcores = c.workload_cores or c.cores * c.nodes
+        want = 11 * max(1, round(wcores * c.intensity / 10))
+        if r["n"] != want:
+            raise AssertionError(f"{c.label()} seed {c.seed}: n={r['n']}, "
+                                 f"burst has {want}")
+        for k in ("R_avg", "R_p95", "max_c"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"{c.label()} seed {c.seed}: {k}="
+                                     f"{r[k]}")
+    # stratified sample: every cell identity but its seed once, the seed
+    # rotating over the strata
+    firsts: dict = {}
+    for i, c in enumerate(cells):
+        firsts.setdefault(dataclasses.replace(c, seed=0), []).append(i)
+    sample = [idx[k % len(idx)] for k, idx in enumerate(firsts.values())]
+    want = plain_rows([cells[i] for i in sample], dev)
+    for i, w in zip(sample, want):
+        if rows[i] != w:
+            raise AssertionError(f"{cells[i].label()} seed {cells[i].seed}: "
+                                 "kernel row differs from the plain row")
+    out = {"cells": len(cells), "wall_s": wall,
+           "cells_per_s": len(cells) / wall, **timings,
+           "other_s": wall - sum(timings.values()),
+           "device_share": timings["device_s"] / wall,
+           "launches": fz["kernel"], "plain_launches": fz["plain"],
+           "sample": len(sample)}
+    print(f"{name}: {len(cells)} cells in {wall:.3f} s = "
+          f"{out['cells_per_s']:.1f} cells/s (fill {timings['fill_s']:.3f} s,"
+          f" device {timings['device_s']:.3f} s = {out['device_share']:.1%} "
+          f"of the wall, fold {timings['fold_s']:.3f} s, other "
+          f"{out['other_s']:.3f} s); kernel launches {fz['kernel']}, plain "
+          f"launches {fz['plain']}; sample: {len(sample)} cells recomputed "
+          "through the plain version on the card, rows equal", flush=True)
+    return out
+
+
+def table3_cells(seeds: int) -> list:
+    """Table 3's ours grid at 10 cores (benchmarks/table3_response_stretch.
+    py): the five policies at intensities 30 / 60 / 120 on one node.  Its
+    20-core row is outside the always-warm regime (20 warm containers of
+    each of the 11 functions do not fit the node's 32 GB: ``scan_eligible``
+    is false, in the JAX package too), so it stays on the event loop."""
+    return sweep.SweepSpec(policies=("fifo", "sept", "eect", "rect", "fc"),
+                           cores=(10,), intensities=(30, 60, 120),
+                           seeds=seeds).cells()
+
+
+def push_cells(seeds: int) -> list:
+    """The mega grid's axes under push assignment with both balancers:
+    5 policies x {2, 4} nodes x 8 cores x intensities 10-30 x {least-loaded,
+    home}, bursts for 16 cores."""
+    return sweep.SweepSpec(policies=("fifo", "sept", "eect", "rect", "fc"),
+                           assignments=("push",),
+                           lbs=("least_loaded", "home"), nodes=(2, 4),
+                           cores=(8,), intensities=(10, 15, 20, 25, 30),
+                           seeds=seeds, workload_cores=16).cells()
+
 
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
     """The least time (ms) the card could take: bytes over the memory rate
@@ -1024,7 +1221,8 @@ def main() -> int:
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     logs = build.build_all()
-    ops._event_step_lib()
+    for launcher in ops.EVENT_STEP_LAUNCHERS:
+        ops._event_step_lib(launcher)
     dec_mod._lib()
     for dtype in flash_mod.SOURCE:
         flash_mod._lib(dtype)
@@ -1041,7 +1239,8 @@ def main() -> int:
     fc = check_kernel("fc", 256, dev, timed=True)
     pad = check_kernel("rect", 100, dev, timed=False)   # 28 padded cells
     # 16 nodes x 18 cores pad to 512 slots: the wide path
-    wide = check_kernel("fc", 20, dev, timed=False, nodes=16, cores=18)
+    wide = check_kernel("fc", 20, dev, timed=True, tile=False, nodes=16,
+                        cores=18)
     if not wide["plan"]["wide"]:
         raise AssertionError(f"16 x 18 cores: plan {wide['plan']}")
     for r in (sept, fc, pad, wide):
@@ -1105,7 +1304,64 @@ def main() -> int:
             "sept_ns_per_step": sept["ns_per_step"],
             "plan": fc["plan"], "sweep_cells_per_s": len(cells) / wall,
             "sweep_device_s": timings["device_s"],
-            "sweep_device_share": timings["device_s"] / wall}
+            "sweep_device_share": timings["device_s"] / wall,
+            "wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
+            "wide_bound_ms": wide["bound_ms"],
+            "wide_ns_per_step": wide["ns_per_step"],
+            "wide_shape": f"fc bucket, {wide['cells']} cells, "
+                          f"n_b={wide['n_b']}, 16 nodes x 18 cores"}
+
+    # -- 3b. the frozen-priority kernel vs plain, then its main paths ------
+    # (plain versions held to at most 256 cells a bucket)
+    fz = {
+        "single_fc_c10_v120": check_freeze(
+            "single fc c10 v120", [("fc", 1, 10, 120, s, None, 10)
+                                   for s in range(256)], dev),
+        "single_sept_c10_v120": check_freeze(
+            "single sept c10 v120", [("sept", 1, 10, 120, s, None, 10)
+                                     for s in range(256)], dev),
+        "push_fc_ll_4x8": check_freeze(
+            "push fc least_loaded 4x8 v30", [
+                ("fc", 4, 8, 30, s, "least_loaded", 16)
+                for s in range(256)], dev),
+        "push_fc_home_4x8": check_freeze(
+            "push fc home 4x8 v30", [("fc", 4, 8, 30, s, "home", 16)
+                                     for s in range(256)], dev),
+        "push_fc_home_fig6": check_freeze(
+            "push fc home 4x18 v30 (72-core burst)", [
+                ("fc", 4, 18, 30, s, "home", 72) for s in range(64)], dev),
+        "push_fc_home_16x18": check_freeze(
+            "push fc home 16x18 v5 (288-core burst)", [
+                ("fc", 16, 18, 5, 0, "home", 288)], dev),
+    }
+    if not fz["push_fc_home_16x18"]["plan"]["wide"]:
+        raise AssertionError(f"16 x 18 push: {fz['push_fc_home_16x18']}")
+    for r in fz.values():
+        print("freeze event_step vs plain: " + json.dumps(r), flush=True)
+    single = freeze_path("single-node path", table3_cells(48), dev)
+    push = freeze_path("push path", push_cells(20), dev)
+    main_fz = fz["single_fc_c10_v120"]
+    kern_fz = {
+        "name": "event_step_freeze", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/event_step.cu",
+        "replaces": "src/repro/core/fastpath.py:821",
+        "launches": single["launches"] + push["launches"],
+        "launches_by_path": {"single-node path": single["launches"],
+                             "push path": push["launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in fz.values()),
+        "ms": main_fz["ms"], "plain_ms": main_fz["plain_ms"],
+        "bound_ms": main_fz["bound_ms"], "bound_by": main_fz["bound_by"],
+        "library_ms": None,
+        "shape": f"single fc c10 v120, {main_fz['bsz']} cells, "
+                 f"n_b={main_fz['n_b']}",
+        "ns_per_step": main_fz["ns_per_step"],
+        "cases": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "ns_per_step", "n_b", "bsz")}
+                  for k, r in fz.items()},
+        "single_cells_per_s": single["cells_per_s"],
+        "single_device_share": single["device_share"],
+        "push_cells_per_s": push["cells_per_s"],
+        "push_device_share": push["device_share"]}
 
     # -- 4. attention kernels vs plain on the card ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1265,6 +1521,7 @@ def main() -> int:
         for dtype, name in flash_mod.SOURCE.items()}
     kernels = [
         kern,
+        kern_fz,
         flash_row,
         row("decode_attention", dec["decode_32k"],
             {"main_path": dec["serving"], "rg": dec["rg_ring_2k"],

@@ -1,6 +1,7 @@
 """The scan carry as two packed planes (own port of
 ``repro.core.fastpath._PlaneLayout`` / ``_make_state0`` / ``_make_planes``
-for the base pull segment).
+for the base pull carry and the frozen-priority segments ``freeze`` and
+``fc_push``).
 
 Every float entry of a cell's carry flattens into one **clocks plane**
 (``clk``, float32) and every int/bool entry into one **counters plane**
@@ -18,12 +19,18 @@ import torch
 _FLOAT, _INT, _BOOL = "f", "i", "b"
 
 
-def carry_spec(*, n_nodes: int, n_slots: int, window: int,
-               n_fns: int) -> dict[str, tuple[tuple[int, ...], str]]:
-    """Shapes and kinds of one base-pull cell's carry: slots, queue heads,
-    channel clocks and the controller's estimator ring (one estimator, so
-    the estimator axis has length 1)."""
-    return {
+def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
+               freeze: bool = False, fc_push: bool = False, n1: int = 0,
+               fc_ring: int = 1) -> dict[str, tuple[tuple[int, ...], str]]:
+    """Shapes and kinds of one cell's carry: slots, queue heads, channel
+    clocks and the estimator rings -- the controller's (an estimator axis
+    of length 1) in the pull regime, one per node with ``freeze`` -- then,
+    in the JAX package's ``_CARRY_SEGMENTS`` order, the frozen queue
+    entries (``freeze``: pending flag, priority and node of each of the
+    ``n1`` rows) and the per-(node, function) arrival-time rings of
+    ``fc_ring`` entries (``fc_push``)."""
+    n_est = n_nodes if freeze else 1
+    spec = {
         "ai": ((), _INT),
         "head": ((n_fns,), _INT),
         "fin_s": ((n_nodes, n_slots), _FLOAT),
@@ -31,14 +38,21 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int,
         "busy": ((n_nodes,), _INT),
         "qn": ((n_nodes,), _INT),
         "chan": ((n_nodes,), _FLOAT),
-        "ring": ((1, n_fns, window), _FLOAT),
-        "rsum": ((1, n_fns), _FLOAT),
-        "rlen": ((1, n_fns), _INT),
-        "rpos": ((1, n_fns), _INT),
-        "last_t": ((1, n_fns), _FLOAT),
-        "prev_t": ((1, n_fns), _FLOAT),
-        "narr": ((1, n_fns), _INT),
+        "ring": ((n_est, n_fns, window), _FLOAT),
+        "rsum": ((n_est, n_fns), _FLOAT),
+        "rlen": ((n_est, n_fns), _INT),
+        "rpos": ((n_est, n_fns), _INT),
+        "last_t": ((n_est, n_fns), _FLOAT),
+        "prev_t": ((n_est, n_fns), _FLOAT),
+        "narr": ((n_est, n_fns), _INT),
     }
+    if freeze:
+        spec.update(pend=((n1,), _BOOL), fprio=((n1,), _FLOAT),
+                    node_of=((n1,), _INT))
+    if fc_push:
+        spec.update(fcr=((n_nodes, n_fns, fc_ring), _FLOAT),
+                    fcp=((n_nodes, n_fns), _INT))
+    return spec
 
 
 class PlaneLayout:
@@ -92,21 +106,25 @@ class PlaneLayout:
         return st
 
 
-def carry_layout(*, n_nodes: int, n_slots: int, window: int,
-                 n_fns: int) -> PlaneLayout:
+def carry_layout(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
+                 freeze: bool = False, fc_push: bool = False, n1: int = 0,
+                 fc_ring: int = 1) -> PlaneLayout:
     return PlaneLayout(carry_spec(n_nodes=n_nodes, n_slots=n_slots,
-                                  window=window, n_fns=n_fns))
+                                  window=window, n_fns=n_fns, freeze=freeze,
+                                  fc_push=fc_push, n1=n1, fc_ring=fc_ring))
 
 
 def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
-                window: int) -> dict[str, torch.Tensor]:
-    """Initial batched carry of a base-pull bucket: empty slots and queues,
-    idle channels, and the estimator ring from the bucket's inputs."""
+                window: int, freeze: bool = False, fc_push: bool = False,
+                fc_ring: int = 1) -> dict[str, torch.Tensor]:
+    """Initial batched carry of a bucket: empty slots and queues, idle
+    channels, the estimator rings from the bucket's inputs, and with
+    ``freeze`` / ``fc_push`` no queued entry and empty arrival rings."""
     t = inp["t"]
     B, ft, dev = t.shape[0], t.dtype, t.device
-    n_fns = inp["ring0"].shape[2]
+    n_est, n_fns = inp["ring0"].shape[1], inp["ring0"].shape[2]
     i32 = dict(dtype=torch.int32, device=dev)
-    return {
+    st = {
         "ai": torch.zeros(B, **i32),
         "head": torch.zeros(B, n_fns, **i32),
         "fin_s": torch.full((B, n_nodes, n_slots), float("inf"), dtype=ft,
@@ -117,17 +135,30 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
         "chan": torch.zeros(B, n_nodes, dtype=ft, device=dev),
         "ring": inp["ring0"], "rsum": inp["rsum0"],
         "rlen": inp["rlen0"], "rpos": inp["rpos0"],
-        "last_t": torch.zeros(B, 1, n_fns, dtype=ft, device=dev),
-        "prev_t": torch.zeros(B, 1, n_fns, dtype=ft, device=dev),
-        "narr": torch.zeros(B, 1, n_fns, **i32),
+        "last_t": torch.zeros(B, n_est, n_fns, dtype=ft, device=dev),
+        "prev_t": torch.zeros(B, n_est, n_fns, dtype=ft, device=dev),
+        "narr": torch.zeros(B, n_est, n_fns, **i32),
     }
+    if freeze:
+        n1 = t.shape[1]
+        st.update(pend=torch.zeros(B, n1, dtype=torch.bool, device=dev),
+                  fprio=torch.zeros(B, n1, dtype=ft, device=dev),
+                  node_of=torch.zeros(B, n1, **i32))
+    if fc_push:
+        st.update(fcr=torch.full((B, n_nodes, n_fns, fc_ring), -float("inf"),
+                                 dtype=ft, device=dev),
+                  fcp=torch.zeros(B, n_nodes, n_fns, **i32))
+    return st
 
 
 def make_planes(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
-                window: int):
+                window: int, freeze: bool = False, fc_push: bool = False,
+                fc_ring: int = 1):
     """Per-cell initial carry of a bucket as the packed ``(clk, ctr)``
     planes, shapes ``(B, f_len)`` float32 and ``(B, i_len)`` int32."""
+    seg = dict(freeze=freeze, fc_push=fc_push, fc_ring=fc_ring)
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
-                          n_fns=inp["ring0"].shape[2])
+                          n_fns=inp["ring0"].shape[2],
+                          n1=inp["t"].shape[1], **seg)
     return layout.pack(make_state0(inp, n_nodes=n_nodes, n_slots=n_slots,
-                                   window=window))
+                                   window=window, **seg))

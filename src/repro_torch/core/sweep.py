@@ -2,10 +2,11 @@
 
 Counterpart of the parts of ``repro.core.sweep`` that the interactive-sweep
 path uses: :class:`SweepCell` restricted to the fields of a uniform-arrival
-pull cell, a :class:`SweepSpec` over the axes of the mega grid, whose
-``cells()`` yields the JAX package's cells in the JAX package's order, and
-:func:`run_cells_scan`, which runs a list of cells through the bucketed
-scan and returns one metrics row per cell.
+static cell (one node, or a cluster under pull or push assignment), a
+:class:`SweepSpec` over the policy, assignment, balancer, intensity and
+fleet axes, whose ``cells()`` yields the JAX package's cells in the JAX
+package's order, and :func:`run_cells_scan`, which runs a list of cells
+through the bucketed scan and returns one metrics row per cell.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from ..device import resolve_device
 from .fastpath import (
     ScanMetrics,
     cluster_scan_eligible,
+    scan_eligible,
+    simulate_cells_scan,
     simulate_cluster_cells_scan,
 )
 from .metrics import summarize_arrays
@@ -30,11 +33,12 @@ from .workload import STRETCH_REFERENCE_S, generate_burst
 
 @dataclass(frozen=True)
 class SweepCell:
-    """One uniform-arrival pull scenario (field names and defaults as in
+    """One uniform-arrival static scenario (field names and defaults as in
     ``repro.core.sweep.SweepCell``)."""
 
     policy: str = "fifo"          # fifo|sept|eect|rect|fc
-    assignment: str = "pull"
+    assignment: str = "pull"      # cluster request-assignment model
+    lb: str = "least_loaded"      # push balancer: least_loaded|home
     arrival: str = "uniform"
     intensity: int = 30
     cores: int = 10               # per node
@@ -49,14 +53,20 @@ class SweepCell:
                  f"v{self.intensity}"]
         if self.nodes != 1:
             parts.append(f"n{self.nodes}")
+        if self.assignment == "push" and self.lb != "least_loaded":
+            parts.append(self.lb)
+        if self.arrival != "uniform":
+            parts.append(self.arrival)
         return "_".join(parts)
 
 
 @dataclass
 class SweepSpec:
-    """Cartesian grid over the mega grid's axes; ``cells()`` expands it."""
+    """Cartesian grid over the port's axes; ``cells()`` expands it."""
 
     policies: Sequence[str] = ("fifo",)
+    assignments: Sequence[str] = ("pull",)
+    lbs: Sequence[str] = ("least_loaded",)   # push balancer axis
     intensities: Sequence[int] = (30,)
     cores: Sequence[int] = (10,)
     nodes: Sequence[int] = (1,)
@@ -71,12 +81,20 @@ class SweepSpec:
         return [self.base_seed + s for s in self.seeds]
 
     def cells(self) -> list[SweepCell]:
-        return [SweepCell(policy=pol, intensity=inten, cores=c, nodes=n,
-                          seed=seed, duration_s=self.duration_s,
-                          workload_cores=self.workload_cores)
-                for pol, inten, c, n, seed in itertools.product(
-                    self.policies, self.intensities, self.cores,
-                    self.nodes, self.seed_list())]
+        out = [SweepCell(policy=pol, assignment=asg,
+                         lb=lb if asg == "push" else "least_loaded",
+                         intensity=inten, cores=c, nodes=n, seed=seed,
+                         duration_s=self.duration_s,
+                         workload_cores=self.workload_cores)
+               for pol, asg, lb, inten, c, n, seed in itertools.product(
+                   self.policies, self.assignments, self.lbs,
+                   self.intensities, self.cores, self.nodes,
+                   self.seed_list())]
+        # the balancer only means something on push cells: collapsing it
+        # elsewhere would duplicate cells, so keep the first of each
+        if len(self.lbs) > 1:
+            out = list(dict.fromkeys(out))
+        return out
 
 
 def make_workload(cell: SweepCell) -> list[Request]:
@@ -119,19 +137,23 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
     """Run cells through the bucketed scan on ``device`` and return their
     metrics rows in order.
 
-    Every cell must be a cluster pull cell (``nodes > 1``; single-node cells
-    run the frozen-priority regime, which is not ported yet) in the warm
-    regime; anything else raises ``ValueError``.  ``metrics_only=True``
-    shares one generated burst between cells with the same workload and
-    never writes back requests; the rows equal the write-back rows.
-    ``timings`` accumulates ``fill_s``, ``device_s`` and ``fold_s``."""
+    Single-node cells (``nodes == 1``, whatever their assignment) run
+    through :func:`simulate_cells_scan` and cluster cells through
+    :func:`simulate_cluster_cells_scan`, under pull assignment or push with
+    the least-loaded or home balancer, as the JAX package's
+    ``run_cells_scan`` sends them; every cell must be in the warm regime.
+    Anything else raises ``ValueError``.  ``metrics_only=True`` shares one
+    generated burst between cells with the same workload and never writes
+    back requests; the rows equal the write-back rows.  ``timings``
+    accumulates ``fill_s``, ``device_s`` and ``fold_s``."""
     dev = resolve_device(device)
     workloads: dict[tuple, list[Request]] = {}
-    batch = []
-    for cell in cells:
-        if cell.assignment != "pull" or cell.nodes < 2:
-            raise ValueError(f"cell {cell.label()} is not a cluster pull "
-                             "cell of the port's scan")
+    singles: list[tuple[int, tuple]] = []
+    clusters: list[tuple[int, tuple]] = []
+    for pos, cell in enumerate(cells):
+        if cell.nodes < 1 or cell.assignment not in ("pull", "push"):
+            raise ValueError(f"cell {cell.label()} is not a cell of the "
+                             "port's scan")
         if metrics_only:
             key = _workload_key(cell)
             reqs = workloads.get(key)
@@ -139,13 +161,27 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
                 reqs = workloads[key] = make_workload(cell)
         else:
             reqs = make_workload(cell)       # write-back mutates: no sharing
-        if not cluster_scan_eligible(reqs, cell.nodes, cell.cores,
-                                     cell.policy):
+        if cell.nodes == 1:
+            ok = scan_eligible(reqs, cell.cores, cell.policy)
+            singles.append((pos, (reqs, cell.cores, cell.policy)))
+        else:
+            ok = cluster_scan_eligible(reqs, cell.nodes, cell.cores,
+                                       cell.policy,
+                                       assignment=cell.assignment,
+                                       lb=cell.lb)
+            clusters.append((pos, (reqs, cell.nodes, cell.cores,
+                                   cell.policy, cell.assignment, cell.lb)))
+        if not ok:
             raise ValueError(f"cell {cell.label()} is not scan-eligible")
-        batch.append((reqs, cell.nodes, cell.cores, cell.policy))
-    results = simulate_cluster_cells_scan(batch, validate=False,
-                                          metrics_only=metrics_only,
-                                          device=dev, timings=timings)
+    results: list = [None] * len(cells)
+    kw = dict(validate=False, metrics_only=metrics_only, device=dev,
+              timings=timings)
+    for group, run in ((singles, simulate_cells_scan),
+                       (clusters, simulate_cluster_cells_scan)):
+        if group:
+            for (pos, _), res in zip(group, run([b for _, b in group],
+                                                 **kw)):
+                results[pos] = res
     if metrics_only:
         return [_metrics_from_scan(c, r) for c, r in zip(cells, results)]
     return [_metrics_from_scan(c, _result_metrics(r))

@@ -1,4 +1,4 @@
-"""Batched base-pull cluster event scan: the plain PyTorch version.
+"""Batched cluster event scan: the plain PyTorch version.
 
 Counterpart of ``repro.kernels.event_step`` and of the base-pull step of the
 JAX oracle ``repro.core.fastpath._scan_cell_kernel``.  One cell is a cluster
@@ -12,6 +12,21 @@ most-free invoker pull the best queued call, ranked at pull time by
 from the controller's last-``window`` runtime ring.  Each function's queue is
 the contiguous tail of its arrival sequence ``fn_ev[f]``, so the global best
 is found over the F queue heads, ties going to the smallest event index.
+
+Single-node and push cells run the frozen-priority regime
+(``freeze``): each arrival is routed at once -- to the least-loaded node
+(least ``busy + queued``, first on ties) or, under the home balancer, to
+the first node with a free slot on a walk from its home invoker -- and its
+priority
+
+    prio = c0 * now + c1 * prev + (c2 + c3 * count) * E[p]
+
+is fixed then, from the estimator of the node it was routed to; FC's
+count is the static window count on one node and, on more than one, the
+calls logged in the node's ring of arrival times for the function
+(``fc_push``).  A step then dispatches only on the node its event touched:
+the least frozen priority queued there, ties going to the smallest event
+index.
 
 This version is batched over cells (every tensor has a leading cell axis)
 and runs on any device; ``repro_torch.kernels.ops.event_step`` sends CPU
@@ -30,13 +45,17 @@ from ..core.planes import carry_layout
 
 def event_step_supported(*, freeze, use_fc, fc_push, dyn, het, hedge, cold,
                          dup, stream=False, res=False, **_static) -> bool:
-    """True when the static feature set is the base pull configuration, with
-    or without FC pull counts (``use_fc``) -- the scope of the JAX package's
-    Pallas ``event_step``.  ``res`` is named here because the port has no
-    resilience segment; the JAX scope never meets it without ``freeze``."""
-    del use_fc
-    return not (freeze or fc_push or dyn or het or hedge or cold or dup
-                or stream or res)
+    """True when the static feature set is one the port scans: the base
+    pull configuration, with or without FC pull counts (``use_fc``) -- the
+    scope of the JAX package's Pallas ``event_step`` -- or the static warm
+    frozen-priority regime (``freeze``, with or without the push FC rings
+    ``fc_push``), which counts FC without the pull counts.  ``res`` is
+    named here because the port has no resilience segment."""
+    if dyn or het or hedge or cold or dup or stream or res:
+        return False
+    if freeze:
+        return not use_fc
+    return not fc_push
 
 
 def fc_prefix_counts(t: torch.Tensor, fnid: torch.Tensor,
@@ -57,8 +76,11 @@ def fc_prefix_counts(t: torch.Tensor, fnid: torch.Tensor,
 
 def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                    window: int, use_fc: bool, horizon: float,
-                   n_steps: int):
-    """Plain PyTorch event scan of a bucket of cells.
+                   n_steps: int, freeze: bool = False, fc_push: bool = False,
+                   fc_ring: int = 1):
+    """Plain PyTorch event scan of a bucket of cells.  ``freeze`` runs the
+    frozen-priority regime (:func:`freeze_scan_ref`); the rest of this
+    docstring is the pull regime's.
 
     ``clk``/``ctr`` are the ``(B, f_len)`` / ``(B, i_len)`` initial carry
     planes (``repro_torch.core.planes.make_planes``), left unchanged;
@@ -67,6 +89,11 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     ``cores``/``nodes`` ``(B,)``, ``cumf`` ``(B, n+1 | 1, F)`` and ``fn_ev``
     ``(B, F, kq)``.  Returns ``(start, finish, prio, node)``, each
     ``(B, n+1)``; row ``n`` is the sentinel that no-op events write."""
+    if freeze:
+        return freeze_scan_ref(clk, ctr, inp, n_nodes=n_nodes,
+                               n_slots=n_slots, window=window,
+                               fc_push=fc_push, fc_ring=fc_ring,
+                               horizon=horizon, n_steps=n_steps)
     t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
     coef, cumf, fn_ev = inp["coef"], inp["cumf"], inp["fn_ev"].long()
     cores, nodes = inp["cores"].long(), inp["nodes"].long()
@@ -195,3 +222,171 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         prio[rows, jn] = best
         node[rows, jn] = k_d.to(torch.int32)
     return start, finish, prio, node
+
+
+def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
+                    window: int, fc_push: bool, fc_ring: int,
+                    horizon: float, n_steps: int):
+    """Plain PyTorch event scan of a bucket of frozen-priority cells
+    (single node, or push with the least-loaded or home balancer).
+
+    ``clk``/``ctr`` are the initial carry planes with the ``freeze`` (and
+    ``fc_push``) segments, left unchanged; ``inp`` holds, besides the pull
+    inputs' ``t``/``fnid``/``p``/``cost``/``coef``/``cores``/``nodes``,
+    ``cnt`` ``(B, n+1)`` float32 (single-node FC's static window counts),
+    ``home0`` ``(B, n+1)`` (each call's home invoker) and ``route`` ``(B,)``
+    (0 least-loaded, 1 home).  Returns ``(start, finish, prio, node)``,
+    each ``(B, n+1)``: ``prio`` and ``node`` are the carry's ``fprio`` and
+    ``node_of`` at the end, each call's values fixed at its arrival."""
+    t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
+    cnt, home0, coef = inp["cnt"], inp["home0"].long(), inp["coef"]
+    cores, nodes = inp["cores"].long(), inp["nodes"].long()
+    route = inp["route"].long()
+    B, n1 = t.shape
+    n = n1 - 1
+    n_fns = inp["ring0"].shape[2]
+    dev, ft = t.device, t.dtype
+    layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
+                          n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
+                          fc_ring=fc_ring)
+    st = {k: v.clone() for k, v in layout.unpack(clk, ctr).items()}
+    ai = st["ai"].long()
+    fin_s, idx_s = st["fin_s"], st["idx_s"].long()
+    busy, qn, chan = st["busy"].long(), st["qn"].long(), st["chan"]
+    # one estimator a node: (B, nodes, F[, window])
+    ring, rsum = st["ring"], st["rsum"]
+    rlen, rpos = st["rlen"].long(), st["rpos"].long()
+    last_t, prev_t, narr = st["last_t"], st["prev_t"], st["narr"].long()
+    pend, fprio, node_of = st["pend"], st["fprio"], st["node_of"]
+    if fc_push:
+        fcr, fcp = st["fcr"], st["fcp"].long()
+
+    rows = torch.arange(B, device=dev)
+    node_ids = torch.arange(n_nodes, device=dev)[None]
+    slot_ids = torch.arange(n_slots, device=dev)[None, None]
+    fn_ids = torch.arange(n_fns, device=dev)[None, None]
+    win_ids = torch.arange(window, device=dev)[None, None, None]
+    fc_ids = torch.arange(fc_ring, device=dev)[None, None, None]
+    req_ids = torch.arange(n1, device=dev)[None]
+    inf = torch.tensor(float("inf"), dtype=ft, device=dev)
+    zero = torch.tensor(0.0, dtype=ft, device=dev)
+    active = node_ids < nodes[:, None]
+    c0, c1, c2, c3 = (coef[:, i] for i in range(4))
+    start = torch.zeros(B, n1, dtype=ft, device=dev)
+    finish = torch.zeros(B, n1, dtype=ft, device=dev)
+
+    def node_fn(k, f):
+        """(B, nodes, F) mask of entry (k, f) of each cell."""
+        return ((node_ids[:, :, None] == k[:, None, None])
+                & (fn_ids == f[:, None, None]))
+
+    for _ in range(n_steps):
+        # -- event selection: arrival vs earliest completion ---------------
+        t_a = t[rows, ai]
+        flat = fin_s.reshape(B, -1)
+        kflat = flat.argmin(1)
+        t_c = flat[rows, kflat]
+        arr_first = t_a <= t_c
+        now = torch.where(arr_first, t_a, t_c)
+        none_left = torch.isinf(now)
+        if bool(none_left.all()):
+            break                # no event left anywhere: the carry is fixed
+        do_arr = arr_first & ~none_left
+        do_comp = ~arr_first & ~none_left
+
+        # -- completion: free the slot, feed the node's ring ---------------
+        kn = kflat // n_slots
+        ks = kflat % n_slots
+        j_done = idx_s.reshape(B, -1)[rows, kflat]
+        f_done = fnid[rows, j_done]
+        m_cf = node_fn(kn, f_done) & do_comp[:, None, None]
+        pos = rpos[rows, kn, f_done]
+        v = p[rows, j_done]
+        old = ring[rows, kn, f_done, pos]
+        full = rlen[rows, kn, f_done] == window
+        rsum = torch.where(
+            m_cf, rsum + v[:, None, None]
+            - torch.where(full, old, zero)[:, None, None], rsum)
+        ring = torch.where(m_cf[..., None] & (win_ids == pos[:, None, None,
+                                                            None]),
+                           v[:, None, None, None], ring)
+        rlen = torch.where(m_cf & ~full[:, None, None], rlen + 1, rlen)
+        rpos = torch.where(m_cf, (rpos + 1) % window, rpos)
+        m_kn = (node_ids == kn[:, None]) & do_comp[:, None]
+        busy = busy - m_kn.long()
+        fin_s = torch.where(m_kn[:, :, None] & (slot_ids == ks[:, None, None]),
+                            inf, fin_s)
+
+        # -- arrival: route, observe on the routed node --------------------
+        i_ins = ai.clamp(max=n)
+        f_i = fnid[rows, i_ins]
+        # least-loaded: least busy + queued, first on ties; padded nodes
+        # never win
+        load = torch.where(active, busy + qn, 2 ** 30)
+        k_ll = load.argmin(1)
+        # home: walk from the home invoker to the first node with a free
+        # slot, else stay home
+        free_n = (busy < cores[:, None]) & active
+        h0 = home0[rows, i_ins]
+        walk = (h0[:, None] + node_ids) % nodes.clamp(min=1)[:, None]
+        wfree = free_n.gather(1, walk) & active
+        k_home = torch.where(wfree.any(1),
+                             walk[rows, wfree.to(torch.int32).argmax(1)], h0)
+        k_arr = torch.where(route == 1, k_home, k_ll)
+        first = narr[rows, k_arr, f_i] == 0
+        prev_used = torch.where(first, now, last_t[rows, k_arr, f_i])
+        m_af = node_fn(k_arr, f_i) & do_arr[:, None, None]
+        prev_t = torch.where(m_af, prev_used[:, None, None], prev_t)
+        last_t = torch.where(m_af, now[:, None, None], last_t)
+        narr = narr + m_af.long()
+        qn = qn + ((node_ids == k_arr[:, None]) & do_arr[:, None]).long()
+        ai = ai + do_arr.long()
+        if fc_push:
+            # log the arrival in the node's ring, then count the window
+            # (the logged time itself is inside it)
+            pos_fc = fcp[rows, k_arr, f_i]
+            fcr = torch.where(m_af[..., None]
+                              & (fc_ids == pos_fc[:, None, None, None]),
+                              now[:, None, None, None], fcr)
+            fcp = torch.where(m_af, (pos_fc + 1)[:, None, None] % fc_ring,
+                              fcp)
+            cnt_i = (fcr[rows, k_arr, f_i] > (now - horizon)[:, None]
+                     ).sum(1).to(ft)
+        else:
+            cnt_i = cnt[rows, i_ins]
+        n_k = rlen[rows, k_arr, f_i]
+        est_i = torch.where(n_k > 0, rsum[rows, k_arr, f_i]
+                            / n_k.clamp(min=1).to(ft), zero)
+        prio_i = c0 * now + c1 * prev_used + (c2 + c3 * cnt_i) * est_i
+        m_ins = (req_ids == i_ins[:, None]) & do_arr[:, None]
+        pend = pend | m_ins
+        fprio = torch.where(m_ins, prio_i[:, None], fprio)
+        node_of = torch.where(m_ins, k_arr[:, None].to(node_of.dtype),
+                              node_of)
+
+        # -- dispatch on the node the event touched: its least frozen
+        # priority, first index on ties
+        k_d = torch.where(do_arr, k_arr, kn)
+        prio_vec = torch.where(pend & (node_of == k_d[:, None]), fprio, inf)
+        j = prio_vec.argmin(1)
+        prio_j = prio_vec[rows, j]
+        can = ~none_left & (busy[rows, k_d] < cores) & (prio_j < inf)
+        exec_start = torch.maximum(now, chan[rows, k_d]) + cost[rows, j]
+        m_kd = (node_ids == k_d[:, None]) & can[:, None]
+        chan = torch.where(m_kd, exec_start[:, None], chan)
+        fin_j = exec_start + p[rows, j]
+        slot_free = (torch.isinf(fin_s[rows, k_d])
+                     & (slot_ids[:, 0] < cores[:, None]))
+        s = slot_free.to(torch.int32).argmax(1)
+        m_ds = m_kd[:, :, None] & (slot_ids == s[:, None, None])
+        fin_s = torch.where(m_ds, fin_j[:, None, None], fin_s)
+        idx_s = torch.where(m_ds, j[:, None, None], idx_s)
+        busy = busy + m_kd.long()
+        qn = qn - m_kd.long()
+        pend = pend & ~((req_ids == j[:, None]) & can[:, None])
+
+        # -- per-dispatch record; no-op events land on sentinel row n ------
+        jn = torch.where(can, j, n)
+        start[rows, jn] = exec_start
+        finish[rows, jn] = fin_j
+    return start, finish, fprio, node_of

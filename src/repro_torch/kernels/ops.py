@@ -6,7 +6,9 @@ goes to the kernel or the call raises, and the plain version runs on the
 card only when the caller asks for it with ``force="ref"``.
 
 Each kernel counts the calls that launched it and the calls that ran its
-plain version: ``KERNEL_LAUNCHES`` / ``REF_LAUNCHES`` for ``event_step``,
+plain version: ``KERNEL_LAUNCHES`` / ``REF_LAUNCHES`` for ``event_step``'s
+pull kernel, ``FREEZE_LAUNCHES`` / ``FREEZE_REF_LAUNCHES`` for its
+frozen-priority kernel (single-node and push buckets),
 ``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
 ``DECODE_REF_LAUNCHES`` for the attention kernels, ``RGLRU_LAUNCHES`` /
 ``RGLRU_REF_LAUNCHES`` and ``RWKV6_LAUNCHES`` / ``RWKV6_REF_LAUNCHES`` for
@@ -32,6 +34,8 @@ from .rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_ref
 
 KERNEL_LAUNCHES = 0
 REF_LAUNCHES = 0
+FREEZE_LAUNCHES = 0
+FREEZE_REF_LAUNCHES = 0
 FLASH_LAUNCHES = 0
 FLASH_REF_LAUNCHES = 0
 DECODE_LAUNCHES = 0
@@ -47,7 +51,9 @@ def reset_launches() -> None:
     global KERNEL_LAUNCHES, REF_LAUNCHES, FLASH_LAUNCHES, FLASH_REF_LAUNCHES
     global DECODE_LAUNCHES, DECODE_REF_LAUNCHES, RGLRU_LAUNCHES
     global RGLRU_REF_LAUNCHES, RWKV6_LAUNCHES, RWKV6_REF_LAUNCHES
+    global FREEZE_LAUNCHES, FREEZE_REF_LAUNCHES
     KERNEL_LAUNCHES = REF_LAUNCHES = 0
+    FREEZE_LAUNCHES = FREEZE_REF_LAUNCHES = 0
     FLASH_LAUNCHES = FLASH_REF_LAUNCHES = 0
     DECODE_LAUNCHES = DECODE_REF_LAUNCHES = 0
     RGLRU_LAUNCHES = RGLRU_REF_LAUNCHES = 0
@@ -58,6 +64,8 @@ def launches() -> dict:
     """``{kernel: {"kernel": n, "plain": n}}`` since the last reset."""
     return {
         "event_step": {"kernel": KERNEL_LAUNCHES, "plain": REF_LAUNCHES},
+        "event_step_freeze": {"kernel": FREEZE_LAUNCHES,
+                              "plain": FREEZE_REF_LAUNCHES},
         "flash_attention": {"kernel": FLASH_LAUNCHES,
                             "plain": FLASH_REF_LAUNCHES},
         "decode_attention": {"kernel": DECODE_LAUNCHES,
@@ -85,7 +93,25 @@ EVENT_STEP_WIDE_ARRAYS = 20
 # shared memory one block may take on sm_90 (227 KB, opted in)
 SMEM_BLOCK_BYTES = 232448
 
-_event_step_fn = None
+# carry entries of the frozen-priority kernel, in the order of ``struct
+# FLayout`` in csrc/event_step.cu (the push FC rings last: absent, 0)
+EVENT_STEP_FREEZE_LAYOUT = ("chan", "fin_s", "fprio", "last_t", "prev_t",
+                            "ring", "rsum", "fcr", "ai", "busy", "idx_s",
+                            "narr", "node_of", "pend", "qn", "rlen", "rpos",
+                            "fcp")
+# lane-owned arrays of the frozen-priority kernel's wide path
+# (``kFreezeWideArrays``): 5 a slot, 3 a node
+EVENT_STEP_FREEZE_WIDE_ARRAYS = 8
+# per-(node, function) estimator arrays of the frozen-priority kernel
+# (``kEstArrays``): sum, last and previous arrival, length, position,
+# arrivals, FC ring position
+EVENT_STEP_FREEZE_EST_ARRAYS = 7
+
+# the launchers of csrc/event_step.cu and their pointer arguments: inputs,
+# outputs, scratch, layout, dims, plan
+EVENT_STEP_LAUNCHERS = {"event_step_launch": 19,
+                        "event_step_freeze_launch": 20}
+_event_step_fns: dict = {}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -105,22 +131,46 @@ def event_step_cell_bytes(staged: bool, n1: int, n_fns: int,
 
 
 def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
-                    window: int) -> dict:
-    """How the kernel runs a bucket of this shape, from the shape alone.
+                    window: int, freeze: bool = False, fc_push: bool = False,
+                    fc_ring: int = 1) -> dict:
+    """How the kernel runs a bucket of this shape, from the shape alone:
+    the pull kernel's plan, or with ``freeze`` the frozen-priority
+    kernel's (whose push FC rings, ``fc_push``, take ``fc_ring`` entries).
 
-    ``per_lane``: slots, nodes and functions each lane owns (the least of
-    ``EVENT_STEP_PER_LANE`` that covers all of them across 32 lanes).
-    ``staged``: the cell's rows go to shared memory when they fit in one
-    block's (n_b up to ~17,800); a longer bucket reads them from device
-    memory.  ``cell_bytes``: the shared memory each cell (warp) takes.
-    ``wide``: a cell of more than 256 slots, nodes or functions, or whose
-    runtime ring does not fit in shared memory, keeps what its lanes own
-    (``per_lane`` = ceil(widest / 32)) and the ring in a device-memory
-    scratch of ``scratch_words`` 32-bit words a cell, and reads its rows
-    from device memory; every width is taken."""
-    widest = max(n_nodes * n_slots, n_nodes, n_fns)
+    ``per_lane``: slots, nodes and (pull) functions each lane owns (the
+    least of ``EVENT_STEP_PER_LANE`` that covers all of them across 32
+    lanes).  ``staged``: pull stages the cell's rows in shared memory when
+    they fit in one block's (n_b up to ~17,800); freeze stages the
+    estimators, the queue and the rows when one cell's fit (n_b up to
+    ~11,000 at the mega widths) and ``fnid`` fits in 8 bits.  A bucket not
+    staged reads its rows in place, and under freeze keeps its estimators
+    and queue in a device-memory scratch.  ``cell_bytes``: the shared
+    memory each cell (warp) takes.  ``wide``: a cell of more than 256
+    slots or nodes (pull: or functions, or a runtime ring too large for
+    shared memory) keeps what its lanes own (``per_lane`` = ceil(widest /
+    32)) in the scratch too, so every width is taken.  The push FC rings
+    are always in the scratch.  ``scratch_words``: the scratch's 32-bit
+    words a cell."""
+    if freeze:
+        widest = max(n_nodes * n_slots, n_nodes)
+    else:
+        widest = max(n_nodes * n_slots, n_nodes, n_fns)
     per_lane = next((pl for pl in EVENT_STEP_PER_LANE if 32 * pl >= widest),
                     None)
+    if freeze:
+        wide = per_lane is None
+        if wide:
+            per_lane = -(-widest // 32)
+        cell = event_step_freeze_cell_bytes(n1, n_nodes, n_fns, window)
+        staged = not wide and n_fns <= 256 and cell <= SMEM_BLOCK_BYTES
+        words = EVENT_STEP_FREEZE_WIDE_ARRAYS * 32 * per_lane if wide else 0
+        if not staged:
+            words += (event_step_freeze_est_words(n_nodes, n_fns, window)
+                      + 2 * _round_up(n1, 4))
+        if fc_push:
+            words += n_nodes * n_fns * fc_ring
+        return {"per_lane": per_lane, "wide": wide, "staged": staged,
+                "cell_bytes": cell if staged else 0, "scratch_words": words}
     if (per_lane is not None and event_step_cell_bytes(
             False, n1, n_fns, window) <= SMEM_BLOCK_BYTES):
         staged = event_step_cell_bytes(True, n1, n_fns,
@@ -136,17 +186,39 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
                               + n_fns * window)}
 
 
-def _event_step_lib():
-    global _event_step_fn
-    if _event_step_fn is None:
+def event_step_freeze_est_words(n_nodes: int, n_fns: int,
+                                window: int) -> int:
+    """32-bit words of one cell's per-(node, function) estimators in the
+    frozen-priority kernel (``est_words`` in csrc/event_step.cu): the
+    scalar arrays, then the runtime rings."""
+    e = n_nodes * n_fns
+    return (EVENT_STEP_FREEZE_EST_ARRAYS * _round_up(e, 4)
+            + _round_up(e * window, 4))
+
+
+def event_step_freeze_cell_bytes(n1: int, n_nodes: int, n_fns: int,
+                                 window: int) -> int:
+    """Shared-memory bytes of one staged cell in the frozen-priority kernel
+    (``freeze_cell_bytes`` in csrc/event_step.cu): the estimators, the
+    queue (each row's frozen priority key, 32 bits, and node, 16 bits) and
+    the rows t / p / cost (float32) and fnid (8-bit)."""
+    return (4 * event_step_freeze_est_words(n_nodes, n_fns, window)
+            + 4 * _round_up(n1, 4) + 2 * _round_up(n1, 8)
+            + 12 * _round_up(n1, 4) + _round_up(n1, 16))
+
+
+def _event_step_lib(name: str):
+    """The launcher ``name`` of csrc/event_step.cu, built at first use: its
+    tensor and array pointers, the FC horizon, the stream."""
+    if name not in _event_step_fns:
         from .build import load
 
-        fn = load("event_step").event_step_launch
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_float,
-                                                ctypes.c_void_p]
+        fn = getattr(load("event_step"), name)
+        fn.argtypes = ([ctypes.c_void_p] * EVENT_STEP_LAUNCHERS[name]
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _event_step_fn = fn
-    return _event_step_fn
+        _event_step_fns[name] = fn
+    return _event_step_fns[name]
 
 
 def _checked(x: torch.Tensor, name: str, dtype: torch.dtype,
@@ -167,6 +239,55 @@ def _checked(x: torch.Tensor, name: str, dtype: torch.dtype,
     return x.contiguous()
 
 
+def _bucket_args(clk, ctr, inp, layout, ncoef: int) -> list:
+    """The carry planes and the inputs both kernels read, checked."""
+    dev = clk.device
+    B, n1 = inp["t"].shape
+    f32, i32 = torch.float32, torch.int32
+    if ncoef < 4:
+        raise ValueError(f"coef needs at least 4 columns, got {ncoef}")
+    return [
+        _checked(clk, "clk", f32, (B, layout.f_len), dev),
+        _checked(ctr, "ctr", i32, (B, layout.i_len), dev),
+        _checked(inp["t"], "t", f32, (B, n1), dev),
+        _checked(inp["fnid"], "fnid", i32, (B, n1), dev),
+        _checked(inp["p"], "p", f32, (B, n1), dev),
+        _checked(inp["cost"], "cost", f32, (B, n1), dev),
+        _checked(inp["coef"], "coef", f32, (B, ncoef), dev),
+        _checked(inp["cores"], "cores", i32, (B,), dev),
+        _checked(inp["nodes"], "nodes", i32, (B,), dev),
+    ]
+
+
+def _launch_event_step(name: str, args: list, order: tuple, layout, dims,
+                       plan_c, plan: dict, horizon: float):
+    """Launch ``name`` of csrc/event_step.cu on ``args``: zero-filled
+    outputs (start, finish, prio float32; node int32), the scratch of
+    ``plan["scratch_words"]`` words a cell (the kernel fills it), the
+    carry offsets in ``order`` (an entry the layout lacks is 0), the dims
+    and the plan; raises on a CUDA error."""
+    dev = args[0].device
+    B, n1 = args[2].shape            # t
+    outs = [torch.zeros(B, n1, dtype=torch.float32, device=dev)
+            for _ in range(3)]
+    outs.append(torch.zeros(B, n1, dtype=torch.int32, device=dev))
+    scratch = (torch.empty(B * plan["scratch_words"], dtype=torch.int32,
+                           device=dev)
+               if plan["scratch_words"] else None)
+    offs = layout.offsets()
+    lay = (ctypes.c_int * len(order))(*(offs.get(k, 0) for k in order))
+    fn = _event_step_lib(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(a.data_ptr() for a in args + outs),
+                 None if scratch is None else scratch.data_ptr(),
+                 ctypes.addressof(lay), ctypes.addressof(dims),
+                 ctypes.addressof(plan_c), float(horizon), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+    return tuple(outs)
+
+
 def _event_step_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
                      horizon, n_steps):
     dev = clk.device
@@ -177,60 +298,62 @@ def _event_step_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
                           n_fns=n_fns)
     if use_fc and nc != n1:
         raise ValueError(f"use_fc needs cumf rows = {n1}, got {nc}")
-    if ncoef < 4:
-        raise ValueError(f"coef needs at least 4 columns, got {ncoef}")
+    args = _bucket_args(clk, ctr, inp, layout, ncoef) + [
+        _checked(inp["cumf"], "cumf", torch.float32, (B, nc, n_fns), dev),
+        _checked(inp["fn_ev"], "fn_ev", torch.int32, (B, n_fns, kq), dev),
+    ]
     plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
                            n_fns=n_fns, window=window)
-    f32, i32 = torch.float32, torch.int32
-    args = [
-        _checked(clk, "clk", f32, (B, layout.f_len), dev),
-        _checked(ctr, "ctr", i32, (B, layout.i_len), dev),
-        _checked(inp["t"], "t", f32, (B, n1), dev),
-        _checked(inp["fnid"], "fnid", i32, (B, n1), dev),
-        _checked(inp["p"], "p", f32, (B, n1), dev),
-        _checked(inp["cost"], "cost", f32, (B, n1), dev),
-        _checked(inp["coef"], "coef", f32, (B, ncoef), dev),
-        _checked(inp["cores"], "cores", i32, (B,), dev),
-        _checked(inp["nodes"], "nodes", i32, (B,), dev),
-        _checked(inp["cumf"], "cumf", f32, (B, nc, n_fns), dev),
-        _checked(inp["fn_ev"], "fn_ev", i32, (B, n_fns, kq), dev),
-    ]
-    outs = [torch.zeros(B, n1, dtype=f32, device=dev) for _ in range(3)]
-    outs.append(torch.zeros(B, n1, dtype=i32, device=dev))
-    # the wide path's lane-owned state and ring (the kernel fills it)
-    scratch = (torch.empty(B * plan["scratch_words"], dtype=i32, device=dev)
-               if plan["wide"] else None)
-    offs = layout.offsets()
-    lay = (ctypes.c_int * len(EVENT_STEP_LAYOUT))(
-        *(offs[k] for k in EVENT_STEP_LAYOUT))
     dims = (ctypes.c_int * 13)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
                                kq, nc, ncoef, layout.f_len, layout.i_len,
                                int(bool(use_fc)), n_steps)
     plan_c = (ctypes.c_int * 4)(plan["per_lane"], int(plan["staged"]),
                                 plan["cell_bytes"], plan["scratch_words"])
-    fn = _event_step_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(a.data_ptr() for a in args + outs),
-                 None if scratch is None else scratch.data_ptr(),
-                 ctypes.addressof(lay), ctypes.addressof(dims),
-                 ctypes.addressof(plan_c), float(horizon), stream)
-    if err != 0:
-        raise RuntimeError(f"event_step kernel launch failed: CUDA error "
-                           f"{err}")
-    return tuple(outs)
+    return _launch_event_step("event_step_launch", args, EVENT_STEP_LAYOUT,
+                              layout, dims, plan_c, plan, horizon)
+
+
+def _event_step_freeze_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
+                            horizon, n_steps, fc_push, fc_ring):
+    dev = clk.device
+    B, n1 = inp["t"].shape
+    n_fns, ncoef = inp["ring0"].shape[2], inp["coef"].shape[1]
+    layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
+                          n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
+                          fc_ring=fc_ring)
+    args = _bucket_args(clk, ctr, inp, layout, ncoef) + [
+        _checked(inp["cnt"], "cnt", torch.float32, (B, n1), dev),
+        _checked(inp["home0"], "home0", torch.int32, (B, n1), dev),
+        _checked(inp["route"], "route", torch.int32, (B,), dev),
+    ]
+    plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
+                           n_fns=n_fns, window=window, freeze=True,
+                           fc_push=fc_push, fc_ring=fc_ring)
+    dims = (ctypes.c_int * 12)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
+                               ncoef, layout.f_len, layout.i_len,
+                               int(bool(fc_push)), fc_ring, n_steps)
+    plan_c = (ctypes.c_int * 5)(plan["per_lane"], int(plan["staged"]),
+                                int(plan["wide"]), plan["cell_bytes"],
+                                plan["scratch_words"])
+    return _launch_event_step("event_step_freeze_launch", args,
+                              EVENT_STEP_FREEZE_LAYOUT, layout, dims, plan_c,
+                              plan, horizon)
 
 
 def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
                n_slots: int, window: int, use_fc: bool, horizon: float,
-               n_steps: int, **flags):
-    """Batched base-pull cluster event scan -- the simulator's hot path.
+               n_steps: int, fc_ring: int = 1, **flags):
+    """Batched cluster event scan -- the simulator's hot path.
 
     ``clk``/``ctr`` are the ``(B, f_len)`` / ``(B, i_len)`` carry planes
     (``repro_torch.core.planes.make_planes``) and ``inp`` the bucket's input
     tensors; ``flags`` are the JAX package's feature flags (``freeze``,
     ``fc_push``, ``dyn``, ...), which must describe the base pull
-    configuration or the call raises ``NotImplementedError``.  Returns
+    configuration or the static warm frozen-priority regime (``freeze``,
+    with the push FC rings of ``fc_ring`` entries when ``fc_push``), or the
+    call raises ``NotImplementedError``.  Frozen-priority buckets go to
+    their own kernel (``event_step_plan(..., freeze=True)``), whose ``prio`` and
+    ``node`` are each call's values fixed at its arrival.  Returns
     ``(start, finish, prio, node, aux)`` like ``repro.kernels.ops.
     event_step``, with ``aux == {}``; rows ``[:n]`` are the per-request
     records and row ``n`` is the no-op sentinel (the kernel leaves it 0).
@@ -244,19 +367,31 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     ``force``: ``None`` runs the CUDA kernel on CUDA tensors and the plain
     version on CPU tensors; ``"ref"`` runs the plain version on any
     device."""
-    global KERNEL_LAUNCHES, REF_LAUNCHES
+    global KERNEL_LAUNCHES, REF_LAUNCHES, FREEZE_LAUNCHES, FREEZE_REF_LAUNCHES
     _check_force(force)
     if not event_step_supported(use_fc=use_fc, **flags):
         raise NotImplementedError(
-            "event_step covers only the base pull configuration (no "
-            "freeze/fc_push/dyn/het/hedge/cold/dup/stream/res)")
+            "event_step covers the base pull configuration and the static "
+            "warm frozen-priority regime (freeze, fc_push) only (no "
+            "dyn/het/hedge/cold/dup/stream/res)")
+    freeze, fc_push = bool(flags.get("freeze")), bool(flags.get("fc_push"))
     static = dict(n_nodes=n_nodes, n_slots=n_slots, window=window,
-                  use_fc=use_fc, horizon=horizon, n_steps=n_steps)
+                  horizon=horizon, n_steps=n_steps)
     if force == "ref" or clk.device.type != "cuda":
-        REF_LAUNCHES += 1
-        return (*event_step_ref(clk, ctr, inp, **static), {})
-    out = _event_step_cuda(clk, ctr, inp, **static)
-    KERNEL_LAUNCHES += 1
+        out = event_step_ref(clk, ctr, inp, use_fc=use_fc, freeze=freeze,
+                             fc_push=fc_push, fc_ring=fc_ring, **static)
+        if freeze:
+            FREEZE_REF_LAUNCHES += 1
+        else:
+            REF_LAUNCHES += 1
+        return (*out, {})
+    if freeze:
+        out = _event_step_freeze_cuda(clk, ctr, inp, fc_push=fc_push,
+                                      fc_ring=fc_ring, **static)
+        FREEZE_LAUNCHES += 1
+    else:
+        out = _event_step_cuda(clk, ctr, inp, use_fc=use_fc, **static)
+        KERNEL_LAUNCHES += 1
     return (*out, {})
 
 

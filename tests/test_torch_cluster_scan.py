@@ -119,7 +119,7 @@ def test_sweep_cells_match_jax_order():
 
 def test_ineligible_cells_raise():
     reqs = generate_burst(cores=4, intensity=5, seed=0)
-    for item in ((reqs, 2, 4, "fc", "push"),
+    for item in ((reqs, 2, 4, "fc", "push", "round_robin"),
                  (reqs, 2, 4, "fc", "pull", "least_loaded", object()),
                  (reqs, 2, 4, "fc", "pull", "least_loaded", None, None, None,
                   False),
@@ -127,9 +127,11 @@ def test_ineligible_cells_raise():
                  (reqs, 2, 64, "sept")):       # beyond the warm regime
         with pytest.raises(ValueError):
             tfp.simulate_cluster_cells_scan([item], device="cpu")
-    with pytest.raises(ValueError):            # single node: frozen regime
+    with pytest.raises(ValueError):            # arrivals not ported
         tsweep.run_cells_scan([tsweep.SweepCell(nodes=1, cores=4,
-                                                intensity=5)], device="cpu")
+                                                intensity=5,
+                                                arrival="poisson")],
+                              device="cpu")
 
 
 def test_imports_no_jax_and_no_repro():

@@ -194,9 +194,17 @@ def test_burst_bucket_bit_identical(policy, use_fc):
 
 
 def test_supported_matrix_equals_jax():
+    """The port's scope is the JAX package's Pallas scope (base pull) plus
+    the static warm frozen-priority regime: ``freeze``, with or without
+    ``fc_push``, and no other segment (``tests/test_torch_freeze_scan.py``
+    holds that regime to the JAX oracle)."""
+    others = ("dyn", "het", "hedge", "cold", "dup", "stream")
     for bits in itertools.product([False, True], repeat=len(FEATURES) + 2):
         flags = dict(zip(FEATURES + ("use_fc", "stream"), bits))
-        assert event_step_supported(**flags) == jax_supported(**flags), flags
+        frozen = (flags["freeze"] and not flags["use_fc"]
+                  and not any(flags[k] for k in others))
+        assert event_step_supported(**flags) == (jax_supported(**flags)
+                                                 or frozen), flags
 
 
 @pytest.mark.parametrize("feat", FEATURES + ("stream", "res"))
@@ -204,8 +212,13 @@ def test_unsupported_flags_raise(feat):
     inp, static, _ = _smoke_inputs(False)
     clk, ctr, _ = _jax_step(inp, static)
     tens, clk_t, ctr_t = bucket_from_numpy(inp, clk, ctr, device="cpu")
+    flags = {feat: True}
+    if feat == "freeze":
+        # the frozen-priority regime alone is in scope; with the pull FC
+        # counts, which no frozen bucket carries, it is not
+        flags["use_fc"] = True
     with pytest.raises(NotImplementedError):
-        tops.event_step(clk_t, ctr_t, tens, **{**static, feat: True})
+        tops.event_step(clk_t, ctr_t, tens, **{**static, **flags})
 
 
 def test_dispatch_counts_and_force():

@@ -181,7 +181,7 @@ def event_step_cases(needed_bytes, reps: int = 20):
                                n_slots=static["n_slots"],
                                window=static["window"])
         n_max = max(len(c.feats.t) for c in cells)
-        nbytes = needed_bytes(cells, clk.shape[1], ctr.shape[1])
+        nbytes = needed_bytes(cells, static)
 
         def check(clk=clk, ctr=ctr, inp=inp, static=static, n=key[1]):
             ref = ops.event_step(clk, ctr, inp, force="ref", **static)
