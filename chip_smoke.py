@@ -17,8 +17,13 @@ version on the card first:
    decode_32k and prefill widths, each timed case with its achieved rate
    and share of its bound; the model
    in float32, kernels against plain versions end to end; then the serving
-   engine in bfloat16 (two endpoints, estimator warm-up, a burst of 12
-   calls, policy fc), and one 2,048-token prefill with 16 decode steps.
+   engine in bfloat16 (two endpoints sharing one copy of the weights,
+   estimator warm-up, a burst of 12 calls, policy fc, every decode step a
+   replay of its lane's CUDA graph: the replayed logits against the eager
+   step's, the launches as replays x the graph's captured launches, the
+   step's card time split by ``torch.profiler`` into the kernels, the
+   matrix products and other ops), and one 2,048-token prefill with 16
+   decode steps.
 3. The serving path at the full widths of recurrentgemma_9b (RG-LRU,
    RG-LRU, MQA attention with window 2,048, head_dim 256; 38 layers) and
    rwkv6_3b (32 RWKV-6 layers, 40 heads of 64): ``rglru_scan`` and
@@ -49,6 +54,15 @@ version on the card first:
    cells), each with a sample of rows recomputed through the plain
    version.
 
+5. The other decoder-only families served at full width in bfloat16 as
+   in 2: deepseek_7b, qwen2_5_14b, gemma3_27b (5 local : 1 global
+   windowed attention, 62 layers), qwen2_moe_a2_7b (60 experts, top-4)
+   and qwen2_vl_7b (M-RoPE), and llama4_scout_17b_a16e (16 experts,
+   top-1) cut to the depth that leaves LLAMA4_FREE_GB of the card free;
+   each with a PROMPT_S-token prefill and PROMPT_STEPS decode steps
+   against the plain versions (qwen2_vl_7b from random embeds and 3D
+   positions).
+
 Any failure exits non-zero.  The last lines are the card's name and power
 limit, one JSON object with each kernel's numbers, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -60,6 +74,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
+import inspect
 import json
 import math
 import subprocess
@@ -76,7 +92,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import fastpath  # noqa: E402
 from repro_torch.core import sweep  # noqa: E402
 from repro_torch.core.planes import carry_layout, make_planes  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels.decode_attention import split_plan  # noqa: E402
@@ -85,9 +101,10 @@ from repro_torch.kernels import rglru_scan as rglru_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv6_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import decode_step, init, init_cache  # noqa: E402
-from repro_torch.models import prefill  # noqa: E402
+from repro_torch.models import param_shapes, prefill  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.model import torch_dtype  # noqa: E402
-from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving import Endpoint, ServingEngine  # noqa: E402
 
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_S = 67e12        # H100 SXM float32 rate outside the tensor cores
@@ -116,6 +133,27 @@ KIND_KERNEL = {"attn": "decode_attention", "rglru": "rglru_scan",
                "rwkv": "rwkv6_scan"}
 # calls of a decode-step kernel captured in one CUDA graph for its card time
 GRAPH_CALLS = 50
+# each serving kernel's kernels in a torch.profiler trace, by a part of
+# their names; the first is launched once a wrapper call at the serving
+# shapes (one decode split, the direct scans), so its calls are counted
+PROFILE_KERNELS = {
+    "decode_attention": ("decode_attention_kernel", "decode_merge_kernel"),
+    "flash_attention": ("flash_attention",),
+    "rglru_scan": ("rglru_direct", "rglru_staged"),
+    "rwkv6_scan": ("rwkv6_direct", "rwkv6_chunk_"),
+}
+# parts of the matrix library's kernel names (cuBLAS, cuBLASLt on Hopper)
+MATMUL_KERNELS = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")
+# the decoder-only families served at full width beside qwen3_1_7b,
+# recurrentgemma_9b and rwkv6_3b; llama4_scout_17b_a16e's 109B parameters
+# do not fit one card, so it is cut to the depth that leaves
+# LLAMA4_FREE_GB free
+MORE_ARCHS = ("deepseek_7b", "qwen2_5_14b", "gemma3_27b", "qwen2_moe_a2_7b",
+              "qwen2_vl_7b")
+LLAMA4 = "llama4_scout_17b_a16e"
+LLAMA4_FREE_GB = 10
+# tokens of each family's bf16 prompt check, and its decode steps
+PROMPT_S, PROMPT_STEPS = 256, 4
 # models whose 4,096-token bf16 long prompt gates kernels against plain
 # versions at BF16_LOGIT_RTOL.  Not rwkv6_3b: with its random weights the
 # bf16 prefill is chaotic at that length (the plain bf16 run lies about
@@ -581,6 +619,14 @@ def check_decode(B, Sk, Hq, Hkv, dh, dtype, lengths, dev, gen,
     return out
 
 
+def serving_heads() -> list[tuple]:
+    """(query heads, KV heads, head_dim) of the decode attention of every
+    served family with attention layers (``configs.ARCHS``)."""
+    return sorted({(c.n_heads, c.n_kv_heads, c.head_dim)
+                   for c in map(get_config, ARCHS)
+                   if any(spec.kind == "attn" for spec in c.period)})
+
+
 def check_flash(B, Sq, Sk, Hq, Hkv, dh, dtype, dev, gen, causal=True,
                 window=-1, timed=True) -> dict:
     """flash_attention against its plain version; timed beside SDPA
@@ -740,16 +786,17 @@ def check_rwkv6(B, S, H, dh, dtype, dev, gen, timed=True,
 
 
 @contextlib.contextmanager
-def swapped(name, fn):
-    """``ops.<name>`` is ``fn`` while the block runs: the model looks its
-    kernels up in ``ops`` at every call, so this changes one kernel of a
+def swapped(name, fn, mod=ops):
+    """``mod.<name>`` (``ops`` by default) is ``fn`` while the block runs:
+    the model looks its kernels up in ``ops`` (and the MoE layers their
+    router in ``layers``) at every call, so this changes one function of a
     run and leaves the others as they are."""
-    kept = getattr(ops, name)
-    setattr(ops, name, fn)
+    kept = getattr(mod, name)
+    setattr(mod, name, fn)
     try:
         yield kept
     finally:
-        setattr(ops, name, kept)
+        setattr(mod, name, kept)
 
 
 def plain_version(name):
@@ -877,16 +924,34 @@ def step_launches(cfg) -> dict:
     return out
 
 
-def decode_step_time(params, cfg, dev, n=8) -> dict:
-    """Where a full-width decode step's time goes.  wall: n steps enqueued
-    back to back, one synchronise at the end.  host: the same n calls timed
-    on the host without a synchronise (host ~ wall: the host sets the
-    pace).  device: one step captured in a CUDA graph and replayed n times,
-    timed by CUDA events: the card's work with no gaps between launches.
-    attn_call_us / op_us: host time of one decode_attention call at this
-    shape (models with attention) and of one small PyTorch op, without a
-    synchronise."""
-    cache = init_cache(cfg, 1, 64, device=dev)
+def param_bytes(cfg) -> int:
+    """Bytes of ``cfg``'s parameters in its dtype (from ``param_shapes``)."""
+    es = torch.tensor([], dtype=torch_dtype(cfg.dtype)).element_size()
+    return es * sum(math.prod(s) for s in _leaves(param_shapes(cfg)))
+
+
+def release(*eps) -> None:
+    """Free endpoints' weights, lanes and graphs (their memory pools)."""
+    for ep in eps:
+        ep.params = None
+        ep.lanes.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_step_time(ep, n=8) -> dict:
+    """Where a full-width decode step's time goes, on ``ep``'s first lane.
+    eager_wall / eager_host: n eager ``decode_step`` calls back to back (a
+    step as the parent engine ran it), the host clock to one synchronise at
+    the end / without it (host ~ wall: the host sets the pace).
+    graph_wall: n replays of the lane's graph, the host clock to a
+    synchronise: a step as the engine runs it now.  device: the n replays
+    timed by CUDA events, the card's work with no gap between launches.
+    ``profile``: ``step_profile`` over n replays.  attn_call_us / op_us:
+    host time of one decode_attention call at this shape (models with
+    attention) and of one small PyTorch op, without a synchronise."""
+    params, cfg, dev = ep.params, ep.cfg, ep.device
+    cache = init_cache(cfg, 1, ep.cache_len, device=dev)
     tok = torch.zeros((1,), dtype=torch.int32, device=dev)
 
     def steps():
@@ -903,18 +968,28 @@ def decode_step_time(params, cfg, dev, n=8) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        decode_step(params, cfg, tok, cache, 5)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        decode_step(params, cfg, tok, cache, 5)
-    dev_ms = time_call(graph.replay, n)
-    out = {"wall_ms": wall / n * 1e3, "host_ms": host / n * 1e3,
-           "device_ms": dev_ms,
-           "device_idle_share": 1 - dev_ms / (wall / n * 1e3)}
+    lane = ep.lanes[0]
+    lane.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ep.step(lane)
+    torch.cuda.synchronize()
+    graph_wall = time.perf_counter() - t0
+    lane.reset()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        ep.step(lane)
+    e1.record()
+    torch.cuda.synchronize()
+    dev_ms = e0.elapsed_time(e1) / n
+    out = {"eager_wall_ms": wall / n * 1e3, "eager_host_ms": host / n * 1e3,
+           "graph_wall_ms": graph_wall / n * 1e3, "device_ms": dev_ms,
+           "eager_idle_share": 1 - dev_ms / (wall / n * 1e3),
+           "graph_idle_share": 1 - dev_ms / (graph_wall / n * 1e3),
+           "profile": step_profile(ep, lane, n)}
 
     q = torch.zeros((1, cfg.n_heads, cfg.head_dim),
                     dtype=torch_dtype(cfg.dtype), device=dev)
@@ -932,20 +1007,128 @@ def decode_step_time(params, cfg, dev, n=8) -> dict:
         q.add(q)
     out["op_us"] = (time.perf_counter() - t0) * 1e4
     torch.cuda.synchronize()
-    del graph
     return out
 
 
-def serving_burst(arch, dev) -> tuple[dict, list]:
-    """The serving main path of ``arch`` at full width, bfloat16: the
-    launcher's two endpoints, slots 2, policy fc, estimator warm-up 3 + 3,
-    a burst of 12 calls (30% heavy).  Every decode step must launch each of
-    its kernels once for each layer of the kernel's kind, and no plain
-    version.  Returns the numbers and the endpoints."""
-    short, long_ = serve.make_endpoints(arch, full_width=True)
-    cfg = short.cfg
-    if cfg.dtype != "bfloat16" or cfg != get_config(arch):
-        raise AssertionError(f"unexpected config {cfg}")
+def _device_us(evt) -> float:
+    """An event's own device microseconds, under either of the profiler's
+    names for them."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        t = getattr(evt, name, None)
+        if t is not None:
+            return float(t)
+    return 0.0
+
+
+def step_profile(ep, lane, n) -> dict:
+    """``torch.profiler`` over n replays of ``lane``'s graph: the device ms
+    a step of each serving kernel (its own kernels: decode's split and
+    merge, the scans' passes), of the matrix products (the matrix
+    library's kernels, ``MATMUL_KERNELS``) and of the other ops, the
+    largest of those, and each kernel's calls a step (its first kernel
+    name: one a wrapper call at the serving shapes).  Fails unless each
+    kernel's calls are the launches the graph captured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lane.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            ep.step(lane)
+        torch.cuda.synchronize()
+    ms = dict.fromkeys([*PROFILE_KERNELS, "matmul", "other"], 0.0)
+    calls = dict.fromkeys(PROFILE_KERNELS, 0)
+    other: dict = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t, name = _device_us(evt) / 1e3 / n, evt.key
+        kernel = next((k for k, names in PROFILE_KERNELS.items()
+                       if any(x in name for x in names)), None)
+        if kernel is not None:
+            ms[kernel] += t
+            if PROFILE_KERNELS[kernel][0] in name:
+                calls[kernel] += evt.count
+        elif any(x in name.lower() for x in MATMUL_KERNELS):
+            ms["matmul"] += t
+        else:
+            ms["other"] += t
+            other[name[:80]] = other.get(name[:80], 0.0) + t
+    total = sum(ms.values())
+    if total <= 0:
+        raise AssertionError("torch.profiler saw no kernel of the replays")
+    want = {k: n * ep.captured.get(k, 0) for k in PROFILE_KERNELS}
+    if calls != want:
+        raise AssertionError(f"{ep.name}: the profiler counts {calls} kernel "
+                             f"calls over {n} replays, the graph captured "
+                             f"{ep.captured} a step")
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
+    return {"ms_per_step": ms, "total_ms": total,
+            "calls_per_step": {k: v // n for k, v in calls.items() if v},
+            "top_other_ms": dict(top)}
+
+
+def graph_vs_eager(ep, steps=8) -> dict:
+    """The lane graph's logits over ``steps`` replays from a zeroed lane
+    against ``decode_step`` called eagerly (pos a tensor on the card) on a
+    fresh cache fed the same tokens, twice: the same kernels in the same
+    order, so the difference is meant to be 0.  Where it is not, the two
+    eager runs say whether the eager step itself varies; the difference is
+    then held to BF16_LOGIT_RTOL of the largest |logit|."""
+    lane = ep.lanes[0]
+    lane.reset()
+    got, fed = [], []
+    for _ in range(steps):
+        fed.append(lane.token.clone())
+        ep.step(lane)
+        got.append(lane.logits.float())
+
+    def eager():
+        cache = init_cache(ep.cfg, 1, ep.cache_len, device=ep.device)
+        out = []
+        for i, tok in enumerate(fed):
+            logits, cache = decode_step(
+                ep.params, ep.cfg, tok, cache,
+                torch.tensor(i, dtype=torch.int32, device=ep.device))
+            out.append(logits.float())
+        return torch.stack(out)
+
+    got, want = torch.stack(got), eager()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{ep.name}: replayed logits not finite")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    out = {"steps": steps, "max_abs_diff": err, "max_abs_logit": scale,
+           "argmax_equal": f"{int((got.argmax(-1) == want.argmax(-1)).sum())}"
+                           f"/{steps}"}
+    if err:
+        again = float((eager() - want).abs().max())
+        out["eager_vs_eager"] = again
+        out["cause"] = ("the eager step varies from run to run" if again
+                        else "the captured step computes otherwise than "
+                             "the eager one (the eager runs agree)")
+        if not err <= BF16_LOGIT_RTOL * scale:
+            raise AssertionError(f"{ep.name}: graph against eager {out}")
+    return out
+
+
+def full_width_burst(arch, dev, layers=None):
+    """The launcher's two endpoints of ``arch`` at full width
+    (``serve.make_endpoints``: one copy of the weights from seed 0 behind
+    two generation profiles; ``layers`` cuts the depth), on an engine of 2
+    slots, policy fc: estimator warm-up 3 + 3 calls and a burst of 12 (30%
+    heavy), with every count set to 0 just before and read just after.
+    Returns (engine, endpoints, burst summary, ``ops.launches()`` over the
+    run, graph replays over it by endpoint, decode steps, engine
+    construction s).  Runs on any tree's engine (``tools/scan_bench.py
+    --mode serve``): one that replays no graph gives no replays, and an
+    older launcher, whose endpoints build their own weights in the engine,
+    is called as it was."""
+    if "layers" in inspect.signature(serve.make_endpoints).parameters:
+        short, long_ = serve.make_endpoints(arch, True, dev, layers)
+    else:
+        short, long_ = serve.make_endpoints(arch, full_width=True)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = ServingEngine([short, long_], slots=2, policy="fc", seed=0,
                         device=dev)
@@ -953,14 +1136,46 @@ def serving_burst(arch, dev) -> tuple[dict, list]:
     steps0 = eng.decode_steps
     ops.reset_launches()
     summ = serve.run_burst(eng, short.name, long_.name, 12, 0.3)
-    n = ops.launches()
-    steps = eng.decode_steps - steps0
-    per_step = step_launches(cfg)
-    for name, got in n.items():
-        want = {"kernel": steps * per_step.get(name, 0), "plain": 0}
-        if got != want:
-            raise AssertionError(f"{arch} serving burst: {name} launches "
-                                 f"{got}, expected {want}")
+    counts = ops.launches()
+    # warming an endpoint replays nothing: these are the run's replays
+    replays = dict(getattr(eng, "replays", {}))
+    return (eng, [short, long_], summ, counts, replays,
+            eng.decode_steps - steps0, warm_s)
+
+
+def serving_burst(arch, dev, layers=None) -> tuple[dict, list]:
+    """The serving main path of ``arch`` at full width, bfloat16
+    (``full_width_burst``).  Every decode step must be one replay of a
+    lane's graph, each graph must have captured one launch of each kernel
+    for each layer of the kernel's kind and no plain version, the replays'
+    launches (replays x captured) are the path's kernel launches, and
+    nothing is launched eagerly during the run.  Then the graph against
+    the eager step (``graph_vs_eager``) and the step's time
+    (``decode_step_time``).  Returns the numbers and the endpoints."""
+    eng, eps, summ, counts, replays, steps, warm_s = full_width_burst(
+        arch, dev, layers)
+    cfg = eps[0].cfg
+    if eps[0].params is not eps[1].params:
+        raise AssertionError(f"{arch}: the endpoints hold two weight copies")
+    if cfg.dtype != "bfloat16" or cfg != dataclasses.replace(
+            get_config(arch), n_layers=cfg.n_layers):
+        raise AssertionError(f"unexpected config {cfg}")
+    per_step = {k: v for k, v in step_launches(cfg).items() if v}
+    for ep in eps:
+        if ep.captured != per_step or len(ep.lanes) != 2:
+            raise AssertionError(f"{ep.name}: captured {ep.captured} in "
+                                 f"{len(ep.lanes)} lanes, expected "
+                                 f"{per_step} in 2")
+    if sum(replays.values()) != steps:
+        raise AssertionError(f"{arch}: {steps} decode steps, replays "
+                             f"{replays}")
+    if any(v["kernel"] or v["plain"] for v in counts.values()):
+        raise AssertionError(f"{arch}: launched outside the graphs during "
+                             f"the burst: {counts}")
+    launches = eng.kernel_launches()
+    if launches != {k: steps * v for k, v in per_step.items()}:
+        raise AssertionError(f"{arch}: launches {launches} in {steps} "
+                             f"replays of {per_step} a step")
     if summ["n"] != 12:
         raise AssertionError(f"{arch} serving burst completed {summ['n']} "
                              "of 12")
@@ -968,27 +1183,39 @@ def serving_burst(arch, dev) -> tuple[dict, list]:
         if not math.isfinite(summ[key]) or summ[key] <= 0:
             raise AssertionError(f"{arch} serving burst: {key} = "
                                  f"{summ[key]}")
-    out = {"arch": arch, "burst": summ, "steps": steps,
-           "per_step_launches": {k: v for k, v in per_step.items() if v},
-           "launches": {k: v["kernel"] for k, v in n.items()
-                        if v["kernel"]},
+    out = {"arch": arch, "layers": cfg.n_layers,
+           "param_gb": param_bytes(cfg) / 1e9, "burst": summ,
+           "steps": steps, "replays": replays,
+           "per_step_launches": per_step, "launches": launches,
            "prewarm_s": warm_s,
            "ms_per_decode_step": summ["wall_s"] / summ["decode_steps"] * 1e3,
-           "tokens_per_s": summ["decode_steps"] / summ["wall_s"]}
+           "tokens_per_s": summ["decode_steps"] / summ["wall_s"],
+           "graph_vs_eager": graph_vs_eager(eps[0]),
+           "step": decode_step_time(eps[0])}
     del eng
-    return out, [short, long_]
+    return out, eps
 
 
 def print_burst(sv: dict) -> None:
     b = sv["burst"]
-    kern = ", ".join(f"{k} kernel launches {v} ({sv['per_step_launches'][k]}"
-                     f" a step), plain 0" for k, v in sv["launches"].items())
-    print(f"serving main path: {sv['arch']} bf16, 2 endpoints, slots 2, fc: "
-          f"n={b['n']} R_avg={b['R_avg'] * 1e3:.3f} ms R_p50="
-          f"{b['R_p50'] * 1e3:.3f} ms R_p95={b['R_p95'] * 1e3:.3f} ms "
-          f"cold_starts={b['cold_starts']} decode_steps="
-          f"{b['decode_steps']} ({sv['ms_per_decode_step']:.3f} ms per "
-          f"step, {sv['tokens_per_s']:.1f} tokens/s); {kern}", flush=True)
+    n_rep = sum(sv["replays"].values())
+    kern = ", ".join(f"{k} kernel launches {v} ({n_rep} replays x "
+                     f"{sv['per_step_launches'][k]} captured), plain 0"
+                     for k, v in sv["launches"].items())
+    ge = sv["graph_vs_eager"]
+    cut = (f" cut to {sv['layers']} layers"
+           if sv["arch"] == "llama4_scout_17b_a16e" else "")
+    print(f"serving main path: {sv['arch']}{cut} bf16, 2 endpoints, slots 2, "
+          f"fc, one CUDA graph a lane: n={b['n']} R_avg="
+          f"{b['R_avg'] * 1e3:.3f} ms R_p50={b['R_p50'] * 1e3:.3f} ms "
+          f"R_p95={b['R_p95'] * 1e3:.3f} ms cold_starts={b['cold_starts']} "
+          f"decode_steps={b['decode_steps']} "
+          f"({sv['ms_per_decode_step']:.3f} ms per step, "
+          f"{sv['tokens_per_s']:.1f} tokens/s; card "
+          f"{sv['step']['device_ms']:.3f} ms a step); graph vs eager "
+          f"max |diff| {ge['max_abs_diff']}"
+          + (f" ({ge['cause']})" if "cause" in ge else "") + f"; {kern}",
+          flush=True)
     print(f"serving details [{sv['arch']}]: " + json.dumps(sv), flush=True)
 
 
@@ -1040,27 +1267,27 @@ def serving_path(dev) -> dict:
     prefill(params, cfg, {"tokens": tokens.to(dev)}, warm_cache)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
-    del warm_cache
+    del warm_cache, params, cache
     out |= {"prefill_launches": n["flash_attention"]["kernel"],
             "prefill_2048_ms": t_prefill * 1e3,
             "prefill_2048_warm_ms": t_warm * 1e3,
-            "decode_after_prefill_ms_per_step": t_decode / 16 * 1e3,
-            "step": decode_step_time(params, cfg, dev)}
-    del short, long_, params, cache
-    torch.cuda.empty_cache()
+            "decode_after_prefill_ms_per_step": t_decode / 16 * 1e3}
+    release(short, long_)
     return out
 
 
-def prompt_run(params, cfg, dev, tokens, n, feed, force):
-    """A prefill of ``tokens`` (1, S) and ``n`` greedy decode steps: (logits
+def prompt_run(params, cfg, dev, batch, n, feed, force):
+    """A prefill of ``batch`` (``tokens`` (1, S), and ``embeds`` and
+    ``positions`` where given) and ``n`` greedy decode steps: (logits
     (n + 1, 1, V) float32, prefill s, decode s a step, the last cache).
     Step i is fed ``feed[i]``, which the first run to reach it appends (its
     own greedy token), so later runs are fed the first run's tokens."""
-    S = tokens.shape[1]
+    S = batch["tokens"].shape[1]
     cache = init_cache(cfg, 1, S + n, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, {"tokens": tokens.to(dev)}, cache,
+    logits, cache = prefill(params, cfg,
+                            {k: v.to(dev) for k, v in batch.items()}, cache,
                             force=force)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
@@ -1101,7 +1328,8 @@ def long_prompt(params, cfg, dev, S=4096, n=16, gate_logits=True) -> dict:
     feed = []
 
     def run(params, cfg, force):
-        return prompt_run(params, cfg, dev, tokens, n, feed, force)
+        return prompt_run(params, cfg, dev, {"tokens": tokens}, n, feed,
+                          force)
 
     runs, out = {}, {}
     per_step = step_launches(cfg)
@@ -1192,15 +1420,200 @@ def recurrent_serving(arch, dev) -> dict:
     breakdown, and the 4,096-token prefill of ``long_prompt``."""
     out, eps = serving_burst(arch, dev)
     params, cfg = eps[0].params, eps[0].cfg
-    del eps         # the batch endpoint's weights: room for a float32 copy
-    torch.cuda.empty_cache()
+    release(*eps)   # the lanes and their graphs: room for a float32 copy
     out["long_prompt"] = long_prompt(params, cfg, dev,
                                      gate_logits=arch in LOGIT_GATED)
     if arch == "rwkv6_3b":
         out["gated_prompt"] = long_prompt(
             *cut_depth(params, cfg, RWKV6_GATED_LAYERS), dev, S=RWKV6_GATED_S)
-    out["step"] = decode_step_time(params, cfg, dev)
     del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def llama4_layers(dev) -> int:
+    """The depth of llama4_scout_17b_a16e at full width whose bf16 weights
+    leave LLAMA4_FREE_GB of the card's free memory free."""
+    cfg = get_config(LLAMA4)
+    one, two = (param_bytes(dataclasses.replace(cfg, n_layers=k))
+                for k in (1, 2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0] - LLAMA4_FREE_GB * 1e9
+    return max(1, min(cfg.n_layers, int((free - (one - (two - one)))
+                                        // (two - one))))
+
+
+def routing_recorder(calls: list, imposed: list | None = None):
+    """A ``layers.moe_route`` that appends each call's experts (T, k) to
+    ``calls``.  With ``imposed`` (another run's ``calls``), the c-th call
+    takes ``imposed[c]``'s experts, weighted by its own gates renormalised
+    over them: the router's own weights wherever the experts agree."""
+    route = model_layers.moe_route
+
+    def call(router, xt, k):
+        w, i = route(router, xt, k)
+        if imposed is not None:
+            i = imposed[len(calls)]
+            g = torch.softmax(xt.float() @ router.float(), dim=-1).gather(1, i)
+            w = g / g.sum(-1, keepdim=True)
+        calls.append(i.clone())
+        return w, i
+    return call
+
+
+def first_flip(got: list, want: list, S: int, n_moe: int) -> dict:
+    """Where two runs' routing first picks another set of experts: the
+    least position (prompt positions 0..S-1 in the prefill's calls, S + i
+    in decode step i's) at which any MoE layer's experts differ, its layer
+    and both sets; ``flips`` counts the (call, token) pairs that differ,
+    those past the first included, which it may have caused."""
+    out = {"position": None, "flips": 0}
+    for c, (a, b) in enumerate(zip(got, want)):
+        differ = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        rows = differ.nonzero().flatten().tolist()
+        out["flips"] += len(rows)
+        if not rows:
+            continue
+        pos = rows[0] if c < n_moe else S + (c - n_moe) // n_moe
+        if out["position"] is None or pos < out["position"]:
+            t = rows[0] if c < n_moe else 0
+            out |= {"position": pos, "moe_layer": c % n_moe,
+                    "kernel_experts": a[t].tolist(),
+                    "plain_experts": b[t].tolist()}
+    return out
+
+
+def prompt_check(params, cfg, dev) -> dict:
+    """A PROMPT_S-token bf16 prefill and PROMPT_STEPS decode steps through
+    the kernels and through the plain versions (fed the kernel run's
+    greedy tokens); an M-RoPE model takes random ``embeds`` and (3, 1, S)
+    positions, t increasing along the prompt and h, w not.  The kernel run
+    must launch flash_attention once and decode_attention PROMPT_STEPS
+    times a layer, the plain run none.  ``per_call``: the kernel run once
+    more with every attention call also run as its plain version on the
+    same inputs, each held to ATTN_TOL (the kernels' own bf16 tolerance).
+    The logits must lie within BF16_LOGIT_RTOL of the largest |logit| of
+    the plain run's.  In a MoE model a bf16 difference in the router's
+    input may pick another expert for a token (a jump, not rounding), so
+    both runs record each MoE layer's experts (``routing_recorder``) and
+    the gate holds the logits whose positions all precede the first
+    token routed otherwise (``first_flip``; all of them where none is);
+    then the plain versions run once more with the kernel run's routing
+    imposed, and all their logits are held to the kernel run's."""
+    S, n = PROMPT_S, PROMPT_STEPS
+    gen = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, S), generator=gen)}
+    if cfg.mrope:
+        batch["embeds"] = torch.randn((1, S, cfg.d_model), generator=gen)
+        t = torch.arange(S)[None]
+        batch["positions"] = torch.stack([
+            t, torch.randint(0, 64, (1, S), generator=gen),
+            torch.randint(0, 64, (1, S), generator=gen)]).to(torch.int32)
+    n_attn = step_launches(cfg)["decode_attention"]
+    n_moe = sum(spec.moe for spec in cfg.layer_specs())
+    feed, runs, routes, out = [], {}, {}, {}
+    for force in (None, "ref"):
+        side = "kernel" if force is None else "plain"
+        routes[side] = []
+        ops.reset_launches()
+        with swapped("moe_route", routing_recorder(routes[side]),
+                     model_layers):
+            seq, t_prefill, t_decode, cache = prompt_run(
+                params, cfg, dev, batch, n, feed, force)
+        got = ops.launches()
+        for name, v in (("flash_attention", n_attn),
+                        ("decode_attention", n * n_attn)):
+            exp = {"kernel": 0, "plain": 0} | {side: v}
+            if got[name] != exp:
+                raise AssertionError(f"{cfg.name} prompt check ({side}): "
+                                     f"{name} launches {got[name]}, "
+                                     f"expected {exp}")
+        if len(routes[side]) != (n + 1) * n_moe:
+            raise AssertionError(f"{cfg.name} prompt check ({side}): "
+                                 f"{len(routes[side])} routings, expected "
+                                 f"{(n + 1) * n_moe}")
+        runs[side] = seq
+        out[side] = {"prefill_ms": t_prefill * 1e3,
+                     "decode_ms_per_step": t_decode * 1e3}
+    del cache
+    per_call = dict.fromkeys(("flash_attention", "decode_attention"), 0.0)
+
+    def both(name):
+        def call(*a, force=None, **kw):
+            got = kernel[name](*a, **kw)
+            err = float((got.float() - kernel[name](
+                *a, force="ref", **kw).float()).abs().max())
+            per_call[name] = max(per_call[name], err)
+            return got
+        return call
+
+    kernel = {name: getattr(ops, name) for name in per_call}
+    with swapped("flash_attention", both("flash_attention")), \
+            swapped("decode_attention", both("decode_attention")):
+        prompt_run(params, cfg, dev, batch, n, feed, None)
+    if not all(v <= ATTN_TOL[torch.bfloat16] for v in per_call.values()):
+        raise AssertionError(f"{cfg.name} prompt check: kernel against plain "
+                             f"on the same inputs {per_call} (tolerance "
+                             f"{ATTN_TOL[torch.bfloat16]})")
+    got, want = runs["kernel"], runs["plain"]
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{cfg.name} prompt check: logits not finite")
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    out |= {"S": S, "decode_steps": n, "embeds": "embeds" in batch,
+            "flash_launches": n_attn, "decode_launches": n * n_attn,
+            "per_call_max_abs_err": per_call,
+            "max_abs_err": err, "max_abs_logit": scale,
+            "rel_err": err / scale, "argmax_equal": f"{same}/{n + 1}"}
+    gated = n + 1
+    if n_moe:
+        flip = first_flip(routes["kernel"], routes["plain"], S, n_moe)
+        # logits entry j (the prefill's, then step j - 1's) reads positions
+        # up to S - 1 + j
+        if flip["position"] is not None:
+            gated = min(n + 1, max(0, flip["position"] - S + 1))
+        imposed = []
+        with swapped("moe_route", routing_recorder(imposed, routes["kernel"]),
+                     model_layers):
+            forced = prompt_run(params, cfg, dev, batch, n, feed, "ref")[0]
+        out["routing"] = flip | {
+            "moe_calls": len(routes["kernel"]),
+            "imposed_rel_err": rel(got, forced),
+            "imposed_argmax_equal":
+                f"{int((got.argmax(-1) == forced.argmax(-1)).sum())}"
+                f"/{n + 1}"}
+        if not out["routing"]["imposed_rel_err"] <= BF16_LOGIT_RTOL:
+            raise AssertionError(f"{cfg.name} prompt check: with the kernel "
+                                 f"run's routing imposed on the plain run "
+                                 f"{out['routing']} (tolerance "
+                                 f"{BF16_LOGIT_RTOL})")
+    out["gated_logits"] = f"{gated}/{n + 1}"
+    if gated:
+        out["gated_rel_err"] = rel(got[:gated], want[:gated])
+        if not out["gated_rel_err"] <= BF16_LOGIT_RTOL:
+            raise AssertionError(f"{cfg.name} prompt check: kernels and "
+                                 f"plain differ by {out['gated_rel_err']} of "
+                                 f"the largest |logit| over the first "
+                                 f"{gated} logits (tolerance "
+                                 f"{BF16_LOGIT_RTOL})")
+    return out
+
+
+def family_serving(arch, dev, layers=None) -> dict:
+    """``arch``'s serving main path (``serving_burst``), then its prompt
+    check (``prompt_check``)."""
+    out, eps = serving_burst(arch, dev, layers)
+    params, cfg = eps[0].params, eps[0].cfg
+    release(*eps)
+    out["prompt_check"] = prompt_check(params, cfg, dev)
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -1213,6 +1626,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -1234,6 +1648,7 @@ def main() -> int:
         for line in log.strip().splitlines():
             print(f"  nvcc {src}: {line}")
 
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 2. kernel vs plain on the card, at the mega bucket shapes --------
     sept = check_kernel("sept", 256, dev, timed=True)
     fc = check_kernel("fc", 256, dev, timed=True)
@@ -1246,6 +1661,7 @@ def main() -> int:
     for r in (sept, fc, pad, wide):
         print("event_step vs plain: " + json.dumps(r), flush=True)
 
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 3. the main path --------------------------------------------------
     cells, rows, wall, timings, launches, ref_launches = main_sweep(
         args.seeds, dev)
@@ -1311,6 +1727,7 @@ def main() -> int:
             "wide_shape": f"fc bucket, {wide['cells']} cells, "
                           f"n_b={wide['n_b']}, 16 nodes x 18 cores"}
 
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 3b. the frozen-priority kernel vs plain, then its main paths ------
     # (plain versions held to at most 256 cells a bucket)
     fz = {
@@ -1363,6 +1780,7 @@ def main() -> int:
         "push_cells_per_s": push["cells_per_s"],
         "push_device_share": push["device_share"]}
 
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 4. attention kernels vs plain on the card ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1384,6 +1802,15 @@ def main() -> int:
         "rg_f32_odd": check_decode(3, 1000, 16, 1, 256, f32, [0, 1000, 537],
                                    dev, gen, timed=False),
     }
+    # every served family's decode heads at the launcher's cache lengths
+    # (one split, no merge: Sk <= ONE_SPLIT_KEYS), a row for each length
+    # 0..Sk a call's steps reach
+    for Hq, Hkv, dh in serving_heads():
+        for _, p, g in serve.PROFILES:
+            Sk = Endpoint("", None, prompt_len=p, gen_len=g).cache_len
+            dec[f"serving_{Hq}_{Hkv}_{dh}_{Sk}"] = check_decode(
+                Sk + 1, Sk, Hq, Hkv, dh, bf, list(range(Sk + 1)), dev, gen,
+                timed=False)
     fl = {
         "prefill_4k": check_flash(1, 4096, 4096, 16, 8, 128, bf, dev, gen),
         "serving_2k": check_flash(1, 2048, 2048, 16, 8, 128, bf, dev, gen),
@@ -1412,6 +1839,7 @@ def main() -> int:
         print(f"flash_attention vs plain [{case}]: " + json.dumps(r),
               flush=True)
 
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 5. the recurrence kernels vs plain on the card --------------------
     # recurrentgemma_9b's RG-LRU width (4,096) and rwkv6_3b's heads (40 of
     # 64), at the prefill length of 4,096 and at one decode step
@@ -1443,12 +1871,14 @@ def main() -> int:
     for case, r in rw.items():
         print(f"rwkv6_scan vs plain [{case}]: " + json.dumps(r), flush=True)
 
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 6. the models at full width, float32, kernels vs plain ------------
     for arch in ("qwen3_1_7b", "recurrentgemma_9b", "rwkv6_3b"):
         mf = model_f32(arch, dev)
         print(f"{arch} float32, 512-token prefill + 8 decode steps, kernels "
               "vs plain versions: " + json.dumps(mf), flush=True)
 
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 7. the serving main paths at full width, bfloat16 ------------------
     # each burst runs with every count set to 0 just before it and read
     # just after (serving_burst)
@@ -1474,6 +1904,34 @@ def main() -> int:
           f"plain versions, logits gated: rel_err {gp['rel_err']:.4g} (rtol "
           f"{gp['rtol']}); " + json.dumps(gp), flush=True)
 
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # -- 8. the other decoder-only families at full width, bfloat16 (5.) ---
+    more = {arch: family_serving(arch, dev) for arch in MORE_ARCHS}
+    more[LLAMA4] = family_serving(LLAMA4, dev, llama4_layers(dev))
+    print(f"{LLAMA4}: {more[LLAMA4]['layers']} of "
+          f"{get_config(LLAMA4).n_layers} layers at full width "
+          f"({more[LLAMA4]['param_gb']:.1f} GB of bf16 weights), the depth "
+          f"that leaves {LLAMA4_FREE_GB} GB of the card free", flush=True)
+    for r in more.values():
+        print_burst(r)
+        pc = r["prompt_check"]
+        rt = pc.get("routing")
+        gate = f"{pc['gated_logits']} logits gated at rtol {BF16_LOGIT_RTOL}"
+        if rt:
+            gate = ("MoE routing first differs at "
+                    + (f"position {rt['position']} (MoE layer "
+                       f"{rt['moe_layer']}: experts {rt['kernel_experts']} "
+                       f"against {rt['plain_experts']})"
+                       if rt["position"] is not None else "no position")
+                    + f"; {gate}; with the kernel run's routing imposed on "
+                    f"the plain run rel_err {rt['imposed_rel_err']:.4g}")
+        print(f"{r['arch']} bf16, {pc['S']}-token prefill"
+              + (" (embeds, 3D positions)" if pc["embeds"] else "")
+              + f" + {pc['decode_steps']} decode steps, kernels vs plain "
+              f"versions: rel_err {pc['rel_err']:.4g} ({gate}), each "
+              f"attention call within {ATTN_TOL[torch.bfloat16]} of its "
+              "plain version; " + json.dumps(pc), flush=True)
+
     # kernel launches of each serving path, by kernel
     paths = {
         "qwen3_1_7b burst": sv["launches"],
@@ -1488,6 +1946,12 @@ def main() -> int:
         f"rwkv6_3b ({RWKV6_GATED_LAYERS} layer) {gp['S']}-token prefill + "
         "16 steps (gated)": gp["kernel"]["launches"],
     }
+    for arch, r in more.items():
+        paths[f"{arch} burst"] = r["launches"]
+        pc = r["prompt_check"]
+        paths[f"{arch} {pc['S']}-token prefill + {pc['decode_steps']} "
+              "steps"] = {"flash_attention": pc["flash_launches"],
+                          "decode_attention": pc["decode_launches"]}
 
     def by_path(name):
         return {p: n[name] for p, n in paths.items() if n.get(name)}
@@ -1533,6 +1997,7 @@ def main() -> int:
             {"decode": rw["decode"], "f32": rw["f32_prefill_4k"]},
             "src/repro/kernels/rwkv6_scan.py:27", rw),
     ]
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Own copies of the JAX package's configurations for the families the
-serving slices run: the dense full-attention ones, the RG-LRU hybrid
-recurrentgemma_9b and the RWKV-6 rwkv6_3b.  The other families of
-``repro.configs`` need modules the port does not have yet, and
-``get_config`` names the ROADMAP item that brings each.
+Own copies of the JAX package's configurations for the decoder-only
+families: the dense full-attention ones, gemma3_27b (5 local : 1 global
+windowed attention), the mixture-of-experts qwen2_moe_a2_7b and
+llama4_scout_17b_a16e, the M-RoPE qwen2_vl_7b, the RG-LRU hybrid
+recurrentgemma_9b and the RWKV-6 rwkv6_3b.  The encoder-decoder family of
+``repro.configs`` needs modules the port does not have yet, and
+``get_config`` names the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ["qwen3_1_7b", "deepseek_7b", "qwen2_5_14b", "recurrentgemma_9b",
-         "rwkv6_3b"]
+ARCHS = ["qwen3_1_7b", "deepseek_7b", "qwen2_5_14b", "gemma3_27b",
+         "qwen2_moe_a2_7b", "llama4_scout_17b_a16e", "qwen2_vl_7b",
+         "recurrentgemma_9b", "rwkv6_3b"]
 
 # dashed aliases as the JAX registry lists them
 ALIASES = {
@@ -32,11 +35,6 @@ ALIASES = {
 
 # families not ported yet -> the ROADMAP item (queue 1 of ROADMAP.md)
 NOT_PORTED = {
-    "gemma3_27b": "its registry entry and parity test (its layers are "
-                  "ported)",
-    "llama4_scout_17b_a16e": "MoE layers",
-    "qwen2_moe_a2_7b": "MoE layers",
-    "qwen2_vl_7b": "M-RoPE",
     "seamless_m4t_large_v2": "encoder-decoder models",
 }
 

@@ -17,10 +17,15 @@ kernels the call launches (``decode_attention`` a split and a merge
 kernel, ``rwkv6_scan`` three chunked passes at S > 16).  A caller sets
 them to 0 before a run (``reset_launches``) and reads them after it
 (``launches``).
+
+The counts grow in Python, where a wrapper is called, so a CUDA graph's
+replay adds nothing to them.  A graph's launches are counted once, at
+capture (``counted_apart``), and its replays stand for that many each.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -46,33 +51,50 @@ RWKV6_LAUNCHES = 0
 RWKV6_REF_LAUNCHES = 0
 
 
+# each kernel's two counts: (launches of the kernel, runs of the plain
+# version), by the names of the module's globals
+_COUNTS = {
+    "event_step": ("KERNEL_LAUNCHES", "REF_LAUNCHES"),
+    "event_step_freeze": ("FREEZE_LAUNCHES", "FREEZE_REF_LAUNCHES"),
+    "flash_attention": ("FLASH_LAUNCHES", "FLASH_REF_LAUNCHES"),
+    "decode_attention": ("DECODE_LAUNCHES", "DECODE_REF_LAUNCHES"),
+    "rglru_scan": ("RGLRU_LAUNCHES", "RGLRU_REF_LAUNCHES"),
+    "rwkv6_scan": ("RWKV6_LAUNCHES", "RWKV6_REF_LAUNCHES"),
+}
+
+
 def reset_launches() -> None:
     """Set every kernel's counts to 0."""
-    global KERNEL_LAUNCHES, REF_LAUNCHES, FLASH_LAUNCHES, FLASH_REF_LAUNCHES
-    global DECODE_LAUNCHES, DECODE_REF_LAUNCHES, RGLRU_LAUNCHES
-    global RGLRU_REF_LAUNCHES, RWKV6_LAUNCHES, RWKV6_REF_LAUNCHES
-    global FREEZE_LAUNCHES, FREEZE_REF_LAUNCHES
-    KERNEL_LAUNCHES = REF_LAUNCHES = 0
-    FREEZE_LAUNCHES = FREEZE_REF_LAUNCHES = 0
-    FLASH_LAUNCHES = FLASH_REF_LAUNCHES = 0
-    DECODE_LAUNCHES = DECODE_REF_LAUNCHES = 0
-    RGLRU_LAUNCHES = RGLRU_REF_LAUNCHES = 0
-    RWKV6_LAUNCHES = RWKV6_REF_LAUNCHES = 0
+    for names in _COUNTS.values():
+        for name in names:
+            globals()[name] = 0
 
 
 def launches() -> dict:
     """``{kernel: {"kernel": n, "plain": n}}`` since the last reset."""
-    return {
-        "event_step": {"kernel": KERNEL_LAUNCHES, "plain": REF_LAUNCHES},
-        "event_step_freeze": {"kernel": FREEZE_LAUNCHES,
-                              "plain": FREEZE_REF_LAUNCHES},
-        "flash_attention": {"kernel": FLASH_LAUNCHES,
-                            "plain": FLASH_REF_LAUNCHES},
-        "decode_attention": {"kernel": DECODE_LAUNCHES,
-                             "plain": DECODE_REF_LAUNCHES},
-        "rglru_scan": {"kernel": RGLRU_LAUNCHES, "plain": RGLRU_REF_LAUNCHES},
-        "rwkv6_scan": {"kernel": RWKV6_LAUNCHES, "plain": RWKV6_REF_LAUNCHES},
-    }
+    g = globals()
+    return {k: {"kernel": g[a], "plain": g[b]}
+            for k, (a, b) in _COUNTS.items()}
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Counts of the wrapper calls made inside the block, kept out of the
+    running counts: the block records its calls into a CUDA graph
+    (``torch.cuda.graph``) and runs none of them, so each count goes back
+    to its value before the block, and the dict yielded is filled, when the
+    block ends, with the block's own counts as ``launches()`` gives them."""
+    before = launches()
+    out: dict = {}
+    try:
+        yield out
+    finally:
+        after = launches()
+        g = globals()
+        for k, (a, b) in _COUNTS.items():
+            out[k] = {side: after[k][side] - before[k][side]
+                      for side in ("kernel", "plain")}
+            g[a], g[b] = before[k]["kernel"], before[k]["plain"]
 
 
 def _check_force(force) -> None:

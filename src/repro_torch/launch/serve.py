@@ -7,9 +7,19 @@ Port of ``repro.launch.serve``.  Stands up a single serving node with the
 paper's scheduler over two endpoints of the chosen architecture family
 ("chat": prompt 2, gen 4; "batch": prompt 4, gen 24), warms the runtime
 estimator with 3 + 3 calls, fires a burst and reports response-time
-statistics.  Models are scaled down as in the JAX launcher unless
-``--full-width`` is given (the published configuration; a card's work).
-Runs on CUDA unless ``--device cpu``.
+statistics.  ``--arch`` takes every decoder-only family of the port's
+registry (``configs.ARCHS``: dense, gemma3_27b's windowed layers, the MoE
+qwen2_moe_a2_7b and llama4_scout_17b_a16e, the M-RoPE qwen2_vl_7b, the
+recurrent recurrentgemma_9b and rwkv6_3b).  Models are scaled down as in
+the JAX launcher unless ``--full-width`` is given (the published
+configuration; a card's work).  The two endpoints are one model behind two
+generation profiles and share one copy of its weights (seed 0), where the
+JAX launcher gives each its own: so a full-width model needs its weights
+on the card once (gemma3_27b's 54 GB fit an 80 GB card;
+llama4_scout_17b_a16e's 218 GB fit no one card, and ``chip_smoke.py``
+serves it cut in depth through ``make_endpoints(..., layers=)``).  Runs on
+CUDA unless ``--device cpu``; on CUDA every decode step is a replay of its
+lane's CUDA graph (``serving.engine``).
 """
 
 from __future__ import annotations
@@ -19,19 +29,28 @@ import dataclasses
 import time
 
 from ..configs import get_config
-from ..models import scale_down
+from ..models import init, scale_down
 from ..serving import Endpoint, ServingEngine
 
 
-def make_endpoints(arch: str, full_width: bool = False) -> list[Endpoint]:
-    """The launcher's two endpoints: chat (prompt 2, gen 4) and batch
-    (prompt 4, gen 24)."""
+# the launcher's generation profiles: (name, prompt_len, gen_len)
+PROFILES = (("chat", 2, 4), ("batch", 4, 24))
+
+
+def make_endpoints(arch: str, full_width: bool = False, device=None,
+                   layers: int | None = None) -> list[Endpoint]:
+    """The launcher's two endpoints, one a profile of ``PROFILES``,
+    sharing one copy of the weights from seed 0 on ``device`` (CUDA by
+    default).  ``layers`` cuts the depth."""
     base = get_config(arch)
     if not full_width:
         base = scale_down(base)
-    return [Endpoint(f"{arch}-chat", base, prompt_len=2, gen_len=4),
-            Endpoint(f"{arch}-batch", dataclasses.replace(base),
-                     prompt_len=4, gen_len=24)]
+    if layers is not None:
+        base = dataclasses.replace(base, n_layers=layers)
+    params = init(base, 0, device)
+    return [Endpoint(f"{arch}-{name}", dataclasses.replace(base),
+                     prompt_len=p, gen_len=g, params=params)
+            for name, p, g in PROFILES]
 
 
 def run_burst(eng: ServingEngine, short: str, long_: str, requests: int,
@@ -73,7 +92,8 @@ def main(argv=None) -> None:
                          "scaled-down one")
     args = ap.parse_args(argv)
 
-    short, long_ = make_endpoints(args.arch, args.full_width)
+    short, long_ = make_endpoints(args.arch, args.full_width,
+                                   args.device)
     eng = ServingEngine([short, long_], slots=args.slots, policy=args.policy,
                         device=args.device)
     s = run_burst(eng, short.name, long_.name, args.requests,

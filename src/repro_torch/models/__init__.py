@@ -1,4 +1,5 @@
-"""Models of the port: config and the dense full-attention decoder stack."""
+"""Models of the port: config and the decoder-only stack (dense, windowed,
+MoE, M-RoPE, RG-LRU and RWKV-6 layers)."""
 
 from .config import (ATTN, GLOBAL_WINDOW, RGLRU, RWKV, LayerSpec, ModelConfig,
                      scale_down)

@@ -4,8 +4,9 @@ One dataclass describes dense / MoE / hybrid (RG-LRU) / SSM (RWKV6) /
 encoder-decoder / VLM backbones.  Layer stacks are expressed as a repeating
 ``period``: a tuple of :class:`LayerSpec` tiled ``n_layers//len`` times;
 parameters of the same period position are stacked along a leading axis.
-The port serves the dense full-attention families; the other fields are
-kept so the dataclass stays equal to the JAX one.
+The port serves the decoder-only families; the other fields (the
+encoder-decoder's, the TPU sharding hints) are kept so the dataclass stays
+equal to the JAX one.
 """
 
 from __future__ import annotations

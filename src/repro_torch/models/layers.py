@@ -1,7 +1,7 @@
 """Building blocks of the decoder families (port of
-``repro.models.layers``): norms, RoPE, attention, the SwiGLU MLP, the
-RG-LRU recurrent block (Griffin / RecurrentGemma) and the RWKV-6 time and
-channel mix.
+``repro.models.layers``): norms, RoPE and M-RoPE, attention, the SwiGLU
+MLP, the mixture of experts, the RG-LRU recurrent block (Griffin /
+RecurrentGemma) and the RWKV-6 time and channel mix.
 
 Functions take explicit parameter dicts under the JAX tree's names, so the
 same weights drive both packages.  The kernels of ``kernels.ops`` carry the
@@ -15,7 +15,8 @@ both; the Pallas recurrences carry their state in float32 (the JAX model's
 RG-LRU rounds h to the model dtype every step, its time mix rounds
 k v^T and S + u k v^T before the product with r), which agrees exactly in
 float32 and within bfloat16 rounding otherwise.  The projections, MLPs and
-the unembedding are plain matrix products.
+the unembedding, and the experts' products, are plain matrix products,
+as the JAX model leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -46,30 +47,63 @@ def group_norm_heads(x: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
-def _rope_angles(positions: torch.Tensor, d_half: int,
-                 theta: float) -> torch.Tensor:
-    """positions (..., S) -> angles (..., S, d_half), float32."""
+def _rope_angles(positions: torch.Tensor, d_half: int, theta: float,
+                 sections: tuple | None = None) -> torch.Tensor:
+    """positions (..., S) -> angles (..., S, d_half), float32.  With
+    ``sections`` (M-RoPE), positions (3, ..., S) for (t, h, w): the rotary
+    dimension is split into ``sections`` (summing to d_half), each part
+    rotated by its own stream at the frequencies of its indices."""
     freqs = theta ** (-torch.arange(0, d_half, dtype=torch.float32,
                                     device=positions.device) / d_half)
-    return positions[..., None].float() * freqs
+    if sections is None:
+        return positions[..., None].float() * freqs
+    if sum(sections) != d_half or positions.shape[0] != len(sections):
+        raise ValueError(f"M-RoPE sections {sections} over d_half {d_half} "
+                         f"and positions {tuple(positions.shape)}")
+    parts, off = [], 0
+    for sec, pos in zip(sections, positions):
+        parts.append(pos[..., None].float() * freqs[off:off + sec])
+        off += sec
+    return torch.cat(parts, dim=-1)
+
+
+def rope_sections(cfg) -> tuple | None:
+    """The M-RoPE sections of ``cfg``, or None for plain RoPE."""
+    return tuple(cfg.mrope_sections) if cfg.mrope else None
 
 
 def rope_cos_sin(positions: torch.Tensor, d_half: int, theta: float,
-                 dtype: torch.dtype):
-    """cos and sin of the angles, (B, S, 1, d_half), cast to ``dtype``."""
-    ang = _rope_angles(positions, d_half, theta)
+                 dtype: torch.dtype, sections: tuple | None = None):
+    """cos and sin of the angles, (B, S, 1, d_half), cast to ``dtype``;
+    positions (B, S), or (3, B, S) with M-RoPE ``sections``."""
+    ang = _rope_angles(positions, d_half, theta, sections)
     return (torch.cos(ang)[:, :, None, :].to(dtype),
             torch.sin(ang)[:, :, None, :].to(dtype))
+
+
+def _rotate(x: torch.Tensor, cos_sin) -> torch.Tensor:
+    d_half = x.shape[-1] // 2
+    cos, sin = cos_sin
+    x1, x2 = x[..., :d_half], x[..., d_half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
                cos_sin=None) -> torch.Tensor:
     """x: (B, S, H, dh), positions: (B, S).  ``cos_sin`` from
     ``rope_cos_sin`` saves recomputing the angles for every layer."""
-    d_half = x.shape[-1] // 2
-    cos, sin = cos_sin or rope_cos_sin(positions, d_half, theta, x.dtype)
-    x1, x2 = x[..., :d_half], x[..., d_half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return _rotate(x, cos_sin or rope_cos_sin(positions, x.shape[-1] // 2,
+                                              theta, x.dtype))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple,
+                theta: float = 1e6, cos_sin=None) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, dh), positions: (3, B, S)
+    for (t, h, w); the rotary dimension is split into ``sections`` (summing
+    to dh / 2), each rotated by its own positional stream.  With the three
+    streams equal it is ``apply_rope``."""
+    return _rotate(x, cos_sin or rope_cos_sin(
+        positions, x.shape[-1] // 2, theta, x.dtype, tuple(sections)))
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +163,7 @@ def attn_params_shapes(cfg, cross: bool = False) -> dict:
 def attn_project_qkv(p: dict, x: torch.Tensor, cfg, positions,
                      rope: bool = True, cos_sin=None):
     """q (B, S, Hq, dh) and k, v (B, S, Hkv, dh): projections, bias,
-    qk-norm and RoPE (M-RoPE is not ported)."""
+    qk-norm and RoPE (M-RoPE with ``cfg.mrope``, positions (3, B, S))."""
     B, S, _ = x.shape
     dh = cfg.head_dim
 
@@ -146,11 +180,9 @@ def attn_project_qkv(p: dict, x: torch.Tensor, cfg, positions,
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     if rope:
-        if cfg.mrope:
-            raise NotImplementedError(
-                "M-RoPE is not ported yet (ROADMAP.md, queue 1: M-RoPE)")
-        q = apply_rope(q, positions, cfg.rope_theta, cos_sin)
-        k = apply_rope(k, positions, cfg.rope_theta, cos_sin)
+        cos_sin = cos_sin or rope_cos_sin(positions, dh // 2, cfg.rope_theta,
+                                          q.dtype, rope_sections(cfg))
+        q, k = _rotate(q, cos_sin), _rotate(k, cos_sin)
     return q, k, v
 
 
@@ -164,6 +196,87 @@ def mlp_params_shapes(cfg) -> dict:
 
 def swiglu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity dispatch sorted by expert)
+# ---------------------------------------------------------------------------
+def moe_params_shapes(cfg) -> dict:
+    d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
+    shapes = {
+        "router": (d, e),
+        "e_gate": (e, d, f),
+        "e_up": (e, d, f),
+        "e_down": (e, f, d),
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * f
+        shapes |= {"s_gate": (d, fs), "s_up": (d, fs), "s_down": (fs, d)}
+    return shapes
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int):
+    """The router of ``moe_mlp``: a float32 softmax over the experts of each
+    of the T tokens of ``xt`` (T, d), the k largest gates (the lower expert
+    first on a tie, as ``lax.top_k``) renormalised.  Returns (weights (T,
+    k) float32, experts (T, k)).  ``moe_mlp`` looks it up here at each
+    call, so a check can record or impose the routing."""
+    gates = torch.softmax(xt.float() @ router.float(), dim=-1)
+    # a stable descending sort keeps equal gates in expert order
+    top_w, top_i = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[:, :k], top_i[:, :k]
+    return top_w / top_w.sum(-1, keepdim=True), top_i
+
+
+def moe_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Top-k routed experts with capacity, as the JAX model dispatches
+    them: each token's k experts and weights (``moe_route``), the (token,
+    choice) pairs sorted stably by expert, the first ``cap = max(1,
+    int(capacity_factor T k / E))`` of each expert kept (the rest go to an
+    overflow row and count 0), every expert's (cap, d) rows through its
+    SwiGLU, and the weighted sum; then the shared experts.
+
+    Nothing here reads a value on the host, so a decode step with MoE
+    layers can be captured in a CUDA graph: the expert counts are a
+    ``scatter_add_`` into E zeros, and each token's k contributions are
+    put back in choice order and summed there, so the result does not
+    depend on the order of atomic adds.  ``moe_constraint`` (a TPU
+    sharding hint) is ignored."""
+    if cfg.moe_groups > 1:
+        raise NotImplementedError(
+            "grouped MoE dispatch (moe_groups > 1) is not ported "
+            "(ROADMAP.md, queue 1)")
+    B, S, d = x.shape
+    T, E, k = B * S, cfg.n_experts, cfg.top_k
+    cap = max(1, int(cfg.capacity_factor * T * k / E))
+    xt = x.reshape(T, d)
+    top_w, top_i = moe_route(p["router"], xt, k)
+
+    flat_e = top_i.reshape(T * k)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    sorted_t = order // k
+    sorted_w = top_w.reshape(T * k)[order]
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = counts.cumsum(0) - counts
+    pos_in_e = torch.arange(T * k, device=x.device) - starts[sorted_e]
+    keep = pos_in_e < cap
+    slot = torch.where(keep, sorted_e * cap + pos_in_e, E * cap)
+
+    # the overflow row E * cap takes every dropped pair and is cut off
+    xe = xt.new_zeros(E * cap + 1, d).index_copy_(0, slot, xt[sorted_t])
+    xe = xe[:-1].reshape(E, cap, d)
+    h = (F.silu(torch.einsum("ecd,edf->ecf", xe, p["e_gate"]))
+         * torch.einsum("ecd,edf->ecf", xe, p["e_up"]))
+    ye = torch.einsum("ecf,efd->ecd", h, p["e_down"]).reshape(E * cap, d)
+    contrib = ye[slot.clamp(max=E * cap - 1)] * (
+        sorted_w * keep).to(x.dtype)[:, None]
+    y = torch.empty_like(contrib).index_copy_(0, order, contrib)
+    y = y.reshape(T, k, d).sum(1)
+    if cfg.n_shared_experts:
+        y = y + (F.silu(xt @ p["s_gate"]) * (xt @ p["s_up"])) @ p["s_down"]
+    return y.reshape(B, S, d)
 
 
 # ---------------------------------------------------------------------------

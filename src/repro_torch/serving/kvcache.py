@@ -9,6 +9,10 @@ completion, so the batch is never recomposed mid-flight.
 The manager tracks per-slot fill levels for ragged attention (the
 ``lengths`` operand of ``kernels.ops.decode_attention``) and exposes assign
 / release with O(1) free-list operations.
+
+``Lane`` is the serving engine's form of one slot: a batch-1 cache of its
+own with the token and position its decode step reads, static tensors that
+a captured CUDA graph keeps reading and writing, zeroed for each new call.
 """
 
 from __future__ import annotations
@@ -68,3 +72,42 @@ class SlotPool:
 
     def utilization(self) -> float:
         return 1.0 - len(self._free) / self.n_slots
+
+
+def zero_cache(cache: dict) -> dict:
+    """Zero every leaf of a cache tree in place and return it: the fresh
+    cache ``init_cache`` makes (all zeros, as JAX's ``init_cache``)."""
+    for leaf in cache.values():
+        if isinstance(leaf, dict):
+            zero_cache(leaf)
+        else:
+            leaf.zero_()
+    return cache
+
+
+@dataclass(eq=False)
+class Lane:
+    """One decode lane of an endpoint: ``cache`` (batch 1, from
+    ``init_cache``), ``token`` (1,) int32 and ``pos`` 0-dim int32, the next
+    step's inputs; ``logits`` (1, V), the last step's output; ``graph``, the
+    step captured on CUDA (None on the CPU); ``busy`` while a call holds
+    the lane."""
+    cache: dict
+    token: torch.Tensor
+    pos: torch.Tensor
+    logits: torch.Tensor | None = None
+    graph: object = None
+    busy: bool = False
+
+    @classmethod
+    def new(cls, cfg: ModelConfig, cache_len: int, device) -> "Lane":
+        return cls(cache=init_cache(cfg, 1, cache_len, device=device),
+                   token=torch.zeros((1,), dtype=torch.int32, device=device),
+                   pos=torch.zeros((), dtype=torch.int32, device=device))
+
+    def reset(self) -> None:
+        """A fresh call's state, in place: the cache zeroed, token and pos
+        0."""
+        zero_cache(self.cache)
+        self.token.zero_()
+        self.pos.zero_()

@@ -16,7 +16,7 @@ import dataclasses
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import split_plan
 from repro_torch.models import decode_step, init, init_cache, prefill
@@ -214,6 +214,34 @@ def test_decode_one_split_allocates_no_scratch(cuda, Sk, dtype):
     n1 = torch.cuda.memory_stats()["allocation.all.allocated"]
     assert n1 - n0 == 1
     _close(got, ops.decode_attention(q, k, v, lengths, force="ref"), dtype)
+
+
+SERVED_ATTN = [a for a in ARCHS
+               if any(s.kind == "attn" for s in get_config(a).period)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Sk", [14, 36])
+@pytest.mark.parametrize("arch", SERVED_ATTN)
+def test_decode_serving_heads_every_length(cuda, arch, Sk, dtype):
+    """Each served family's decode heads (GQA groups 1, 2, 5, 7 and 16)
+    at the launcher's cache lengths (14 and 36 slots: one split, no
+    merge), a row for each length 0..Sk a call's steps reach."""
+    cfg = get_config(arch)
+    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B = Sk + 1
+    assert split_plan(Sk, B, Hkv) == (1, Sk)
+    q, k, v = _rand(cuda, Sk + Hq, (B, Hq, dh), (B, Sk, Hkv, dh),
+                    (B, Sk, Hkv, dh), dtype=dtype)
+    lengths = torch.arange(B, dtype=torch.int32, device=cuda)
+    k0 = ops.DECODE_LAUNCHES
+    got = ops.decode_attention(q, k, v, lengths)
+    want = ops.decode_attention(q, k, v, lengths, force="ref")
+    torch.cuda.synchronize()
+    assert ops.DECODE_LAUNCHES == k0 + 1
+    _close(got, want, dtype)
+    assert not got[0].float().any()                 # length 0 gives 0
 
 
 @pytest.mark.gpu

@@ -301,23 +301,30 @@ def test_params_from_numpy_carries_the_recurrent_trees(arch, layers, kinds):
 
 
 def test_unported_families_raise():
-    for arch in ("gemma3_27b", "qwen2_moe_a2_7b", "qwen2_vl_7b",
-                 "seamless_m4t_large_v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("seamless_m4t_large_v2")
     base = scale_down(get_config("qwen3_1_7b"))
-    for change in (dict(period=(LayerSpec(moe=True),)),
-                   dict(mrope=True), dict(kv_cache_dtype="int8"),
-                   dict(encoder_layers=2)):
+    moe = scale_down(get_config("qwen2_moe_a2_7b"))
+    for cfg in (dataclasses.replace(base, kv_cache_dtype="int8"),
+                dataclasses.replace(base, encoder_layers=2),
+                dataclasses.replace(moe, moe_groups=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_supported(dataclasses.replace(base, **change))
-    # windows, recurrent layers and a tail are ported
+            check_supported(cfg)
+    # windows, recurrent layers, a tail, MoE, M-RoPE and gemma3's periods
+    # (5 local : 1 global, and its 2-layer tail) are ported
     for change in (dict(period=(LayerSpec(window=16),)),
                    dict(period=(LayerSpec(kind="rglru"),)),
                    dict(period=(LayerSpec(kind="rwkv"),)),
                    dict(period=(LayerSpec(), LayerSpec(window=8)),
                         n_layers=3)):
         check_supported(dataclasses.replace(base, **change))
+    for arch in ("gemma3_27b", "qwen2_moe_a2_7b", "llama4_scout_17b_a16e",
+                 "qwen2_vl_7b"):
+        check_supported(get_config(arch))
+    gemma = get_config("gemma3_27b")
+    assert (gemma.n_groups, gemma.n_tail) == (10, 2)
+    check_supported(dataclasses.replace(scale_down(gemma), n_layers=8))
+    check_supported(dataclasses.replace(base, mrope=True))
     with pytest.raises(ValueError, match="kind"):
         check_supported(dataclasses.replace(
             base, period=(LayerSpec(kind="mamba"),)))

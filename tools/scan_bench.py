@@ -1,8 +1,8 @@
 """Card times of the port's kernels, to compare two trees.
 
     python3 tools/scan_bench.py [--src DIR]
-                                [--mode scans|event_step|sweep]
-                                [--profile] [--repeat N]
+                                [--mode scans|event_step|sweep|serve]
+                                [--profile] [--repeat N] [--arch ARCH]
 
 Imports ``repro_torch`` from DIR (default: the ``src`` of the checkout
 this script is in), builds its kernels, and prints one JSON line per case
@@ -30,6 +30,17 @@ counted by ``chip_smoke.needed_bytes``.
 then ``--repeat`` times, one JSON line each: cells/s and the host and
 device phases.  Several such processes, alternating between two trees,
 give each tree's spread in one call.
+
+``--mode serve``: one arch's serving burst at full width in bf16 as
+``chip_smoke.py`` runs it (``chip_smoke.full_width_burst``: the launcher's
+two endpoints sharing one copy of the weights, slots 2, fc, 12 calls),
+one JSON line: R_avg / R_p50 / R_p95, ms per decode step, tokens/s, the
+engine's construction s, the kernel launches (replays x captured where
+DIR's engine replays CUDA graphs, else the eager counts), and one decode
+step's card time (``card_ms``): the engine's own lane graph replayed where
+DIR's engine captures one, else ``decode_step`` captured at pos 5, as the
+eager engine's tree measured it.  One process a (tree, arch), alternating
+trees, compares DIR's engine with another's in one call.
 
 With ``--src``, ``repro_torch`` comes from DIR; ``chip_smoke.py`` (from
 this script's checkout) is imported after it and so runs DIR's code.
@@ -199,11 +210,48 @@ def event_step_cases(needed_bytes, reps: int = 20):
             wclk, wctr, wide, **static), None, n_max, 16 * nbytes, 5)
 
 
+def serve_case(chip_smoke, arch: str) -> dict:
+    """``--mode serve``'s numbers for ``arch`` on the imported tree."""
+    from repro_torch.models import decode_step, init_cache
+
+    dev = torch.device("cuda")
+    eng, eps, summ, counts, replays, steps, warm_s = (
+        chip_smoke.full_width_burst(arch, dev))
+    ep = eps[0]
+    if replays:
+        lane = ep.lanes[0]
+        lane.reset()
+        card_ms = time_call(lambda: ep.step(lane), 8)
+        how = "lane graph replay"
+        launches = eng.kernel_launches()
+    else:
+        cache = init_cache(ep.cfg, 1, ep.cache_len, device=dev)
+        tok = torch.zeros((1,), dtype=torch.int32, device=dev)
+        card_ms = time_graph(lambda: decode_step(ep.params, ep.cfg, tok,
+                                                 cache, 5), 8)
+        how = "decode_step captured at pos 5"
+        launches = {k: v["kernel"] for k, v in counts.items()
+                    if v["kernel"]}
+    return {"arch": arch, "n": summ["n"], "R_avg": summ["R_avg"],
+            "R_p50": summ["R_p50"], "R_p95": summ["R_p95"],
+            "decode_steps": summ["decode_steps"], "wall_s": summ["wall_s"],
+            "ms_per_decode_step": summ["wall_s"] / summ["decode_steps"] * 1e3,
+            "tokens_per_s": summ["decode_steps"] / summ["wall_s"],
+            "prewarm_s": warm_s, "steps": steps,
+            "replays": sum(replays.values()), "launches": launches,
+            "plain": {k: v["plain"] for k, v in counts.items()
+                      if v["plain"]},
+            "card_ms": card_ms, "card_how": how}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--mode", choices=("scans", "event_step", "sweep"),
+    ap.add_argument("--mode", choices=("scans", "event_step", "sweep",
+                                       "serve"),
                     default="scans")
+    ap.add_argument("--arch", default="qwen3_1_7b",
+                    help="the arch served (--mode serve)")
     ap.add_argument("--repeat", type=int, default=3,
                     help="timed sweeps after the warm-up (--mode sweep)")
     ap.add_argument("--profile", action="store_true",
@@ -220,6 +268,11 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if args.mode == "serve":
+        print(json.dumps({"src": args.src} | serve_case(chip_smoke,
+                                                        args.arch)),
+              flush=True)
+        return 0
     if args.mode == "sweep":
         dev = torch.device("cuda")
         chip_smoke.main_sweep(1, dev)
