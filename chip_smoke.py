@@ -54,6 +54,20 @@ version on the card first:
    cells), each with a sample of rows recomputed through the plain
    version.
 
+   Then capacity dynamics and node speeds through ``event_step``'s float64
+   pull kernel: the kernel against its plain version, bit for bit (rows
+   and summary), on a frontier bucket (FC, 2-5 nodes of 8 cores
+   autoscaling to 7 with a 10 s provision delay, a 40-core burst at
+   intensity 40), the straggler grid's heavy bucket (4 x 8 cores, a
+   32-core burst at intensity 96, node 0 2-8x slow) and a failure + speed
+   bucket (3 x 6 cores, node 0 killed at 8 s and 5x slow); then
+   ``run_cells_scan(metrics_only=True)`` over the autoscaler frontier
+   (benchmarks/engine_bench.py::frontier_spec, 80 cells), its 40-seed cut
+   (640 cells) and the straggler grid's pull half (75 cells), with a
+   sample of rows recomputed through the plain version, and the frontier's
+   claim: the best autoscaled configuration at N nodes against the static
+   fleet at N + 1.
+
 5. The other decoder-only families served at full width in bfloat16 as
    in 2: deepseek_7b, qwen2_5_14b, gemma3_27b (5 local : 1 global
    windowed attention, 62 layers), qwen2_moe_a2_7b (60 experts, top-4)
@@ -109,7 +123,9 @@ from repro_torch.serving import Endpoint, ServingEngine  # noqa: E402
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_S = 67e12        # H100 SXM float32 rate outside the tensor cores
 BF16_OPS_S = 989e12       # H100 SXM dense bf16 tensor-core rate
-PEAK_OPS = {torch.float32: FP32_OPS_S, torch.bfloat16: BF16_OPS_S}
+FP64_OPS_S = 34e12        # H100 SXM float64 rate outside the tensor cores
+PEAK_OPS = {torch.float32: FP32_OPS_S, torch.bfloat16: BF16_OPS_S,
+            torch.float64: FP64_OPS_S}
 # attention kernel against its plain version: tests/test_kernels.py's
 ATTN_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # model logits, kernels against plain versions, float32 end to end: the two
@@ -208,7 +224,7 @@ def bucket_tensors(key, host, dev):
                            n_slots=static["n_slots"],
                            window=static["window"], freeze=static["freeze"],
                            fc_push=static["fc_push"],
-                           fc_ring=static["fc_ring"])
+                           fc_ring=static["fc_ring"], dyn=static["dyn"])
     return inp, clk, ctr, static
 
 
@@ -287,7 +303,10 @@ def check_kernel(policy: str, n_cells: int, dev, timed: bool,
     key, cells, host = mega_bucket(policy, n_cells, **shape)
     inp, clk, ctr, static = bucket_tensors(key, host, dev)
     n_b = key[1]
-    ref = ops.event_step(clk, ctr, inp, force="ref", **static)
+    plain = []                       # the plain version, run once
+    plain_ms = time_call(lambda: plain.append(ops.event_step(
+        clk, ctr, inp, force="ref", **static)), reps=1, warmup=False)
+    ref = plain[0]
     k0 = ops.KERNEL_LAUNCHES
     got = ops.event_step(clk, ctr, inp, **static)
     torch.cuda.synchronize()
@@ -319,8 +338,7 @@ def check_kernel(policy: str, n_cells: int, dev, timed: bool,
         # one event a step: the longest cell takes 2 n steps
         steps = 2 * max(n_real)
         out["ns_per_step"] = out["ms"] * 1e6 / steps
-        out["plain_ms"] = time_call(lambda: ops.event_step(
-            clk, ctr, inp, force="ref", **static), reps=1)
+        out["plain_ms"] = plain_ms       # the comparison run
         moved = needed_bytes(cells, static)
         # floating-point operations this data needs: 2 n events per cell;
         # per event a ring update (2) and the dispatch (3), and per queued
@@ -370,18 +388,21 @@ def main_sweep(seeds: int, dev):
 
 def scan_cell(c) -> "fastpath._ScanCell":
     """The bucket runner's prepared cell of a SweepCell: a single-node cell
-    at ``nodes == 1``, else a pull or push cluster cell."""
+    at one node without dynamics or speeds, else a pull or push cluster
+    cell with its dynamics and speeds."""
     reqs = sweep.make_workload(c)
     return fastpath._ScanCell(
         requests=reqs, feats=fastpath._arrival_features(reqs),
         cores=c.cores, nodes=c.nodes, policy=c.policy,
-        assignment="single" if c.nodes == 1 else c.assignment, lb=c.lb)
+        assignment=c.assignment if sweep._cluster_shaped(c) else "single",
+        lb=c.lb, dynamics=sweep._cell_dynamics(c),
+        profile=sweep._cell_profile(c))
 
 
 def plain_rows(cells, dev) -> list[dict]:
     """Metrics rows of ``cells`` through the plain version on the card,
-    composed from the bucket runner's own steps (bucket, fill, planes, scan,
-    metrics fold)."""
+    composed from the bucket runner's own steps (bucket, fill, planes, scan
+    with ``force="ref"``, metrics fold)."""
     groups: dict[tuple, list[int]] = {}
     prepared = []
     for i, c in enumerate(cells):
@@ -391,13 +412,10 @@ def plain_rows(cells, dev) -> list[dict]:
     rows: list = [None] * len(cells)
     for key, idxs in groups.items():
         part = [prepared[i] for i in idxs]
-        inp, clk, ctr, static = bucket_tensors(
-            key, fastpath._fill_bucket(key, part), dev)
-        finish = ops.event_step(clk, ctr, inp, force="ref",
-                                **static)[1].cpu().numpy()
+        out = fastpath._run_scan_bucket(key, part, dev, force="ref")
         for b, i in enumerate(idxs):
-            mo = fastpath._cell_scan_metrics(
-                part[b], finish[b].astype(np.float64), {})
+            mo = fastpath._cell_scan_metrics(part[b], out[b][1], {},
+                                             out[b][4])
             rows[i] = sweep._metrics_from_scan(cells[i], mo)
     return rows
 
@@ -555,6 +573,243 @@ def push_cells(seeds: int) -> list:
                            lbs=("least_loaded", "home"), nodes=(2, 4),
                            cores=(8,), intensities=(10, 15, 20, 25, 30),
                            seeds=seeds, workload_cores=16).cells()
+
+
+def frontier_cells(seeds: int) -> list:
+    """The autoscaler frontier grid (benchmarks/engine_bench.py::
+    frontier_spec): FC on 2-5 initial nodes of 8 cores, a 40-core burst at
+    intensity 40, static or autoscaled (provision delay 10 / 30 / 60 s,
+    scale-up at 2 calls a slot, up to 7 nodes); 80 cells at its 5 seeds."""
+    return sweep.SweepSpec(policies=("fc",), nodes=(2, 3, 4, 5), cores=(8,),
+                           intensities=(40,), autoscale=(False, True),
+                           provision_delays=(10.0, 30.0, 60.0),
+                           scale_ups=(2.0,), max_nodes=7, seeds=seeds,
+                           workload_cores=40).cells()
+
+
+def straggler_pull_cells() -> list:
+    """The straggler grid's pull half (benchmarks/engine_bench.py::
+    straggler_spec, its unhedged pull cells): FC on 4 x 8 cores, a 32-core
+    burst at intensities 18 / 45 / 96, node 0 healthy or 2 / 4 / 6 / 8x
+    slow from 2 s to 300 s, 5 seeds: 75 cells."""
+    degrades = (None,) + tuple(((0, 2.0, 300.0, s),)
+                               for s in (2.0, 4.0, 6.0, 8.0))
+    return sweep.SweepSpec(policies=("fc",), nodes=(4,), cores=(8,),
+                           intensities=(18, 45, 96), degrades=degrades,
+                           seeds=5, workload_cores=32).cells()
+
+
+def frontier_claim(cells, rows) -> list[str]:
+    """The lines benchmarks/engine_bench.py::frontier_rows prints from the
+    frontier grid's rows: for each N, the best autoscaled configuration at
+    N initial nodes (least mean R_p95 over the seeds) against the static
+    fleet at N + 1, and the first N where it is no worse."""
+    groups: dict = {}
+    for c, r in zip(cells, rows):
+        groups.setdefault((c.nodes, c.autoscale, c.provision_delay),
+                          []).append(r["R_p95"])
+    p95 = {k: float(np.mean(v)) for k, v in groups.items()}
+    lines, claim = [], "no-frontier-point"
+    for n in sorted({k[0] for k in p95}):
+        auto = [(v, k[2]) for k, v in p95.items() if k[0] == n and k[1]]
+        big = p95.get((n + 1, False, None))
+        if not auto or big is None:
+            continue
+        v, pd = min(auto)
+        lines.append(f"{n}n+auto(pd{pd:g}) p95={v:.2f} vs {n + 1}n static "
+                     f"p95={big:.2f}")
+        if v <= big and claim == "no-frontier-point":
+            claim = (f"{n}n+auto(pd{pd:g}) p95={v:.2f} <= {n + 1}n static "
+                     f"p95={big:.2f}")
+    return lines + [f"claim: {claim}"]
+
+
+def dyn_needed_bytes(cells, static: dict) -> int:
+    """Bytes the float64 pull scan of ``cells`` must move, each read once
+    and each write once, at each cell's own widths (its nodes -- with the
+    autoscaler its node cap --, cores and functions): the carry planes
+    (8-byte clocks, 4-byte counters), rows ``[:n+1]`` of t / p / cost (8
+    bytes) and fnid (4), the ``n`` queue entries of ``fn_ev``, five
+    coefficients, cores and nodes; with ``dyn`` each node's activation and
+    kill time and five dynamics parameters, the node cap and call count;
+    with ``het`` each node's speed and each episode; and the outputs: rows
+    ``[:n]`` of start / finish / prio (8) and node (4), with ``dyn`` the
+    summary (three counts, each node's activation time and dead flag)."""
+    total = 0
+    for c in cells:
+        n = len(c.feats.t)
+        nodes = c.node_cap()
+        lay = carry_layout(n_nodes=nodes, n_slots=c.cores,
+                           window=static["window"], n_fns=len(c.feats.fns),
+                           n1=n + 1, dyn=static["dyn"])
+        nbytes = (8 * lay.f_len + 4 * lay.i_len + 28 * (n + 1) + 4 * n
+                  + 40 + 8 + 28 * n)
+        if static["dyn"]:
+            nbytes += 16 * nodes + 40 + 8 + 12 + 12 * nodes
+        if static["het"]:
+            nbytes += 8 * nodes + 28 * len(c.profile.episodes)
+        total += nbytes
+    return total
+
+
+def check_dyn(case: str, cells, dev) -> dict:
+    """The float64 pull kernel against its plain version on the card: rows
+    [:n_b] of start, finish, prio and node and the summary bit-identical;
+    then its time, ns an event step, the plain version's time (the
+    comparison run), the plan and the bound of this bucket's work.
+    ``plain_rows`` holds each cell's metrics row from the plain run, folded
+    as the bucket runner folds (a path's rows of these cells must equal
+    them)."""
+    prepared = [scan_cell(c) for c in cells]
+    keys = {c.bucket() for c in prepared}
+    if len({k[0] for k in keys}) != 1:
+        raise AssertionError(f"{case}: cells of several feature sets")
+    key = tuple(max(col) for col in zip(*keys))
+    inp, clk, ctr, static = bucket_tensors(
+        key, fastpath._fill_bucket(key, prepared), dev)
+    if not (static["dyn"] or static["het"]):
+        raise AssertionError(f"{case}: not a float64 pull bucket")
+    n1 = key[1] + 1
+    plain = []                       # the plain version, run once
+    plain_ms = time_call(lambda: plain.append(ops.event_step(
+        clk, ctr, inp, force="ref", **static)), reps=1, warmup=False)
+    ref = plain[0]
+    k0 = ops.DYN_LAUNCHES
+    got = ops.event_step(clk, ctr, inp, **static)
+    torch.cuda.synchronize()
+    if ops.DYN_LAUNCHES != k0 + 1:
+        raise AssertionError(f"{case}: event_step did not launch the float64 "
+                             "pull kernel")
+    err = 0.0
+    for name, a, b in zip(("start", "finish", "prio", "node"), ref, got):
+        a, b = a[:, :n1 - 1], b[:, :n1 - 1]
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:5].tolist()
+            raise AssertionError(f"dyn event_step {name} differs from the "
+                                 f"plain version ({case}) at {bad}")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    for k in ref[4]:
+        if not torch.equal(ref[4][k], got[4][k]):
+            raise AssertionError(f"dyn event_step summary {k} differs from "
+                                 f"the plain version ({case})")
+    n_real = [len(c.feats.t) for c in prepared]
+    fin = got[1][:len(cells)].cpu().numpy()
+    for b, n in enumerate(n_real):
+        if not (np.isfinite(fin[b, :n]).all() and (fin[b, :n] > 0).all()):
+            raise AssertionError(f"{case}: cell {b} has unfinished calls")
+    lost = (got[4]["nfail"][:len(cells)].tolist() if static["dyn"]
+            else [0] * len(cells))
+    finish = ref[1].cpu().numpy()
+    aux = {k: v.cpu().numpy() for k, v in ref[4].items()}
+    plain_rows = []
+    for b, (c, sc) in enumerate(zip(cells, prepared)):
+        extras = ({"failures": int(aux["nfail"][b]),
+                   "nodes_used": int(aux["prov"][b])} if static["dyn"]
+                  else None)
+        mo = fastpath._cell_scan_metrics(sc, finish[b], {}, extras)
+        plain_rows.append(sweep._metrics_from_scan(c, mo))
+    out = {"case": case, "cells": len(cells), "bsz": int(clk.shape[0]),
+           "n_b": key[1], "nodes": key[2], "slots": key[3],
+           "dyn": static["dyn"], "het": static["het"],
+           "n_steps_budget": static["n_steps"], "max_abs_err": err,
+           "failures": sum(lost),
+           "nodes_used": (got[4]["prov"][:len(cells)].tolist()
+                          if static["dyn"] else None),
+           "plan": ops.event_step_plan(
+               n1=n1, n_nodes=static["n_nodes"], n_slots=static["n_slots"],
+               n_fns=key[4], window=static["window"], f64=True,
+               dyn=static["dyn"])}
+    out["ms"] = time_call(lambda: ops.event_step(clk, ctr, inp, **static),
+                          reps=10)
+    out["plain_ms"] = plain_ms
+    # the longest cell's events: its arrivals and completions, the
+    # re-arrivals and re-dispatches of what the kills lost (2 each)
+    steps = max(2 * n + 2 * f for n, f in zip(n_real, lost))
+    out["ns_per_step"] = out["ms"] * 1e6 / steps
+    moved = dyn_needed_bytes(prepared, static)
+    # float64 operations this data needs: a completion's ring update (3);
+    # a dispatch's priority over the cell's functions (5 each, 7 with the
+    # enqueue clock, 9 with FC counts too) and its start and finish (2, 6
+    # with a speed)
+    per_fn = 5 + 2 * static["dyn"] + 2 * static["use_fc"]
+    ops_n = sum(3 * n + (n + f) * (len(c.feats.fns) * per_fn
+                                   + 2 + 4 * static["het"])
+                for n, f, c in zip(n_real, lost, prepared))
+    out["bytes"], out["operations"] = moved, ops_n
+    out["bound_ms"], out["bound_by"] = bound(moved, ops_n, torch.float64)
+    return out, dict(zip(cells, plain_rows))
+
+
+def dyn_sample(cells) -> list:
+    """A stratified sample of the cells the float64 kernel runs (those with
+    dynamics or speeds; the static and healthy ones run the pull kernel,
+    whose rows the main path samples): every identity but its seed once,
+    the seed rotating over them."""
+    firsts: dict = {}
+    for c in cells:
+        if sweep._cell_dynamics(c) or sweep._cell_profile(c):
+            firsts.setdefault(dataclasses.replace(c, seed=0), []).append(c)
+    return [cs[k % len(cs)] for k, cs in enumerate(firsts.values())]
+
+
+def dyn_path(name: str, cells, dev, plain: dict | None = None) -> dict:
+    """One capacity-dynamics main path: ``run_cells_scan(metrics_only=
+    True)`` over ``cells``, every count set to 0 just before it and read
+    just after (the float64 pull kernel launched, its plain version and
+    every other kernel's plain version not); its rows checked (burst
+    sizes, finite metrics; the runner holds every cell to all calls done)
+    and held to ``plain``, the rows of a sample of its cells recomputed
+    through the plain version (``check_dyn``).  Returns its numbers and
+    rows."""
+    timings: dict = {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = sweep.run_cells_scan(cells, metrics_only=True, device=dev,
+                                timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    dy = counts["event_step_dyn"]
+    if (dy["kernel"] == 0 or any(v["plain"] for v in counts.values())
+            or any(v["kernel"] for k, v in counts.items()
+                   if k not in ("event_step_dyn", "event_step"))):
+        raise AssertionError(f"{name} launches: {counts}")
+    for c, r in zip(cells, rows):
+        wcores = c.workload_cores or c.cores * c.nodes
+        want = 11 * max(1, round(wcores * c.intensity / 10))
+        if r["n"] != want:
+            raise AssertionError(f"{c.label()} seed {c.seed}: n={r['n']}, "
+                                 f"burst has {want}")
+        for k in ("R_avg", "R_p95", "max_c"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"{c.label()} seed {c.seed}: {k}="
+                                     f"{r[k]}")
+    sample = [i for i, c in enumerate(cells) if c in (plain or {})]
+    for i in sample:
+        if rows[i] != plain[cells[i]]:
+            raise AssertionError(f"{cells[i].label()} seed {cells[i].seed}: "
+                                 "kernel row differs from the plain row")
+    out = {"cells": len(cells), "wall_s": wall,
+           "cells_per_s": len(cells) / wall, **timings,
+           "other_s": wall - sum(timings.values()),
+           "device_share": timings["device_s"] / wall,
+           "launches": dy["kernel"], "plain_launches": dy["plain"],
+           "pull_launches": counts["event_step"]["kernel"],
+           "sample": len(sample),
+           "failures": sum(r["failures"] for r in rows),
+           "nodes_used_max": max(r["nodes_used"] for r in rows)}
+    print(f"{name}: {len(cells)} cells in {wall:.3f} s = "
+          f"{out['cells_per_s']:.1f} cells/s (fill {timings['fill_s']:.3f} s,"
+          f" device {timings['device_s']:.3f} s = {out['device_share']:.1%} "
+          f"of the wall, fold {timings['fold_s']:.3f} s, other "
+          f"{out['other_s']:.3f} s); float64 pull kernel launches "
+          f"{dy['kernel']}, plain launches {dy['plain']} (pull kernel "
+          f"{out['pull_launches']})" + (
+              f"; sample: {len(sample)} cells recomputed through the plain "
+              "version on the card, rows equal" if sample else ""),
+          flush=True)
+    return out, rows
 
 
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
@@ -1781,6 +2036,66 @@ def main() -> int:
         "push_device_share": push["device_share"]}
 
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # -- 3c. capacity dynamics and node speeds: the float64 pull kernel vs
+    # plain, then the autoscaler frontier and the straggler grid -----------
+    # the frontier and straggler checks' cells are a stratified sample of
+    # their grids' float64 cells, so their plain rows hold the paths' rows
+    fr80 = frontier_cells(5)
+    st75 = straggler_pull_cells()
+    dy, plain = {}, {}
+    for k, case, cells in (
+            ("frontier", "frontier fc 2-5 x 8 cores -> 7, pd 10 / 30 / 60, "
+             "v40 (40-core burst)", dyn_sample(fr80)),
+            ("straggler", "straggler pull fc 4 x 8, v18 / v45 / v96, node 0 "
+             "2-8x slow (n_b 4096)", dyn_sample(st75)),
+            ("fail_het", "pull fc 3 x 6, rolling kill at 8 s, node 0 5x "
+             "slow, v16 / v45", [
+                 sweep.SweepCell(policy="fc", nodes=3, cores=6,
+                                 intensity=v, seed=s, fail_spec=((0, 8.0),),
+                                 degrade=((0, 1.0, 300.0, 5.0),))
+                 for v in (16, 45) for s in range(4)])):
+        dy[k], rows_k = check_dyn(case, cells, dev)
+        plain.update(rows_k)
+        print("dyn event_step vs plain: " + json.dumps(dy[k]), flush=True)
+    if dy["fail_het"]["failures"] == 0:
+        raise AssertionError("the failure bucket lost no call")
+    frontier, fr_rows = dyn_path("frontier path", fr80, dev, plain)
+    fr640 = frontier_cells(40)
+    cut, cut_rows = dyn_path("frontier 40-seed path", fr640, dev)
+    if [r for c, r in zip(fr640, cut_rows) if c.seed < 5] != fr_rows:
+        raise AssertionError("the 40-seed cut's first 5 seeds differ from "
+                             "the frontier grid's rows")
+    print("frontier 40-seed path: its rows of seeds 0-4 equal the frontier "
+          "path's", flush=True)
+    straggler, _ = dyn_path("straggler pull path", st75, dev, plain)
+    for line in frontier_claim(fr80, fr_rows):
+        print(f"frontier: {line}", flush=True)
+    main_dy = dy["frontier"]
+    paths_dy = {"frontier path": frontier["launches"],
+                "frontier 40-seed path": cut["launches"],
+                "straggler pull path": straggler["launches"]}
+    kern_dy = {
+        "name": "event_step_dyn", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/event_step.cu",
+        "replaces": "src/repro/core/fastpath.py:821",
+        "launches": sum(paths_dy.values()), "launches_by_path": paths_dy,
+        "max_abs_err": max(r["max_abs_err"] for r in dy.values()),
+        "ms": main_dy["ms"], "plain_ms": main_dy["plain_ms"],
+        "bound_ms": main_dy["bound_ms"], "bound_by": main_dy["bound_by"],
+        "library_ms": None,
+        "shape": f"frontier bucket, {main_dy['cells']} cells, "
+                 f"n_b={main_dy['n_b']}, up to 7 of 8 nodes x 8 slots",
+        "ns_per_step": main_dy["ns_per_step"],
+        "cases": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "ns_per_step", "n_b", "bsz",
+                                         "plan")}
+                  for k, r in dy.items()},
+        **{f"{k}_{f}": r[f] for k, r in (("frontier", frontier),
+                                          ("frontier_640", cut),
+                                          ("straggler", straggler))
+           for f in ("cells_per_s", "device_share")}}
+
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 4. attention kernels vs plain on the card ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1986,6 +2301,7 @@ def main() -> int:
     kernels = [
         kern,
         kern_fz,
+        kern_dy,
         flash_row,
         row("decode_attention", dec["decode_32k"],
             {"main_path": dec["serving"], "rg": dec["rg_ring_2k"],

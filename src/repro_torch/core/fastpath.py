@@ -1,20 +1,23 @@
-"""Scan backend of the port: static warm cells as bucketed batches through
-the ``event_step`` kernel.
+"""Scan backend of the port: warm cells as bucketed batches through the
+``event_step`` kernels.
 
-Counterpart of the static warm float32 part of ``repro.core.fastpath``.  A
-cell is one invoker with ``cores`` slots (single node), or a cluster of
-``nodes`` invokers with ``cores`` slots each under pull assignment (one
-controller queue, late binding) or push assignment (each call routed on
-arrival, least-loaded or to its home invoker), all five policies, in the
-always-warm regime (the §V-A warm-up leaves ``cores`` warm containers per
-function, so no call ever cold-starts).  Single-node and push cells run the
-frozen-priority regime: a call's priority is fixed at arrival from the
-estimator of the node it was routed to.  Cells are grouped by padded shape
-(``_ScanCell.bucket``); each bucket is filled on the host, moved to the
-device, packed into the carry planes and scanned in chunks, and the
-per-request records come back in event order.  Other cells -- capacity
-dynamics, heterogeneity, hedging, cold starts, resilience, the round-robin
-balancer -- raise ``ValueError``.
+Counterpart of ``repro.core.fastpath`` for the always-warm regime (the
+§V-A warm-up leaves ``cores`` warm containers per function, so no call ever
+cold-starts).  A cell is one invoker with ``cores`` slots (single node), or
+a cluster of ``nodes`` invokers with ``cores`` slots each under pull
+assignment (one controller queue, late binding) or push assignment (each
+call routed on arrival, least-loaded or to its home invoker), all five
+policies.  Single-node and push cells run the frozen-priority regime: a
+call's priority is fixed at arrival from the estimator of the node it was
+routed to.  Pull cells may also carry capacity dynamics (scheduled node
+failures, the autoscaler: a ``ClusterDynamics``) and node speeds (a
+``NodeSpeedProfile``); such buckets scan in float64, as the JAX package's
+do.  Cells are grouped by padded shape (``_ScanCell.bucket``); each bucket
+is filled on the host, moved to the device, packed into the carry planes
+and scanned in chunks, and the per-request records come back in event
+order.  Other cells -- hedging, cold starts, resilience, the round-robin
+balancer -- raise ``ValueError``; push or single-node cells with dynamics
+or node speeds raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops as _kops
+from .cluster import timeline_from_scan
 from .planes import make_planes
 from .request import Request
 from .traces import stable_hash
@@ -66,6 +70,19 @@ _PULL_COEF = {
     "fc":   (0.0, 0.0, 0.0, 1.0),
 }
 
+# Pull coefficients of a cell with capacity dynamics: a fifth one on the
+# enqueue clock.  A call re-queued after its node died ranks by the time it
+# was last pulled (its reference r'), so FIFO's and EECT's shared-`now`
+# terms no longer cancel: a queue head adds coef[4] * now, a re-queued call
+# coef[4] * r'.
+_PULL_COEF_DYN = {
+    "fifo": (0.0, 0.0, 0.0, 0.0, 1.0),
+    "sept": (0.0, 0.0, 1.0, 0.0, 0.0),
+    "eect": (0.0, 0.0, 1.0, 0.0, 1.0),
+    "rect": (0.0, 1.0, 1.0, 0.0, 0.0),
+    "fc":   (0.0, 0.0, 0.0, 1.0, 0.0),
+}
+
 # ClusterConfig node sizing, which warm-regime eligibility is judged against
 CLUSTER_MEMORY_MB = 40 * 1024
 CLUSTER_CONTAINER_MB = 128
@@ -79,12 +96,14 @@ LB_ROUTE = {"least_loaded": 0, "home": 1}
 # a bucket key's feature mask has the JAX package's bit order
 # (``_CARRY_SEGMENTS``): bit 0 ``freeze`` (single-node and push cells),
 # bit 1 ``use_fc`` (pull FC counts), bit 2 ``fc_push`` (FC on more than one
-# node under push); the port sets no other bit
+# node under push), bit 6 ``het`` (node speeds), bit 7 ``dyn`` (capacity
+# dynamics); the port sets no other bit
 _FREEZE_MASK = 1 << 0
 _USE_FC_MASK = 1 << 1
 _FC_PUSH_MASK = 1 << 2
-_BASE_FLAGS = dict(freeze=False, fc_push=False, dyn=False, het=False,
-                   hedge=False, cold=False, dup=False)
+_HET_MASK = 1 << 6
+_DYN_MASK = 1 << 7
+_BASE_FLAGS = dict(hedge=False, cold=False, dup=False)
 
 # cells per chunk: a one-warp block per cell needs thousands of cells in
 # flight on the card; the CPU's plain version runs a few hundred at a time.
@@ -192,11 +211,20 @@ def cluster_scan_eligible(
     warm: bool = True,
     memory_mb: int = CLUSTER_MEMORY_MB,
     container_mb: int = CLUSTER_CONTAINER_MB,
+    dynamics=None,
+    profile=None,
 ) -> bool:
-    """True when the port's scan reproduces a warm cluster cell: a known
+    """True when the JAX package's scan reproduces a warm cluster cell, as
+    its ``cluster_scan_eligible`` answers for these arguments: a known
     policy, at least one node, pull assignment or push with the
     least-loaded or home balancer, and the always-warm regime on the
-    cluster's nodes."""
+    cluster's nodes.  ``dynamics`` (a ``ClusterDynamics``) further needs
+    the least-loaded balancer under push and failures confined to the
+    initial fleet with a survivor and no negative time; ``profile`` (a
+    ``NodeSpeedProfile``) no more speeds than nodes the cell can reach.
+    The port runs the pull cells of these; push or single-node cells with
+    dynamics or node speeds raise ``NotImplementedError`` in
+    :func:`simulate_cluster_cells_scan`."""
     if policy not in POLICY_NAMES or nodes < 1 or not warm:
         return False
     if assignment == "push":
@@ -204,6 +232,18 @@ def cluster_scan_eligible(
             return False
     elif assignment != "pull":
         return False
+    dyn = dynamics is not None and not dynamics.is_static
+    cap = dynamics.capacity_bound(nodes) if dynamics is not None else nodes
+    if profile is not None and len(profile.speeds) > cap:
+        return False                 # speeds beyond the fleet
+    if dyn:
+        if assignment == "push" and lb != "least_loaded":
+            return False
+        if dynamics.fail:
+            failed = {idx for idx, _ in dynamics.fail}
+            if (max(failed) >= nodes or len(failed) >= nodes
+                    or any(at < 0 for _, at in dynamics.fail)):
+                return False
     fns = sorted({r.fn for r in requests})
     return _warm_regime_ok(fns, cores, memory_mb, container_mb)
 
@@ -215,7 +255,7 @@ def _pow2(x: int) -> int:
 
 @dataclass
 class _ScanCell:
-    """One prepared static warm cell: features + shape parameters."""
+    """One prepared warm cell: features + shape parameters."""
 
     requests: list
     feats: _Arrivals
@@ -224,6 +264,46 @@ class _ScanCell:
     policy: str
     assignment: str = "pull"     # "single" | "pull" | "push"
     lb: str = "least_loaded"     # push balancer: least_loaded | home
+    dynamics: object | None = None   # ClusterDynamics | None
+    profile: object | None = None    # NodeSpeedProfile | None
+
+    @property
+    def dyn(self) -> bool:
+        return self.dynamics is not None and not self.dynamics.is_static
+
+    @property
+    def het(self) -> bool:
+        return self.profile is not None and not self.profile.is_uniform
+
+    def node_cap(self) -> int:
+        """Largest node count the cell can reach (autoscaler headroom)."""
+        return (self.dynamics.capacity_bound(self.nodes)
+                if self.dynamics is not None else self.nodes)
+
+    def dyn_budget(self) -> int:
+        """Upper bound on the scan steps capacity dynamics add to a pull
+        cell (the JAX package's bound): kill events, the re-arrivals of the
+        running calls they lose, autoscaler ticks (a work-conserving
+        makespan bound over the tick interval) and the activations'
+        dispatches."""
+        if not self.dyn:
+            return 0
+        d = self.dynamics
+        n = len(self.feats.t)
+        kills = len(d.fail)
+        lost = kills * self.cores
+        extra = kills + lost
+        if d.autoscale:
+            grow = max(0, d.capacity_bound(self.nodes) - self.nodes)
+            work = 0.0
+            if n:
+                per_req = self.feats.p + self.feats.chan_cost
+                work = (float(self.feats.t[-1]) + float(per_req.sum())
+                        + kills * d.failure_detect_s
+                        + lost * float(per_req.max()))
+            ticks = int(np.ceil(work / max(d.autoscale_interval_s, 1e-6))) + 2
+            extra += ticks + grow * (1 + self.cores)
+        return extra
 
     def bucket(self) -> tuple:
         """Padded shape key, in the JAX package's 11-field layout: (feature
@@ -243,66 +323,103 @@ class _ScanCell:
         # count, which bounds any node-local count from above
         fc_ring = (_pow2(int(self.feats.count.max()))
                    if fc_push and len(self.feats.count) else 1)
+        n_ep = _pow2(max(1, len(self.profile.episodes))) if self.het else 1
+        extra = self.dyn_budget()
         mask = ((_FREEZE_MASK if freeze else 0)
                 | (_USE_FC_MASK if use_fc else 0)
-                | (_FC_PUSH_MASK if fc_push else 0))
-        return (mask, _pow2(len(self.feats.t)), _pow2(self.nodes),
+                | (_FC_PUSH_MASK if fc_push else 0)
+                | (_HET_MASK if self.het else 0)
+                | (_DYN_MASK if self.dyn else 0))
+        return (mask, _pow2(len(self.feats.t)), _pow2(self.node_cap()),
                 _pow2(self.cores), _pow2(len(self.feats.fns)), kq,
-                DEFAULT_WINDOW, fc_ring, 1, 1, 0)
+                DEFAULT_WINDOW, fc_ring, n_ep, 1, _pow2(extra) if extra else 0)
 
 
 def _key_flags(key: tuple) -> dict[str, bool]:
     """The feature flags a bucket key's mask enables: ``freeze``,
-    ``use_fc`` and ``fc_push``.  Any other segment, or a combination no
-    static warm cell makes, raises ``NotImplementedError``."""
+    ``use_fc``, ``fc_push``, ``het`` and ``dyn``.  Any other segment, a
+    combination no warm cell makes, or ``het`` / ``dyn`` outside the pull
+    regime raises ``NotImplementedError``."""
     mask = key[0]
+    known = (_FREEZE_MASK | _USE_FC_MASK | _FC_PUSH_MASK | _HET_MASK
+             | _DYN_MASK)
     flags = {"freeze": bool(mask & _FREEZE_MASK),
              "use_fc": bool(mask & _USE_FC_MASK),
-             "fc_push": bool(mask & _FC_PUSH_MASK)}
-    if (mask & ~(_FREEZE_MASK | _USE_FC_MASK | _FC_PUSH_MASK)
-            or key[8:] != (1, 1, 0)
+             "fc_push": bool(mask & _FC_PUSH_MASK),
+             "het": bool(mask & _HET_MASK),
+             "dyn": bool(mask & _DYN_MASK)}
+    if flags["freeze"] and (flags["het"] or flags["dyn"]):
+        raise NotImplementedError(
+            f"bucket {key}: capacity dynamics and node speeds under push or "
+            "on one node (the frozen-priority dyn / het segments) are not "
+            "ported (ROADMAP queue 1 item 4)")
+    if (mask & ~known
+            or key[9] != 1
+            or (key[8] != 1 and not flags["het"])
+            or (key[10] != 0) != flags["dyn"]
             or (flags["use_fc"] and flags["freeze"])
             or (flags["fc_push"] and not flags["freeze"])
             or (key[7] != 1 and not flags["fc_push"])):
         raise NotImplementedError(
-            f"bucket {key} is outside the static warm configurations")
+            f"bucket {key} is outside the warm configurations the port "
+            "scans")
     return flags
 
 
 def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
     """Host input arrays of one bucket at batch ``bsz``.  ``t`` is +inf and
-    ``cores`` 0, so an unfilled row is an idle padded cell."""
+    ``cores`` 0, so an unfilled row is an idle padded cell.  Floats are
+    float64 in ``dyn`` and ``het`` buckets (the JAX package's ``_use64``:
+    failure and autoscaler accounting hang on exact orderings of
+    completions against kills), float32 else."""
     flags = _key_flags(key)
     freeze, use_fc = flags["freeze"], flags["use_fc"]
-    _, n_b, nodes_b, _, f_b, kq, window = key[:7]
+    _, n_b, nodes_b, _, f_b, kq, window, _, n_ep = key[:9]
     n1 = n_b + 1
     # one estimator a node in frozen-priority mode, the controller's else
     n_est = nodes_b if freeze else 1
-    f32, i32 = np.float32, np.int32
+    fdt = np.float64 if flags["dyn"] or flags["het"] else np.float32
+    i32 = np.int32
     inp = {
-        "t": np.full((bsz, n1), np.inf, dtype=f32),
+        "t": np.full((bsz, n1), np.inf, dtype=fdt),
         "fnid": np.zeros((bsz, n1), dtype=i32),
-        "p": np.zeros((bsz, n1), dtype=f32),
-        "cost": np.zeros((bsz, n1), dtype=f32),
-        "coef": np.zeros((bsz, 5), dtype=f32),
+        "p": np.zeros((bsz, n1), dtype=fdt),
+        "cost": np.zeros((bsz, n1), dtype=fdt),
+        "coef": np.zeros((bsz, 5), dtype=fdt),
         "cores": np.zeros(bsz, dtype=i32),
         "nodes": np.ones(bsz, dtype=i32),
-        "ring0": np.zeros((bsz, n_est, f_b, window), dtype=f32),
-        "rsum0": np.zeros((bsz, n_est, f_b), dtype=f32),
+        "ring0": np.zeros((bsz, n_est, f_b, window), dtype=fdt),
+        "rsum0": np.zeros((bsz, n_est, f_b), dtype=fdt),
         "rlen0": np.zeros((bsz, n_est, f_b), dtype=i32),
         "rpos0": np.zeros((bsz, n_est, f_b), dtype=i32),
         # FC pull counts and the per-function queue sequences come from the
         # static arrival stream; freeze buckets get dummy rows
-        "cumf": np.zeros((bsz, n1 if use_fc else 1, f_b), dtype=f32),
+        "cumf": np.zeros((bsz, n1 if use_fc else 1, f_b), dtype=fdt),
         "fn_ev": (np.zeros((bsz, 1, 1), dtype=i32) if freeze
                   else np.full((bsz, f_b, kq), n_b, dtype=i32)),
     }
     if freeze:
         # single-node FC's static window counts, the home route's start
         # node per call, and the balancer per cell
-        inp["cnt"] = np.zeros((bsz, n1), dtype=f32)
+        inp["cnt"] = np.zeros((bsz, n1), dtype=fdt)
         inp["home0"] = np.zeros((bsz, n1), dtype=i32)
         inp["route"] = np.zeros(bsz, dtype=i32)
+    if flags["dyn"]:
+        # activation and kill time of each node (+inf: never), [autoscale
+        # interval, scale-up threshold, provision delay, failure detection,
+        # autoscale flag], the node cap and the calls to finish
+        inp["act0"] = np.full((bsz, nodes_b), np.inf, dtype=fdt)
+        inp["killt"] = np.full((bsz, nodes_b), np.inf, dtype=fdt)
+        inp["dynp"] = np.zeros((bsz, 5), dtype=fdt)
+        inp["maxn"] = np.zeros(bsz, dtype=i32)
+        inp["nreq"] = np.zeros(bsz, dtype=i32)
+    if flags["het"]:
+        # base speed of each node and the padded episode table
+        inp["spd"] = np.ones((bsz, nodes_b), dtype=fdt)
+        inp["epn"] = np.full((bsz, n_ep), -1, dtype=i32)
+        inp["ept0"] = np.zeros((bsz, n_ep), dtype=fdt)
+        inp["ept1"] = np.zeros((bsz, n_ep), dtype=fdt)
+        inp["epf"] = np.ones((bsz, n_ep), dtype=fdt)
     return inp
 
 
@@ -310,7 +427,7 @@ def _fill_bucket(key: tuple, cells: list[_ScanCell]) -> dict[str, np.ndarray]:
     """Host inputs of one chunk, padded to a power-of-two batch."""
     inp = _alloc_bucket_inputs(key, _pow2(len(cells)))
     flags = _key_flags(key)
-    f_b, window = key[4], key[6]
+    nodes_b, f_b, window, n_ep = key[2], key[4], key[6], key[8]
     for b, cell in enumerate(cells):
         f = cell.feats
         n = len(f.t)
@@ -320,8 +437,27 @@ def _fill_bucket(key: tuple, cells: list[_ScanCell]) -> dict[str, np.ndarray]:
         inp["cost"][b, :n] = f.chan_cost
         inp["cores"][b] = cell.cores
         inp["nodes"][b] = cell.nodes
+        if flags["dyn"]:
+            d = cell.dynamics
+            inp["act0"][b, :cell.nodes] = 0.0
+            for idx, at in d.fail:
+                # duplicate kills of one node: the earliest wins, as the
+                # reference's no-op on an already-dead node
+                inp["killt"][b, idx] = min(inp["killt"][b, idx], at)
+            inp["dynp"][b] = (d.autoscale_interval_s,
+                              d.scale_up_queue_per_slot,
+                              d.provision_delay_s, d.failure_detect_s,
+                              1.0 if d.autoscale else 0.0)
+            inp["maxn"][b] = cell.node_cap()
+            inp["nreq"][b] = n
+        if flags["het"]:
+            (inp["spd"][b], inp["epn"][b], inp["ept0"][b], inp["ept1"][b],
+             inp["epf"][b]) = cell.profile.arrays(nodes_b, n_ep)
         if not flags["freeze"]:
-            inp["coef"][b, :4] = _PULL_COEF[cell.policy]
+            if flags["dyn"]:
+                inp["coef"][b] = _PULL_COEF_DYN[cell.policy]
+            else:
+                inp["coef"][b, :4] = _PULL_COEF[cell.policy]
             if flags["use_fc"]:
                 # cumf[k, f] = calls of f among the first k arrivals
                 onehot = np.zeros((n, f_b), dtype=np.float32)
@@ -352,17 +488,19 @@ def _fill_bucket(key: tuple, cells: list[_ScanCell]) -> dict[str, np.ndarray]:
 
 def _scan_static(key: tuple) -> dict:
     """Static ``event_step`` arguments of a bucket: its padded widths and
-    feature flags, and one step per event (2 n_b)."""
+    feature flags, and one step per event: 2 n_b, plus the dynamics'
+    budget."""
     _, n_b, nodes_b, slots_b, _, _, window, fc_ring = key[:8]
     return dict(_BASE_FLAGS, **_key_flags(key), n_nodes=nodes_b,
                 n_slots=slots_b, window=window, fc_ring=fc_ring,
-                horizon=DEFAULT_FC_HORIZON, n_steps=2 * n_b)
+                horizon=DEFAULT_FC_HORIZON, n_steps=2 * n_b + key[10])
 
 
 def _chunk_cells(key: tuple, device: torch.device) -> int:
     cap = CHUNK_CELLS_CUDA if device.type == "cuda" else CHUNK_CELLS_CPU
-    per_cell = sum(v.nbytes for v in _alloc_bucket_inputs(key, 1).values())
-    per_cell += 4 * 4 * (key[1] + 1)            # the four output rows
+    one = _alloc_bucket_inputs(key, 1)
+    per_cell = sum(v.nbytes for v in one.values())
+    per_cell += 4 * one["t"].itemsize * (key[1] + 1)   # the output rows
     return max(1, min(cap, CHUNK_BYTES // per_cell))
 
 
@@ -373,13 +511,20 @@ def _add_time(timings: dict | None, phase: str, t0: float) -> None:
 
 def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
                      device: torch.device,
-                     timings: dict | None = None) -> list[tuple]:
+                     timings: dict | None = None,
+                     force: str | None = None) -> list[tuple]:
     """Scan one shape bucket in chunks (each padded to a power-of-two batch)
-    and return per-cell ``(start, finish, prio, node)`` arrays in event
-    order; in frozen-priority buckets ``prio`` and ``node`` are each call's
-    priority and node fixed at its arrival.  ``timings`` accumulates
-    host-fill and device seconds (the device phase covers transfers, plane
-    packing, the scan and the copy back, which waits for the device)."""
+    and return per-cell ``(start, finish, prio, node, extras)`` arrays in
+    event order; in frozen-priority buckets ``prio`` and ``node`` are each
+    call's priority and node fixed at its arrival, and a call dispatched
+    twice (lost to a kill) keeps its last dispatch.  ``extras`` is
+    ``None``, or for a ``dyn`` cell its calls lost (``failures``), nodes
+    provisioned (``nodes_used``) and realized ``timeline``; a ``dyn`` cell
+    that ends with calls unfinished exhausted the step budget, which is a
+    scan bug, and raises.  ``timings`` accumulates host-fill and device
+    seconds (the device phase covers transfers, plane packing, the scan
+    and the copy back, which waits for the device).  ``force="ref"`` runs
+    the plain version on any device (``ops.event_step``)."""
     static = _scan_static(key)
     chunk = _chunk_cells(key, device)
     out: list[tuple] = []
@@ -395,14 +540,29 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
                                window=static["window"],
                                freeze=static["freeze"],
                                fc_push=static["fc_push"],
-                               fc_ring=static["fc_ring"])
-        res = _kops.event_step(clk, ctr, inp, **static)
+                               fc_ring=static["fc_ring"], dyn=static["dyn"])
+        res = _kops.event_step(clk, ctr, inp, force=force, **static)
         start, finish, prio, node = (r.cpu().numpy() for r in res[:4])
+        aux = {k: v.cpu().numpy() for k, v in res[4].items()}
         _add_time(timings, "device_s", t0)
-        for b in range(len(part)):
+        for b, cell in enumerate(part):
+            extras = None
+            if static["dyn"]:
+                n, done = len(cell.feats.t), int(aux["ndone"][b])
+                if done != n:
+                    raise RuntimeError(
+                        f"scan dynamics step budget exhausted: cell "
+                        f"resolved {done}/{n} requests (bucket xtra="
+                        f"{key[10]}); this is a scan budget bug")
+                used = int(aux["prov"][b])
+                extras = {"failures": int(aux["nfail"][b]),
+                          "nodes_used": used,
+                          "timeline": timeline_from_scan(
+                              aux["act_t"][b], host["killt"][b],
+                              aux["dead"][b], used)}
             out.append((start[b].astype(np.float64),
                         finish[b].astype(np.float64),
-                        prio[b].astype(np.float64), node[b]))
+                        prio[b].astype(np.float64), node[b], extras))
     return out
 
 
@@ -425,11 +585,12 @@ class ScanMetrics:
     nodes_used: int = 0
 
 
-def _cell_scan_metrics(cell: _ScanCell, finish, req_cache: dict
-                       ) -> ScanMetrics:
+def _cell_scan_metrics(cell: _ScanCell, finish, req_cache: dict,
+                       extras: dict | None = None) -> ScanMetrics:
     """Fold one cell's event-order finish times into request-order metric
     arrays with the write-back arithmetic (``c = finish + RESP_OVERHEAD_S``;
-    ``resp = c - r``; ``stretch = resp / max(ref-or-p_true, 1e-9)``).
+    ``resp = c - r``; ``stretch = resp / max(ref-or-p_true, 1e-9)``), and
+    its ``extras`` (a dynamic cell's calls lost and nodes provisioned).
     ``req_cache`` memoizes per-workload arrays by list identity."""
     f = cell.feats
     n = len(f.t)
@@ -446,9 +607,11 @@ def _cell_scan_metrics(cell: _ScanCell, finish, req_cache: dict
     resp = c_req - r_req
     fnids = np.empty(n, dtype=np.int64)
     fnids[f.order] = f.fn_ids
+    ex = extras or {}
     return ScanMetrics(resp=resp, stretch=resp / den,
                        max_c=float(c_req.max()), fnids=fnids,
-                       fns=tuple(f.fns), nodes_used=cell.nodes)
+                       fns=tuple(f.fns), failures=ex.get("failures", 0),
+                       nodes_used=ex.get("nodes_used", cell.nodes))
 
 
 def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
@@ -466,10 +629,11 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
         arrays = _run_scan_bucket(key, [cells[i] for i in idxs], device,
                                   timings)
         t0 = time.perf_counter()
-        for i, (start, finish, prio, node) in zip(idxs, arrays):
+        for i, (start, finish, prio, node, extras) in zip(idxs, arrays):
             cell = cells[i]
             if metrics_only:
-                results[i] = _cell_scan_metrics(cell, finish, req_cache)
+                results[i] = _cell_scan_metrics(cell, finish, req_cache,
+                                                extras)
                 continue
             f = cell.feats
             t_list = f.t.tolist()
@@ -488,9 +652,12 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
             if cell.assignment != "single":
                 meta["nodes"] = cell.nodes
                 meta["assignment"] = cell.assignment
+            ex = extras or {}
             results[i] = SimResult(
                 requests=cell.requests, cold_starts=0, evictions=0,
-                creations=0, nodes_used=cell.nodes, meta=meta)
+                creations=0, failures=ex.get("failures", 0),
+                nodes_used=ex.get("nodes_used", cell.nodes),
+                timeline=ex.get("timeline"), meta=meta)
         _add_time(timings, "fold_s", t0)
     return results
 
@@ -562,12 +729,16 @@ def simulate_cluster_cells_scan(
     cells -- the JAX package's tuple form -- as bucketed scans on
     ``device``.
 
-    Only static warm cells are covered: ``assignment`` ``"pull"``, or
-    ``"push"`` with ``lb`` ``"least_loaded"`` or ``"home"``;
-    ``dynamics``/``profile``/``hedging``/``resilience`` ``None`` and
-    ``warm`` true; and (with ``validate``) every cell must satisfy
-    :func:`cluster_scan_eligible`; anything else raises ``ValueError``.
-    Returns :class:`SimResult` rows with the requests written back, or
+    Covered: warm cells, ``assignment`` ``"pull"``, or ``"push"`` with
+    ``lb`` ``"least_loaded"`` or ``"home"``; pull cells may carry
+    ``dynamics`` (a ``ClusterDynamics``: failures, the autoscaler) and a
+    ``profile`` (a ``NodeSpeedProfile``), and scan in float64; and (with
+    ``validate``) every cell must satisfy :func:`cluster_scan_eligible`.
+    ``hedging`` / ``resilience`` not ``None``, ``warm`` false or an
+    ineligible cell raise ``ValueError``; push cells with non-static
+    dynamics or a non-uniform profile raise ``NotImplementedError``.
+    Returns :class:`SimResult` rows with the requests written back (and a
+    dynamic cell's ``failures``, ``nodes_used`` and ``timeline``), or
     :class:`ScanMetrics` rows with ``metrics_only=True``."""
     dev = resolve_device(device)
     if not batch:
@@ -578,22 +749,34 @@ def simulate_cluster_cells_scan(
         requests, nodes, cores, policy = item[:4]
         assignment = item[4] if len(item) > 4 else "pull"
         lb = item[5] if len(item) > 5 else "least_loaded"
+        dynamics = item[6] if len(item) > 6 else None
+        profile = item[7] if len(item) > 7 else None
         warm = item[9] if len(item) > 9 else True
-        extras = [x for i, x in enumerate(item[6:], 6) if i != 9]
-        static_warm = (assignment in ("pull", "push") and warm
-                       and (assignment == "pull" or lb in LB_ROUTE)
-                       and all(x is None for x in extras))
-        if not static_warm or (validate and not cluster_scan_eligible(
+        extras = [x for i, x in enumerate(item[8:], 8) if i != 9]
+        ported = (assignment in ("pull", "push") and warm
+                  and (assignment == "pull" or lb in LB_ROUTE)
+                  and all(x is None for x in extras))
+        if not ported or (validate and not cluster_scan_eligible(
                 requests, nodes, cores, policy, assignment=assignment,
-                lb=lb, memory_mb=memory_mb, container_mb=container_mb)):
+                lb=lb, memory_mb=memory_mb, container_mb=container_mb,
+                dynamics=dynamics, profile=profile)):
             raise ValueError(
-                "the port's cluster scan covers static warm pull and push "
-                f"cells (policy={policy!r}, nodes={nodes}, cores={cores}, "
+                "the port's cluster scan covers warm pull and push cells, "
+                "with dynamics and node speeds on pull "
+                f"(policy={policy!r}, nodes={nodes}, cores={cores}, "
                 f"assignment={assignment!r}, lb={lb!r}, warm={warm}, "
+                f"dynamics={dynamics!r}, profile={profile!r}, "
                 f"extras={extras!r})")
-        cells.append(_ScanCell(requests=requests, feats=feats(requests),
-                               cores=cores, nodes=nodes, policy=policy,
-                               assignment=assignment, lb=lb))
+        cell = _ScanCell(requests=requests, feats=feats(requests),
+                         cores=cores, nodes=nodes, policy=policy,
+                         assignment=assignment, lb=lb, dynamics=dynamics,
+                         profile=profile)
+        if assignment == "push" and (cell.dyn or cell.het):
+            raise NotImplementedError(
+                "push cells with capacity dynamics or node speeds need the "
+                "frozen-priority dyn / het segments, not ported yet "
+                "(ROADMAP queue 1 item 4)")
+        cells.append(cell)
     return _run_scan_cells(cells, dev, metrics_only=metrics_only,
                            timings=timings)
 
@@ -608,11 +791,13 @@ def simulate_cluster_scan(
     warm: bool = True,
     memory_mb: int = CLUSTER_MEMORY_MB,
     container_mb: int = CLUSTER_CONTAINER_MB,
+    dynamics=None,
+    profile=None,
     device: str | torch.device | None = None,
 ) -> SimResult:
     """Single-cell convenience wrapper over
     :func:`simulate_cluster_cells_scan`."""
     return simulate_cluster_cells_scan(
-        [(requests, nodes, cores_per_node, policy, assignment, lb, None,
-          None, None, warm)],
+        [(requests, nodes, cores_per_node, policy, assignment, lb, dynamics,
+          profile, None, warm)],
         memory_mb=memory_mb, container_mb=container_mb, device=device)[0]

@@ -1,14 +1,16 @@
 """The scan carry as two packed planes (own port of
 ``repro.core.fastpath._PlaneLayout`` / ``_make_state0`` / ``_make_planes``
-for the base pull carry and the frozen-priority segments ``freeze`` and
-``fc_push``).
+for the base pull carry, the frozen-priority segments ``freeze`` and
+``fc_push``, and the pull half of the capacity-dynamics segment ``dyn``).
 
 Every float entry of a cell's carry flattens into one **clocks plane**
-(``clk``, float32) and every int/bool entry into one **counters plane**
-(``ctr``, int32), in sorted-key order.  The layout is a pure function of the
-carry's shapes, so the packer here and the kernel's unpacker (the CUDA
-``event_step`` takes the offsets as launch arguments) agree by construction,
-and the offsets equal the JAX package's for the same bucket.
+(``clk``, in the bucket's float type: float32, or float64 for dynamic and
+heterogeneous buckets) and every int/bool entry into one **counters
+plane** (``ctr``, int32), in sorted-key order.  The layout is a pure
+function of the carry's shapes, so the packer here and the kernels'
+unpackers (the CUDA ``event_step`` kernels take the offsets as launch
+arguments) agree by construction, and the offsets equal the JAX package's
+for the same bucket.
 """
 
 from __future__ import annotations
@@ -21,14 +23,24 @@ _FLOAT, _INT, _BOOL = "f", "i", "b"
 
 def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                freeze: bool = False, fc_push: bool = False, n1: int = 0,
-               fc_ring: int = 1) -> dict[str, tuple[tuple[int, ...], str]]:
+               fc_ring: int = 1, dyn: bool = False
+               ) -> dict[str, tuple[tuple[int, ...], str]]:
     """Shapes and kinds of one cell's carry: slots, queue heads, channel
     clocks and the estimator rings -- the controller's (an estimator axis
     of length 1) in the pull regime, one per node with ``freeze`` -- then,
     in the JAX package's ``_CARRY_SEGMENTS`` order, the frozen queue
     entries (``freeze``: pending flag, priority and node of each of the
-    ``n1`` rows) and the per-(node, function) arrival-time rings of
-    ``fc_ring`` entries (``fc_push``)."""
+    ``n1`` rows), the per-(node, function) arrival-time rings of
+    ``fc_ring`` entries (``fc_push``) and the pull capacity dynamics
+    (``dyn``: each node's activation time, dead flag, kill time and pending
+    activation; each row's re-arrival time, re-queued flag, re-queue
+    clock and enqueue time; the next autoscaler tick, the nodes
+    provisioned, the calls lost and the calls done).  Pull ``het`` adds no
+    carry.  The frozen-priority ``dyn`` segment is not ported."""
+    if dyn and freeze:
+        raise NotImplementedError(
+            "the frozen-priority dyn segment (rord, dseq, dcnt) is not "
+            "ported (ROADMAP queue 1 item 4)")
     n_est = n_nodes if freeze else 1
     spec = {
         "ai": ((), _INT),
@@ -52,6 +64,13 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
     if fc_push:
         spec.update(fcr=((n_nodes, n_fns, fc_ring), _FLOAT),
                     fcp=((n_nodes, n_fns), _INT))
+    if dyn:
+        spec.update(act_t=((n_nodes,), _FLOAT), dead=((n_nodes,), _BOOL),
+                    killq=((n_nodes,), _FLOAT),
+                    act_pend=((n_nodes,), _BOOL), rearr=((n1,), _FLOAT),
+                    next_tick=((), _FLOAT), prov=((), _INT),
+                    nfail=((), _INT), ndone=((), _INT), xq=((n1,), _BOOL),
+                    rq_rt=((n1,), _FLOAT), enq_t=((n1,), _FLOAT))
     return spec
 
 
@@ -108,18 +127,24 @@ class PlaneLayout:
 
 def carry_layout(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                  freeze: bool = False, fc_push: bool = False, n1: int = 0,
-                 fc_ring: int = 1) -> PlaneLayout:
+                 fc_ring: int = 1, dyn: bool = False) -> PlaneLayout:
     return PlaneLayout(carry_spec(n_nodes=n_nodes, n_slots=n_slots,
                                   window=window, n_fns=n_fns, freeze=freeze,
-                                  fc_push=fc_push, n1=n1, fc_ring=fc_ring))
+                                  fc_push=fc_push, n1=n1, fc_ring=fc_ring,
+                                  dyn=dyn))
 
 
 def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
-                fc_ring: int = 1) -> dict[str, torch.Tensor]:
+                fc_ring: int = 1, dyn: bool = False
+                ) -> dict[str, torch.Tensor]:
     """Initial batched carry of a bucket: empty slots and queues, idle
-    channels, the estimator rings from the bucket's inputs, and with
-    ``freeze`` / ``fc_push`` no queued entry and empty arrival rings."""
+    channels, the estimator rings from the bucket's inputs, with ``freeze``
+    / ``fc_push`` no queued entry and empty arrival rings, and with ``dyn``
+    the activation and kill times of the inputs ``act0`` / ``killt``, no
+    node dead or pending, no re-arrival, the first tick at the autoscale
+    interval (+inf without the autoscaler), the cell's nodes provisioned,
+    and every row enqueued at its receive time."""
     t = inp["t"]
     B, ft, dev = t.shape[0], t.dtype, t.device
     n_est, n_fns = inp["ring0"].shape[1], inp["ring0"].shape[2]
@@ -148,15 +173,33 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
         st.update(fcr=torch.full((B, n_nodes, n_fns, fc_ring), -float("inf"),
                                  dtype=ft, device=dev),
                   fcp=torch.zeros(B, n_nodes, n_fns, **i32))
+    if dyn:
+        n1 = t.shape[1]
+        dynp = inp["dynp"]
+        st.update(act_t=inp["act0"],
+                  dead=torch.zeros(B, n_nodes, dtype=torch.bool, device=dev),
+                  killq=inp["killt"],
+                  act_pend=torch.zeros(B, n_nodes, dtype=torch.bool,
+                                       device=dev),
+                  rearr=torch.full((B, n1), float("inf"), dtype=ft,
+                                   device=dev),
+                  next_tick=torch.where(dynp[:, 4] > 0, dynp[:, 0],
+                                        float("inf")),
+                  prov=inp["nodes"].to(torch.int32),
+                  nfail=torch.zeros(B, **i32), ndone=torch.zeros(B, **i32),
+                  xq=torch.zeros(B, n1, dtype=torch.bool, device=dev),
+                  rq_rt=torch.zeros(B, n1, dtype=ft, device=dev),
+                  enq_t=t)
     return st
 
 
 def make_planes(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
-                fc_ring: int = 1):
+                fc_ring: int = 1, dyn: bool = False):
     """Per-cell initial carry of a bucket as the packed ``(clk, ctr)``
-    planes, shapes ``(B, f_len)`` float32 and ``(B, i_len)`` int32."""
-    seg = dict(freeze=freeze, fc_push=fc_push, fc_ring=fc_ring)
+    planes, shapes ``(B, f_len)`` in the bucket's float type and ``(B,
+    i_len)`` int32."""
+    seg = dict(freeze=freeze, fc_push=fc_push, fc_ring=fc_ring, dyn=dyn)
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=inp["ring0"].shape[2],
                           n1=inp["t"].shape[1], **seg)

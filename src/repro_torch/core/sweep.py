@@ -2,11 +2,13 @@
 
 Counterpart of the parts of ``repro.core.sweep`` that the interactive-sweep
 path uses: :class:`SweepCell` restricted to the fields of a uniform-arrival
-static cell (one node, or a cluster under pull or push assignment), a
-:class:`SweepSpec` over the policy, assignment, balancer, intensity and
-fleet axes, whose ``cells()`` yields the JAX package's cells in the JAX
-package's order, and :func:`run_cells_scan`, which runs a list of cells
-through the bucketed scan and returns one metrics row per cell.
+warm cell (one node, or a cluster under pull or push assignment, with
+capacity dynamics -- the autoscaler, failures -- and node speeds), a
+:class:`SweepSpec` over the policy, assignment, balancer, intensity,
+fleet, autoscaler, failure and speed axes, whose ``cells()`` yields the
+JAX package's cells in the JAX package's order, and
+:func:`run_cells_scan`, which runs a list of cells through the bucketed
+scan and returns one metrics row per cell.
 """
 
 from __future__ import annotations
@@ -26,14 +28,16 @@ from .fastpath import (
     simulate_cells_scan,
     simulate_cluster_cells_scan,
 )
+from .cluster import ClusterDynamics
 from .metrics import summarize_arrays
 from .request import Request
+from .stragglers import NodeSpeedProfile
 from .workload import STRETCH_REFERENCE_S, generate_burst
 
 
 @dataclass(frozen=True)
 class SweepCell:
-    """One uniform-arrival static scenario (field names and defaults as in
+    """One uniform-arrival warm scenario (field names and defaults as in
     ``repro.core.sweep.SweepCell``)."""
 
     policy: str = "fifo"          # fifo|sept|eect|rect|fc
@@ -43,6 +47,17 @@ class SweepCell:
     intensity: int = 30
     cores: int = 10               # per node
     nodes: int = 1
+    autoscale: bool = False
+    # autoscaler knobs (None: the ClusterDynamics defaults)
+    provision_delay: float | None = None
+    scale_up: float | None = None
+    max_nodes: int | None = None
+    fail_at: float | None = None  # node 0 dies at this time
+    # multi-failure schedule ((node, time), ...); overrides fail_at
+    fail_spec: tuple[tuple[int, float], ...] | None = None
+    # per-node speed multipliers and degradation episodes
+    node_speeds: tuple[float, ...] | None = None
+    degrade: tuple[tuple[int, float, float, float], ...] | None = None
     seed: int = 0
     duration_s: float = 60.0
     workload_cores: int | None = None  # burst sized for this many cores
@@ -57,6 +72,19 @@ class SweepCell:
             parts.append(self.lb)
         if self.arrival != "uniform":
             parts.append(self.arrival)
+        if self.autoscale:
+            parts.append("autoscale")
+            if self.provision_delay is not None:
+                parts.append(f"pd{self.provision_delay:g}")
+            if self.scale_up is not None:
+                parts.append(f"su{self.scale_up:g}")
+        if self.fail_at is not None:
+            parts.append(f"fail{self.fail_at:g}")
+        if self.fail_spec:
+            parts.append(f"fails{len(self.fail_spec)}")
+        prof = _cell_profile(self)
+        if prof is not None:
+            parts.append(f"deg{prof.max_slowdown():g}")
         return "_".join(parts)
 
 
@@ -70,6 +98,14 @@ class SweepSpec:
     intensities: Sequence[int] = (30,)
     cores: Sequence[int] = (10,)
     nodes: Sequence[int] = (1,)
+    autoscale: Sequence[bool] = (False,)
+    provision_delays: Sequence[float | None] = (None,)
+    scale_ups: Sequence[float | None] = (None,)
+    max_nodes: int | None = None         # autoscaler headroom (all cells)
+    failures: Sequence[float | None] = (None,)
+    fail_specs: Sequence[tuple | None] = (None,)
+    node_speeds: Sequence[tuple | None] = (None,)
+    degrades: Sequence[tuple | None] = (None,)
     seeds: int | Sequence[int] = 3
     base_seed: int = 0
     duration_s: float = 60.0
@@ -83,16 +119,30 @@ class SweepSpec:
     def cells(self) -> list[SweepCell]:
         out = [SweepCell(policy=pol, assignment=asg,
                          lb=lb if asg == "push" else "least_loaded",
-                         intensity=inten, cores=c, nodes=n, seed=seed,
-                         duration_s=self.duration_s,
+                         intensity=inten, cores=c, nodes=n, autoscale=auto,
+                         provision_delay=pd if auto else None,
+                         scale_up=su if auto else None,
+                         max_nodes=self.max_nodes if auto else None,
+                         fail_at=fail,
+                         fail_spec=(tuple(tuple(f) for f in fspec)
+                                    if fspec else None),
+                         node_speeds=tuple(spd) if spd else None,
+                         degrade=(tuple(tuple(e) for e in deg)
+                                  if deg else None),
+                         seed=seed, duration_s=self.duration_s,
                          workload_cores=self.workload_cores)
-               for pol, asg, lb, inten, c, n, seed in itertools.product(
+               for (pol, asg, lb, inten, c, n, auto, pd, su, fail, fspec, spd,
+                    deg, seed) in itertools.product(
                    self.policies, self.assignments, self.lbs,
-                   self.intensities, self.cores, self.nodes,
+                   self.intensities, self.cores, self.nodes, self.autoscale,
+                   self.provision_delays, self.scale_ups, self.failures,
+                   self.fail_specs, self.node_speeds, self.degrades,
                    self.seed_list())]
-        # the balancer only means something on push cells: collapsing it
-        # elsewhere would duplicate cells, so keep the first of each
-        if len(self.lbs) > 1:
+        # the balancer only means something on push cells and the
+        # autoscaler knobs on autoscale cells: collapsing them elsewhere
+        # would duplicate cells, so keep the first of each
+        if (len(self.lbs) > 1 or len(self.provision_delays) > 1
+                or len(self.scale_ups) > 1):
             out = list(dict.fromkeys(out))
         return out
 
@@ -111,6 +161,44 @@ def _workload_key(cell: SweepCell) -> tuple:
     """Identity of a cell's workload: equal keys, bit-identical bursts."""
     wcores = cell.workload_cores or cell.cores * cell.nodes
     return (cell.arrival, cell.intensity, cell.seed, cell.duration_s, wcores)
+
+
+def _cell_dynamics(cell: SweepCell) -> ClusterDynamics | None:
+    """The cell's capacity dynamics, or ``None`` for a fixed fleet (the
+    JAX package's ``_cell_dynamics``: ``ClusterDynamics`` defaults for the
+    knobs the cell leaves ``None``; ``fail_spec`` overrides ``fail_at``,
+    which kills node 0)."""
+    if (not cell.autoscale and cell.fail_at is None
+            and cell.fail_spec is None):
+        return None
+    kw: dict = {"autoscale": cell.autoscale}
+    if cell.provision_delay is not None:
+        kw["provision_delay_s"] = cell.provision_delay
+    if cell.scale_up is not None:
+        kw["scale_up_queue_per_slot"] = cell.scale_up
+    if cell.max_nodes is not None:
+        kw["max_nodes"] = cell.max_nodes
+    if cell.fail_spec:
+        fail = tuple((int(i), float(t)) for i, t in cell.fail_spec)
+    else:
+        fail = ((0, cell.fail_at),) if cell.fail_at is not None else ()
+    return ClusterDynamics(fail=fail, **kw)
+
+
+def _cell_profile(cell: SweepCell) -> NodeSpeedProfile | None:
+    """The cell's node speeds, or ``None`` for a uniform fleet."""
+    if cell.node_speeds is None and cell.degrade is None:
+        return None
+    return NodeSpeedProfile.from_any(cell.node_speeds, cell.degrade)
+
+
+def _cluster_shaped(cell: SweepCell) -> bool:
+    """Does the cell go to the cluster scan?  As in the JAX package's
+    ``_cluster_scan_capable``: more than one node, or any dynamics or
+    node-speed axis set, so a one-node autoscale cell is a cluster cell."""
+    return (cell.nodes > 1 or cell.autoscale or cell.fail_at is not None
+            or cell.fail_spec is not None or cell.node_speeds is not None
+            or cell.degrade is not None)
 
 
 def _metrics_from_scan(cell: SweepCell, mo: ScanMetrics) -> dict[str, float]:
@@ -137,12 +225,14 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
     """Run cells through the bucketed scan on ``device`` and return their
     metrics rows in order.
 
-    Single-node cells (``nodes == 1``, whatever their assignment) run
-    through :func:`simulate_cells_scan` and cluster cells through
-    :func:`simulate_cluster_cells_scan`, under pull assignment or push with
-    the least-loaded or home balancer, as the JAX package's
-    ``run_cells_scan`` sends them; every cell must be in the warm regime.
-    Anything else raises ``ValueError``.  ``metrics_only=True`` shares one
+    Single-node cells (one node, whatever their assignment, and no
+    dynamics or speeds) run through :func:`simulate_cells_scan` and
+    cluster cells through :func:`simulate_cluster_cells_scan`, under pull
+    assignment or push with the least-loaded or home balancer, with their
+    dynamics and node speeds, as the JAX package's ``run_cells_scan`` sends
+    them; every cell must be in the warm regime.  Anything else raises
+    ``ValueError`` (push cells with dynamics or speeds
+    ``NotImplementedError``).  ``metrics_only=True`` shares one
     generated burst between cells with the same workload and never writes
     back requests; the rows equal the write-back rows.  ``timings``
     accumulates ``fill_s``, ``device_s`` and ``fold_s``."""
@@ -161,16 +251,19 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
                 reqs = workloads[key] = make_workload(cell)
         else:
             reqs = make_workload(cell)       # write-back mutates: no sharing
-        if cell.nodes == 1:
+        if not _cluster_shaped(cell):
             ok = scan_eligible(reqs, cell.cores, cell.policy)
             singles.append((pos, (reqs, cell.cores, cell.policy)))
         else:
+            dyn, prof = _cell_dynamics(cell), _cell_profile(cell)
             ok = cluster_scan_eligible(reqs, cell.nodes, cell.cores,
                                        cell.policy,
                                        assignment=cell.assignment,
-                                       lb=cell.lb)
+                                       lb=cell.lb, dynamics=dyn,
+                                       profile=prof)
             clusters.append((pos, (reqs, cell.nodes, cell.cores,
-                                   cell.policy, cell.assignment, cell.lb)))
+                                   cell.policy, cell.assignment, cell.lb,
+                                   dyn, prof)))
         if not ok:
             raise ValueError(f"cell {cell.label()} is not scan-eligible")
     results: list = [None] * len(cells)
@@ -199,4 +292,5 @@ def _result_metrics(res) -> ScanMetrics:
     return ScanMetrics(resp=resp, stretch=resp / den,
                        max_c=max(q.c for q in reqs),
                        fnids=np.array([fns.index(q.fn) for q in reqs]),
-                       fns=fns, nodes_used=res.nodes_used)
+                       fns=fns, failures=res.failures,
+                       nodes_used=res.nodes_used)

@@ -1,6 +1,8 @@
 // Batched cluster event scans for Hopper (sm_90a): the base-pull kernel
 // (event_step_kernel), and below it the frozen-priority kernel
-// (freeze_kernel) for single-node and push cells.
+// (freeze_kernel) for single-node and push cells and the float64 pull
+// kernel (dyn_kernel) for pull cells with capacity dynamics or node
+// speeds.
 //
 // The pull kernel replaces the TPU kernel
 // repro/kernels/event_step.py::_event_kernel (launched by
@@ -1213,6 +1215,797 @@ int launch_freeze_pl(bool staged, const FArgs& a, const FLayout& L,
                                         words);
 }
 
+// ---------------------------------------------------------------------------
+// The float64 pull regime: pull cells with capacity dynamics (scheduled node
+// failures, the autoscaler; `dyn`) and node speeds (`het`), the dyn / het
+// branch of _scan_cell_kernel that the JAX package runs as XLA's lax.scan
+// in float64 (repro/core/fastpath.py:821; its Pallas kernel covers the
+// base pull configuration only).  The plain PyTorch version is
+// repro_torch/kernels/event_step.py::event_step_ref with dyn / het.
+//
+// What bounds it: the same serial chain of one event a step as the pull
+// kernel above, now of up to 2 n + the dynamics' budget steps, each a few
+// dependent loads and float64 warp reductions.  The design keeps that
+// chain short and simple rather than lean: a first, exact kernel.
+// - One warp a cell, several a block; rows t / p / cost (float64) and fnid
+//   (8 bits) staged in shared memory when they fit (n_b up to ~9,000),
+//   read in place past that (ops.event_step_plan(..., f64=True)).  The
+//   runtime ring is in shared memory.
+// - Lane-owned state: lane l owns slots l*PL .. l*PL+PL-1 (PL up to 8) and
+//   node l and function l, in registers.  A cell of more than 256 slots or
+//   32 nodes or functions takes the wide path (PL = 0): the same arrays in
+//   a device-memory scratch (entry q of a lane at [q][lane]), ring
+//   included.
+// - Six candidate events a step, taken in the oracle's precedence (kill <
+//   arrival <= completion < re-arrival < activation < tick, the first
+//   minimum wins).  Each candidate is carried from step to step as a
+//   warp-uniform value -- the earliest kill, completion, re-arrival and
+//   pending activation, with their index -- and found again by a warp
+//   reduction only when the event that moves it happens.
+// - The rows a kill loses: their re-arrival times, the re-queued flags,
+//   the clock each was last pulled at and the time each re-entered the
+//   queue are per-row arrays in the scratch, with counts, so a step scans
+//   them only while a re-arrival is pending or a re-queued call waits.
+// - Float64 reductions: a 64-bit order-preserving key (-0.0 as +0.0), its
+//   minimum by two redux.sync over its halves, then the least index among
+//   the lanes holding it.
+// - The FC window as a running count, as in the pull kernel (the events
+//   come in time order here too: every new candidate is now plus a
+//   non-negative delay).
+// - Lane 0 writes a dispatch's record, so the last dispatch of a call lost
+//   to a kill and dispatched again is the one that stays; the outputs of a
+//   call never dispatched stay 0.  At the end the cell's calls lost and
+//   done, nodes provisioned, activation times and dead flags go to the
+//   summary outputs.
+// Bit-identity: --fmad=false, no fast math; _rn float64 arithmetic in the
+// oracle's order as XLA compiles it: a dispatch's cost and runtime on a
+// node of speed s slowed by d are (x * d) / s (the oracle writes x / (s /
+// d), which XLA's algebraic simplifier rewrites so), the slowdown a
+// product in episode order.
+// ---------------------------------------------------------------------------
+
+constexpr int kDLayout = 26;  // carry entries, see struct DLayout
+constexpr int kDDims = 15;    // integer launch dimensions, see struct DDims
+constexpr int kDPlan = 5;     // per_lane, staged, wide, cell_bytes, words
+constexpr unsigned long long NO_KEY64 = ~0ull;
+
+// Offsets of the carry entries: the first twelve in the clk plane, the rest
+// in the ctr plane (EVENT_STEP_DYN_LAYOUT in ops.py); the dyn entries are 0
+// in a het bucket without dynamics.
+struct DLayout {
+  int chan, fin_s, last_t, prev_t, ring, rsum, act_t, killq, rearr,
+      next_tick, rq_rt, enq_t;
+  int ai, busy, head, idx_s, narr, qn, rlen, rpos, dead, act_pend, prov,
+      nfail, ndone, xq;
+};
+
+struct DDims {
+  int B, n, n_nodes, n_slots, window, n_fns, kq, ncoef, n_ep, f_len, i_len,
+      use_fc, dyn, het, n_steps;
+};
+
+struct DArgs {
+  const double* clk;
+  const int* ctr;
+  const double* t;
+  const int* fnid;
+  const double* p;
+  const double* cost;
+  const double* coef;
+  const int* cores;
+  const int* nodes;
+  const int* fn_ev;
+  const double* dynp;
+  const int* maxn;
+  const int* nreq;
+  const double* spd;
+  const int* epn;
+  const double* ept0;
+  const double* ept1;
+  const double* epf;
+  double* start;
+  double* finish;
+  double* prio;
+  int* node;
+  int* summ;         // (B, 3): calls lost, calls done, nodes provisioned
+  double* act_out;   // (B, nodes): activation times at the end
+  int* dead_out;     // (B, nodes): dead flags at the end
+  uint32_t* scratch;
+};
+
+// Shared-memory bytes of one cell (register path): the ring, and when
+// staged the rows.  ops.event_step_dyn_cell_bytes computes the same.
+__host__ __device__ constexpr int dyn_cell_bytes(bool staged, int n1, int F,
+                                                 int W) {
+  return 8 * round_up(F * W, 2) +
+         (staged ? 24 * round_up(n1, 2) + round_up(n1, 16) : 0);
+}
+
+// Scratch words of one cell: on the wide path the ring and the lane-owned
+// arrays (3 words a slot, 11 a node, 16 a function), then with dynamics
+// the per-row arrays (re-arrival time, last pull clock, enqueue time: two
+// words each; re-queued flag: one) and each function's pull-time base.
+// ops.event_step_plan computes the same.
+__host__ __device__ constexpr long dyn_scratch_words(bool wide, int pls,
+                                                     int pln, int plf,
+                                                     int n1, int F, int W,
+                                                     bool dyn) {
+  return (wide ? 2L * round_up(F * W, 2) +
+                     32L * (3 * pls + 11 * pln + 16 * plf)
+               : 0L) +
+         (dyn ? 7L * round_up(n1, 2) + 2L * F : 0L);
+}
+
+// An order-preserving 64-bit key of a double (-0.0 taken as +0.0).
+__device__ __forceinline__ unsigned long long order_key64(double x) {
+  const unsigned long long u =
+      static_cast<unsigned long long>(__double_as_longlong(__dadd_rn(x, 0.0)));
+  return (u >> 63) ? ~u : (u | 0x8000000000000000ull);
+}
+
+__device__ __forceinline__ double key_double(unsigned long long k) {
+  return __longlong_as_double(static_cast<long long>(
+      (k >> 63) ? (k & 0x7fffffffffffffffull) : ~k));
+}
+
+// The least 64-bit key across the warp.
+__device__ __forceinline__ unsigned long long warp_min64(
+    unsigned long long k) {
+  const unsigned hi = __reduce_min_sync(FULL, static_cast<unsigned>(k >> 32));
+  const unsigned lo = __reduce_min_sync(
+      FULL, static_cast<unsigned>(k >> 32) == hi ? static_cast<unsigned>(k)
+                                                 : 0xffffffffu);
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+// The least (key, index) across the warp: the key, and the least index of
+// the lanes that hold it (INT_MAX if none does).
+__device__ __forceinline__ unsigned long long warp_argmin64(
+    unsigned long long k, int idx, int* at) {
+  const unsigned long long m = warp_min64(k);
+  *at = __reduce_min_sync(FULL, k == m ? idx : INT_MAX);
+  return m;
+}
+
+// Entries a lane owns: N in registers, or (N == 0) in the scratch, entry q
+// at p[32 q] (p already at the lane's first word).
+template <typename T, int N>
+struct Lane {
+  T v[N];
+  __device__ __forceinline__ explicit Lane(T*) {}
+  __device__ __forceinline__ T& operator[](int q) { return v[q]; }
+};
+
+template <typename T>
+struct Lane<T, 0> {
+  T* p;
+  __device__ __forceinline__ explicit Lane(T* base) : p(base) {}
+  __device__ __forceinline__ T& operator[](int q) const { return p[q * 32]; }
+};
+
+// Entry e of a lane-owned array of `pl` entries a lane, on every lane.
+template <typename T, int N>
+__device__ __forceinline__ T lane_get(Lane<T, N>& arr, int pl, int e) {
+  const int src = e / pl, qe = e % pl;
+  T v;
+  if constexpr (N == 0) {
+    v = arr[qe];
+  } else {
+    v = arr[0];
+#pragma unroll
+    for (int q = 1; q < N; ++q)
+      if (q == qe) v = arr[q];
+  }
+  return __shfl_sync(FULL, v, src);
+}
+
+// Rows of a float64 cell: in shared memory (fnid as 8 bits) or in place.
+template <bool S>
+struct DRows {
+  using Fn = std::conditional_t<S, uint8_t, int>;
+  const double* t_;
+  const double* p_;
+  const double* c_;
+  const Fn* fn_;
+  __device__ __forceinline__ double t(int i) const {
+    if constexpr (S) return t_[i]; else return __ldg(t_ + i);
+  }
+  __device__ __forceinline__ double p(int i) const {
+    if constexpr (S) return p_[i]; else return __ldg(p_ + i);
+  }
+  __device__ __forceinline__ double cost(int i) const {
+    if constexpr (S) return c_[i]; else return __ldg(c_ + i);
+  }
+  __device__ __forceinline__ int fn(int i) const {
+    if constexpr (S) return fn_[i]; else return __ldg(fn_ + i);
+  }
+};
+
+template <int PL, bool STAGED>
+__global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
+    dyn_kernel(const DArgs a, const DLayout L, const DDims D,
+               const int cells_per_block, const int bytes_per_cell,
+               const float horizon_f, const int pl_wide, const int words) {
+  static_assert(PL > 0 || !STAGED, "the wide path reads rows in place");
+  constexpr int NQ = PL > 0 ? 1 : 0;   // nodes / functions a lane: 1, or
+                                       // the scratch
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * cells_per_block + warp;
+  if (b >= D.B) return;
+
+  const int n = D.n, n1 = D.n + 1;
+  const int NN = D.n_nodes, NS = D.n_slots, NSL = D.n_nodes * D.n_slots;
+  const int F = D.n_fns, W = D.window, kq = D.kq;
+  const bool DYN = D.dyn != 0, HET = D.het != 0;
+  const double inf = __longlong_as_double(0x7ff0000000000000ll);
+  const double horizon = static_cast<double>(horizon_f);
+  const size_t row = static_cast<size_t>(b) * n1;
+  const double* clk = a.clk + static_cast<size_t>(b) * D.f_len;
+  const int* ctr = a.ctr + static_cast<size_t>(b) * D.i_len;
+  // entries a lane owns: slots, nodes, functions
+  const int pls = PL > 0 ? PL : pl_wide;
+  const int pln = PL > 0 ? 1 : (NN + 31) / 32;
+  const int plf = PL > 0 ? 1 : (F + 31) / 32;
+
+  // -- the cell's scratch: (wide) the ring and the lane arrays, then the
+  // per-row dynamics arrays and the functions' bases
+  uint32_t* cw = a.scratch == nullptr
+                     ? nullptr
+                     : a.scratch + static_cast<size_t>(b) * words;
+  uint32_t* wp = cw;
+  double* ring;
+  if constexpr (PL == 0) {
+    ring = reinterpret_cast<double*>(wp);
+    wp += 2 * round_up(F * W, 2);
+  } else {
+    ring = reinterpret_cast<double*>(smem + static_cast<size_t>(warp) *
+                                                bytes_per_cell);
+  }
+  // a lane-owned double array of `cnt` entries a lane (wide: scratch)
+  auto dbl = [&](int cnt) {
+    double* p = reinterpret_cast<double*>(wp) + lane;
+    if constexpr (PL == 0) wp += 64 * cnt;
+    return p;
+  };
+  auto i32 = [&](int cnt) {
+    int* p = reinterpret_cast<int*>(wp) + lane;
+    if constexpr (PL == 0) wp += 32 * cnt;
+    return p;
+  };
+  Lane<double, PL> s_fin(dbl(pls));
+  Lane<double, NQ> n_chan(dbl(pln)), n_act(dbl(pln)), n_kill(dbl(pln)),
+      n_spd(dbl(pln));
+  Lane<double, NQ> f_rsum(dbl(plf)), f_last(dbl(plf)), f_prev(dbl(plf)),
+      f_est(dbl(plf)), f_th(dbl(plf));
+  Lane<int, PL> s_row(i32(pls));
+  Lane<int, NQ> n_busy(i32(pln)), n_dead(i32(pln)), n_pend(i32(pln));
+  Lane<int, NQ> f_head(i32(plf)), f_narr(i32(plf)), f_rlen(i32(plf)),
+      f_rpos(i32(plf)), f_cnt(i32(plf)), f_idx(i32(plf));
+  // per-row dynamics arrays and the functions' bases
+  double* const r_rearr = reinterpret_cast<double*>(wp);
+  double* const r_rqrt = r_rearr + round_up(n1, 2);
+  double* const r_enq = r_rqrt + round_up(n1, 2);
+  double* const f_base = r_enq + round_up(n1, 2);
+  int* const r_xq = reinterpret_cast<int*>(f_base + F);
+
+  DRows<STAGED> R;
+  if constexpr (STAGED) {
+    double* st = ring + round_up(F * W, 2);
+    double* sp = st + round_up(n1, 2);
+    double* sc = sp + round_up(n1, 2);
+    uint8_t* sfn = reinterpret_cast<uint8_t*>(sc + round_up(n1, 2));
+    for (int i = lane; i < n1; i += 32) {
+      st[i] = __ldg(a.t + row + i);
+      sp[i] = __ldg(a.p + row + i);
+      sc[i] = __ldg(a.cost + row + i);
+    }
+    stage8(sfn, a.fnid + row, n1, lane);
+    R = DRows<STAGED>{st, sp, sc, sfn};
+  } else {
+    R = DRows<STAGED>{a.t + row, a.p + row, a.cost + row, a.fnid + row};
+  }
+  for (int i = lane; i < F * W; i += 32) ring[i] = __ldg(clk + L.ring + i);
+  // the per-row dynamics carry into the scratch, with its counts
+  int n_re = 0, n_xq = 0;
+  if (DYN) {
+    for (int i = lane; i < n1; i += 32) {
+      r_rearr[i] = __ldg(clk + L.rearr + i);
+      r_rqrt[i] = __ldg(clk + L.rq_rt + i);
+      r_enq[i] = __ldg(clk + L.enq_t + i);
+      r_xq[i] = __ldg(ctr + L.xq + i);
+      n_re += r_rearr[i] != inf;
+      n_xq += r_xq[i] != 0;
+    }
+    n_re = __reduce_add_sync(FULL, n_re);
+    n_xq = __reduce_add_sync(FULL, n_xq);
+  }
+  __syncwarp();
+
+  const double* cf = a.coef + static_cast<size_t>(b) * D.ncoef;
+  const double c0 = __ldg(cf), c1 = __ldg(cf + 1), c2 = __ldg(cf + 2),
+               c3 = __ldg(cf + 3), c4 = DYN ? __ldg(cf + 4) : 0.0;
+  const int cores = __ldg(a.cores + b), nodes = __ldg(a.nodes + b);
+  double interval = 0.0, thr = 0.0, delay = 0.0, detect = 0.0;
+  int maxn = 0, nreq = 0;
+  if (DYN) {
+    const double* dp = a.dynp + static_cast<size_t>(b) * 5;
+    interval = __ldg(dp);
+    thr = __ldg(dp + 1);
+    delay = __ldg(dp + 2);
+    detect = __ldg(dp + 3);
+    maxn = __ldg(a.maxn + b);
+    nreq = __ldg(a.nreq + b);
+  }
+  const int* epn = HET ? a.epn + static_cast<size_t>(b) * D.n_ep : nullptr;
+  const double* ept0 =
+      HET ? a.ept0 + static_cast<size_t>(b) * D.n_ep : nullptr;
+  const double* ept1 =
+      HET ? a.ept1 + static_cast<size_t>(b) * D.n_ep : nullptr;
+  const double* epf = HET ? a.epf + static_cast<size_t>(b) * D.n_ep : nullptr;
+
+  // -- the carry, from the planes into the owning lanes
+#pragma unroll
+  for (int q = 0; q < pls; ++q) {
+    const int e = lane * pls + q;
+    s_fin[q] = e < NSL ? __ldg(clk + L.fin_s + e) : inf;
+    s_row[q] = e < NSL ? min(max(__ldg(ctr + L.idx_s + e), 0), n) : n;
+  }
+  int qsum = 0;       // the calls queued: the sum of the carry's qn
+  for (int q = 0; q < pln; ++q) {
+    const int e = lane * pln + q;
+    const bool ne = e < NN;
+    n_busy[q] = ne ? __ldg(ctr + L.busy + e) : 0;
+    n_chan[q] = ne ? __ldg(clk + L.chan + e) : 0.0;
+    qsum += ne ? __ldg(ctr + L.qn + e) : 0;
+    n_act[q] = ne && DYN ? __ldg(clk + L.act_t + e) : 0.0;
+    n_kill[q] = ne && DYN ? __ldg(clk + L.killq + e) : inf;
+    n_dead[q] = ne && DYN ? __ldg(ctr + L.dead + e) : 0;
+    n_pend[q] = ne && DYN ? __ldg(ctr + L.act_pend + e) : 0;
+    n_spd[q] = ne && HET ? __ldg(a.spd + static_cast<size_t>(b) * NN + e)
+                         : 1.0;
+  }
+  qsum = __reduce_add_sync(FULL, qsum);
+  const int* const fn_ev = a.fn_ev + static_cast<size_t>(b) * F * kq;
+  for (int q = 0; q < plf; ++q) {
+    const int e = lane * plf + q;
+    const bool fe = e < F;
+    f_head[q] = fe ? __ldg(ctr + L.head + e) : 0;
+    f_narr[q] = fe ? __ldg(ctr + L.narr + e) : 0;
+    f_rlen[q] = fe ? __ldg(ctr + L.rlen + e) : 0;
+    f_rpos[q] = fe ? __ldg(ctr + L.rpos + e) : 0;
+    f_rsum[q] = fe ? __ldg(clk + L.rsum + e) : 0.0;
+    f_last[q] = fe ? __ldg(clk + L.last_t + e) : 0.0;
+    f_prev[q] = fe ? __ldg(clk + L.prev_t + e) : 0.0;
+    f_est[q] = f_rlen[q] > 0
+                   ? __ddiv_rn(f_rsum[q], static_cast<double>(f_rlen[q]))
+                   : 0.0;
+    f_idx[q] = fe ? __ldg(fn_ev + e * kq + min(f_head[q], kq - 1)) : n;
+    f_th[q] = R.t(f_idx[q]);
+    f_cnt[q] = 0;
+  }
+  int ai = __ldg(ctr + L.ai);
+  // FC counts of the arrivals the carry has already taken
+  for (int i = 0; i < ai && i < n; ++i) {
+    const int f = R.fn(i);
+    if (R.t(i) != inf)
+      for (int q = 0; q < plf; ++q)
+        if (lane * plf + q == f) f_cnt[q] += 1;
+  }
+  int k0 = 0;
+  double t_k0 = R.t(0), t_km1 = -inf;
+  double t_a = ai <= n ? R.t(ai) : inf;
+  int f_a = R.fn(min(ai, n));
+  int nfail = DYN ? __ldg(ctr + L.nfail) : 0;
+  int ndone = DYN ? __ldg(ctr + L.ndone) : 0;
+  int prov = DYN ? __ldg(ctr + L.prov) : 0;
+  double next_tick = DYN ? __ldg(clk + L.next_tick) : inf;
+
+  // the warp-uniform candidates: earliest completion, kill, re-arrival and
+  // pending activation (each found again when its event moves it)
+  unsigned long long nx_key;
+  double nx_t;
+  auto find_completion = [&]() {
+    unsigned long long k = NO_KEY64;
+#pragma unroll
+    for (int q = 0; q < pls; ++q) k = min(k, order_key64(s_fin[q]));
+    nx_key = warp_min64(k);
+    nx_t = nx_key == NO_KEY64 ? inf : key_double(nx_key);
+  };
+  double kill_t = inf, act_min = inf;
+  int kill_k = 0, act_k = 0;
+  auto find_node = [&](bool kill) {
+    unsigned long long k = NO_KEY64;
+    int idx = INT_MAX;
+    for (int q = 0; q < pln; ++q) {
+      const int e = lane * pln + q;
+      const double v = kill ? n_kill[q] : (n_pend[q] ? n_act[q] : inf);
+      const unsigned long long kv = order_key64(v);
+      if (e < NN && kv < k) { k = kv; idx = e; }
+    }
+    int at;
+    const unsigned long long m = warp_argmin64(k, idx, &at);
+    const double v = m == NO_KEY64 ? inf : key_double(m);
+    if (kill) { kill_t = v; kill_k = at == INT_MAX ? 0 : at; }
+    else { act_min = v; act_k = at == INT_MAX ? 0 : at; }
+  };
+  double re_min = inf;
+  auto find_rearr = [&]() {     // the least re-arrival time
+    __syncwarp();
+    unsigned long long k = NO_KEY64;
+    for (int i = lane; i < n1; i += 32) k = min(k, order_key64(r_rearr[i]));
+    k = warp_min64(k);
+    re_min = k == NO_KEY64 ? inf : key_double(k);
+  };
+  find_completion();
+  if (DYN) {
+    find_node(true);
+    find_node(false);
+    if (n_re > 0) find_rearr();
+  }
+
+  double* const o_start = a.start + row;
+  double* const o_finish = a.finish + row;
+  double* const o_prio = a.prio + row;
+  int* const o_node = a.node + row;
+
+  for (int step = 0; step < D.n_steps; ++step) {
+    // -- event selection: kill < arrival <= completion < re-arrival <
+    // activation < tick (the first minimum wins)
+    double now = kill_t;
+    int ev = 0;
+    if (t_a < now) { now = t_a; ev = 1; }
+    if (nx_t < now) { now = nx_t; ev = 2; }
+    if (re_min < now) { now = re_min; ev = 3; }
+    if (act_min < now) { now = act_min; ev = 4; }
+    if (next_tick < now) { now = next_tick; ev = 5; }
+    if (now == inf) break;      // no event left: the carry is fixed
+
+    int ir = n;     // the re-arriving row (ev 3)
+    if (ev == 2) {
+      // -- completion: free the slot and its node, feed the ring
+      int ce = INT_MAX;
+      for (int q = pls - 1; q >= 0; --q)
+        if (order_key64(s_fin[q]) == nx_key) ce = lane * pls + q;
+      const int kflat = __reduce_min_sync(FULL, ce);
+      const int j_done = lane_get(s_row, pls, kflat);
+      const int kn = kflat / NS;
+#pragma unroll
+      for (int q = 0; q < pls; ++q)
+        if (lane * pls + q == kflat) s_fin[q] = inf;
+      for (int q = 0; q < pln; ++q)
+        if (lane * pln + q == kn) n_busy[q] -= 1;
+      const int f_done = R.fn(j_done);
+      const double v = R.p(j_done);
+      for (int q = 0; q < plf; ++q) {
+        if (lane * plf + q == f_done) {
+          const bool full = f_rlen[q] == W;
+          const int pos = f_rpos[q];
+          const double old = ring[f_done * W + pos];
+          f_rsum[q] = __dsub_rn(__dadd_rn(f_rsum[q], v), full ? old : 0.0);
+          ring[f_done * W + pos] = v;
+          if (!full) f_rlen[q] += 1;
+          f_rpos[q] = pos + 1 == W ? 0 : pos + 1;
+          f_est[q] = __ddiv_rn(f_rsum[q], static_cast<double>(f_rlen[q]));
+        }
+      }
+      ndone += 1;
+      find_completion();
+    } else if (ev == 0) {
+      // -- kill: the node's running calls re-arrive after the detection
+      // delay; its slots are freed and it is dead (the queue stays)
+      const int kk = kill_k;
+      const double back = __dadd_rn(now, detect);
+      int lost = 0;
+#pragma unroll
+      for (int q = 0; q < pls; ++q) {
+        const int e = lane * pls + q;
+        if (e < NSL && e / NS == kk) {
+          if (s_fin[q] != inf) {
+            r_rearr[s_row[q]] = back;
+            ++lost;
+          }
+          s_fin[q] = inf;
+        }
+      }
+      lost = __reduce_add_sync(FULL, lost);
+      for (int q = 0; q < pln; ++q) {
+        if (lane * pln + q == kk) {
+          n_busy[q] = 0;
+          n_dead[q] = 1;
+          n_kill[q] = inf;
+        }
+      }
+      nfail += lost;
+      n_re += lost;
+      if (lost > 0) re_min = back < re_min ? back : re_min;
+      find_node(true);
+      find_completion();
+      __syncwarp();
+    } else if (ev == 5) {
+      // -- autoscaler tick: provision one node while the queue per live
+      // slot is above the threshold
+      const bool alldone = ndone >= nreq;
+      int alive = 0;
+      for (int q = 0; q < pln; ++q) {
+        const int e = lane * pln + q;
+        alive += e < NN && n_act[q] <= now && !n_dead[q];
+      }
+      alive = __reduce_add_sync(FULL, alive);
+      const bool fire =
+          !alldone && prov < maxn &&
+          static_cast<double>(qsum) >
+              __dmul_rn(thr, static_cast<double>(max(alive * cores, 1)));
+      if (fire) {
+        for (int q = 0; q < pln; ++q) {
+          if (lane * pln + q == prov) {
+            n_act[q] = __dadd_rn(now, delay);
+            n_pend[q] = 1;
+          }
+        }
+        ++prov;
+        find_node(false);
+      }
+      next_tick = alldone ? inf : __dadd_rn(now, interval);
+    } else if (ev == 3) {
+      // -- re-arrival: the first row due joins the queue again
+      __syncwarp();
+      int first = INT_MAX;
+      for (int i = lane; i < n1; i += 32)
+        if (r_rearr[i] == re_min) { first = i; break; }
+      ir = __reduce_min_sync(FULL, first);
+      if (lane == 0) {
+        r_rearr[ir] = inf;
+        r_xq[ir] = 1;
+      }
+      n_re -= 1;
+      n_xq += 1;
+      ++qsum;
+      if (n_re > 0) find_rearr(); else re_min = inf;
+    } else if (ev == 1) {
+      // -- arrival: enqueue, observe on the controller estimator
+      for (int q = 0; q < plf; ++q) {
+        if (lane * plf + q == f_a) {
+          f_prev[q] = f_narr[q] == 0 ? now : f_last[q];
+          f_last[q] = now;
+          f_narr[q] += 1;
+          f_cnt[q] += 1;
+        }
+      }
+      ++ai;
+      ++qsum;
+      t_a = ai <= n ? R.t(ai) : inf;
+      f_a = R.fn(min(ai, n));
+    }
+    // ev 4 (activation) changes nothing before the dispatch
+
+    // -- dispatch: on an arrival, completion, re-arrival or activation
+    bool can = false;
+    if (ev >= 1 && ev <= 4) {
+      bool q_any = n_xq > 0;
+      for (int q = 0; q < plf; ++q) q_any |= f_head[q] < f_narr[q];
+      q_any = __any_sync(FULL, q_any);
+      if (q_any) {
+        if (D.use_fc) {
+          // -- FC window: k0 passes the rows at or before now - horizon
+          const double lim = __dsub_rn(now, horizon);
+          while (k0 < n && t_k0 <= lim) {
+            const int f = R.fn(k0);
+            if (t_k0 != inf)
+              for (int q = 0; q < plf; ++q)
+                if (lane * plf + q == f) f_cnt[q] -= 1;
+            t_km1 = t_k0;
+            ++k0;
+            t_k0 = R.t(k0);
+          }
+          while (k0 > 0 && t_km1 > lim) {     // only if lim fell
+            --k0;
+            t_k0 = t_km1;
+            t_km1 = k0 > 0 ? R.t(k0 - 1) : -inf;
+            const int f = R.fn(k0);
+            if (t_k0 != inf)
+              for (int q = 0; q < plf; ++q)
+                if (lane * plf + q == f) f_cnt[q] += 1;
+          }
+        }
+        // the active invoker with the most free slots (first on ties)
+        int bx = INT_MIN, be = INT_MAX;
+        for (int q = 0; q < pln; ++q) {
+          const int e = lane * pln + q;
+          const bool act =
+              DYN ? (n_act[q] <= now && !n_dead[q]) : e < nodes;
+          const int x = act ? cores - n_busy[q] : -1;
+          if (e < NN && x > bx) { bx = x; be = e; }
+        }
+        const int xmax = __reduce_max_sync(FULL, bx);
+        const int k_d = __reduce_min_sync(FULL, bx == xmax ? be : INT_MAX);
+        const int busy_kd = lane_get(n_busy, pln, k_d);
+        const double chan_kd = lane_get(n_chan, pln, k_d);
+        bool ok = busy_kd < cores;
+        if (DYN)
+          ok = ok && lane_get(n_act, pln, k_d) <= now &&
+               !lane_get(n_dead, pln, k_d);
+        // the best queue head: least priority, then least event index
+        unsigned long long pk = NO_KEY64;
+        int pj = INT_MAX;
+        double pv = 0.0;
+        for (int q = 0; q < plf; ++q) {
+          double w = c2;
+          if (D.use_fc)
+            w = __dadd_rn(c2, __dmul_rn(c3, static_cast<double>(f_cnt[q])));
+          const double base = __dadd_rn(__dmul_rn(c1, f_prev[q]),
+                                        __dmul_rn(w, f_est[q]));
+          double pr = __dadd_rn(__dmul_rn(c0, f_th[q]), base);
+          if (DYN) pr = __dadd_rn(pr, __dmul_rn(c4, now));
+          const unsigned long long k =
+              f_head[q] < f_narr[q] ? order_key64(pr) : NO_KEY64;
+          if (k < pk || (k == pk && f_idx[q] < pj)) {
+            pk = k; pj = f_idx[q]; pv = pr;
+          }
+          if (DYN && n_xq > 0 && lane * plf + q < F)
+            f_base[lane * plf + q] = base;
+        }
+        int j;
+        const unsigned long long pmin = warp_argmin64(pk, pj, &j);
+        double prio_j = inf;
+        if (pmin == NO_KEY64) {
+          j = n;
+        } else {
+          const unsigned win = __ballot_sync(FULL, pk == pmin && pj == j);
+          prio_j = __shfl_sync(FULL, pv, __ffs(win) - 1);
+        }
+        bool pick_x = false;
+        if (DYN && n_xq > 0) {
+          // a re-queued call ranks by the clock it was last pulled at and
+          // wins an equal priority only if it re-entered the queue before
+          // the head arrived
+          __syncwarp();
+          unsigned long long xk = NO_KEY64;
+          int xj = INT_MAX;
+          double xv = 0.0;
+          for (int i = lane; i < n; i += 32) {
+            if (r_xq[i]) {
+              const double px = __dadd_rn(
+                  __dadd_rn(__dmul_rn(c0, R.t(i)), f_base[R.fn(i)]),
+                  __dmul_rn(c4, r_rqrt[i]));
+              const unsigned long long k = order_key64(px);
+              if (k < xk) { xk = k; xj = i; xv = px; }
+            }
+          }
+          int j_x;
+          const unsigned long long xmin = warp_argmin64(xk, xj, &j_x);
+          if (xmin != NO_KEY64) {
+            const unsigned win =
+                __ballot_sync(FULL, xk == xmin && xj == j_x);
+            const double best_x = __shfl_sync(FULL, xv, __ffs(win) - 1);
+            pick_x = best_x < prio_j ||
+                     (best_x == prio_j && r_enq[j_x] < R.t(j));
+            if (pick_x) j = j_x;
+            prio_j = best_x < prio_j ? best_x : prio_j;
+          }
+          __syncwarp();
+        }
+        can = ok && (DYN ? prio_j < inf : j < n);
+        if (can) {
+          double cost_j = R.cost(j), p_j = R.p(j);
+          if (HET) {
+            // the node's speed at dispatch divides cost and runtime
+            double slow = 1.0;
+            for (int ep = 0; ep < D.n_ep; ++ep)
+              if (__ldg(epn + ep) == k_d && __ldg(ept0 + ep) <= now &&
+                  now < __ldg(ept1 + ep))
+                slow = __dmul_rn(slow, __ldg(epf + ep));
+            // (x * slowdown) / speed: the oracle's x / (speed / slowdown)
+            // as XLA's algebraic simplifier compiles it
+            const double spd_k = lane_get(n_spd, pln, k_d);
+            cost_j = __ddiv_rn(__dmul_rn(cost_j, slow), spd_k);
+            p_j = __ddiv_rn(__dmul_rn(p_j, slow), spd_k);
+          }
+          const double exec_start = __dadd_rn(fmax(now, chan_kd), cost_j);
+          const double fin_j = __dadd_rn(exec_start, p_j);
+          // the first free slot below cores of the node
+          int se = INT_MAX;
+          for (int q = pls - 1; q >= 0; --q) {
+            const int e = lane * pls + q;
+            if (e < NSL && e / NS == k_d && e % NS < cores && s_fin[q] == inf)
+              se = e;
+          }
+          se = __reduce_min_sync(FULL, se);
+          const bool none_free = se == INT_MAX;   // (a carry with no free
+          if (none_free) se = k_d * NS;           // slot: slot 0, as JAX)
+#pragma unroll
+          for (int q = 0; q < pls; ++q) {
+            if (lane * pls + q == se) { s_fin[q] = fin_j; s_row[q] = j; }
+          }
+          for (int q = 0; q < pln; ++q) {
+            if (lane * pln + q == k_d) {
+              n_chan[q] = exec_start;
+              n_busy[q] += 1;
+            }
+          }
+          --qsum;
+          if (pick_x) {
+            if (lane == 0) r_xq[j] = 0;
+            n_xq -= 1;
+          } else {
+            const int f_j = R.fn(j);
+            for (int q = 0; q < plf; ++q) {
+              if (lane * plf + q == f_j) {
+                f_head[q] += 1;
+                f_idx[q] = __ldg(fn_ev + f_j * kq + min(f_head[q], kq - 1));
+                f_th[q] = R.t(f_idx[q]);
+              }
+            }
+          }
+          if (lane == 0) {
+            if (DYN) r_rqrt[j] = now;
+            o_start[j] = exec_start;
+            o_finish[j] = fin_j;
+            o_prio[j] = prio_j;
+            o_node[j] = k_d;
+          }
+          if (none_free) {
+            find_completion();
+          } else {
+            const unsigned long long kj = order_key64(fin_j);
+            if (kj < nx_key) { nx_key = kj; nx_t = fin_j; }
+          }
+        }
+      }
+    }
+    if (ev == 3 && lane == 0) r_enq[ir] = now;   // read above as it was
+    if (ev == 4) {
+      // the activation stays pending while the new node can take more
+      const bool still = can && qsum > 0 &&
+                         lane_get(n_busy, pln, act_k) < cores;
+      if (!still) {
+        for (int q = 0; q < pln; ++q)
+          if (lane * pln + q == act_k) n_pend[q] = 0;
+        find_node(false);
+      }
+    }
+  }
+
+  if (DYN) {
+    int* const sm = a.summ + static_cast<size_t>(b) * 3;
+    if (lane == 0) {
+      sm[0] = nfail;
+      sm[1] = ndone;
+      sm[2] = prov;
+    }
+    for (int q = 0; q < pln; ++q) {
+      const int e = lane * pln + q;
+      if (e < NN) {
+        a.act_out[static_cast<size_t>(b) * NN + e] = n_act[q];
+        a.dead_out[static_cast<size_t>(b) * NN + e] = n_dead[q];
+      }
+    }
+  }
+}
+
+template <int PL, bool STAGED>
+int launch_dyn(const DArgs& a, const DLayout& L, const DDims& D, int cell,
+               float horizon, cudaStream_t stream, int pl, int words) {
+  auto kernel = dyn_kernel<PL, STAGED>;
+  int cpb = 0, blocks = 0;
+  const int e = block_shape(kernel, D.B, cell, &cpb, &blocks);
+  if (e != 0) return e;
+  kernel<<<blocks, 32 * cpb, static_cast<size_t>(cpb) * cell, stream>>>(
+      a, L, D, cpb, cell, horizon, pl, words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int PL>
+int launch_dyn_pl(bool staged, const DArgs& a, const DLayout& L,
+                  const DDims& D, int cell, float horizon,
+                  cudaStream_t stream, int words) {
+  return staged ? launch_dyn<PL, true>(a, L, D, cell, horizon, stream, PL,
+                                       words)
+                : launch_dyn<PL, false>(a, L, D, cell, horizon, stream, PL,
+                                        words);
+}
+
 }  // namespace
 
 // Launches the scan of D.B cells on `stream`.  `layout` holds the kLayout
@@ -1320,6 +2113,73 @@ extern "C" int event_step_freeze_launch(
       return launch_freeze_pl<4>(staged, a, L, D, cell, horizon, s, words);
     case 8:
       return launch_freeze_pl<8>(staged, a, L, D, cell, horizon, s, words);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launches the float64 pull scan (capacity dynamics with D.dyn, node speeds
+// with D.het) of D.B cells on `stream`.  `layout` holds the kDLayout carry
+// offsets, `dims` the kDDims launch dimensions and `plan` the kDPlan
+// entries of ops.event_step_plan(..., f64=True) (slots a lane; staged or
+// not; wide or not; shared-memory bytes a cell; scratch words a cell), all
+// in host memory.  `dynp` / `maxn` / `nreq` and the summary outputs `summ`
+// / `act_out` / `dead_out` are read and written with D.dyn (else null),
+// `spd` / `epn` / `ept0` / `ept1` / `epf` read with D.het (else null).
+// `scratch` holds D.B times the scratch words (null when they are 0).
+// Returns cudaGetLastError() after the launch, or the error that stopped
+// it.
+extern "C" int event_step_dyn_launch(
+    const double* clk, const int* ctr, const double* t, const int* fnid,
+    const double* p, const double* cost, const double* coef, const int* cores,
+    const int* nodes, const int* fn_ev, const double* dynp, const int* maxn,
+    const int* nreq, const double* spd, const int* epn, const double* ept0,
+    const double* ept1, const double* epf, double* start, double* finish,
+    double* prio, int* node, int* summ, double* act_out, int* dead_out,
+    int* scratch, const int* layout, const int* dims, const int* plan,
+    float horizon, void* stream) {
+  DLayout L;
+  DDims D;
+  int P[kDPlan];
+  static_assert(sizeof(DLayout) == kDLayout * sizeof(int), "layout size");
+  static_assert(sizeof(DDims) == kDDims * sizeof(int), "dims size");
+  std::memcpy(&L, layout, sizeof(L));
+  std::memcpy(&D, dims, sizeof(D));
+  std::memcpy(P, plan, sizeof(P));
+  if (D.B == 0) return static_cast<int>(cudaSuccess);
+  const int pl = P[0];
+  const bool staged = P[1] != 0, wide = P[2] != 0;
+  const int cell = P[3], words = P[4];
+  const int n1 = D.n + 1, NSL = D.n_nodes * D.n_slots;
+  const int pln = (D.n_nodes + 31) / 32, plf = (D.n_fns + 31) / 32;
+  const bool dyn = D.dyn != 0, het = D.het != 0;
+  const DArgs a{clk, ctr, t, fnid, p, cost, coef, cores, nodes, fn_ev,
+                dynp, maxn, nreq, spd, epn, ept0, ept1, epf, start, finish,
+                prio, node, summ, act_out, dead_out,
+                reinterpret_cast<uint32_t*>(scratch)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (pl < 1 || 32 * pl < NSL || (!wide && (D.n_nodes > 32 ||
+                                            D.n_fns > 32)) ||
+      words != dyn_scratch_words(wide, pl, pln, plf, n1, D.n_fns, D.window,
+                                 dyn) ||
+      (words > 0 && scratch == nullptr) ||
+      (dyn && (dynp == nullptr || maxn == nullptr || nreq == nullptr ||
+               summ == nullptr || act_out == nullptr ||
+               dead_out == nullptr || D.ncoef < 5)) ||
+      (het && (spd == nullptr || epn == nullptr || ept0 == nullptr ||
+               ept1 == nullptr || epf == nullptr || D.n_ep < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wide) {
+    if (staged || cell != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dyn<0, false>(a, L, D, 0, horizon, s, pl, words);
+  }
+  if (cell != dyn_cell_bytes(staged, n1, D.n_fns, D.window) ||
+      cell % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (pl) {
+    case 1: return launch_dyn_pl<1>(staged, a, L, D, cell, horizon, s, words);
+    case 2: return launch_dyn_pl<2>(staged, a, L, D, cell, horizon, s, words);
+    case 4: return launch_dyn_pl<4>(staged, a, L, D, cell, horizon, s, words);
+    case 8: return launch_dyn_pl<8>(staged, a, L, D, cell, horizon, s, words);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -45,55 +45,97 @@ from ..core.planes import carry_layout
 
 def event_step_supported(*, freeze, use_fc, fc_push, dyn, het, hedge, cold,
                          dup, stream=False, res=False, **_static) -> bool:
-    """True when the static feature set is one the port scans: the base
-    pull configuration, with or without FC pull counts (``use_fc``) -- the
-    scope of the JAX package's Pallas ``event_step`` -- or the static warm
-    frozen-priority regime (``freeze``, with or without the push FC rings
-    ``fc_push``), which counts FC without the pull counts.  ``res`` is
-    named here because the port has no resilience segment."""
-    if dyn or het or hedge or cold or dup or stream or res:
+    """True when the static feature set is one the port scans: the pull
+    regime, with or without FC pull counts (``use_fc``), capacity dynamics
+    (``dyn``) and node speeds (``het``) -- the base pull configuration is
+    the scope of the JAX package's Pallas ``event_step``, ``dyn`` / ``het``
+    its oracle's float64 buckets -- or the static warm frozen-priority
+    regime (``freeze``, with or without the push FC rings ``fc_push``),
+    which counts FC without the pull counts.  ``res`` is named here because
+    the port has no resilience segment."""
+    if hedge or cold or dup or stream or res:
         return False
     if freeze:
-        return not use_fc
+        return not (use_fc or dyn or het)
     return not fc_push
 
 
 def fc_prefix_counts(t: torch.Tensor, fnid: torch.Tensor,
                      n_fns: int) -> torch.Tensor:
     """The FC counts ``cumf`` that ``t`` and ``fnid`` (B, n+1) define:
-    ``(B, n+1, n_fns)`` float32, entry ``[b, k, f]`` the calls of ``f``
-    among rows ``[:k]`` whose ``t`` is finite.  The plain version reads
-    ``cumf``; the CUDA kernel counts its window from ``t`` and ``fnid`` by
-    this definition instead, so the two agree only on a bucket whose
-    ``cumf`` equals it (``core.fastpath._fill_bucket`` fills it so)."""
+    ``(B, n+1, n_fns)`` in ``t``'s float type, entry ``[b, k, f]`` the calls
+    of ``f`` among rows ``[:k]`` whose ``t`` is finite.  The plain version
+    reads ``cumf``; the CUDA kernels count their window from ``t`` and
+    ``fnid`` by this definition instead, so the two agree only on a bucket
+    whose ``cumf`` equals it (``core.fastpath._fill_bucket`` fills it
+    so)."""
     real = torch.isfinite(t[:, :-1])
     hot = torch.nn.functional.one_hot(fnid[:, :-1].long(), n_fns)
-    out = torch.zeros(t.shape + (n_fns,), dtype=torch.float32,
-                      device=t.device)
-    out[:, 1:] = (hot * real[..., None]).cumsum(1).to(torch.float32)
+    out = torch.zeros(t.shape + (n_fns,), dtype=t.dtype, device=t.device)
+    out[:, 1:] = (hot * real[..., None]).cumsum(1).to(t.dtype)
     return out
+
+
+def _slowdown(inp, k_d, now):
+    """Each cell's slowdown of node ``k_d`` at ``now``: the product, in
+    episode order, of the factors of its episodes on that node whose window
+    ``[t0, t1)`` holds ``now`` (padding episodes have node -1)."""
+    hit = ((inp["epn"] == k_d[:, None]) & (inp["ept0"] <= now[:, None])
+           & (now[:, None] < inp["ept1"]))
+    fac = torch.where(hit, inp["epf"], 1.0)
+    slow = fac[:, 0]
+    for e in range(1, fac.shape[1]):
+        slow = slow * fac[:, e]
+    return slow
 
 
 def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                    window: int, use_fc: bool, horizon: float,
                    n_steps: int, freeze: bool = False, fc_push: bool = False,
-                   fc_ring: int = 1):
+                   fc_ring: int = 1, dyn: bool = False, het: bool = False):
     """Plain PyTorch event scan of a bucket of cells.  ``freeze`` runs the
     frozen-priority regime (:func:`freeze_scan_ref`); the rest of this
     docstring is the pull regime's.
 
     ``clk``/``ctr`` are the ``(B, f_len)`` / ``(B, i_len)`` initial carry
     planes (``repro_torch.core.planes.make_planes``), left unchanged;
-    ``inp`` holds ``t``/``p``/``cost`` ``(B, n+1)`` float32 (``t`` sorted,
-    ``+inf`` padded), ``fnid`` ``(B, n+1)``, ``coef`` ``(B, >=4)``,
+    ``inp`` holds ``t``/``p``/``cost`` ``(B, n+1)`` (``t`` sorted, ``+inf``
+    padded), ``fnid`` ``(B, n+1)``, ``coef`` ``(B, >=4)``,
     ``cores``/``nodes`` ``(B,)``, ``cumf`` ``(B, n+1 | 1, F)`` and ``fn_ev``
-    ``(B, F, kq)``.  Returns ``(start, finish, prio, node)``, each
-    ``(B, n+1)``; row ``n`` is the sentinel that no-op events write."""
+    ``(B, F, kq)``, all floats in the bucket's type (float32, or float64
+    with ``dyn`` / ``het``).
+
+    ``dyn`` adds capacity dynamics, as the JAX oracle's ``dyn`` branch: six
+    candidate events a step -- the earliest kill, the next arrival, the
+    earliest completion, the earliest re-arrival, the earliest pending
+    activation and the autoscaler tick, the first on equal times.  A kill
+    frees its node's slots, marks it dead and sends each call it was
+    running back at ``now + failure_detect`` (the queue stays); a
+    re-arrival joins the queue outside the functions' head windows (``xq``)
+    and ranks by the time it was last pulled (``rq_rt``), after the calls
+    already waiting at equal priority; a tick provisions one node
+    ``provision_delay`` ahead while more than the threshold of calls a live
+    slot are queued, and schedules the next tick until every call is done;
+    an activation dispatches until the new node is full or the queue empty.
+    Only active nodes (``act_t <= now``, not dead) pull.  ``inp`` adds
+    ``act0`` / ``killt`` (B, nodes), ``dynp`` (B, 5: interval, threshold,
+    delay, detection, autoscale flag), ``maxn`` and ``nreq`` (B,), and
+    ``coef`` a fifth column on the enqueue clock.  ``het`` divides a
+    dispatch's management cost and runtime by its node's speed at
+    dispatch (``spd`` over the product of its episodes' slowdowns,
+    ``epn`` / ``ept0`` / ``ept1`` / ``epf``).
+
+    Returns ``(start, finish, prio, node, aux)``, the first four ``(B,
+    n+1)`` (row ``n`` is the sentinel that no-op events write; a call
+    dispatched twice keeps its last dispatch) and ``aux`` empty, or with
+    ``dyn`` each cell's calls lost (``nfail``), calls done (``ndone``),
+    nodes provisioned (``prov``), activation times (``act_t``) and dead
+    flags (``dead``) at the end."""
     if freeze:
         return freeze_scan_ref(clk, ctr, inp, n_nodes=n_nodes,
                                n_slots=n_slots, window=window,
                                fc_push=fc_push, fc_ring=fc_ring,
-                               horizon=horizon, n_steps=n_steps)
+                               horizon=horizon, n_steps=n_steps) + ({},)
     t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
     coef, cumf, fn_ev = inp["coef"], inp["cumf"], inp["fn_ev"].long()
     cores, nodes = inp["cores"].long(), inp["nodes"].long()
@@ -102,7 +144,7 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     n_fns, kq = fn_ev.shape[1], fn_ev.shape[2]
     dev, ft = t.device, t.dtype
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
-                          n_fns=n_fns)
+                          n_fns=n_fns, n1=n1, dyn=dyn)
     st = {k: v.clone() for k, v in layout.unpack(clk, ctr).items()}
     ai = st["ai"].long()
     head = st["head"].long()
@@ -121,26 +163,58 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     win_ids = torch.arange(window, device=dev)[None, None]
     inf = torch.tensor(float("inf"), dtype=ft, device=dev)
     zero = torch.tensor(0.0, dtype=ft, device=dev)
-    active = node_ids < nodes[:, None]
     c0, c1, c2, c3 = (coef[:, i:i + 1] for i in range(4))
+    if dyn:
+        act_t, dead, killq = st["act_t"], st["dead"], st["killq"]
+        act_pend, rearr = st["act_pend"], st["rearr"]
+        next_tick, prov = st["next_tick"], st["prov"].long()
+        nfail, ndone = st["nfail"].long(), st["ndone"].long()
+        xq, rq_rt, enq_t = st["xq"], st["rq_rt"], st["enq_t"]
+        interval, thr, delay, detect = (inp["dynp"][:, k] for k in range(4))
+        maxn, nreq = inp["maxn"].long(), inp["nreq"].long()
+        c4 = coef[:, 4:5]
+        req_ids = torch.arange(n1, device=dev)[None]
+    else:
+        active = node_ids < nodes[:, None]
     start = torch.zeros(B, n1, dtype=ft, device=dev)
     finish = torch.zeros(B, n1, dtype=ft, device=dev)
     prio = torch.zeros(B, n1, dtype=ft, device=dev)
     node = torch.zeros(B, n1, dtype=torch.int32, device=dev)
 
     for _ in range(n_steps):
-        # -- event selection: arrival vs earliest completion ---------------
+        # -- event selection: kill < arrival <= completion < re-arrival <
+        # activation < tick at equal times (the first minimum wins) --------
         t_a = t[rows, ai]
         flat = fin_s.reshape(B, -1)
         kflat = flat.argmin(1)
         t_c = flat[rows, kflat]
-        arr_first = t_a <= t_c
-        now = torch.where(arr_first, t_a, t_c)
+        if dyn:
+            cand = torch.stack(
+                [killq.min(1).values, t_a, t_c, rearr.min(1).values,
+                 torch.where(act_pend, act_t, inf).min(1).values,
+                 next_tick], 1)
+            e = cand.argmin(1)
+            now = cand[rows, e]
+        else:
+            e = (t_a > t_c).long()
+            now = torch.where(t_a <= t_c, t_a, t_c)
         none_left = torch.isinf(now)
         if bool(none_left.all()):
             break                # no event left anywhere: the carry is fixed
-        do_arr = arr_first & ~none_left
-        do_comp = ~arr_first & ~none_left
+        off = 1 if dyn else 0
+        do_arr = (e == off) & ~none_left
+        do_comp = (e == off + 1) & ~none_left
+        if dyn:
+            do_kill = (e == 0) & ~none_left
+            do_re = (e == 3) & ~none_left
+            do_act = (e == 4) & ~none_left
+            do_tick = (e == 5) & ~none_left
+            active = (act_t <= now[:, None]) & ~dead
+            # which of the rarer events any cell takes this step (one read
+            # back; a block no cell needs changes nothing and is skipped)
+            any_kill, any_re, any_act, any_tick, any_x = torch.stack(
+                [do_kill.any(), do_re.any(), do_act.any(), do_tick.any(),
+                 xq.any()]).tolist()
 
         # -- completion: free the slot, feed the controller ring -----------
         kn = kflat // n_slots
@@ -164,8 +238,58 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         fin_s = torch.where(m_kn[:, :, None] & (slot_ids == ks[:, None, None]),
                             inf, fin_s)
 
-        # -- arrival: enqueue, observe on the controller estimator ---------
+        if dyn:
+            ndone = ndone + do_comp.long()
+        if dyn and any_kill:
+            # -- kill: wipe the node, its running calls re-arrive later ----
+            kk = killq.argmin(1)
+            m_kk = (node_ids == kk[:, None]) & do_kill[:, None]
+            lost = torch.isfinite(fin_s[rows, kk]) & do_kill[:, None]
+            hit = torch.where(lost, idx_s[rows, kk], n)
+            m_lost = torch.zeros(B, n1, dtype=torch.bool, device=dev)
+            m_lost.scatter_(1, hit, True)
+            m_lost[:, n] = False
+            rearr = torch.where(m_lost, (now + detect)[:, None], rearr)
+            nfail = nfail + m_lost.sum(1)
+            fin_s = torch.where(m_kk[:, :, None], inf, fin_s)
+            busy = torch.where(m_kk, 0, busy)
+            dead = dead | m_kk
+            killq = torch.where(m_kk, inf, killq)
+
+        if dyn and any_tick:
+            # -- autoscaler tick: the queue-per-slot rule ------------------
+            alldone = ndone >= nreq
+            n_alive = active.sum(1)
+            queued = qn.sum(1).to(torch.float32).to(ft)
+            fire = (do_tick & ~alldone & (prov < maxn)
+                    & (queued > thr * (n_alive * cores).clamp(min=1).to(
+                        torch.float32).to(ft)))
+            m_new = (node_ids == prov[:, None]) & fire[:, None]
+            act_t = torch.where(m_new, (now + delay)[:, None], act_t)
+            act_pend = act_pend | m_new
+            prov = prov + fire.long()
+            next_tick = torch.where(do_tick,
+                                    torch.where(alldone, inf,
+                                                now + interval),
+                                    next_tick)
+
+        enq_0 = enq_t if dyn else None
+        if dyn and any_re:
+            # -- re-arrival: a lost call joins the queue again (the tie
+            # rule below reads the enqueue times as the step found them) ---
+            ir = rearr.argmin(1)
+            m_ir = (req_ids == ir[:, None]) & do_re[:, None]
+            rearr = torch.where(m_ir, inf, rearr)
+            xq = xq | m_ir
+            enq_t = torch.where(m_ir, now[:, None], enq_t)
+
+        # -- arrival: enqueue, observe on the controller estimator (a
+        # re-arrival is enqueued without a second observation) -------------
         i_ins = ai.clamp(max=n)
+        do_ins = do_arr
+        if dyn and any_re:
+            do_ins = do_arr | do_re
+            i_ins = torch.where(do_arr, i_ins, ir)
         f_i = fnid[rows, i_ins]
         first = narr[rows, f_i] == 0
         prev_used = torch.where(first, now, last_t[rows, f_i])
@@ -173,7 +297,7 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         prev_t = torch.where(m_af, prev_used[:, None], prev_t)
         last_t = torch.where(m_af, now[:, None], last_t)
         narr = narr + m_af.long()
-        qn = qn + ((node_ids == 0) & do_arr[:, None]).long()
+        qn = qn + ((node_ids == 0) & do_ins[:, None]).long()
         ai = ai + do_arr.long()
 
         # -- dispatch: the most-free invoker pulls the global best head ----
@@ -194,16 +318,42 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             w_est = c2
         base_f = c1 * prev_t + w_est * est_f
         prio_f = c0 * t.gather(1, idx_f) + base_f
+        if dyn:                  # the enqueue clock's term
+            prio_f = prio_f + c4 * now[:, None]
         prio_f = torch.where(valid, prio_f, inf)
         best = prio_f.min(1).values
         j = torch.where(valid & (prio_f == best[:, None]), idx_f,
                         n).min(1).values
-        has_q = j < n
-        can = ~none_left & (busy[rows, k_d] < cores) & has_q
-        exec_start = torch.maximum(now, chan[rows, k_d]) + cost[rows, j]
+        prio_j = best
+        pick_x = torch.zeros(B, dtype=torch.bool, device=dev)
+        if dyn and (any_x or any_re):
+            # a re-queued call ranks by the clock it was last pulled at and
+            # wins an equal priority only if it re-arrived before the head
+            prio_x = torch.where(xq, c0 * t + base_f.gather(1, fnid)
+                                 + c4 * rq_rt, inf)
+            j_x = prio_x.argmin(1)
+            best_x = prio_x[rows, j_x]
+            pick_x = (best_x < prio_j) | ((best_x == prio_j)
+                                          & (enq_0[rows, j_x] < t[rows, j]))
+            j = torch.where(pick_x, j_x, j)
+            prio_j = torch.minimum(best_x, prio_j)
+        if dyn:
+            can = ((do_ins | do_comp | do_act) & active[rows, k_d]
+                   & (busy[rows, k_d] < cores) & (prio_j < inf))
+        else:
+            can = ~none_left & (busy[rows, k_d] < cores) & (j < n)
+        cost_j, p_j = cost[rows, j], p[rows, j]
+        if het:
+            # the node's speed at dispatch, eff = spd / slowdown, divides
+            # cost and runtime; the oracle's x / (spd / slowdown) compiles
+            # to (x * slowdown) / spd (XLA's algebraic simplifier), which
+            # is what it computes, so the port computes that
+            spd_k, slow = inp["spd"][rows, k_d], _slowdown(inp, k_d, now)
+            cost_j, p_j = cost_j * slow / spd_k, p_j * slow / spd_k
+        exec_start = torch.maximum(now, chan[rows, k_d]) + cost_j
         m_kd = (node_ids == k_d[:, None]) & can[:, None]
         chan = torch.where(m_kd, exec_start[:, None], chan)
-        fin_j = exec_start + p[rows, j]
+        fin_j = exec_start + p_j
         slot_free = (torch.isinf(fin_s[rows, k_d])
                      & (slot_ids[:, 0] < cores[:, None]))
         s = slot_free.to(torch.int32).argmax(1)
@@ -212,16 +362,36 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         idx_s = torch.where(m_ds, j[:, None, None], idx_s)
         busy = busy + m_kd.long()
         qn = qn - m_kd.long()
+        adv = can
+        if dyn:
+            m_j = (req_ids == j[:, None]) & can[:, None]
+            xq = xq & ~(m_j & pick_x[:, None])
+            adv = can & ~pick_x
+            rq_rt = torch.where(m_j, now[:, None], rq_rt)
         head = head + ((fn_ids == fnid[rows, j][:, None])
-                       & can[:, None]).long()
+                       & adv[:, None]).long()
+        if dyn and any_act:
+            # the activation event stays pending while the new node can
+            # take more of the queue
+            ka = torch.where(act_pend, act_t, inf).argmin(1)
+            still = (do_act & can & (qn.sum(1) > 0)
+                     & (busy[rows, ka] < cores))
+            act_pend = torch.where((node_ids == ka[:, None])
+                                   & do_act[:, None], still[:, None],
+                                   act_pend)
 
         # -- per-dispatch record; no-op events land on sentinel row n ------
         jn = torch.where(can, j, n)
         start[rows, jn] = exec_start
         finish[rows, jn] = fin_j
-        prio[rows, jn] = best
+        prio[rows, jn] = prio_j
         node[rows, jn] = k_d.to(torch.int32)
-    return start, finish, prio, node
+    aux = {}
+    if dyn:
+        i32 = torch.int32
+        aux = {"nfail": nfail.to(i32), "ndone": ndone.to(i32),
+               "prov": prov.to(i32), "act_t": act_t, "dead": dead}
+    return start, finish, prio, node, aux
 
 
 def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,

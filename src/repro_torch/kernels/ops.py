@@ -8,7 +8,9 @@ card only when the caller asks for it with ``force="ref"``.
 Each kernel counts the calls that launched it and the calls that ran its
 plain version: ``KERNEL_LAUNCHES`` / ``REF_LAUNCHES`` for ``event_step``'s
 pull kernel, ``FREEZE_LAUNCHES`` / ``FREEZE_REF_LAUNCHES`` for its
-frozen-priority kernel (single-node and push buckets),
+frozen-priority kernel (single-node and push buckets), ``DYN_LAUNCHES`` /
+``DYN_REF_LAUNCHES`` for its float64 pull kernel (pull buckets with
+capacity dynamics or node speeds),
 ``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
 ``DECODE_REF_LAUNCHES`` for the attention kernels, ``RGLRU_LAUNCHES`` /
 ``RGLRU_REF_LAUNCHES`` and ``RWKV6_LAUNCHES`` / ``RWKV6_REF_LAUNCHES`` for
@@ -41,6 +43,8 @@ KERNEL_LAUNCHES = 0
 REF_LAUNCHES = 0
 FREEZE_LAUNCHES = 0
 FREEZE_REF_LAUNCHES = 0
+DYN_LAUNCHES = 0
+DYN_REF_LAUNCHES = 0
 FLASH_LAUNCHES = 0
 FLASH_REF_LAUNCHES = 0
 DECODE_LAUNCHES = 0
@@ -56,6 +60,7 @@ RWKV6_REF_LAUNCHES = 0
 _COUNTS = {
     "event_step": ("KERNEL_LAUNCHES", "REF_LAUNCHES"),
     "event_step_freeze": ("FREEZE_LAUNCHES", "FREEZE_REF_LAUNCHES"),
+    "event_step_dyn": ("DYN_LAUNCHES", "DYN_REF_LAUNCHES"),
     "flash_attention": ("FLASH_LAUNCHES", "FLASH_REF_LAUNCHES"),
     "decode_attention": ("DECODE_LAUNCHES", "DECODE_REF_LAUNCHES"),
     "rglru_scan": ("RGLRU_LAUNCHES", "RGLRU_REF_LAUNCHES"),
@@ -129,10 +134,19 @@ EVENT_STEP_FREEZE_WIDE_ARRAYS = 8
 # arrivals, FC ring position
 EVENT_STEP_FREEZE_EST_ARRAYS = 7
 
+# carry entries of the float64 pull kernel, in the order of ``struct
+# DLayout`` in csrc/event_step.cu (the dyn entries 0 in a het bucket)
+EVENT_STEP_DYN_LAYOUT = ("chan", "fin_s", "last_t", "prev_t", "ring", "rsum",
+                         "act_t", "killq", "rearr", "next_tick", "rq_rt",
+                         "enq_t", "ai", "busy", "head", "idx_s", "narr", "qn",
+                         "rlen", "rpos", "dead", "act_pend", "prov", "nfail",
+                         "ndone", "xq")
+
 # the launchers of csrc/event_step.cu and their pointer arguments: inputs,
 # outputs, scratch, layout, dims, plan
 EVENT_STEP_LAUNCHERS = {"event_step_launch": 19,
-                        "event_step_freeze_launch": 20}
+                        "event_step_freeze_launch": 20,
+                        "event_step_dyn_launch": 29}
 _event_step_fns: dict = {}
 
 
@@ -152,12 +166,58 @@ def event_step_cell_bytes(staged: bool, n1: int, n_fns: int,
     return nbytes
 
 
+def event_step_dyn_cell_bytes(staged: bool, n1: int, n_fns: int,
+                              window: int) -> int:
+    """Shared-memory bytes of one cell in the float64 pull kernel
+    (``dyn_cell_bytes`` in csrc/event_step.cu): the runtime ring, and when
+    ``staged`` the rows t / p / cost (float64) and fnid (8-bit)."""
+    nbytes = 8 * _round_up(n_fns * window, 2)
+    if staged:
+        nbytes += 24 * _round_up(n1, 2) + _round_up(n1, 16)
+    return nbytes
+
+
+def _dyn_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int, window: int,
+              dyn: bool) -> dict:
+    """The float64 pull kernel's plan (see :func:`event_step_plan`)."""
+    nsl = n_nodes * n_slots
+    per_lane = next((pl for pl in EVENT_STEP_PER_LANE if 32 * pl >= nsl),
+                    None)
+    wide = per_lane is None or n_nodes > 32 or n_fns > 32
+    staged, cell, words = False, 0, 0
+    if wide:
+        per_lane = max(1, -(-nsl // 32))
+        words = (2 * _round_up(n_fns * window, 2)
+                 + 32 * (3 * per_lane + 11 * -(-n_nodes // 32)
+                         + 16 * -(-n_fns // 32)))
+    else:
+        staged = event_step_dyn_cell_bytes(True, n1, n_fns,
+                                           window) <= SMEM_BLOCK_BYTES
+        cell = event_step_dyn_cell_bytes(staged, n1, n_fns, window)
+    if dyn:
+        words += 7 * _round_up(n1, 2) + 2 * n_fns
+    return {"per_lane": per_lane, "wide": wide, "staged": staged,
+            "cell_bytes": cell, "scratch_words": words}
+
+
 def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
                     window: int, freeze: bool = False, fc_push: bool = False,
-                    fc_ring: int = 1) -> dict:
+                    fc_ring: int = 1, f64: bool = False,
+                    dyn: bool = False) -> dict:
     """How the kernel runs a bucket of this shape, from the shape alone:
-    the pull kernel's plan, or with ``freeze`` the frozen-priority
-    kernel's (whose push FC rings, ``fc_push``, take ``fc_ring`` entries).
+    the pull kernel's plan, with ``freeze`` the frozen-priority kernel's
+    (whose push FC rings, ``fc_push``, take ``fc_ring`` entries), or with
+    ``f64`` the float64 pull kernel's (``dyn`` / ``het`` buckets; ``dyn``
+    sizes its per-row scratch).
+
+    The float64 pull kernel owns up to 8 slots and one node and one
+    function a lane (``per_lane``: its slots a lane), its ring in shared
+    memory, and stages the rows t / p / cost (float64) and fnid (8-bit) in
+    shared memory when one cell's fit (n_b up to ~9,000); past 256 slots or
+    32 nodes or functions it takes the wide path (``per_lane`` = ceil(slots
+    / 32); ring and lane arrays in the scratch, rows in place).  With
+    ``dyn`` the scratch adds 7 words a row (re-arrival, last pull clock and
+    enqueue times, the re-queued flag) and 2 a function.
 
     ``per_lane``: slots, nodes and (pull) functions each lane owns (the
     least of ``EVENT_STEP_PER_LANE`` that covers all of them across 32
@@ -173,6 +233,8 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     32)) in the scratch too, so every width is taken.  The push FC rings
     are always in the scratch.  ``scratch_words``: the scratch's 32-bit
     words a cell."""
+    if f64:
+        return _dyn_plan(n1, n_nodes, n_slots, n_fns, window, dyn)
     if freeze:
         widest = max(n_nodes * n_slots, n_nodes)
     else:
@@ -261,11 +323,13 @@ def _checked(x: torch.Tensor, name: str, dtype: torch.dtype,
     return x.contiguous()
 
 
-def _bucket_args(clk, ctr, inp, layout, ncoef: int) -> list:
-    """The carry planes and the inputs both kernels read, checked."""
+def _bucket_args(clk, ctr, inp, layout, ncoef: int,
+                 f32: torch.dtype = torch.float32) -> list:
+    """The carry planes and the inputs every kernel reads, checked; floats
+    of type ``f32`` (float64 for the float64 pull kernel)."""
     dev = clk.device
     B, n1 = inp["t"].shape
-    f32, i32 = torch.float32, torch.int32
+    i32 = torch.int32
     if ncoef < 4:
         raise ValueError(f"coef needs at least 4 columns, got {ncoef}")
     return [
@@ -362,6 +426,70 @@ def _event_step_freeze_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
                               plan, horizon)
 
 
+def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
+                         horizon, n_steps, dyn, het):
+    dev = clk.device
+    B, n1 = inp["t"].shape
+    n_fns, kq = inp["fn_ev"].shape[1], inp["fn_ev"].shape[2]
+    ncoef = inp["coef"].shape[1]
+    f64, i32 = torch.float64, torch.int32
+    layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
+                          n_fns=n_fns, n1=n1, dyn=dyn)
+    if dyn and ncoef < 5:
+        raise ValueError(f"dyn needs 5 coef columns, got {ncoef}")
+    nc = inp["cumf"].shape[1]
+    if use_fc and nc != n1:
+        raise ValueError(f"use_fc needs cumf rows = {n1}, got {nc}")
+    n_ep = inp["epn"].shape[1] if het else 1
+
+    def opt(on, key, dtype, shape):
+        return _checked(inp[key], key, dtype, shape, dev) if on else None
+
+    args = _bucket_args(clk, ctr, inp, layout, ncoef, f64) + [
+        _checked(inp["fn_ev"], "fn_ev", i32, (B, n_fns, kq), dev),
+        opt(dyn, "dynp", f64, (B, 5)), opt(dyn, "maxn", i32, (B,)),
+        opt(dyn, "nreq", i32, (B,)),
+        opt(het, "spd", f64, (B, n_nodes)), opt(het, "epn", i32, (B, n_ep)),
+        opt(het, "ept0", f64, (B, n_ep)), opt(het, "ept1", f64, (B, n_ep)),
+        opt(het, "epf", f64, (B, n_ep)),
+    ]
+    plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
+                           n_fns=n_fns, window=window, f64=True, dyn=dyn)
+    outs = [torch.zeros(B, n1, dtype=f64, device=dev) for _ in range(3)]
+    outs.append(torch.zeros(B, n1, dtype=i32, device=dev))
+    summ = act = dead = None
+    if dyn:
+        summ = torch.zeros(B, 3, dtype=i32, device=dev)
+        act = torch.zeros(B, n_nodes, dtype=f64, device=dev)
+        dead = torch.zeros(B, n_nodes, dtype=i32, device=dev)
+    scratch = (torch.empty(B * plan["scratch_words"], dtype=i32, device=dev)
+               if plan["scratch_words"] else None)
+    offs = layout.offsets()
+    lay = (ctypes.c_int * len(EVENT_STEP_DYN_LAYOUT))(
+        *(offs.get(k, 0) for k in EVENT_STEP_DYN_LAYOUT))
+    dims = (ctypes.c_int * 15)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
+                               kq, ncoef, n_ep, layout.f_len, layout.i_len,
+                               int(bool(use_fc)), int(dyn), int(het),
+                               n_steps)
+    plan_c = (ctypes.c_int * 5)(plan["per_lane"], int(plan["staged"]),
+                                int(plan["wide"]), plan["cell_bytes"],
+                                plan["scratch_words"])
+    fn = _event_step_lib("event_step_dyn_launch")
+    ptrs = [None if x is None else x.data_ptr()
+            for x in args + outs + [summ, act, dead, scratch]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*ptrs, ctypes.addressof(lay), ctypes.addressof(dims),
+                 ctypes.addressof(plan_c), float(horizon), stream)
+    if err != 0:
+        raise RuntimeError(f"event_step_dyn_launch failed: CUDA error {err}")
+    aux = {}
+    if dyn:
+        aux = {"nfail": summ[:, 0], "ndone": summ[:, 1], "prov": summ[:, 2],
+               "act_t": act, "dead": dead.to(torch.bool)}
+    return (*outs, aux)
+
+
 def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
                n_slots: int, window: int, use_fc: bool, horizon: float,
                n_steps: int, fc_ring: int = 1, **flags):
@@ -370,15 +498,20 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     ``clk``/``ctr`` are the ``(B, f_len)`` / ``(B, i_len)`` carry planes
     (``repro_torch.core.planes.make_planes``) and ``inp`` the bucket's input
     tensors; ``flags`` are the JAX package's feature flags (``freeze``,
-    ``fc_push``, ``dyn``, ...), which must describe the base pull
-    configuration or the static warm frozen-priority regime (``freeze``,
-    with the push FC rings of ``fc_ring`` entries when ``fc_push``), or the
-    call raises ``NotImplementedError``.  Frozen-priority buckets go to
-    their own kernel (``event_step_plan(..., freeze=True)``), whose ``prio`` and
-    ``node`` are each call's values fixed at its arrival.  Returns
-    ``(start, finish, prio, node, aux)`` like ``repro.kernels.ops.
-    event_step``, with ``aux == {}``; rows ``[:n]`` are the per-request
-    records and row ``n`` is the no-op sentinel (the kernel leaves it 0).
+    ``fc_push``, ``dyn``, ...), which must describe the pull regime (with
+    capacity dynamics ``dyn`` and node speeds ``het`` or without) or the
+    static warm frozen-priority regime (``freeze``, with the push FC rings
+    of ``fc_ring`` entries when ``fc_push``), or the call raises
+    ``NotImplementedError``.  Frozen-priority buckets go to their own
+    kernel (``event_step_plan(..., freeze=True)``), whose ``prio`` and
+    ``node`` are each call's values fixed at its arrival; ``dyn`` / ``het``
+    buckets (float64) to the float64 pull kernel (``event_step_plan(...,
+    f64=True)``).  Returns ``(start, finish, prio, node, aux)``: rows
+    ``[:n]`` are the per-request records (a call dispatched twice keeps its
+    last dispatch) and row ``n`` is the no-op sentinel (the kernels leave
+    it 0); ``aux`` is ``{}``, or with ``dyn`` each cell's ``nfail``,
+    ``ndone``, ``prov`` (B,), ``act_t`` and ``dead`` (B, nodes) at the end
+    (``event_step.event_step_ref``).
     The kernel keeps the FC counts itself from ``t`` and ``fnid`` and does
     not read ``cumf``, which must equal ``event_step.fc_prefix_counts`` of
     them (their prefix count over the real rows), as the bucket runner
@@ -390,30 +523,41 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     version on CPU tensors; ``"ref"`` runs the plain version on any
     device."""
     global KERNEL_LAUNCHES, REF_LAUNCHES, FREEZE_LAUNCHES, FREEZE_REF_LAUNCHES
+    global DYN_LAUNCHES, DYN_REF_LAUNCHES
     _check_force(force)
     if not event_step_supported(use_fc=use_fc, **flags):
         raise NotImplementedError(
-            "event_step covers the base pull configuration and the static "
-            "warm frozen-priority regime (freeze, fc_push) only (no "
-            "dyn/het/hedge/cold/dup/stream/res)")
+            "event_step covers the pull regime (with or without dyn / het) "
+            "and the static warm frozen-priority regime (freeze, fc_push) "
+            "only (no hedge/cold/dup/stream/res, no freeze with dyn/het: "
+            "ROADMAP queue 1 item 4)")
     freeze, fc_push = bool(flags.get("freeze")), bool(flags.get("fc_push"))
+    dyn, het = bool(flags.get("dyn")), bool(flags.get("het"))
     static = dict(n_nodes=n_nodes, n_slots=n_slots, window=window,
                   horizon=horizon, n_steps=n_steps)
     if force == "ref" or clk.device.type != "cuda":
         out = event_step_ref(clk, ctr, inp, use_fc=use_fc, freeze=freeze,
-                             fc_push=fc_push, fc_ring=fc_ring, **static)
+                             fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
+                             het=het, **static)
         if freeze:
             FREEZE_REF_LAUNCHES += 1
+        elif dyn or het:
+            DYN_REF_LAUNCHES += 1
         else:
             REF_LAUNCHES += 1
-        return (*out, {})
+        return out
     if freeze:
         out = _event_step_freeze_cuda(clk, ctr, inp, fc_push=fc_push,
                                       fc_ring=fc_ring, **static)
         FREEZE_LAUNCHES += 1
-    else:
-        out = _event_step_cuda(clk, ctr, inp, use_fc=use_fc, **static)
-        KERNEL_LAUNCHES += 1
+        return (*out, {})
+    if dyn or het:
+        out = _event_step_dyn_cuda(clk, ctr, inp, use_fc=use_fc, dyn=dyn,
+                                   het=het, **static)
+        DYN_LAUNCHES += 1
+        return out
+    out = _event_step_cuda(clk, ctr, inp, use_fc=use_fc, **static)
+    KERNEL_LAUNCHES += 1
     return (*out, {})
 
 

@@ -120,7 +120,8 @@ def test_sweep_cells_match_jax_order():
 def test_ineligible_cells_raise():
     reqs = generate_burst(cores=4, intensity=5, seed=0)
     for item in ((reqs, 2, 4, "fc", "push", "round_robin"),
-                 (reqs, 2, 4, "fc", "pull", "least_loaded", object()),
+                 (reqs, 2, 4, "fc", "pull", "least_loaded", None, None,
+                  object()),
                  (reqs, 2, 4, "fc", "pull", "least_loaded", None, None, None,
                   False),
                  (reqs, 2, 4, "baseline"),
