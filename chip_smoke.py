@@ -68,6 +68,19 @@ version on the card first:
    claim: the best autoscaled configuration at N nodes against the static
    fleet at N + 1.
 
+   Then workloads and cold starts: the float64 pull kernel against its
+   plain version, bit for bit (rows, cold starts, evictions, each call's
+   cold-start flag), on the cold matrix's pull buckets at intensity 96
+   (FC) and 140 (SEPT; n_b 8,192); then ``run_cells_scan(metrics_only=
+   True)`` over the cold matrix's pull half (benchmarks/engine_bench.py::
+   matrix_specs, 30 cells: no warm-up, every miss a prewarmed container),
+   Fig 5 (benchmarks/fig5_fairness.py: SEPT and FC on the fairness burst,
+   10 cells with the per-function columns) and its 40-seed cut (80 cells),
+   and the arrival-stress grid (examples/sweep_grid.py::build_spec: 270
+   single-node cells under uniform, Poisson and MMPP arrivals), each with
+   a sample of rows recomputed through the plain version, and Fig 5's
+   per-function stretches beside the paper's.
+
 5. The other decoder-only families served at full width in bfloat16 as
    in 2: deepseek_7b, qwen2_5_14b, gemma3_27b (5 local : 1 global
    windowed attention, 62 layers), qwen2_moe_a2_7b (60 experts, top-4)
@@ -224,7 +237,8 @@ def bucket_tensors(key, host, dev):
                            n_slots=static["n_slots"],
                            window=static["window"], freeze=static["freeze"],
                            fc_push=static["fc_push"],
-                           fc_ring=static["fc_ring"], dyn=static["dyn"])
+                           fc_ring=static["fc_ring"], dyn=static["dyn"],
+                           cold=static["cold"])
     return inp, clk, ctr, static
 
 
@@ -389,14 +403,14 @@ def main_sweep(seeds: int, dev):
 def scan_cell(c) -> "fastpath._ScanCell":
     """The bucket runner's prepared cell of a SweepCell: a single-node cell
     at one node without dynamics or speeds, else a pull or push cluster
-    cell with its dynamics and speeds."""
+    cell with its dynamics, speeds and warm or cold start."""
     reqs = sweep.make_workload(c)
     return fastpath._ScanCell(
         requests=reqs, feats=fastpath._arrival_features(reqs),
         cores=c.cores, nodes=c.nodes, policy=c.policy,
         assignment=c.assignment if sweep._cluster_shaped(c) else "single",
         lb=c.lb, dynamics=sweep._cell_dynamics(c),
-        profile=sweep._cell_profile(c))
+        profile=sweep._cell_profile(c), warm=c.warm)
 
 
 def plain_rows(cells, dev) -> list[dict]:
@@ -418,6 +432,17 @@ def plain_rows(cells, dev) -> list[dict]:
                                              out[b][4])
             rows[i] = sweep._metrics_from_scan(cells[i], mo)
     return rows
+
+
+def burst_calls(cells) -> list[int]:
+    """Each cell's call count, from its generated workload (one a workload
+    key): a sweep row's ``n`` must equal it, every call done."""
+    sizes: dict = {}
+    for c in cells:
+        key = sweep._workload_key(c)
+        if key not in sizes:
+            sizes[key] = len(sweep.make_workload(c))
+    return [sizes[sweep._workload_key(c)] for c in cells]
 
 def freeze_bucket(specs, n_b: int | None = None):
     """Host inputs of a frozen-priority bucket, one cell for each ``(policy,
@@ -497,11 +522,12 @@ def check_freeze(case: str, specs, dev, n_b: int | None = None) -> dict:
     return out
 
 
-def freeze_path(name: str, cells, dev) -> dict:
+def freeze_path(name: str, cells, dev) -> tuple[dict, list]:
     """One frozen-priority main path: ``run_cells_scan(metrics_only=True)``
     over ``cells``, every count set to 0 just before it and read just
     after; its rows checked (burst sizes, finite metrics) and a sample
-    recomputed through the plain version.  Returns its numbers."""
+    recomputed through the plain version.  Returns its numbers and
+    rows."""
     timings: dict = {}
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -516,9 +542,7 @@ def freeze_path(name: str, cells, dev) -> dict:
             v["kernel"] or v["plain"] for k, v in counts.items()
             if k != "event_step_freeze"):
         raise AssertionError(f"{name} launches: {counts}")
-    for c, r in zip(cells, rows):
-        wcores = c.workload_cores or c.cores * c.nodes
-        want = 11 * max(1, round(wcores * c.intensity / 10))
+    for c, r, want in zip(cells, rows, burst_calls(cells)):
         if r["n"] != want:
             raise AssertionError(f"{c.label()} seed {c.seed}: n={r['n']}, "
                                  f"burst has {want}")
@@ -550,7 +574,7 @@ def freeze_path(name: str, cells, dev) -> dict:
           f"{out['other_s']:.3f} s); kernel launches {fz['kernel']}, plain "
           f"launches {fz['plain']}; sample: {len(sample)} cells recomputed "
           "through the plain version on the card, rows equal", flush=True)
-    return out
+    return out, rows
 
 
 def table3_cells(seeds: int) -> list:
@@ -599,6 +623,49 @@ def straggler_pull_cells() -> list:
                            seeds=5, workload_cores=32).cells()
 
 
+def fig5_cells(seeds: int) -> list:
+    """Fig 5 (benchmarks/fig5_fairness.py): SEPT and FC on one node of 10
+    cores at intensity 90, the fairness burst (990 calls, 10 of them
+    dna-visualisation), with the per-function columns of dna-visualisation
+    and graph-bfs; 5 seeds in the benchmark."""
+    return sweep.SweepSpec(policies=("sept", "fc"), arrivals=("fairness",),
+                           cores=(10,), intensities=(90,), seeds=seeds,
+                           per_function=("dna-visualisation",
+                                         "graph-bfs")).cells()
+
+
+def arrival_cells() -> list:
+    """The arrival-stress grid (examples/sweep_grid.py::build_spec): 5
+    policies x intensities 30 / 60 / 90 x 5 and 10 cores x uniform,
+    Poisson and MMPP arrivals x 3 seeds, one node: 270 cells."""
+    return sweep.SweepSpec(policies=("fifo", "sept", "eect", "rect", "fc"),
+                           intensities=(30, 60, 90), cores=(5, 10),
+                           arrivals=("uniform", "poisson", "mmpp"),
+                           seeds=3).cells()
+
+
+def cold_pull_cells() -> list:
+    """The cold matrix's pull half (benchmarks/engine_bench.py::
+    matrix_specs, ``cold``): FC and SEPT on 4 x 8 cores, a 32-core burst
+    at intensities 18 / 96 / 140, no warm-up (``warm=False``), 5 seeds: 30
+    cells."""
+    return sweep.SweepSpec(policies=("fc", "sept"), nodes=(4,), cores=(8,),
+                           workload_cores=32, intensities=(18, 96, 140),
+                           warm=False, seeds=5).cells()
+
+
+def fig5_stretches(cells, rows) -> dict:
+    """Fig 5's numbers from its rows: each policy's mean, over the seeds,
+    of each function's mean stretch."""
+    out: dict = {}
+    for pol in ("sept", "fc"):
+        for fn in ("dna-visualisation", "graph-bfs"):
+            vals = [r[f"S_avg:{fn}"] for c, r in zip(cells, rows)
+                    if c.policy == pol]
+            out[f"{pol}:{fn}"] = float(np.mean(vals))
+    return out
+
+
 def frontier_claim(cells, rows) -> list[str]:
     """The lines benchmarks/engine_bench.py::frontier_rows prints from the
     frontier grid's rows: for each N, the best autoscaled configuration at
@@ -628,26 +695,30 @@ def dyn_needed_bytes(cells, static: dict) -> int:
     """Bytes the float64 pull scan of ``cells`` must move, each read once
     and each write once, at each cell's own widths (its nodes -- with the
     autoscaler its node cap --, cores and functions): the carry planes
-    (8-byte clocks, 4-byte counters), rows ``[:n+1]`` of t / p / cost (8
-    bytes) and fnid (4), the ``n`` queue entries of ``fn_ev``, five
-    coefficients, cores and nodes; with ``dyn`` each node's activation and
-    kill time and five dynamics parameters, the node cap and call count;
-    with ``het`` each node's speed and each episode; and the outputs: rows
-    ``[:n]`` of start / finish / prio (8) and node (4), with ``dyn`` the
-    summary (three counts, each node's activation time and dead flag)."""
+    (8-byte clocks, 4-byte counters; with ``cold`` the free containers,
+    counts and each row's flag), rows ``[:n+1]`` of t / p / cost (8 bytes)
+    and fnid (4), the ``n`` queue entries of ``fn_ev``, five coefficients,
+    cores and nodes; with ``dyn`` each node's activation and kill time and
+    five dynamics parameters, the node cap and call count; with ``het``
+    each node's speed and each episode; and the outputs: rows ``[:n]`` of
+    start / finish / prio (8) and node (4), with ``dyn`` the summary (three
+    counts, each node's activation time and dead flag), with ``cold`` each
+    row's flag and the two counts."""
     total = 0
     for c in cells:
         n = len(c.feats.t)
         nodes = c.node_cap()
         lay = carry_layout(n_nodes=nodes, n_slots=c.cores,
                            window=static["window"], n_fns=len(c.feats.fns),
-                           n1=n + 1, dyn=static["dyn"])
+                           n1=n + 1, dyn=static["dyn"], cold=static["cold"])
         nbytes = (8 * lay.f_len + 4 * lay.i_len + 28 * (n + 1) + 4 * n
                   + 40 + 8 + 28 * n)
         if static["dyn"]:
             nbytes += 16 * nodes + 40 + 8 + 12 + 12 * nodes
         if static["het"]:
             nbytes += 8 * nodes + 28 * len(c.profile.episodes)
+        if static["cold"]:
+            nbytes += 4 * n + 8
         total += nbytes
     return total
 
@@ -667,7 +738,7 @@ def check_dyn(case: str, cells, dev) -> dict:
     key = tuple(max(col) for col in zip(*keys))
     inp, clk, ctr, static = bucket_tensors(
         key, fastpath._fill_bucket(key, prepared), dev)
-    if not (static["dyn"] or static["het"]):
+    if not (static["dyn"] or static["het"] or static["cold"]):
         raise AssertionError(f"{case}: not a float64 pull bucket")
     n1 = key[1] + 1
     plain = []                       # the plain version, run once
@@ -703,14 +774,19 @@ def check_dyn(case: str, cells, dev) -> dict:
     aux = {k: v.cpu().numpy() for k, v in ref[4].items()}
     plain_rows = []
     for b, (c, sc) in enumerate(zip(cells, prepared)):
-        extras = ({"failures": int(aux["nfail"][b]),
-                   "nodes_used": int(aux["prov"][b])} if static["dyn"]
-                  else None)
+        extras = {}
+        if static["dyn"]:
+            extras.update(failures=int(aux["nfail"][b]),
+                          nodes_used=int(aux["prov"][b]))
+        if static["cold"]:
+            extras.update(cold_starts=int(aux["ncold"][b]),
+                          evictions=int(aux["nevt"][b]))
         mo = fastpath._cell_scan_metrics(sc, finish[b], {}, extras)
         plain_rows.append(sweep._metrics_from_scan(c, mo))
     out = {"case": case, "cells": len(cells), "bsz": int(clk.shape[0]),
            "n_b": key[1], "nodes": key[2], "slots": key[3],
            "dyn": static["dyn"], "het": static["het"],
+           "cold": static["cold"],
            "n_steps_budget": static["n_steps"], "max_abs_err": err,
            "failures": sum(lost),
            "nodes_used": (got[4]["prov"][:len(cells)].tolist()
@@ -718,7 +794,10 @@ def check_dyn(case: str, cells, dev) -> dict:
            "plan": ops.event_step_plan(
                n1=n1, n_nodes=static["n_nodes"], n_slots=static["n_slots"],
                n_fns=key[4], window=static["window"], f64=True,
-               dyn=static["dyn"])}
+               dyn=static["dyn"], cold=static["cold"])}
+    if static["cold"]:
+        out["cold_starts"] = got[4]["ncold"][:len(cells)].tolist()
+        out["evictions"] = int(got[4]["nevt"][:len(cells)].sum())
     out["ms"] = time_call(lambda: ops.event_step(clk, ctr, inp, **static),
                           reps=10)
     out["plain_ms"] = plain_ms
@@ -730,10 +809,10 @@ def check_dyn(case: str, cells, dev) -> dict:
     # float64 operations this data needs: a completion's ring update (3);
     # a dispatch's priority over the cell's functions (5 each, 7 with the
     # enqueue clock, 9 with FC counts too) and its start and finish (2, 6
-    # with a speed)
+    # with a speed, one more with the prewarm charge)
     per_fn = 5 + 2 * static["dyn"] + 2 * static["use_fc"]
-    ops_n = sum(3 * n + (n + f) * (len(c.feats.fns) * per_fn
-                                   + 2 + 4 * static["het"])
+    ops_n = sum(3 * n + (n + f) * (len(c.feats.fns) * per_fn + 2
+                                   + 4 * static["het"] + static["cold"])
                 for n, f, c in zip(n_real, lost, prepared))
     out["bytes"], out["operations"] = moved, ops_n
     out["bound_ms"], out["bound_by"] = bound(moved, ops_n, torch.float64)
@@ -775,9 +854,7 @@ def dyn_path(name: str, cells, dev, plain: dict | None = None) -> dict:
             or any(v["kernel"] for k, v in counts.items()
                    if k not in ("event_step_dyn", "event_step"))):
         raise AssertionError(f"{name} launches: {counts}")
-    for c, r in zip(cells, rows):
-        wcores = c.workload_cores or c.cores * c.nodes
-        want = 11 * max(1, round(wcores * c.intensity / 10))
+    for c, r, want in zip(cells, rows, burst_calls(cells)):
         if r["n"] != want:
             raise AssertionError(f"{c.label()} seed {c.seed}: n={r['n']}, "
                                  f"burst has {want}")
@@ -810,6 +887,68 @@ def dyn_path(name: str, cells, dev, plain: dict | None = None) -> dict:
               "version on the card, rows equal" if sample else ""),
           flush=True)
     return out, rows
+
+
+def workload_paths(dev, kern_fz: dict, kern_dy: dict) -> None:
+    """Workloads and cold starts: the float64 pull kernel against its plain
+    version on cold buckets (FC at v96, SEPT at v140), then the cold
+    matrix's pull half, Fig 5, its 40-seed cut and the arrival-stress grid
+    as main paths, Fig 5's stretches printed beside the paper's; their
+    numbers go into the freeze and float64 kernels' rows ``kern_fz`` /
+    ``kern_dy``.  The checks' cells and one cell of each policy at v18 are
+    the cold grid's sample."""
+    cold_cells = cold_pull_cells()
+    cd, cold_plain = {}, {}
+    for k, case, pol, v in (
+            ("cold_96", "cold pull fc 4 x 8, v96 (32-core burst, n_b 4096)",
+             "fc", 96),
+            ("cold_140", "cold pull sept 4 x 8, v140 (32-core burst, n_b "
+             "8192)", "sept", 140)):
+        cd[k], rows_k = check_dyn(case, [c for c in cold_cells
+                                         if (c.policy, c.intensity)
+                                         == (pol, v)], dev)
+        cold_plain.update(rows_k)
+        print("cold event_step vs plain: " + json.dumps(cd[k]), flush=True)
+    low = [c for c in cold_cells if c.intensity == 18
+           and (c.policy, c.seed) in (("fc", 0), ("sept", 1))]
+    cold_plain.update(zip(low, plain_rows(low, dev)))
+    cold, cold_rows = dyn_path("cold pull path", cold_cells, dev,
+                               cold_plain)
+    if not all(r["cold"] > 0 for r in cold_rows):
+        raise AssertionError("a cold cell started no container cold")
+    f5_cells, f5_40_cells = fig5_cells(5), fig5_cells(40)
+    f5, f5_rows = freeze_path("Fig 5 path", f5_cells, dev)
+    f5_40, f5_40_rows = freeze_path("Fig 5 40-seed path", f5_40_cells, dev)
+    if [r for c, r in zip(f5_40_cells, f5_40_rows) if c.seed < 5] != f5_rows:
+        raise AssertionError("the 40-seed cut's first 5 seeds differ from "
+                             "Fig 5's rows")
+    arrivals, _ = freeze_path("arrival-stress path", arrival_cells(), dev)
+    for what, cs, rs in (("5 seeds", f5_cells, f5_rows),
+                         ("40 seeds", f5_40_cells, f5_40_rows)):
+        st = fig5_stretches(cs, rs)
+        print(f"Fig 5 on the card ({what}): mean stretch of "
+              f"dna-visualisation SEPT {st['sept:dna-visualisation']:.2f} "
+              f"-> FC {st['fc:dna-visualisation']:.2f} (paper 5.3 -> 2.1), "
+              f"of graph-bfs SEPT {st['sept:graph-bfs']:.2f} -> FC "
+              f"{st['fc:graph-bfs']:.2f} (paper 22.2 -> 25.8)", flush=True)
+    paths_fz = {"Fig 5 path": f5["launches"],
+                "Fig 5 40-seed path": f5_40["launches"],
+                "arrival-stress path": arrivals["launches"]}
+    kern_fz["launches"] += sum(paths_fz.values())
+    kern_fz["launches_by_path"].update(paths_fz)
+    kern_fz.update({f"{k}_{f}": r[f] for k, r in (("fig5", f5),
+                                                  ("fig5_80", f5_40),
+                                                  ("arrivals", arrivals))
+                    for f in ("cells_per_s", "device_share")})
+    kern_dy["launches"] += cold["launches"]
+    kern_dy["launches_by_path"]["cold pull path"] = cold["launches"]
+    kern_dy["max_abs_err"] = max(kern_dy["max_abs_err"],
+                                 *(r["max_abs_err"] for r in cd.values()))
+    kern_dy["cases"].update({k: {f: r[f] for f in (
+        "ms", "plain_ms", "bound_ms", "ns_per_step", "n_b", "bsz", "plan")}
+        for k, r in cd.items()})
+    kern_dy.update({f"cold_{f}": cold[f]
+                    for f in ("cells_per_s", "device_share")})
 
 
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
@@ -2010,8 +2149,8 @@ def main() -> int:
         raise AssertionError(f"16 x 18 push: {fz['push_fc_home_16x18']}")
     for r in fz.values():
         print("freeze event_step vs plain: " + json.dumps(r), flush=True)
-    single = freeze_path("single-node path", table3_cells(48), dev)
-    push = freeze_path("push path", push_cells(20), dev)
+    single, _ = freeze_path("single-node path", table3_cells(48), dev)
+    push, _ = freeze_path("push path", push_cells(20), dev)
     main_fz = fz["single_fc_c10_v120"]
     kern_fz = {
         "name": "event_step_freeze", "route": "cuda",
@@ -2094,6 +2233,10 @@ def main() -> int:
                                           ("frontier_640", cut),
                                           ("straggler", straggler))
            for f in ("cells_per_s", "device_share")}}
+
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # -- 3d. workloads and cold starts ------------------------------------
+    workload_paths(dev, kern_fz, kern_dy)
 
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 4. attention kernels vs plain on the card ------------------------

@@ -1,9 +1,11 @@
-"""Scan backend of the port: warm cells as bucketed batches through the
+"""Scan backend of the port: cells as bucketed batches through the
 ``event_step`` kernels.
 
 Counterpart of ``repro.core.fastpath`` for the always-warm regime (the
 §V-A warm-up leaves ``cores`` warm containers per function, so no call ever
-cold-starts).  A cell is one invoker with ``cores`` slots (single node), or
+cold-starts) and, on pull, the cold-start regime with ample memory
+(``warm=False``: every pool starts empty and a miss is served from the
+prewarm pool).  A cell is one invoker with ``cores`` slots (single node), or
 a cluster of ``nodes`` invokers with ``cores`` slots each under pull
 assignment (one controller queue, late binding) or push assignment (each
 call routed on arrival, least-loaded or to its home invoker), all five
@@ -11,13 +13,13 @@ policies.  Single-node and push cells run the frozen-priority regime: a
 call's priority is fixed at arrival from the estimator of the node it was
 routed to.  Pull cells may also carry capacity dynamics (scheduled node
 failures, the autoscaler: a ``ClusterDynamics``) and node speeds (a
-``NodeSpeedProfile``); such buckets scan in float64, as the JAX package's
-do.  Cells are grouped by padded shape (``_ScanCell.bucket``); each bucket
-is filled on the host, moved to the device, packed into the carry planes
-and scanned in chunks, and the per-request records come back in event
-order.  Other cells -- hedging, cold starts, resilience, the round-robin
-balancer -- raise ``ValueError``; push or single-node cells with dynamics
-or node speeds raise ``NotImplementedError``.
+``NodeSpeedProfile``) and start cold; such buckets scan in float64, as the
+JAX package's do.  Cells are grouped by padded shape
+(``_ScanCell.bucket``); each bucket is filled on the host, moved to the
+device, packed into the carry planes and scanned in chunks, and the
+per-request records come back in event order.  Other cells -- hedging, resilience, the round-robin balancer --
+raise ``ValueError``; push or single-node cells with dynamics, node speeds
+or cold starts raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -96,14 +98,16 @@ LB_ROUTE = {"least_loaded": 0, "home": 1}
 # a bucket key's feature mask has the JAX package's bit order
 # (``_CARRY_SEGMENTS``): bit 0 ``freeze`` (single-node and push cells),
 # bit 1 ``use_fc`` (pull FC counts), bit 2 ``fc_push`` (FC on more than one
-# node under push), bit 6 ``het`` (node speeds), bit 7 ``dyn`` (capacity
-# dynamics); the port sets no other bit
+# node under push), bit 3 ``cold`` (the warm=False containers), bit 6
+# ``het`` (node speeds), bit 7 ``dyn`` (capacity dynamics); the port sets no
+# other bit
 _FREEZE_MASK = 1 << 0
 _USE_FC_MASK = 1 << 1
 _FC_PUSH_MASK = 1 << 2
+_COLD_MASK = 1 << 3
 _HET_MASK = 1 << 6
 _DYN_MASK = 1 << 7
-_BASE_FLAGS = dict(hedge=False, cold=False, dup=False)
+_BASE_FLAGS = dict(hedge=False, dup=False)
 
 # cells per chunk: a one-warp block per cell needs thousands of cells in
 # flight on the card; the CPU's plain version runs a few hundred at a time.
@@ -183,6 +187,20 @@ def _warm_regime_ok(fns: list[str], cores: int, memory_mb: int,
     return all(free[fn] >= cores for fn in fns)
 
 
+def _cold_regime_ok(requests: list[Request], cores: int, memory_mb: int,
+                    container_mb: int, prewarm_count: int = 2) -> bool:
+    """Is a ``warm=False`` cell inside the ample-memory prewarm regime the
+    scan models (the JAX package's ``_cold_regime_ok``)?  Every container
+    is then born from the prewarm pool at ``container_mb`` and the pool
+    always refills, so the free containers of each (node, function) are a
+    count.  A node's worst case holds ``prewarm_count`` prewarms, ``cores``
+    busy and ``cores`` free containers a function, and one transient each
+    while releasing and refilling."""
+    n_fns = len({r.fn for r in requests})
+    bound = container_mb * (prewarm_count + cores * (1 + n_fns) + 2)
+    return bound <= memory_mb
+
+
 def scan_eligible(
     requests: list[Request],
     cores: int,
@@ -192,11 +210,16 @@ def scan_eligible(
     container_mb: int = NODE_CONTAINER_MB,
     warm: bool = True,
 ) -> bool:
-    """True when the port's scan reproduces a single-node cell: ours mode, a
-    known policy and the always-warm regime on the node (``warm=False``,
-    the cold-start regime, is not ported)."""
-    if mode != "ours" or policy not in POLICY_NAMES or not warm:
+    """True when the JAX package's scan reproduces a single-node cell, as
+    its ``scan_eligible`` answers: ours mode, a known policy, and the
+    always-warm regime on the node or (``warm=False``) the ample-memory
+    prewarm regime (:func:`_cold_regime_ok`).  The port scans the warm
+    cells; a cold single-node cell raises ``NotImplementedError`` in
+    :func:`simulate_cells_scan`."""
+    if mode != "ours" or policy not in POLICY_NAMES:
         return False
+    if not warm:
+        return _cold_regime_ok(requests, cores, memory_mb, container_mb)
     fns = sorted({r.fn for r in requests})
     return _warm_regime_ok(fns, cores, memory_mb, container_mb)
 
@@ -214,18 +237,20 @@ def cluster_scan_eligible(
     dynamics=None,
     profile=None,
 ) -> bool:
-    """True when the JAX package's scan reproduces a warm cluster cell, as
-    its ``cluster_scan_eligible`` answers for these arguments: a known
-    policy, at least one node, pull assignment or push with the
-    least-loaded or home balancer, and the always-warm regime on the
-    cluster's nodes.  ``dynamics`` (a ``ClusterDynamics``) further needs
-    the least-loaded balancer under push and failures confined to the
-    initial fleet with a survivor and no negative time; ``profile`` (a
-    ``NodeSpeedProfile``) no more speeds than nodes the cell can reach.
-    The port runs the pull cells of these; push or single-node cells with
-    dynamics or node speeds raise ``NotImplementedError`` in
+    """True when the JAX package's scan reproduces a cluster cell, as its
+    ``cluster_scan_eligible`` answers for these arguments: a known policy,
+    at least one node, pull assignment or push with the least-loaded or
+    home balancer, and the always-warm regime on the cluster's nodes or
+    (``warm=False``) the ample-memory prewarm regime
+    (:func:`_cold_regime_ok`).  ``dynamics`` (a ``ClusterDynamics``)
+    further needs the least-loaded balancer under push and failures
+    confined to the initial fleet with a survivor and no negative time;
+    ``profile`` (a ``NodeSpeedProfile``) no more speeds than nodes the
+    cell can reach.
+    The port runs the pull cells of these; push cells with dynamics, node
+    speeds or cold starts raise ``NotImplementedError`` in
     :func:`simulate_cluster_cells_scan`."""
-    if policy not in POLICY_NAMES or nodes < 1 or not warm:
+    if policy not in POLICY_NAMES or nodes < 1:
         return False
     if assignment == "push":
         if lb not in LB_ROUTE:
@@ -244,6 +269,8 @@ def cluster_scan_eligible(
             if (max(failed) >= nodes or len(failed) >= nodes
                     or any(at < 0 for _, at in dynamics.fail)):
                 return False
+    if not warm:
+        return _cold_regime_ok(requests, cores, memory_mb, container_mb)
     fns = sorted({r.fn for r in requests})
     return _warm_regime_ok(fns, cores, memory_mb, container_mb)
 
@@ -255,7 +282,7 @@ def _pow2(x: int) -> int:
 
 @dataclass
 class _ScanCell:
-    """One prepared warm cell: features + shape parameters."""
+    """One prepared cell: features + shape parameters."""
 
     requests: list
     feats: _Arrivals
@@ -266,6 +293,11 @@ class _ScanCell:
     lb: str = "least_loaded"     # push balancer: least_loaded | home
     dynamics: object | None = None   # ClusterDynamics | None
     profile: object | None = None    # NodeSpeedProfile | None
+    warm: bool = True
+
+    @property
+    def cold(self) -> bool:
+        return not self.warm
 
     @property
     def dyn(self) -> bool:
@@ -328,6 +360,7 @@ class _ScanCell:
         mask = ((_FREEZE_MASK if freeze else 0)
                 | (_USE_FC_MASK if use_fc else 0)
                 | (_FC_PUSH_MASK if fc_push else 0)
+                | (_COLD_MASK if self.cold else 0)
                 | (_HET_MASK if self.het else 0)
                 | (_DYN_MASK if self.dyn else 0))
         return (mask, _pow2(len(self.feats.t)), _pow2(self.node_cap()),
@@ -337,22 +370,23 @@ class _ScanCell:
 
 def _key_flags(key: tuple) -> dict[str, bool]:
     """The feature flags a bucket key's mask enables: ``freeze``,
-    ``use_fc``, ``fc_push``, ``het`` and ``dyn``.  Any other segment, a
-    combination no warm cell makes, or ``het`` / ``dyn`` outside the pull
-    regime raises ``NotImplementedError``."""
+    ``use_fc``, ``fc_push``, ``cold``, ``het`` and ``dyn``.  Any other
+    segment, a combination no cell of the port makes, or ``cold`` / ``het``
+    / ``dyn`` outside the pull regime raises ``NotImplementedError``."""
     mask = key[0]
-    known = (_FREEZE_MASK | _USE_FC_MASK | _FC_PUSH_MASK | _HET_MASK
-             | _DYN_MASK)
+    known = (_FREEZE_MASK | _USE_FC_MASK | _FC_PUSH_MASK | _COLD_MASK
+             | _HET_MASK | _DYN_MASK)
     flags = {"freeze": bool(mask & _FREEZE_MASK),
              "use_fc": bool(mask & _USE_FC_MASK),
              "fc_push": bool(mask & _FC_PUSH_MASK),
+             "cold": bool(mask & _COLD_MASK),
              "het": bool(mask & _HET_MASK),
              "dyn": bool(mask & _DYN_MASK)}
-    if flags["freeze"] and (flags["het"] or flags["dyn"]):
+    if flags["freeze"] and (flags["het"] or flags["dyn"] or flags["cold"]):
         raise NotImplementedError(
-            f"bucket {key}: capacity dynamics and node speeds under push or "
-            "on one node (the frozen-priority dyn / het segments) are not "
-            "ported (ROADMAP queue 1 item 4)")
+            f"bucket {key}: capacity dynamics, node speeds and cold starts "
+            "under push or on one node (the frozen-priority float64 "
+            "segments) are not ported (ROADMAP queue 1 item 4)")
     if (mask & ~known
             or key[9] != 1
             or (key[8] != 1 and not flags["het"])
@@ -369,16 +403,18 @@ def _key_flags(key: tuple) -> dict[str, bool]:
 def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
     """Host input arrays of one bucket at batch ``bsz``.  ``t`` is +inf and
     ``cores`` 0, so an unfilled row is an idle padded cell.  Floats are
-    float64 in ``dyn`` and ``het`` buckets (the JAX package's ``_use64``:
-    failure and autoscaler accounting hang on exact orderings of
-    completions against kills), float32 else."""
+    float64 in ``dyn``, ``het`` and ``cold`` buckets (the JAX package's
+    ``_use64``: failure, autoscaler and cold-start accounting hang on
+    exact orderings of completions against kills and dispatches), float32
+    else."""
     flags = _key_flags(key)
     freeze, use_fc = flags["freeze"], flags["use_fc"]
     _, n_b, nodes_b, _, f_b, kq, window, _, n_ep = key[:9]
     n1 = n_b + 1
     # one estimator a node in frozen-priority mode, the controller's else
     n_est = nodes_b if freeze else 1
-    fdt = np.float64 if flags["dyn"] or flags["het"] else np.float32
+    fdt = (np.float64 if flags["dyn"] or flags["het"] or flags["cold"]
+           else np.float32)
     i32 = np.int32
     inp = {
         "t": np.full((bsz, n1), np.inf, dtype=fdt),
@@ -475,7 +511,11 @@ def _fill_bucket(key: tuple, cells: list[_ScanCell]) -> dict[str, np.ndarray]:
             hashes = np.array([stable_hash(fn) for fn in f.fns],
                               dtype=np.int64)
             inp["home0"][b, :n] = (hashes % cell.nodes)[f.fn_ids]
-        # §V-A warm-up seeds every node's estimator with the profile median
+        # §V-A warm-up seeds every node's estimator with the profile
+        # median; warm=False has no warm-up, so its rings start empty (the
+        # pull controller's ring always does)
+        if not cell.warm:
+            continue
         seed_n = min(cell.cores, window)
         for fi, fn in enumerate(f.fns):
             w = PROFILES[fn].median_s if fn in PROFILES else 0.1
@@ -519,9 +559,11 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
     call's priority and node fixed at its arrival, and a call dispatched
     twice (lost to a kill) keeps its last dispatch.  ``extras`` is
     ``None``, or for a ``dyn`` cell its calls lost (``failures``), nodes
-    provisioned (``nodes_used``) and realized ``timeline``; a ``dyn`` cell
-    that ends with calls unfinished exhausted the step budget, which is a
-    scan bug, and raises.  ``timings`` accumulates host-fill and device
+    provisioned (``nodes_used``) and realized ``timeline``, and for a
+    ``cold`` cell its ``cold_starts``, ``evictions`` and each row's
+    cold-start flag (``coldq``); a ``dyn`` cell that ends with calls
+    unfinished exhausted the step budget, which is a scan bug, and
+    raises.  ``timings`` accumulates host-fill and device
     seconds (the device phase covers transfers, plane packing, the scan
     and the copy back, which waits for the device).  ``force="ref"`` runs
     the plain version on any device (``ops.event_step``)."""
@@ -540,13 +582,18 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
                                window=static["window"],
                                freeze=static["freeze"],
                                fc_push=static["fc_push"],
-                               fc_ring=static["fc_ring"], dyn=static["dyn"])
+                               fc_ring=static["fc_ring"], dyn=static["dyn"],
+                               cold=static["cold"])
         res = _kops.event_step(clk, ctr, inp, force=force, **static)
         start, finish, prio, node = (r.cpu().numpy() for r in res[:4])
         aux = {k: v.cpu().numpy() for k, v in res[4].items()}
         _add_time(timings, "device_s", t0)
         for b, cell in enumerate(part):
-            extras = None
+            extras = {} if static["dyn"] or static["cold"] else None
+            if static["cold"]:
+                extras.update(cold_starts=int(aux["ncold"][b]),
+                              evictions=int(aux["nevt"][b]),
+                              coldq=aux["coldq"][b])
             if static["dyn"]:
                 n, done = len(cell.feats.t), int(aux["ndone"][b])
                 if done != n:
@@ -555,11 +602,11 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
                         f"resolved {done}/{n} requests (bucket xtra="
                         f"{key[10]}); this is a scan budget bug")
                 used = int(aux["prov"][b])
-                extras = {"failures": int(aux["nfail"][b]),
-                          "nodes_used": used,
-                          "timeline": timeline_from_scan(
-                              aux["act_t"][b], host["killt"][b],
-                              aux["dead"][b], used)}
+                extras.update(failures=int(aux["nfail"][b]),
+                              nodes_used=used,
+                              timeline=timeline_from_scan(
+                                  aux["act_t"][b], host["killt"][b],
+                                  aux["dead"][b], used))
             out.append((start[b].astype(np.float64),
                         finish[b].astype(np.float64),
                         prio[b].astype(np.float64), node[b], extras))
@@ -590,7 +637,8 @@ def _cell_scan_metrics(cell: _ScanCell, finish, req_cache: dict,
     """Fold one cell's event-order finish times into request-order metric
     arrays with the write-back arithmetic (``c = finish + RESP_OVERHEAD_S``;
     ``resp = c - r``; ``stretch = resp / max(ref-or-p_true, 1e-9)``), and
-    its ``extras`` (a dynamic cell's calls lost and nodes provisioned).
+    its ``extras`` (a dynamic cell's calls lost and nodes provisioned, a
+    cold cell's cold starts and evictions).
     ``req_cache`` memoizes per-workload arrays by list identity."""
     f = cell.feats
     n = len(f.t)
@@ -610,7 +658,10 @@ def _cell_scan_metrics(cell: _ScanCell, finish, req_cache: dict,
     ex = extras or {}
     return ScanMetrics(resp=resp, stretch=resp / den,
                        max_c=float(c_req.max()), fnids=fnids,
-                       fns=tuple(f.fns), failures=ex.get("failures", 0),
+                       fns=tuple(f.fns),
+                       cold_starts=ex.get("cold_starts", 0),
+                       evictions=ex.get("evictions", 0),
+                       failures=ex.get("failures", 0),
                        nodes_used=ex.get("nodes_used", cell.nodes))
 
 
@@ -637,12 +688,17 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
                 continue
             f = cell.feats
             t_list = f.t.tolist()
+            ex = extras or {}
+            coldq = ex.get("coldq")
             for e, ridx in enumerate(f.order.tolist()):
                 req = cell.requests[ridx]
                 req.node = f"node{int(node[e])}"
                 req.r_prime = t_list[e]
                 req.priority = float(prio[e])    # float32-rounded
-                req.cold_start = False
+                # warm cells never cold-start; a cold cell's flag is its
+                # last dispatch's
+                req.cold_start = (bool(coldq[e]) if coldq is not None
+                                  else False)
                 req.start = float(start[e])
                 req.finish = float(finish[e])
                 req.c = req.finish + RESP_OVERHEAD_S
@@ -652,9 +708,9 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
             if cell.assignment != "single":
                 meta["nodes"] = cell.nodes
                 meta["assignment"] = cell.assignment
-            ex = extras or {}
             results[i] = SimResult(
-                requests=cell.requests, cold_starts=0, evictions=0,
+                requests=cell.requests, cold_starts=ex.get("cold_starts", 0),
+                evictions=ex.get("evictions", 0),
                 creations=0, failures=ex.get("failures", 0),
                 nodes_used=ex.get("nodes_used", cell.nodes),
                 timeline=ex.get("timeline"), meta=meta)
@@ -689,11 +745,11 @@ def simulate_cells_scan(
     cells -- the JAX package's tuple form -- as bucketed scans on
     ``device``, in the frozen-priority regime.
 
-    ``warm`` must be true (the cold-start regime is not ported), and (with
-    ``validate``) every cell must satisfy :func:`scan_eligible`; anything
-    else raises ``ValueError``.  Returns :class:`SimResult` rows with the
-    requests written back, or :class:`ScanMetrics` rows with
-    ``metrics_only=True``."""
+    ``warm`` false (the cold-start regime on one node) raises
+    ``NotImplementedError``, and (with ``validate``) every cell must
+    satisfy :func:`scan_eligible`, else ``ValueError``.  Returns
+    :class:`SimResult` rows with the requests written back, or
+    :class:`ScanMetrics` rows with ``metrics_only=True``."""
     dev = resolve_device(device)
     if not batch:
         return []
@@ -702,12 +758,16 @@ def simulate_cells_scan(
     for item in batch:
         requests, cores, policy = item[:3]
         warm = item[3] if len(item) > 3 else True
-        if not warm or (validate and not scan_eligible(
+        if not warm:
+            raise NotImplementedError(
+                "cold single-node cells need the frozen-priority cold "
+                "segment, not ported yet (ROADMAP queue 1 item 4)")
+        if validate and not scan_eligible(
                 requests, cores, policy, memory_mb=memory_mb,
-                container_mb=container_mb)):
+                container_mb=container_mb):
             raise ValueError(
                 "the port's single-node scan covers static warm cells "
-                f"(policy={policy!r}, cores={cores}, warm={warm})")
+                f"(policy={policy!r}, cores={cores})")
         cells.append(_ScanCell(requests=requests, feats=feats(requests),
                                cores=cores, nodes=1, policy=policy,
                                assignment="single"))
@@ -729,16 +789,18 @@ def simulate_cluster_cells_scan(
     cells -- the JAX package's tuple form -- as bucketed scans on
     ``device``.
 
-    Covered: warm cells, ``assignment`` ``"pull"``, or ``"push"`` with
-    ``lb`` ``"least_loaded"`` or ``"home"``; pull cells may carry
-    ``dynamics`` (a ``ClusterDynamics``: failures, the autoscaler) and a
-    ``profile`` (a ``NodeSpeedProfile``), and scan in float64; and (with
-    ``validate``) every cell must satisfy :func:`cluster_scan_eligible`.
-    ``hedging`` / ``resilience`` not ``None``, ``warm`` false or an
-    ineligible cell raise ``ValueError``; push cells with non-static
-    dynamics or a non-uniform profile raise ``NotImplementedError``.
-    Returns :class:`SimResult` rows with the requests written back (and a
-    dynamic cell's ``failures``, ``nodes_used`` and ``timeline``), or
+    Covered: ``assignment`` ``"pull"``, or ``"push"`` with ``lb``
+    ``"least_loaded"`` or ``"home"``; pull cells may carry ``dynamics`` (a
+    ``ClusterDynamics``: failures, the autoscaler), a ``profile`` (a
+    ``NodeSpeedProfile``) and ``warm`` false (the cold-start regime), and
+    scan in float64; and (with ``validate``) every cell must satisfy
+    :func:`cluster_scan_eligible`.  ``hedging`` / ``resilience`` not
+    ``None`` or an ineligible cell raise ``ValueError``; push cells with
+    non-static dynamics, a non-uniform profile or ``warm`` false raise
+    ``NotImplementedError``.  Returns :class:`SimResult` rows with the
+    requests written back (and a dynamic cell's ``failures``,
+    ``nodes_used`` and ``timeline``, a cold cell's ``cold_starts``,
+    ``evictions`` and each request's ``cold_start``), or
     :class:`ScanMetrics` rows with ``metrics_only=True``."""
     dev = resolve_device(device)
     if not batch:
@@ -753,16 +815,17 @@ def simulate_cluster_cells_scan(
         profile = item[7] if len(item) > 7 else None
         warm = item[9] if len(item) > 9 else True
         extras = [x for i, x in enumerate(item[8:], 8) if i != 9]
-        ported = (assignment in ("pull", "push") and warm
+        ported = (assignment in ("pull", "push")
                   and (assignment == "pull" or lb in LB_ROUTE)
                   and all(x is None for x in extras))
         if not ported or (validate and not cluster_scan_eligible(
                 requests, nodes, cores, policy, assignment=assignment,
-                lb=lb, memory_mb=memory_mb, container_mb=container_mb,
-                dynamics=dynamics, profile=profile)):
+                lb=lb, warm=warm, memory_mb=memory_mb,
+                container_mb=container_mb, dynamics=dynamics,
+                profile=profile)):
             raise ValueError(
-                "the port's cluster scan covers warm pull and push cells, "
-                "with dynamics and node speeds on pull "
+                "the port's cluster scan covers pull and push cells, with "
+                "dynamics, node speeds and cold starts on pull "
                 f"(policy={policy!r}, nodes={nodes}, cores={cores}, "
                 f"assignment={assignment!r}, lb={lb!r}, warm={warm}, "
                 f"dynamics={dynamics!r}, profile={profile!r}, "
@@ -770,12 +833,12 @@ def simulate_cluster_cells_scan(
         cell = _ScanCell(requests=requests, feats=feats(requests),
                          cores=cores, nodes=nodes, policy=policy,
                          assignment=assignment, lb=lb, dynamics=dynamics,
-                         profile=profile)
-        if assignment == "push" and (cell.dyn or cell.het):
+                         profile=profile, warm=warm)
+        if assignment == "push" and (cell.dyn or cell.het or cell.cold):
             raise NotImplementedError(
-                "push cells with capacity dynamics or node speeds need the "
-                "frozen-priority dyn / het segments, not ported yet "
-                "(ROADMAP queue 1 item 4)")
+                "push cells with capacity dynamics, node speeds or cold "
+                "starts need the frozen-priority dyn / het / cold segments, "
+                "not ported yet (ROADMAP queue 1 item 4)")
         cells.append(cell)
     return _run_scan_cells(cells, dev, metrics_only=metrics_only,
                            timings=timings)

@@ -1,12 +1,15 @@
-"""Response-time / stretch aggregation (own copy of the array core of
+"""Response-time / stretch aggregation (own copy of the core of
 ``repro.core.metrics``): average, 50/75/95/99th percentiles of R(i) and
-S(i), and max c(i)."""
+S(i), max c(i), and the per-function summaries Fig 5 reads."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from .request import Request
+from .workload import STRETCH_REFERENCE_S
 
 PERCENTILES = (50, 75, 95, 99)
 
@@ -61,3 +64,30 @@ def summarize_arrays(
         cold_starts=cold_starts,
         failures=failures,
     )
+
+
+def summarize(
+    requests: list[Request],
+    stretch_ref: dict[str, float] | None = None,
+    per_function: bool = False,
+    cold_starts: int = 0,
+    failures: int = 0,
+) -> Summary:
+    """Aggregate the completed requests (``c`` set), in list order.
+    ``stretch_ref`` maps a function to its idle-system median response time
+    (Table I by default; a function without one divides by its ``p_true``).
+    ``per_function`` adds a summary of each function's calls, by sorted
+    name."""
+    ref = stretch_ref if stretch_ref is not None else STRETCH_REFERENCE_S
+    done = [r for r in requests if r.c is not None]
+    if not done:
+        raise ValueError("no completed requests to summarize")
+    resp = np.array([r.response_time for r in done])
+    stretch = np.array([r.stretch(ref.get(r.fn)) for r in done])
+    summary = summarize_arrays(resp, stretch, max(r.c for r in done),
+                               cold_starts=cold_starts, failures=failures)
+    if per_function:
+        for fn in sorted({r.fn for r in done}):
+            summary.per_function[fn] = summarize(
+                [r for r in done if r.fn == fn], stretch_ref=ref)
+    return summary

@@ -1,12 +1,13 @@
 """The scan carry as two packed planes (own port of
 ``repro.core.fastpath._PlaneLayout`` / ``_make_state0`` / ``_make_planes``
 for the base pull carry, the frozen-priority segments ``freeze`` and
-``fc_push``, and the pull half of the capacity-dynamics segment ``dyn``).
+``fc_push``, the container segment ``cold`` and the pull half of the
+capacity-dynamics segment ``dyn``).
 
 Every float entry of a cell's carry flattens into one **clocks plane**
-(``clk``, in the bucket's float type: float32, or float64 for dynamic and
-heterogeneous buckets) and every int/bool entry into one **counters
-plane** (``ctr``, int32), in sorted-key order.  The layout is a pure
+(``clk``, in the bucket's float type: float32, or float64 for dynamic,
+heterogeneous and cold buckets) and every int/bool entry into one
+**counters plane** (``ctr``, int32), in sorted-key order.  The layout is a pure
 function of the carry's shapes, so the packer here and the kernels'
 unpackers (the CUDA ``event_step`` kernels take the offsets as launch
 arguments) agree by construction, and the offsets equal the JAX package's
@@ -23,7 +24,7 @@ _FLOAT, _INT, _BOOL = "f", "i", "b"
 
 def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                freeze: bool = False, fc_push: bool = False, n1: int = 0,
-               fc_ring: int = 1, dyn: bool = False
+               fc_ring: int = 1, dyn: bool = False, cold: bool = False
                ) -> dict[str, tuple[tuple[int, ...], str]]:
     """Shapes and kinds of one cell's carry: slots, queue heads, channel
     clocks and the estimator rings -- the controller's (an estimator axis
@@ -31,7 +32,9 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
     in the JAX package's ``_CARRY_SEGMENTS`` order, the frozen queue
     entries (``freeze``: pending flag, priority and node of each of the
     ``n1`` rows), the per-(node, function) arrival-time rings of
-    ``fc_ring`` entries (``fc_push``) and the pull capacity dynamics
+    ``fc_ring`` entries (``fc_push``), the containers (``cold``: each
+    (node, function)'s free containers, the cold starts and evictions,
+    each row's cold-start flag) and the pull capacity dynamics
     (``dyn``: each node's activation time, dead flag, kill time and pending
     activation; each row's re-arrival time, re-queued flag, re-queue
     clock and enqueue time; the next autoscaler tick, the nodes
@@ -64,6 +67,9 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
     if fc_push:
         spec.update(fcr=((n_nodes, n_fns, fc_ring), _FLOAT),
                     fcp=((n_nodes, n_fns), _INT))
+    if cold:
+        spec.update(freec=((n_nodes, n_fns), _INT), ncold=((), _INT),
+                    nevt=((), _INT), coldq=((n1,), _BOOL))
     if dyn:
         spec.update(act_t=((n_nodes,), _FLOAT), dead=((n_nodes,), _BOOL),
                     killq=((n_nodes,), _FLOAT),
@@ -127,20 +133,23 @@ class PlaneLayout:
 
 def carry_layout(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                  freeze: bool = False, fc_push: bool = False, n1: int = 0,
-                 fc_ring: int = 1, dyn: bool = False) -> PlaneLayout:
+                 fc_ring: int = 1, dyn: bool = False,
+                 cold: bool = False) -> PlaneLayout:
     return PlaneLayout(carry_spec(n_nodes=n_nodes, n_slots=n_slots,
                                   window=window, n_fns=n_fns, freeze=freeze,
                                   fc_push=fc_push, n1=n1, fc_ring=fc_ring,
-                                  dyn=dyn))
+                                  dyn=dyn, cold=cold))
 
 
 def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
-                fc_ring: int = 1, dyn: bool = False
+                fc_ring: int = 1, dyn: bool = False, cold: bool = False
                 ) -> dict[str, torch.Tensor]:
     """Initial batched carry of a bucket: empty slots and queues, idle
     channels, the estimator rings from the bucket's inputs, with ``freeze``
-    / ``fc_push`` no queued entry and empty arrival rings, and with ``dyn``
+    / ``fc_push`` no queued entry and empty arrival rings, with ``cold``
+    every container pool empty (no warm-up) and no cold start, and with
+    ``dyn``
     the activation and kill times of the inputs ``act0`` / ``killt``, no
     node dead or pending, no re-arrival, the first tick at the autoscale
     interval (+inf without the autoscaler), the cell's nodes provisioned,
@@ -173,6 +182,11 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
         st.update(fcr=torch.full((B, n_nodes, n_fns, fc_ring), -float("inf"),
                                  dtype=ft, device=dev),
                   fcp=torch.zeros(B, n_nodes, n_fns, **i32))
+    if cold:
+        st.update(freec=torch.zeros(B, n_nodes, n_fns, **i32),
+                  ncold=torch.zeros(B, **i32), nevt=torch.zeros(B, **i32),
+                  coldq=torch.zeros(B, t.shape[1], dtype=torch.bool,
+                                    device=dev))
     if dyn:
         n1 = t.shape[1]
         dynp = inp["dynp"]
@@ -195,11 +209,12 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
 
 def make_planes(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
-                fc_ring: int = 1, dyn: bool = False):
+                fc_ring: int = 1, dyn: bool = False, cold: bool = False):
     """Per-cell initial carry of a bucket as the packed ``(clk, ctr)``
     planes, shapes ``(B, f_len)`` in the bucket's float type and ``(B,
     i_len)`` int32."""
-    seg = dict(freeze=freeze, fc_push=fc_push, fc_ring=fc_ring, dyn=dyn)
+    seg = dict(freeze=freeze, fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
+               cold=cold)
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=inp["ring0"].shape[2],
                           n1=inp["t"].shape[1], **seg)

@@ -1,6 +1,7 @@
 """Simulator constants and the result record (own copy of the parts of
 ``repro.core.simulator`` and ``repro.core.estimator`` that the base-pull
-cluster scan needs).  The event loops stay in the JAX package for now."""
+cluster scan needs, and the prewarm charge of its cold-start regime).
+The event loops stay in the JAX package for now."""
 
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ RESP_OVERHEAD_S = 0.002   # invoker -> client
 # ours: serialized management channel, cost = OURS_BASE + OURS_SCALE * weight
 OURS_BASE = 0.06
 OURS_SCALE = 0.35
+# a cold start served from the prewarm pool adds this to the channel cost
+OURS_PREWARM_EXTRA = 0.35
 WEIGHT_CAP_S = 9.0        # cap on the weight proxy
 
 # estimator: mean of the last DEFAULT_WINDOW runtimes; FC counts calls

@@ -1,12 +1,13 @@
 """Scenario grids for the port's cluster scan.
 
 Counterpart of the parts of ``repro.core.sweep`` that the interactive-sweep
-path uses: :class:`SweepCell` restricted to the fields of a uniform-arrival
-warm cell (one node, or a cluster under pull or push assignment, with
-capacity dynamics -- the autoscaler, failures -- and node speeds), a
-:class:`SweepSpec` over the policy, assignment, balancer, intensity,
-fleet, autoscaler, failure and speed axes, whose ``cells()`` yields the
-JAX package's cells in the JAX package's order, and
+path uses: :class:`SweepCell` restricted to the fields of a cell the port
+scans (one node, or a cluster under pull or push assignment, with
+capacity dynamics -- the autoscaler, failures -- node speeds and the
+cold-start regime; every arrival process, per-function metric columns),
+a :class:`SweepSpec` over the policy, assignment, balancer, arrival,
+intensity, fleet, autoscaler, failure and speed axes, whose ``cells()``
+yields the JAX package's cells in the JAX package's order, and
 :func:`run_cells_scan`, which runs a list of cells through the bucketed
 scan and returns one metrics row per cell.
 """
@@ -17,7 +18,6 @@ import itertools
 from dataclasses import dataclass
 from typing import Sequence
 
-import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -29,21 +29,27 @@ from .fastpath import (
     simulate_cluster_cells_scan,
 )
 from .cluster import ClusterDynamics
-from .metrics import summarize_arrays
+from .metrics import summarize, summarize_arrays
 from .request import Request
 from .stragglers import NodeSpeedProfile
-from .workload import STRETCH_REFERENCE_S, generate_burst
+from .traces import generate_trace_requests
+from .workload import (
+    generate_burst,
+    generate_fairness_burst,
+    generate_trace_burst,
+)
 
 
 @dataclass(frozen=True)
 class SweepCell:
-    """One uniform-arrival warm scenario (field names and defaults as in
+    """One scenario (field names and defaults as in
     ``repro.core.sweep.SweepCell``)."""
 
     policy: str = "fifo"          # fifo|sept|eect|rect|fc
     assignment: str = "pull"      # cluster request-assignment model
     lb: str = "least_loaded"      # push balancer: least_loaded|home
-    arrival: str = "uniform"
+    arrival: str = "uniform"      # uniform|poisson|diurnal|mmpp|ramp|
+                                  # fairness|trace
     intensity: int = 30
     cores: int = 10               # per node
     nodes: int = 1
@@ -62,6 +68,11 @@ class SweepCell:
     duration_s: float = 60.0
     workload_cores: int | None = None  # burst sized for this many cores
                                        # (default: cores * nodes)
+    per_function: tuple[str, ...] = ()  # extra per-function metric columns
+    trace_path: str | None = None       # for arrival == "trace"
+    trace_repeat: int = 1               # tile the trace into longer streams
+    trace_scale: float = 1.0            # scale per-minute trace rates
+    warm: bool = True                   # False: the cold-start regime
 
     def label(self) -> str:
         parts = [f"ours-{self.policy}", f"c{self.cores}",
@@ -95,6 +106,7 @@ class SweepSpec:
     policies: Sequence[str] = ("fifo",)
     assignments: Sequence[str] = ("pull",)
     lbs: Sequence[str] = ("least_loaded",)   # push balancer axis
+    arrivals: Sequence[str] = ("uniform",)
     intensities: Sequence[int] = (30,)
     cores: Sequence[int] = (10,)
     nodes: Sequence[int] = (1,)
@@ -110,6 +122,11 @@ class SweepSpec:
     base_seed: int = 0
     duration_s: float = 60.0
     workload_cores: int | None = None
+    per_function: tuple[str, ...] = ()
+    trace_path: str | None = None
+    trace_repeat: int = 1
+    trace_scale: float = 1.0
+    warm: bool = True
 
     def seed_list(self) -> list[int]:
         if isinstance(self.seeds, int):
@@ -119,6 +136,7 @@ class SweepSpec:
     def cells(self) -> list[SweepCell]:
         out = [SweepCell(policy=pol, assignment=asg,
                          lb=lb if asg == "push" else "least_loaded",
+                         arrival=arr,
                          intensity=inten, cores=c, nodes=n, autoscale=auto,
                          provision_delay=pd if auto else None,
                          scale_up=su if auto else None,
@@ -130,10 +148,14 @@ class SweepSpec:
                          degrade=(tuple(tuple(e) for e in deg)
                                   if deg else None),
                          seed=seed, duration_s=self.duration_s,
-                         workload_cores=self.workload_cores)
-               for (pol, asg, lb, inten, c, n, auto, pd, su, fail, fspec, spd,
-                    deg, seed) in itertools.product(
-                   self.policies, self.assignments, self.lbs,
+                         workload_cores=self.workload_cores,
+                         per_function=tuple(self.per_function),
+                         trace_path=self.trace_path,
+                         trace_repeat=self.trace_repeat,
+                         trace_scale=self.trace_scale, warm=self.warm)
+               for (pol, asg, lb, arr, inten, c, n, auto, pd, su, fail, fspec,
+                    spd, deg, seed) in itertools.product(
+                   self.policies, self.assignments, self.lbs, self.arrivals,
                    self.intensities, self.cores, self.nodes, self.autoscale,
                    self.provision_delays, self.scale_ups, self.failures,
                    self.fail_specs, self.node_speeds, self.degrades,
@@ -148,19 +170,34 @@ class SweepSpec:
 
 
 def make_workload(cell: SweepCell) -> list[Request]:
-    """Deterministic workload of a cell; cells differing only in policy or
-    fleet share the same burst (paired common random numbers)."""
-    if cell.arrival != "uniform":
-        raise ValueError(f"arrival {cell.arrival!r} is not ported yet")
+    """Deterministic workload of a cell, dispatched on its arrival process
+    as the JAX package's; cells differing only in policy or fleet share
+    the same burst (paired common random numbers)."""
     wcores = cell.workload_cores or cell.cores * cell.nodes
-    return generate_burst(cores=wcores, intensity=cell.intensity,
-                          seed=cell.seed, duration_s=cell.duration_s)
+    if cell.arrival == "uniform":
+        return generate_burst(cores=wcores, intensity=cell.intensity,
+                              seed=cell.seed, duration_s=cell.duration_s)
+    if cell.arrival == "fairness":
+        return generate_fairness_burst(cores=wcores, intensity=cell.intensity,
+                                       seed=cell.seed,
+                                       duration_s=cell.duration_s)
+    if cell.arrival == "trace":
+        if cell.trace_path is None:
+            raise ValueError("arrival='trace' requires trace_path")
+        return generate_trace_requests(cell.trace_path, seed=cell.seed,
+                                       repeat=cell.trace_repeat,
+                                       scale=cell.trace_scale)
+    return generate_trace_burst(cores=wcores, intensity=cell.intensity,
+                                seed=cell.seed, kind=cell.arrival,
+                                duration_s=cell.duration_s)
 
 
 def _workload_key(cell: SweepCell) -> tuple:
-    """Identity of a cell's workload: equal keys, bit-identical bursts."""
+    """Identity of a cell's workload (everything :func:`make_workload`
+    reads): equal keys, bit-identical bursts."""
     wcores = cell.workload_cores or cell.cores * cell.nodes
-    return (cell.arrival, cell.intensity, cell.seed, cell.duration_s, wcores)
+    return (cell.arrival, cell.intensity, cell.seed, cell.duration_s,
+            wcores, cell.trace_path, cell.trace_repeat, cell.trace_scale)
 
 
 def _cell_dynamics(cell: SweepCell) -> ClusterDynamics | None:
@@ -201,21 +238,53 @@ def _cluster_shaped(cell: SweepCell) -> bool:
             or cell.degrade is not None)
 
 
-def _metrics_from_scan(cell: SweepCell, mo: ScanMetrics) -> dict[str, float]:
-    """Metrics row from a metrics-only scan result, with the keys and the
-    arithmetic of the JAX package's rows."""
-    s = summarize_arrays(mo.resp, mo.stretch, mo.max_c)
+def _row(s, cold: int, failures: int, backups: int, steals: int,
+         nodes_used: int) -> dict[str, float]:
+    """A metrics row's keys shared by both paths, from a ``Summary`` and
+    the cell's counts (the JAX package's keys and order)."""
     metrics: dict[str, float] = {
         "R_avg": s.response_avg, "S_avg": s.stretch_avg,
-        "max_c": s.max_completion, "cold": float(mo.cold_starts),
-        "n": float(s.n), "failures": float(mo.failures),
-        "backups": float(mo.backups), "steals": float(mo.steals),
-        "nodes_used": float(mo.nodes_used),
+        "max_c": s.max_completion, "cold": float(cold), "n": float(s.n),
+        "failures": float(failures), "backups": float(backups),
+        "steals": float(steals), "nodes_used": float(nodes_used),
     }
     for p, v in s.response_pct.items():
         metrics[f"R_p{p}"] = v
     for p, v in s.stretch_pct.items():
         metrics[f"S_p{p}"] = v
+    return metrics
+
+
+def _metrics_from_scan(cell: SweepCell, mo: ScanMetrics) -> dict[str, float]:
+    """Metrics row from a metrics-only scan result, with the keys and the
+    arithmetic of the JAX package's rows: each function of
+    ``per_function`` that the cell calls averages its calls in request
+    order, as the write-back path's summary does."""
+    s = summarize_arrays(mo.resp, mo.stretch, mo.max_c)
+    metrics = _row(s, mo.cold_starts, mo.failures, mo.backups, mo.steals,
+                   mo.nodes_used)
+    for fn in cell.per_function:
+        if fn not in mo.fns:
+            continue
+        m = mo.fnids == mo.fns.index(fn)
+        if m.any():
+            metrics[f"R_avg:{fn}"] = float(mo.resp[m].mean())
+            metrics[f"S_avg:{fn}"] = float(mo.stretch[m].mean())
+    return metrics
+
+
+def _cell_metrics(cell: SweepCell, res) -> dict[str, float]:
+    """Metrics row of a written-back result, with the JAX package's
+    ``_cell_metrics`` keys and arithmetic (``summarize`` over the requests
+    in order, its per-function summaries for ``per_function``)."""
+    s = summarize(res.requests, per_function=bool(cell.per_function))
+    metrics = _row(s, res.cold_starts, res.failures, res.backups_issued,
+                   res.steals_won, res.nodes_used)
+    for fn in cell.per_function:
+        sub = s.per_function.get(fn)
+        if sub is not None:
+            metrics[f"R_avg:{fn}"] = sub.response_avg
+            metrics[f"S_avg:{fn}"] = sub.stretch_avg
     return metrics
 
 
@@ -229,10 +298,12 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
     dynamics or speeds) run through :func:`simulate_cells_scan` and
     cluster cells through :func:`simulate_cluster_cells_scan`, under pull
     assignment or push with the least-loaded or home balancer, with their
-    dynamics and node speeds, as the JAX package's ``run_cells_scan`` sends
-    them; every cell must be in the warm regime.  Anything else raises
-    ``ValueError`` (push cells with dynamics or speeds
-    ``NotImplementedError``).  ``metrics_only=True`` shares one
+    dynamics, node speeds and warm or cold start, as the JAX package's
+    ``run_cells_scan`` sends them.  A cell outside the scan's regimes
+    raises ``ValueError``; push cells with dynamics, speeds or cold starts
+    and cold single-node cells ``NotImplementedError``.  Rows carry
+    ``R_avg:<fn>`` and ``S_avg:<fn>`` for each function of the cell's
+    ``per_function`` that it calls.  ``metrics_only=True`` shares one
     generated burst between cells with the same workload and never writes
     back requests; the rows equal the write-back rows.  ``timings``
     accumulates ``fill_s``, ``device_s`` and ``fold_s``."""
@@ -252,18 +323,20 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
         else:
             reqs = make_workload(cell)       # write-back mutates: no sharing
         if not _cluster_shaped(cell):
-            ok = scan_eligible(reqs, cell.cores, cell.policy)
-            singles.append((pos, (reqs, cell.cores, cell.policy)))
+            ok = scan_eligible(reqs, cell.cores, cell.policy,
+                               warm=cell.warm)
+            singles.append((pos, (reqs, cell.cores, cell.policy,
+                                  cell.warm)))
         else:
             dyn, prof = _cell_dynamics(cell), _cell_profile(cell)
             ok = cluster_scan_eligible(reqs, cell.nodes, cell.cores,
                                        cell.policy,
                                        assignment=cell.assignment,
-                                       lb=cell.lb, dynamics=dyn,
-                                       profile=prof)
+                                       lb=cell.lb, warm=cell.warm,
+                                       dynamics=dyn, profile=prof)
             clusters.append((pos, (reqs, cell.nodes, cell.cores,
                                    cell.policy, cell.assignment, cell.lb,
-                                   dyn, prof)))
+                                   dyn, prof, None, cell.warm)))
         if not ok:
             raise ValueError(f"cell {cell.label()} is not scan-eligible")
     results: list = [None] * len(cells)
@@ -277,20 +350,4 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
                 results[pos] = res
     if metrics_only:
         return [_metrics_from_scan(c, r) for c, r in zip(cells, results)]
-    return [_metrics_from_scan(c, _result_metrics(r))
-            for c, r in zip(cells, results)]
-
-
-def _result_metrics(res) -> ScanMetrics:
-    """Request-order arrays of a written-back result, as the JAX package's
-    ``_cell_metrics`` reads them."""
-    reqs = res.requests
-    resp = np.array([q.c - q.r for q in reqs], dtype=np.float64)
-    den = np.array([max(STRETCH_REFERENCE_S.get(q.fn) or q.p_true, 1e-9)
-                    for q in reqs])
-    fns = tuple(sorted({q.fn for q in reqs}))
-    return ScanMetrics(resp=resp, stretch=resp / den,
-                       max_c=max(q.c for q in reqs),
-                       fnids=np.array([fns.index(q.fn) for q in reqs]),
-                       fns=fns, failures=res.failures,
-                       nodes_used=res.nodes_used)
+    return [_cell_metrics(c, r) for c, r in zip(cells, results)]

@@ -1,8 +1,8 @@
 // Batched cluster event scans for Hopper (sm_90a): the base-pull kernel
 // (event_step_kernel), and below it the frozen-priority kernel
 // (freeze_kernel) for single-node and push cells and the float64 pull
-// kernel (dyn_kernel) for pull cells with capacity dynamics or node
-// speeds.
+// kernel (dyn_kernel) for pull cells with capacity dynamics, node speeds
+// or cold starts.
 //
 // The pull kernel replaces the TPU kernel
 // repro/kernels/event_step.py::_event_kernel (launched by
@@ -1217,11 +1217,12 @@ int launch_freeze_pl(bool staged, const FArgs& a, const FLayout& L,
 
 // ---------------------------------------------------------------------------
 // The float64 pull regime: pull cells with capacity dynamics (scheduled node
-// failures, the autoscaler; `dyn`) and node speeds (`het`), the dyn / het
-// branch of _scan_cell_kernel that the JAX package runs as XLA's lax.scan
-// in float64 (repro/core/fastpath.py:821; its Pallas kernel covers the
-// base pull configuration only).  The plain PyTorch version is
-// repro_torch/kernels/event_step.py::event_step_ref with dyn / het.
+// failures, the autoscaler; `dyn`), node speeds (`het`) and the cold-start
+// containers (`cold`, the warm=False regime with ample memory), the dyn /
+// het / cold branches of _scan_cell_kernel that the JAX package runs as
+// XLA's lax.scan in float64 (repro/core/fastpath.py:821; its Pallas kernel
+// covers the base pull configuration only).  The plain PyTorch version is
+// repro_torch/kernels/event_step.py::event_step_ref with dyn / het / cold.
 //
 // What bounds it: the same serial chain of one event a step as the pull
 // kernel above, now of up to 2 n + the dynamics' budget steps, each a few
@@ -1257,6 +1258,17 @@ int launch_freeze_pl(bool staged, const FArgs& a, const FLayout& L,
 //   call never dispatched stay 0.  At the end the cell's calls lost and
 //   done, nodes provisioned, activation times and dead flags go to the
 //   summary outputs.
+// - Cold starts (COLD, a template parameter: as a runtime flag its state
+//   cost the dyn / het buckets 1-9% of their time, registers being tight
+//   at 128 a thread): each (node, function)'s free containers are a count
+//   in shared memory after the rows (in the scratch on the wide path),
+//   read and written by lane 0 alone, which hands the warm-hit bit to the
+//   warp: a completion returns its container (or, at `cores` free ones,
+//   evicts it), a dispatch takes one or starts cold, adding the prewarm
+//   charge kPrewarmExtra to its management cost before the node's speed
+//   divides it.  The cold starts and evictions are warp-uniform counts;
+//   each row's flag starts as the carry's and lane 0 writes it at
+//   dispatch, so the last dispatch's stays.
 // Bit-identity: --fmad=false, no fast math; _rn float64 arithmetic in the
 // oracle's order as XLA compiles it: a dispatch's cost and runtime on a
 // node of speed s slowed by d are (x * d) / s (the oracle writes x / (s /
@@ -1264,24 +1276,27 @@ int launch_freeze_pl(bool staged, const FArgs& a, const FLayout& L,
 // product in episode order.
 // ---------------------------------------------------------------------------
 
-constexpr int kDLayout = 26;  // carry entries, see struct DLayout
-constexpr int kDDims = 15;    // integer launch dimensions, see struct DDims
+constexpr int kDLayout = 30;  // carry entries, see struct DLayout
+constexpr int kDDims = 16;    // integer launch dimensions, see struct DDims
 constexpr int kDPlan = 5;     // per_lane, staged, wide, cell_bytes, words
 constexpr unsigned long long NO_KEY64 = ~0ull;
+// a cold start's prewarm charge (repro_torch/core/simulator.py
+// OURS_PREWARM_EXTRA)
+constexpr double kPrewarmExtra = 0.35;
 
 // Offsets of the carry entries: the first twelve in the clk plane, the rest
-// in the ctr plane (EVENT_STEP_DYN_LAYOUT in ops.py); the dyn entries are 0
-// in a het bucket without dynamics.
+// in the ctr plane (EVENT_STEP_DYN_LAYOUT in ops.py); the entries of a
+// segment the bucket lacks (dyn, cold) are 0.
 struct DLayout {
   int chan, fin_s, last_t, prev_t, ring, rsum, act_t, killq, rearr,
       next_tick, rq_rt, enq_t;
   int ai, busy, head, idx_s, narr, qn, rlen, rpos, dead, act_pend, prov,
-      nfail, ndone, xq;
+      nfail, ndone, xq, freec, ncold, nevt, coldq;
 };
 
 struct DDims {
   int B, n, n_nodes, n_slots, window, n_fns, kq, ncoef, n_ep, f_len, i_len,
-      use_fc, dyn, het, n_steps;
+      use_fc, dyn, het, cold, n_steps;
 };
 
 struct DArgs {
@@ -1310,28 +1325,34 @@ struct DArgs {
   int* summ;         // (B, 3): calls lost, calls done, nodes provisioned
   double* act_out;   // (B, nodes): activation times at the end
   int* dead_out;     // (B, nodes): dead flags at the end
+  int* cold_out;     // (B, 2): cold starts, evictions
+  int* coldq_out;    // (B, n + 1): each row's cold-start flag
   uint32_t* scratch;
 };
 
-// Shared-memory bytes of one cell (register path): the ring, and when
-// staged the rows.  ops.event_step_dyn_cell_bytes computes the same.
+// Shared-memory bytes of one cell (register path): the ring, when staged
+// the rows, then `nfree` free-container counts.
+// ops.event_step_dyn_cell_bytes computes the same.
 __host__ __device__ constexpr int dyn_cell_bytes(bool staged, int n1, int F,
-                                                 int W) {
+                                                 int W, int nfree) {
   return 8 * round_up(F * W, 2) +
-         (staged ? 24 * round_up(n1, 2) + round_up(n1, 16) : 0);
+         (staged ? 24 * round_up(n1, 2) + round_up(n1, 16) : 0) +
+         4 * round_up(nfree, 4);
 }
 
-// Scratch words of one cell: on the wide path the ring and the lane-owned
-// arrays (3 words a slot, 11 a node, 16 a function), then with dynamics
-// the per-row arrays (re-arrival time, last pull clock, enqueue time: two
-// words each; re-queued flag: one) and each function's pull-time base.
+// Scratch words of one cell: on the wide path the ring, the lane-owned
+// arrays (3 words a slot, 11 a node, 16 a function) and the `nfree`
+// free-container counts, then with dynamics the per-row arrays
+// (re-arrival time, last pull clock, enqueue time: two words each;
+// re-queued flag: one) and each function's pull-time base.
 // ops.event_step_plan computes the same.
 __host__ __device__ constexpr long dyn_scratch_words(bool wide, int pls,
                                                      int pln, int plf,
                                                      int n1, int F, int W,
-                                                     bool dyn) {
+                                                     bool dyn, int nfree) {
   return (wide ? 2L * round_up(F * W, 2) +
-                     32L * (3 * pls + 11 * pln + 16 * plf)
+                     32L * (3 * pls + 11 * pln + 16 * plf) +
+                     round_up(nfree, 2)
                : 0L) +
          (dyn ? 7L * round_up(n1, 2) + 2L * F : 0L);
 }
@@ -1421,7 +1442,7 @@ struct DRows {
   }
 };
 
-template <int PL, bool STAGED>
+template <int PL, bool STAGED, bool COLD>
 __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     dyn_kernel(const DArgs a, const DLayout L, const DDims D,
                const int cells_per_block, const int bytes_per_cell,
@@ -1489,6 +1510,19 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   double* const r_enq = r_rqrt + round_up(n1, 2);
   double* const f_base = r_enq + round_up(n1, 2);
   int* const r_xq = reinterpret_cast<int*>(f_base + F);
+  // the free containers of each (node, function): after the rows in
+  // shared memory, or (wide) after the dynamics arrays in the scratch
+  int* fcnt;
+  if constexpr (PL == 0) {
+    fcnt = reinterpret_cast<int*>(wp) +
+           (DYN ? 7 * round_up(n1, 2) + 2 * F : 0);
+  } else {
+    fcnt = reinterpret_cast<int*>(
+        smem + static_cast<size_t>(warp) * bytes_per_cell +
+        8 * round_up(F * W, 2) +
+        (STAGED ? 24 * round_up(n1, 2) + round_up(n1, 16) : 0));
+  }
+  int* const o_coldq = COLD ? a.coldq_out + row : nullptr;
 
   DRows<STAGED> R;
   if constexpr (STAGED) {
@@ -1520,6 +1554,14 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     }
     n_re = __reduce_add_sync(FULL, n_re);
     n_xq = __reduce_add_sync(FULL, n_xq);
+  }
+  // the container carry: the free counts, each row's flag into its output
+  int ncold = 0, nevt = 0;
+  if constexpr (COLD) {
+    for (int i = lane; i < NN * F; i += 32) fcnt[i] = __ldg(ctr + L.freec + i);
+    for (int i = lane; i < n1; i += 32) o_coldq[i] = __ldg(ctr + L.coldq + i);
+    ncold = __ldg(ctr + L.ncold);
+    nevt = __ldg(ctr + L.nevt);
   }
   __syncwarp();
 
@@ -1689,6 +1731,17 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
           f_rpos[q] = pos + 1 == W ? 0 : pos + 1;
           f_est[q] = __ddiv_rn(f_rsum[q], static_cast<double>(f_rlen[q]));
         }
+      }
+      if constexpr (COLD) {
+        // release: the container returns to its node's free pool of the
+        // function, or is evicted when the pool holds `cores`
+        int evict = 0;
+        if (lane == 0) {
+          int& c = fcnt[kn * F + f_done];
+          evict = c >= cores;
+          if (!evict) c += 1;
+        }
+        nevt += __shfl_sync(FULL, evict, 0);
       }
       ndone += 1;
       find_completion();
@@ -1889,6 +1942,20 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
         can = ok && (DYN ? prio_j < inf : j < n);
         if (can) {
           double cost_j = R.cost(j), p_j = R.p(j);
+          if constexpr (COLD) {
+            // acquire: a free container of the node and function is a
+            // warm hit, else a prewarmed one starts cold
+            int hit = 0;
+            if (lane == 0) {
+              int& c = fcnt[k_d * F + R.fn(j)];
+              hit = c > 0;
+              if (hit) c -= 1;
+              o_coldq[j] = !hit;
+            }
+            hit = __shfl_sync(FULL, hit, 0);
+            cost_j = __dadd_rn(cost_j, hit ? 0.0 : kPrewarmExtra);
+            ncold += !hit;
+          }
           if (HET) {
             // the node's speed at dispatch divides cost and runtime
             double slow = 1.0;
@@ -1967,6 +2034,10 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     }
   }
 
+  if (COLD && lane == 0) {
+    a.cold_out[static_cast<size_t>(b) * 2] = ncold;
+    a.cold_out[static_cast<size_t>(b) * 2 + 1] = nevt;
+  }
   if (DYN) {
     int* const sm = a.summ + static_cast<size_t>(b) * 3;
     if (lane == 0) {
@@ -1984,10 +2055,10 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   }
 }
 
-template <int PL, bool STAGED>
+template <int PL, bool STAGED, bool COLD>
 int launch_dyn(const DArgs& a, const DLayout& L, const DDims& D, int cell,
                float horizon, cudaStream_t stream, int pl, int words) {
-  auto kernel = dyn_kernel<PL, STAGED>;
+  auto kernel = dyn_kernel<PL, STAGED, COLD>;
   int cpb = 0, blocks = 0;
   const int e = block_shape(kernel, D.B, cell, &cpb, &blocks);
   if (e != 0) return e;
@@ -1996,14 +2067,25 @@ int launch_dyn(const DArgs& a, const DLayout& L, const DDims& D, int cell,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int PL, bool STAGED>
+int launch_dyn_cold(bool cold, const DArgs& a, const DLayout& L,
+                    const DDims& D, int cell, float horizon,
+                    cudaStream_t stream, int pl, int words) {
+  return cold ? launch_dyn<PL, STAGED, true>(a, L, D, cell, horizon, stream,
+                                             pl, words)
+              : launch_dyn<PL, STAGED, false>(a, L, D, cell, horizon, stream,
+                                              pl, words);
+}
+
 template <int PL>
 int launch_dyn_pl(bool staged, const DArgs& a, const DLayout& L,
                   const DDims& D, int cell, float horizon,
                   cudaStream_t stream, int words) {
-  return staged ? launch_dyn<PL, true>(a, L, D, cell, horizon, stream, PL,
-                                       words)
-                : launch_dyn<PL, false>(a, L, D, cell, horizon, stream, PL,
-                                        words);
+  const bool cold = D.cold != 0;
+  return staged ? launch_dyn_cold<PL, true>(cold, a, L, D, cell, horizon,
+                                            stream, PL, words)
+                : launch_dyn_cold<PL, false>(cold, a, L, D, cell, horizon,
+                                             stream, PL, words);
 }
 
 }  // namespace
@@ -2118,13 +2200,15 @@ extern "C" int event_step_freeze_launch(
 }
 
 // Launches the float64 pull scan (capacity dynamics with D.dyn, node speeds
-// with D.het) of D.B cells on `stream`.  `layout` holds the kDLayout carry
-// offsets, `dims` the kDDims launch dimensions and `plan` the kDPlan
-// entries of ops.event_step_plan(..., f64=True) (slots a lane; staged or
-// not; wide or not; shared-memory bytes a cell; scratch words a cell), all
-// in host memory.  `dynp` / `maxn` / `nreq` and the summary outputs `summ`
-// / `act_out` / `dead_out` are read and written with D.dyn (else null),
-// `spd` / `epn` / `ept0` / `ept1` / `epf` read with D.het (else null).
+// with D.het, cold starts with D.cold) of D.B cells on `stream`.  `layout`
+// holds the kDLayout carry offsets, `dims` the kDDims launch dimensions and
+// `plan` the kDPlan entries of ops.event_step_plan(..., f64=True) (slots a
+// lane; staged or not; wide or not; shared-memory bytes a cell; scratch
+// words a cell), all in host memory.  `dynp` / `maxn` / `nreq` and the
+// summary outputs `summ` / `act_out` / `dead_out` are read and written with
+// D.dyn (else null), `spd` / `epn` / `ept0` / `ept1` / `epf` read with
+// D.het (else null), `cold_out` / `coldq_out` written with D.cold (else
+// null).
 // `scratch` holds D.B times the scratch words (null when they are 0).
 // Returns cudaGetLastError() after the launch, or the error that stopped
 // it.
@@ -2135,8 +2219,8 @@ extern "C" int event_step_dyn_launch(
     const int* nreq, const double* spd, const int* epn, const double* ept0,
     const double* ept1, const double* epf, double* start, double* finish,
     double* prio, int* node, int* summ, double* act_out, int* dead_out,
-    int* scratch, const int* layout, const int* dims, const int* plan,
-    float horizon, void* stream) {
+    int* cold_out, int* coldq_out, int* scratch, const int* layout,
+    const int* dims, const int* plan, float horizon, void* stream) {
   DLayout L;
   DDims D;
   int P[kDPlan];
@@ -2151,28 +2235,31 @@ extern "C" int event_step_dyn_launch(
   const int cell = P[3], words = P[4];
   const int n1 = D.n + 1, NSL = D.n_nodes * D.n_slots;
   const int pln = (D.n_nodes + 31) / 32, plf = (D.n_fns + 31) / 32;
-  const bool dyn = D.dyn != 0, het = D.het != 0;
+  const bool dyn = D.dyn != 0, het = D.het != 0, cold = D.cold != 0;
+  const int nfree = cold ? D.n_nodes * D.n_fns : 0;
   const DArgs a{clk, ctr, t, fnid, p, cost, coef, cores, nodes, fn_ev,
                 dynp, maxn, nreq, spd, epn, ept0, ept1, epf, start, finish,
-                prio, node, summ, act_out, dead_out,
+                prio, node, summ, act_out, dead_out, cold_out, coldq_out,
                 reinterpret_cast<uint32_t*>(scratch)};
   const auto s = static_cast<cudaStream_t>(stream);
   if (pl < 1 || 32 * pl < NSL || (!wide && (D.n_nodes > 32 ||
                                             D.n_fns > 32)) ||
       words != dyn_scratch_words(wide, pl, pln, plf, n1, D.n_fns, D.window,
-                                 dyn) ||
+                                 dyn, nfree) ||
       (words > 0 && scratch == nullptr) ||
       (dyn && (dynp == nullptr || maxn == nullptr || nreq == nullptr ||
                summ == nullptr || act_out == nullptr ||
                dead_out == nullptr || D.ncoef < 5)) ||
       (het && (spd == nullptr || epn == nullptr || ept0 == nullptr ||
-               ept1 == nullptr || epf == nullptr || D.n_ep < 1)))
+               ept1 == nullptr || epf == nullptr || D.n_ep < 1)) ||
+      (cold && (cold_out == nullptr || coldq_out == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (wide) {
     if (staged || cell != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_dyn<0, false>(a, L, D, 0, horizon, s, pl, words);
+    return launch_dyn_cold<0, false>(cold, a, L, D, 0, horizon, s, pl,
+                                     words);
   }
-  if (cell != dyn_cell_bytes(staged, n1, D.n_fns, D.window) ||
+  if (cell != dyn_cell_bytes(staged, n1, D.n_fns, D.window, nfree) ||
       cell % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (pl) {

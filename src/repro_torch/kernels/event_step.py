@@ -41,22 +41,24 @@ from __future__ import annotations
 import torch
 
 from ..core.planes import carry_layout
+from ..core.simulator import OURS_PREWARM_EXTRA
 
 
 def event_step_supported(*, freeze, use_fc, fc_push, dyn, het, hedge, cold,
                          dup, stream=False, res=False, **_static) -> bool:
     """True when the static feature set is one the port scans: the pull
     regime, with or without FC pull counts (``use_fc``), capacity dynamics
-    (``dyn``) and node speeds (``het``) -- the base pull configuration is
-    the scope of the JAX package's Pallas ``event_step``, ``dyn`` / ``het``
-    its oracle's float64 buckets -- or the static warm frozen-priority
-    regime (``freeze``, with or without the push FC rings ``fc_push``),
-    which counts FC without the pull counts.  ``res`` is named here because
-    the port has no resilience segment."""
-    if hedge or cold or dup or stream or res:
+    (``dyn``), node speeds (``het``) and the cold-start containers
+    (``cold``) -- the base pull configuration is the scope of the JAX
+    package's Pallas ``event_step``, ``dyn`` / ``het`` / ``cold`` its
+    oracle's float64 buckets -- or the static warm frozen-priority regime
+    (``freeze``, with or without the push FC rings ``fc_push``), which
+    counts FC without the pull counts.  ``res`` is named here because the
+    port has no resilience segment."""
+    if hedge or dup or stream or res:
         return False
     if freeze:
-        return not (use_fc or dyn or het)
+        return not (use_fc or dyn or het or cold)
     return not fc_push
 
 
@@ -92,7 +94,8 @@ def _slowdown(inp, k_d, now):
 def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                    window: int, use_fc: bool, horizon: float,
                    n_steps: int, freeze: bool = False, fc_push: bool = False,
-                   fc_ring: int = 1, dyn: bool = False, het: bool = False):
+                   fc_ring: int = 1, dyn: bool = False, het: bool = False,
+                   cold: bool = False):
     """Plain PyTorch event scan of a bucket of cells.  ``freeze`` runs the
     frozen-priority regime (:func:`freeze_scan_ref`); the rest of this
     docstring is the pull regime's.
@@ -125,12 +128,23 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     dispatch (``spd`` over the product of its episodes' slowdowns,
     ``epn`` / ``ept0`` / ``ept1`` / ``epf``).
 
+    ``cold`` runs the ``warm=False`` regime with ample memory, as the JAX
+    oracle's ``cold`` branch: a completion returns its container to its
+    node's free pool of its function (``freec``) unless that pool already
+    holds ``cores``, when it is evicted (``nevt``); a dispatch takes a free
+    container of its node and function (a warm hit) or else a prewarmed one,
+    which adds ``OURS_PREWARM_EXTRA`` to its management cost before the
+    node's speed divides it (a cold start, ``ncold``), and writes the
+    call's flag (``coldq``; a call dispatched twice keeps its last).
+
     Returns ``(start, finish, prio, node, aux)``, the first four ``(B,
     n+1)`` (row ``n`` is the sentinel that no-op events write; a call
     dispatched twice keeps its last dispatch) and ``aux`` empty, or with
     ``dyn`` each cell's calls lost (``nfail``), calls done (``ndone``),
     nodes provisioned (``prov``), activation times (``act_t``) and dead
-    flags (``dead``) at the end."""
+    flags (``dead``) at the end, and with ``cold`` its cold starts
+    (``ncold``), evictions (``nevt``) and each row's cold-start flag
+    (``coldq``, (B, n+1) bool)."""
     if freeze:
         return freeze_scan_ref(clk, ctr, inp, n_nodes=n_nodes,
                                n_slots=n_slots, window=window,
@@ -144,7 +158,7 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     n_fns, kq = fn_ev.shape[1], fn_ev.shape[2]
     dev, ft = t.device, t.dtype
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
-                          n_fns=n_fns, n1=n1, dyn=dyn)
+                          n_fns=n_fns, n1=n1, dyn=dyn, cold=cold)
     st = {k: v.clone() for k, v in layout.unpack(clk, ctr).items()}
     ai = st["ai"].long()
     head = st["head"].long()
@@ -176,6 +190,16 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         req_ids = torch.arange(n1, device=dev)[None]
     else:
         active = node_ids < nodes[:, None]
+    if cold:
+        freec, coldq = st["freec"].long(), st["coldq"]
+        ncold, nevt = st["ncold"].long(), st["nevt"].long()
+        extra = torch.tensor(OURS_PREWARM_EXTRA, dtype=ft, device=dev)
+        req_ids = torch.arange(n1, device=dev)[None]
+
+        def node_fn(k, f):
+            """(B, nodes, F) mask of entry (k, f) of each cell."""
+            return ((node_ids[:, :, None] == k[:, None, None])
+                    & (fn_ids[:, None] == f[:, None, None]))
     start = torch.zeros(B, n1, dtype=ft, device=dev)
     finish = torch.zeros(B, n1, dtype=ft, device=dev)
     prio = torch.zeros(B, n1, dtype=ft, device=dev)
@@ -237,6 +261,14 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         busy = busy - m_kn.long()
         fin_s = torch.where(m_kn[:, :, None] & (slot_ids == ks[:, None, None]),
                             inf, fin_s)
+        if cold:
+            # -- release: the container returns to its free pool, or is
+            # evicted when the pool already holds `cores`
+            cap = freec[rows, kn, f_done] >= cores
+            freec = torch.where(node_fn(kn, f_done)
+                                & (do_comp & ~cap)[:, None, None],
+                                freec + 1, freec)
+            nevt = nevt + (do_comp & cap).long()
 
         if dyn:
             ndone = ndone + do_comp.long()
@@ -343,6 +375,18 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         else:
             can = ~none_left & (busy[rows, k_d] < cores) & (j < n)
         cost_j, p_j = cost[rows, j], p[rows, j]
+        if cold:
+            # -- acquire: a free container of the node and function is a
+            # warm hit, else a prewarmed one starts cold
+            f_j = fnid[rows, j]
+            warm_hit = freec[rows, k_d, f_j] > 0
+            cost_j = cost_j + torch.where(warm_hit, zero, extra)
+            freec = torch.where(node_fn(k_d, f_j)
+                                & (can & warm_hit)[:, None, None],
+                                freec - 1, freec)
+            ncold = ncold + (can & ~warm_hit).long()
+            coldq = torch.where((req_ids == j[:, None]) & can[:, None],
+                                ~warm_hit[:, None], coldq)
         if het:
             # the node's speed at dispatch, eff = spd / slowdown, divides
             # cost and runtime; the oracle's x / (spd / slowdown) compiles
@@ -387,10 +431,12 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         prio[rows, jn] = prio_j
         node[rows, jn] = k_d.to(torch.int32)
     aux = {}
+    i32 = torch.int32
     if dyn:
-        i32 = torch.int32
         aux = {"nfail": nfail.to(i32), "ndone": ndone.to(i32),
                "prov": prov.to(i32), "act_t": act_t, "dead": dead}
+    if cold:
+        aux.update(ncold=ncold.to(i32), nevt=nevt.to(i32), coldq=coldq)
     return start, finish, prio, node, aux
 
 

@@ -10,7 +10,7 @@ plain version: ``KERNEL_LAUNCHES`` / ``REF_LAUNCHES`` for ``event_step``'s
 pull kernel, ``FREEZE_LAUNCHES`` / ``FREEZE_REF_LAUNCHES`` for its
 frozen-priority kernel (single-node and push buckets), ``DYN_LAUNCHES`` /
 ``DYN_REF_LAUNCHES`` for its float64 pull kernel (pull buckets with
-capacity dynamics or node speeds),
+capacity dynamics, node speeds or cold starts),
 ``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
 ``DECODE_REF_LAUNCHES`` for the attention kernels, ``RGLRU_LAUNCHES`` /
 ``RGLRU_REF_LAUNCHES`` and ``RWKV6_LAUNCHES`` / ``RWKV6_REF_LAUNCHES`` for
@@ -135,18 +135,19 @@ EVENT_STEP_FREEZE_WIDE_ARRAYS = 8
 EVENT_STEP_FREEZE_EST_ARRAYS = 7
 
 # carry entries of the float64 pull kernel, in the order of ``struct
-# DLayout`` in csrc/event_step.cu (the dyn entries 0 in a het bucket)
+# DLayout`` in csrc/event_step.cu (an entry of a segment the bucket lacks
+# is 0: the dyn entries in a het or cold bucket, the cold ones without it)
 EVENT_STEP_DYN_LAYOUT = ("chan", "fin_s", "last_t", "prev_t", "ring", "rsum",
                          "act_t", "killq", "rearr", "next_tick", "rq_rt",
                          "enq_t", "ai", "busy", "head", "idx_s", "narr", "qn",
                          "rlen", "rpos", "dead", "act_pend", "prov", "nfail",
-                         "ndone", "xq")
+                         "ndone", "xq", "freec", "ncold", "nevt", "coldq")
 
 # the launchers of csrc/event_step.cu and their pointer arguments: inputs,
 # outputs, scratch, layout, dims, plan
 EVENT_STEP_LAUNCHERS = {"event_step_launch": 19,
                         "event_step_freeze_launch": 20,
-                        "event_step_dyn_launch": 29}
+                        "event_step_dyn_launch": 31}
 _event_step_fns: dict = {}
 
 
@@ -167,33 +168,36 @@ def event_step_cell_bytes(staged: bool, n1: int, n_fns: int,
 
 
 def event_step_dyn_cell_bytes(staged: bool, n1: int, n_fns: int,
-                              window: int) -> int:
+                              window: int, n_free: int = 0) -> int:
     """Shared-memory bytes of one cell in the float64 pull kernel
-    (``dyn_cell_bytes`` in csrc/event_step.cu): the runtime ring, and when
-    ``staged`` the rows t / p / cost (float64) and fnid (8-bit)."""
-    nbytes = 8 * _round_up(n_fns * window, 2)
+    (``dyn_cell_bytes`` in csrc/event_step.cu): the runtime ring, when
+    ``staged`` the rows t / p / cost (float64) and fnid (8-bit), then the
+    ``n_free`` free-container counts of a cold cell (int32, nodes x
+    functions)."""
+    nbytes = 8 * _round_up(n_fns * window, 2) + 4 * _round_up(n_free, 4)
     if staged:
         nbytes += 24 * _round_up(n1, 2) + _round_up(n1, 16)
     return nbytes
 
 
 def _dyn_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int, window: int,
-              dyn: bool) -> dict:
+              dyn: bool, cold: bool) -> dict:
     """The float64 pull kernel's plan (see :func:`event_step_plan`)."""
     nsl = n_nodes * n_slots
     per_lane = next((pl for pl in EVENT_STEP_PER_LANE if 32 * pl >= nsl),
                     None)
     wide = per_lane is None or n_nodes > 32 or n_fns > 32
+    n_free = n_nodes * n_fns if cold else 0
     staged, cell, words = False, 0, 0
     if wide:
         per_lane = max(1, -(-nsl // 32))
         words = (2 * _round_up(n_fns * window, 2)
                  + 32 * (3 * per_lane + 11 * -(-n_nodes // 32)
-                         + 16 * -(-n_fns // 32)))
+                         + 16 * -(-n_fns // 32)) + _round_up(n_free, 2))
     else:
-        staged = event_step_dyn_cell_bytes(True, n1, n_fns,
-                                           window) <= SMEM_BLOCK_BYTES
-        cell = event_step_dyn_cell_bytes(staged, n1, n_fns, window)
+        staged = event_step_dyn_cell_bytes(True, n1, n_fns, window,
+                                           n_free) <= SMEM_BLOCK_BYTES
+        cell = event_step_dyn_cell_bytes(staged, n1, n_fns, window, n_free)
     if dyn:
         words += 7 * _round_up(n1, 2) + 2 * n_fns
     return {"per_lane": per_lane, "wide": wide, "staged": staged,
@@ -203,12 +207,13 @@ def _dyn_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int, window: int,
 def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
                     window: int, freeze: bool = False, fc_push: bool = False,
                     fc_ring: int = 1, f64: bool = False,
-                    dyn: bool = False) -> dict:
+                    dyn: bool = False, cold: bool = False) -> dict:
     """How the kernel runs a bucket of this shape, from the shape alone:
     the pull kernel's plan, with ``freeze`` the frozen-priority kernel's
     (whose push FC rings, ``fc_push``, take ``fc_ring`` entries), or with
-    ``f64`` the float64 pull kernel's (``dyn`` / ``het`` buckets; ``dyn``
-    sizes its per-row scratch).
+    ``f64`` the float64 pull kernel's (``dyn`` / ``het`` / ``cold``
+    buckets; ``dyn`` sizes its per-row scratch, ``cold`` its free-container
+    counts).
 
     The float64 pull kernel owns up to 8 slots and one node and one
     function a lane (``per_lane``: its slots a lane), its ring in shared
@@ -217,7 +222,10 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     32 nodes or functions it takes the wide path (``per_lane`` = ceil(slots
     / 32); ring and lane arrays in the scratch, rows in place).  With
     ``dyn`` the scratch adds 7 words a row (re-arrival, last pull clock and
-    enqueue times, the re-queued flag) and 2 a function.
+    enqueue times, the re-queued flag) and 2 a function.  With ``cold`` each
+    (node, function)'s free containers take a word, in shared memory after
+    the rows, or in the scratch on the wide path; each row's cold-start
+    flag is written to its output at dispatch, as its start is.
 
     ``per_lane``: slots, nodes and (pull) functions each lane owns (the
     least of ``EVENT_STEP_PER_LANE`` that covers all of them across 32
@@ -234,7 +242,7 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     are always in the scratch.  ``scratch_words``: the scratch's 32-bit
     words a cell."""
     if f64:
-        return _dyn_plan(n1, n_nodes, n_slots, n_fns, window, dyn)
+        return _dyn_plan(n1, n_nodes, n_slots, n_fns, window, dyn, cold)
     if freeze:
         widest = max(n_nodes * n_slots, n_nodes)
     else:
@@ -427,14 +435,14 @@ def _event_step_freeze_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
 
 
 def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
-                         horizon, n_steps, dyn, het):
+                         horizon, n_steps, dyn, het, cold):
     dev = clk.device
     B, n1 = inp["t"].shape
     n_fns, kq = inp["fn_ev"].shape[1], inp["fn_ev"].shape[2]
     ncoef = inp["coef"].shape[1]
     f64, i32 = torch.float64, torch.int32
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
-                          n_fns=n_fns, n1=n1, dyn=dyn)
+                          n_fns=n_fns, n1=n1, dyn=dyn, cold=cold)
     if dyn and ncoef < 5:
         raise ValueError(f"dyn needs 5 coef columns, got {ncoef}")
     nc = inp["cumf"].shape[1]
@@ -454,29 +462,35 @@ def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
         opt(het, "epf", f64, (B, n_ep)),
     ]
     plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
-                           n_fns=n_fns, window=window, f64=True, dyn=dyn)
+                           n_fns=n_fns, window=window, f64=True, dyn=dyn,
+                           cold=cold)
     outs = [torch.zeros(B, n1, dtype=f64, device=dev) for _ in range(3)]
     outs.append(torch.zeros(B, n1, dtype=i32, device=dev))
-    summ = act = dead = None
+    summ = act = dead = csum = coldq = None
     if dyn:
         summ = torch.zeros(B, 3, dtype=i32, device=dev)
         act = torch.zeros(B, n_nodes, dtype=f64, device=dev)
         dead = torch.zeros(B, n_nodes, dtype=i32, device=dev)
+    if cold:
+        # cold starts and evictions; each row's flag (the kernel copies the
+        # carry's in first)
+        csum = torch.zeros(B, 2, dtype=i32, device=dev)
+        coldq = torch.empty(B, n1, dtype=i32, device=dev)
     scratch = (torch.empty(B * plan["scratch_words"], dtype=i32, device=dev)
                if plan["scratch_words"] else None)
     offs = layout.offsets()
     lay = (ctypes.c_int * len(EVENT_STEP_DYN_LAYOUT))(
         *(offs.get(k, 0) for k in EVENT_STEP_DYN_LAYOUT))
-    dims = (ctypes.c_int * 15)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
+    dims = (ctypes.c_int * 16)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
                                kq, ncoef, n_ep, layout.f_len, layout.i_len,
                                int(bool(use_fc)), int(dyn), int(het),
-                               n_steps)
+                               int(cold), n_steps)
     plan_c = (ctypes.c_int * 5)(plan["per_lane"], int(plan["staged"]),
                                 int(plan["wide"]), plan["cell_bytes"],
                                 plan["scratch_words"])
     fn = _event_step_lib("event_step_dyn_launch")
     ptrs = [None if x is None else x.data_ptr()
-            for x in args + outs + [summ, act, dead, scratch]]
+            for x in args + outs + [summ, act, dead, csum, coldq, scratch]]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, ctypes.addressof(lay), ctypes.addressof(dims),
@@ -487,6 +501,9 @@ def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
     if dyn:
         aux = {"nfail": summ[:, 0], "ndone": summ[:, 1], "prov": summ[:, 2],
                "act_t": act, "dead": dead.to(torch.bool)}
+    if cold:
+        aux.update(ncold=csum[:, 0], nevt=csum[:, 1],
+                   coldq=coldq.to(torch.bool))
     return (*outs, aux)
 
 
@@ -499,18 +516,20 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     (``repro_torch.core.planes.make_planes``) and ``inp`` the bucket's input
     tensors; ``flags`` are the JAX package's feature flags (``freeze``,
     ``fc_push``, ``dyn``, ...), which must describe the pull regime (with
-    capacity dynamics ``dyn`` and node speeds ``het`` or without) or the
-    static warm frozen-priority regime (``freeze``, with the push FC rings
-    of ``fc_ring`` entries when ``fc_push``), or the call raises
-    ``NotImplementedError``.  Frozen-priority buckets go to their own
-    kernel (``event_step_plan(..., freeze=True)``), whose ``prio`` and
-    ``node`` are each call's values fixed at its arrival; ``dyn`` / ``het``
-    buckets (float64) to the float64 pull kernel (``event_step_plan(...,
-    f64=True)``).  Returns ``(start, finish, prio, node, aux)``: rows
-    ``[:n]`` are the per-request records (a call dispatched twice keeps its
-    last dispatch) and row ``n`` is the no-op sentinel (the kernels leave
-    it 0); ``aux`` is ``{}``, or with ``dyn`` each cell's ``nfail``,
-    ``ndone``, ``prov`` (B,), ``act_t`` and ``dead`` (B, nodes) at the end
+    capacity dynamics ``dyn``, node speeds ``het`` and the cold-start
+    containers ``cold`` or without) or the static warm frozen-priority
+    regime (``freeze``, with the push FC rings of ``fc_ring`` entries when
+    ``fc_push``), or the call raises ``NotImplementedError``.
+    Frozen-priority buckets go to their own kernel (``event_step_plan(...,
+    freeze=True)``), whose ``prio`` and ``node`` are each call's values
+    fixed at its arrival; ``dyn`` / ``het`` / ``cold`` buckets (float64) to
+    the float64 pull kernel (``event_step_plan(..., f64=True)``).  Returns
+    ``(start, finish, prio, node, aux)``: rows ``[:n]`` are the per-request
+    records (a call dispatched twice keeps its last dispatch) and row ``n``
+    is the no-op sentinel (the kernels leave it 0); ``aux`` is ``{}``, or
+    with ``dyn`` each cell's ``nfail``, ``ndone``, ``prov`` (B,),
+    ``act_t`` and ``dead`` (B, nodes) at the end, and with ``cold`` its
+    ``ncold``, ``nevt`` (B,) and ``coldq`` (B, n+1)
     (``event_step.event_step_ref``).
     The kernel keeps the FC counts itself from ``t`` and ``fnid`` and does
     not read ``cumf``, which must equal ``event_step.fc_prefix_counts`` of
@@ -527,21 +546,23 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     _check_force(force)
     if not event_step_supported(use_fc=use_fc, **flags):
         raise NotImplementedError(
-            "event_step covers the pull regime (with or without dyn / het) "
-            "and the static warm frozen-priority regime (freeze, fc_push) "
-            "only (no hedge/cold/dup/stream/res, no freeze with dyn/het: "
-            "ROADMAP queue 1 item 4)")
+            "event_step covers the pull regime (with or without dyn / het / "
+            "cold) and the static warm frozen-priority regime (freeze, "
+            "fc_push) only (no hedge/dup/stream/res, no freeze with "
+            "dyn/het/cold: ROADMAP queue 1 item 4)")
     freeze, fc_push = bool(flags.get("freeze")), bool(flags.get("fc_push"))
     dyn, het = bool(flags.get("dyn")), bool(flags.get("het"))
+    cold = bool(flags.get("cold"))
+    f64 = dyn or het or cold
     static = dict(n_nodes=n_nodes, n_slots=n_slots, window=window,
                   horizon=horizon, n_steps=n_steps)
     if force == "ref" or clk.device.type != "cuda":
         out = event_step_ref(clk, ctr, inp, use_fc=use_fc, freeze=freeze,
                              fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
-                             het=het, **static)
+                             het=het, cold=cold, **static)
         if freeze:
             FREEZE_REF_LAUNCHES += 1
-        elif dyn or het:
+        elif f64:
             DYN_REF_LAUNCHES += 1
         else:
             REF_LAUNCHES += 1
@@ -551,9 +572,9 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
                                       fc_ring=fc_ring, **static)
         FREEZE_LAUNCHES += 1
         return (*out, {})
-    if dyn or het:
+    if f64:
         out = _event_step_dyn_cuda(clk, ctr, inp, use_fc=use_fc, dyn=dyn,
-                                   het=het, **static)
+                                   het=het, cold=cold, **static)
         DYN_LAUNCHES += 1
         return out
     out = _event_step_cuda(clk, ctr, inp, use_fc=use_fc, **static)

@@ -122,16 +122,17 @@ def test_ineligible_cells_raise():
     for item in ((reqs, 2, 4, "fc", "push", "round_robin"),
                  (reqs, 2, 4, "fc", "pull", "least_loaded", None, None,
                   object()),
-                 (reqs, 2, 4, "fc", "pull", "least_loaded", None, None, None,
+                 # cold, beyond the ample-memory prewarm regime
+                 (reqs, 2, 64, "fc", "pull", "least_loaded", None, None, None,
                   False),
                  (reqs, 2, 4, "baseline"),
                  (reqs, 2, 64, "sept")):       # beyond the warm regime
         with pytest.raises(ValueError):
             tfp.simulate_cluster_cells_scan([item], device="cpu")
-    with pytest.raises(ValueError):            # arrivals not ported
+    with pytest.raises(ValueError):            # no such arrival process
         tsweep.run_cells_scan([tsweep.SweepCell(nodes=1, cores=4,
                                                 intensity=5,
-                                                arrival="poisson")],
+                                                arrival="bursty")],
                               device="cpu")
 
 

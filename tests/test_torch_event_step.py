@@ -198,16 +198,17 @@ def test_supported_matrix_equals_jax():
     the static warm frozen-priority regime -- ``freeze``, with or without
     ``fc_push``, and no other segment (``tests/test_torch_freeze_scan.py``
     holds that regime to the JAX oracle) -- and the pull regime with
-    capacity dynamics (``dyn``) and node speeds (``het``), with or without
-    FC counts (``tests/test_torch_dyn_scan.py``)."""
-    others = ("dyn", "het", "hedge", "cold", "dup", "stream")
+    capacity dynamics (``dyn``), node speeds (``het``) and cold starts
+    (``cold``), with or without FC counts (``tests/test_torch_dyn_scan.py``,
+    ``tests/test_torch_cold_scan.py``)."""
+    others = ("dyn", "het", "cold", "hedge", "dup", "stream")
     for bits in itertools.product([False, True], repeat=len(FEATURES) + 2):
         flags = dict(zip(FEATURES + ("use_fc", "stream"), bits))
         frozen = (flags["freeze"] and not flags["use_fc"]
                   and not any(flags[k] for k in others))
         pull64 = (not flags["freeze"] and not flags["fc_push"]
-                  and (flags["dyn"] or flags["het"])
-                  and not any(flags[k] for k in others[2:]))
+                  and (flags["dyn"] or flags["het"] or flags["cold"])
+                  and not any(flags[k] for k in others[3:]))
         assert event_step_supported(**flags) == (jax_supported(**flags)
                                                  or frozen or pull64), flags
 
@@ -222,9 +223,10 @@ def test_unsupported_flags_raise(feat):
         # the frozen-priority regime alone is in scope; with the pull FC
         # counts, which no frozen bucket carries, it is not
         flags["use_fc"] = True
-    if feat in ("dyn", "het"):
-        # capacity dynamics and node speeds are in scope under pull; the
-        # frozen-priority regime's dyn / het segments are not ported
+    if feat in ("dyn", "het", "cold"):
+        # capacity dynamics, node speeds and cold starts are in scope under
+        # pull; the frozen-priority regime's dyn / het / cold segments are
+        # not ported
         flags["freeze"] = True
     with pytest.raises(NotImplementedError):
         tops.event_step(clk_t, ctr_t, tens, **{**static, **flags})

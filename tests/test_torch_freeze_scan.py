@@ -369,11 +369,13 @@ def test_scan_eligibility_matches_jax():
 
 def test_ineligible_cells_raise():
     reqs = generate_burst(cores=4, intensity=5, seed=0)
-    for item in ((reqs, 4, "fc", False),         # cold start: not ported
-                 (reqs, 4, "baseline"),
+    for item in ((reqs, 4, "baseline"),
                  (reqs, 64, "sept")):              # beyond the warm regime
         with pytest.raises(ValueError):
             tfp.simulate_cells_scan([item], device="cpu")
+    # a cold start on one node needs the frozen-priority cold segment
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        tfp.simulate_cells_scan([(reqs, 4, "fc", False)], device="cpu")
     with pytest.raises(ValueError):
         tfp.simulate_cluster_cells_scan(
             [(reqs, 2, 4, "fc", "push", "round_robin")], device="cpu")

@@ -1,7 +1,7 @@
 """Card times of the port's kernels, to compare two trees.
 
     python3 tools/scan_bench.py [--src DIR]
-                                [--mode scans|event_step|sweep|serve]
+                                [--mode scans|event_step|dyn|sweep|serve]
                                 [--profile] [--repeat N] [--arch ARCH]
 
 Imports ``repro_torch`` from DIR (default: the ``src`` of the checkout
@@ -24,6 +24,10 @@ cores, n_b = 1,024, SEPT and FC) and each tiled to 4,096 cells, with
 ``ns_per_step``: kernel time over the longest cell's 2 n event steps.
 Its ``bound_ms`` is the bytes' time (its operations take less), the bytes
 counted by ``chip_smoke.needed_bytes``.
+
+``--mode dyn``: the float64 pull kernel on ``chip_smoke.py``'s three
+float64 checks (the frontier and straggler grids' samples, the failure +
+speed bucket), each bucket built by DIR's own bucket runner: ``ms``.
 
 ``--mode sweep``: the sweep's main path as ``chip_smoke.py`` runs it
 (``chip_smoke.main_sweep``, 2,000 cells), once on one seed to warm up and
@@ -210,6 +214,42 @@ def event_step_cases(needed_bytes, reps: int = 20):
             wclk, wctr, wide, **static), None, n_max, 16 * nbytes, 5)
 
 
+def dyn_cases(chip_smoke):
+    """(name, fn) of each float64 pull case, built by the imported tree's
+    bucket runner from ``chip_smoke.py``'s cells."""
+    from repro_torch.core import fastpath, sweep
+    from repro_torch.core.planes import make_planes
+    from repro_torch.kernels import ops
+
+    cases = {
+        "frontier": chip_smoke.dyn_sample(chip_smoke.frontier_cells(5)),
+        "straggler": chip_smoke.dyn_sample(
+            chip_smoke.straggler_pull_cells()),
+        "fail_het": [sweep.SweepCell(policy="fc", nodes=3, cores=6,
+                                     intensity=v, seed=s,
+                                     fail_spec=((0, 8.0),),
+                                     degrade=((0, 1.0, 300.0, 5.0),))
+                     for v in (16, 45) for s in range(4)]}
+    for name, cells in cases.items():
+        prepared = []
+        for c in cells:
+            reqs = sweep.make_workload(c)
+            prepared.append(fastpath._ScanCell(
+                requests=reqs, feats=fastpath._arrival_features(reqs),
+                cores=c.cores, nodes=c.nodes, policy=c.policy,
+                dynamics=sweep._cell_dynamics(c),
+                profile=sweep._cell_profile(c)))
+        key = tuple(max(col) for col in zip(*{c.bucket() for c in prepared}))
+        static = fastpath._scan_static(key)
+        inp = {k: torch.from_numpy(v).cuda()
+               for k, v in fastpath._fill_bucket(key, prepared).items()}
+        clk, ctr = make_planes(inp, n_nodes=static["n_nodes"],
+                               n_slots=static["n_slots"],
+                               window=static["window"], dyn=static["dyn"])
+        yield name, (lambda clk=clk, ctr=ctr, inp=inp, static=static:
+                     ops.event_step(clk, ctr, inp, **static))
+
+
 def serve_case(chip_smoke, arch: str) -> dict:
     """``--mode serve``'s numbers for ``arch`` on the imported tree."""
     from repro_torch.models import decode_step, init_cache
@@ -247,8 +287,8 @@ def serve_case(chip_smoke, arch: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--mode", choices=("scans", "event_step", "sweep",
-                                       "serve"),
+    ap.add_argument("--mode", choices=("scans", "event_step", "dyn",
+                                       "sweep", "serve"),
                     default="scans")
     ap.add_argument("--arch", default="qwen3_1_7b",
                     help="the arch served (--mode serve)")
@@ -287,6 +327,12 @@ def main() -> int:
                 "other_s": wall - sum(tm.values()),
                 "launches": launches, "plain_launches": plain}),
                 flush=True)
+        return 0
+    if args.mode == "dyn":
+        for name, fn in dyn_cases(chip_smoke):
+            print(json.dumps({"src": args.src, "kernel": "event_step_dyn",
+                              "case": name, "ms": time_call(fn, 10)}),
+                  flush=True)
         return 0
     if args.mode == "event_step":
         for name, fn, check, n_max, nbytes, reps in event_step_cases(
