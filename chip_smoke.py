@@ -81,6 +81,21 @@ version on the card first:
    a sample of rows recomputed through the plain version, and Fig 5's
    per-function stretches beside the paper's.
 
+   Then cold starts, node speeds and capacity dynamics on push and
+   single-node cells through ``event_step``'s float64 frozen-priority
+   kernel: the kernel against its plain version, bit for bit (rows, calls
+   lost and done, nodes provisioned, cold starts, evictions, each call's
+   cold-start flag), on the cold matrix's push buckets (FC and SEPT, 4 x 8
+   cores, least-loaded, a 32-core burst at intensity 18, 5 cells each),
+   the straggler grid's slowed push bucket (home balancer, node 0 2-8x
+   slow, 20 cells), the steal matrix's cells without hedging (FC and SEPT
+   on 3 x 6 cores, node 0 killed at 8 s and 5x slow, the autoscaler up to
+   5 nodes, intensities 16 and 25) and cold single-node cells (FC and SEPT
+   at 10 cores, intensity 60); then ``run_cells_scan(metrics_only=True)``
+   over the cold matrix's push half (10 cells) and the straggler grid's
+   unhedged push half (25 cells: its 5 healthy cells go to the float32
+   freeze kernel), every row held to the plain version's.
+
 5. The other decoder-only families served at full width in bfloat16 as
    in 2: deepseek_7b, qwen2_5_14b, gemma3_27b (5 local : 1 global
    windowed attention, 62 layers), qwen2_moe_a2_7b (60 experts, top-4)
@@ -238,7 +253,7 @@ def bucket_tensors(key, host, dev):
                            window=static["window"], freeze=static["freeze"],
                            fc_push=static["fc_push"],
                            fc_ring=static["fc_ring"], dyn=static["dyn"],
-                           cold=static["cold"])
+                           het=static["het"], cold=static["cold"])
     return inp, clk, ctr, static
 
 
@@ -691,27 +706,38 @@ def frontier_claim(cells, rows) -> list[str]:
     return lines + [f"claim: {claim}"]
 
 
-def dyn_needed_bytes(cells, static: dict) -> int:
-    """Bytes the float64 pull scan of ``cells`` must move, each read once
-    and each write once, at each cell's own widths (its nodes -- with the
-    autoscaler its node cap --, cores and functions): the carry planes
-    (8-byte clocks, 4-byte counters; with ``cold`` the free containers,
-    counts and each row's flag), rows ``[:n+1]`` of t / p / cost (8 bytes)
-    and fnid (4), the ``n`` queue entries of ``fn_ev``, five coefficients,
-    cores and nodes; with ``dyn`` each node's activation and kill time and
-    five dynamics parameters, the node cap and call count; with ``het``
-    each node's speed and each episode; and the outputs: rows ``[:n]`` of
-    start / finish / prio (8) and node (4), with ``dyn`` the summary (three
-    counts, each node's activation time and dead flag), with ``cold`` each
-    row's flag and the two counts."""
+def f64_needed_bytes(cells, static: dict) -> int:
+    """Bytes the float64 scan of ``cells`` must move, each read once and
+    each write once, at each cell's own widths (its nodes -- with the
+    autoscaler its node cap --, cores and functions; under ``freeze`` its
+    ``n + 1`` queue entries and, with ``fc_push``, rings of the entries its
+    FC window needs): the carry planes (8-byte clocks, 4-byte counters),
+    rows ``[:n+1]`` of t / p / cost (8 bytes) and fnid (4), five
+    coefficients, cores and nodes; under pull the ``n`` queue entries of
+    ``fn_ev``, under ``freeze`` the route and the static FC counts and the
+    home route's start nodes where the cell reads them; with ``dyn`` each
+    node's activation and kill time, five dynamics parameters, the node
+    cap and call count; with ``het`` each node's speed and each episode;
+    and the outputs: rows ``[:n]`` of start / finish / prio (8) and node
+    (4), with ``dyn`` the summary (three counts, each node's activation
+    time and dead flag), with ``cold`` each row's flag and two counts."""
+    freeze, fc_push = static["freeze"], static["fc_push"]
     total = 0
     for c in cells:
         n = len(c.feats.t)
         nodes = c.node_cap()
-        lay = carry_layout(n_nodes=nodes, n_slots=c.cores,
-                           window=static["window"], n_fns=len(c.feats.fns),
-                           n1=n + 1, dyn=static["dyn"], cold=static["cold"])
-        nbytes = (8 * lay.f_len + 4 * lay.i_len + 28 * (n + 1) + 4 * n
+        lay = carry_layout(
+            n_nodes=nodes, n_slots=c.cores, window=static["window"],
+            n_fns=len(c.feats.fns), freeze=freeze, fc_push=fc_push,
+            n1=n + 1, fc_ring=int(c.feats.count.max()) if fc_push else 1,
+            dyn=static["dyn"], het=static["het"], cold=static["cold"])
+        if freeze:
+            rows = (8 * n * (c.policy == "fc" and not fc_push)
+                    + 4 * n * (c.lb == "home" and c.assignment == "push")
+                    + 4)
+        else:
+            rows = 4 * n
+        nbytes = (8 * lay.f_len + 4 * lay.i_len + 28 * (n + 1) + rows
                   + 40 + 8 + 28 * n)
         if static["dyn"]:
             nbytes += 16 * nodes + 40 + 8 + 12 + 12 * nodes
@@ -723,14 +749,17 @@ def dyn_needed_bytes(cells, static: dict) -> int:
     return total
 
 
-def check_dyn(case: str, cells, dev) -> dict:
-    """The float64 pull kernel against its plain version on the card: rows
-    [:n_b] of start, finish, prio and node and the summary bit-identical;
-    then its time, ns an event step, the plain version's time (the
-    comparison run), the plan and the bound of this bucket's work.
-    ``plain_rows`` holds each cell's metrics row from the plain run, folded
-    as the bucket runner folds (a path's rows of these cells must equal
-    them)."""
+def check_f64(case: str, cells, dev) -> tuple[dict, dict]:
+    """A float64 kernel against its plain version on the card -- the pull
+    one (``dyn_kernel``) or, for single-node and push cells, the
+    frozen-priority one (``freeze64_kernel``): rows [:n_b] of start,
+    finish, prio and node and the summary (calls lost and done, nodes
+    provisioned, activation times, dead flags; cold starts, evictions,
+    each call's cold-start flag) bit-identical; then its time, ns an event
+    step, the plain version's time (the comparison run), the plan and the
+    bound of this bucket's work.  Also returns each cell's metrics row
+    from the plain run, folded as the bucket runner folds it (a path's
+    rows of these cells must equal them)."""
     prepared = [scan_cell(c) for c in cells]
     keys = {c.bucket() for c in prepared}
     if len({k[0] for k in keys}) != 1:
@@ -739,40 +768,47 @@ def check_dyn(case: str, cells, dev) -> dict:
     inp, clk, ctr, static = bucket_tensors(
         key, fastpath._fill_bucket(key, prepared), dev)
     if not (static["dyn"] or static["het"] or static["cold"]):
-        raise AssertionError(f"{case}: not a float64 pull bucket")
+        raise AssertionError(f"{case}: not a float64 bucket")
+    freeze = static["freeze"]
+    what, counter = (("freeze64", "FREEZE64_LAUNCHES") if freeze
+                     else ("dyn", "DYN_LAUNCHES"))
     n1 = key[1] + 1
     plain = []                       # the plain version, run once
     plain_ms = time_call(lambda: plain.append(ops.event_step(
         clk, ctr, inp, force="ref", **static)), reps=1, warmup=False)
     ref = plain[0]
-    k0 = ops.DYN_LAUNCHES
+    k0 = getattr(ops, counter)
     got = ops.event_step(clk, ctr, inp, **static)
     torch.cuda.synchronize()
-    if ops.DYN_LAUNCHES != k0 + 1:
-        raise AssertionError(f"{case}: event_step did not launch the float64 "
-                             "pull kernel")
+    if getattr(ops, counter) != k0 + 1:
+        raise AssertionError(f"{case}: event_step did not launch the {what} "
+                             "kernel")
     err = 0.0
     for name, a, b in zip(("start", "finish", "prio", "node"), ref, got):
         a, b = a[:, :n1 - 1], b[:, :n1 - 1]
         if not torch.equal(a, b):
             bad = (a != b).nonzero()[:5].tolist()
-            raise AssertionError(f"dyn event_step {name} differs from the "
+            raise AssertionError(f"{what} event_step {name} differs from the "
                                  f"plain version ({case}) at {bad}")
         err = max(err, float((a.double() - b.double()).abs().max()))
+    if ref[4].keys() != got[4].keys():
+        raise AssertionError(f"{case}: summaries of different keys")
     for k in ref[4]:
         if not torch.equal(ref[4][k], got[4][k]):
-            raise AssertionError(f"dyn event_step summary {k} differs from "
-                                 f"the plain version ({case})")
+            raise AssertionError(f"{what} event_step summary {k} differs "
+                                 f"from the plain version ({case})")
+    nc = len(cells)
     n_real = [len(c.feats.t) for c in prepared]
-    fin = got[1][:len(cells)].cpu().numpy()
+    fin = got[1][:nc].cpu().numpy()
     for b, n in enumerate(n_real):
         if not (np.isfinite(fin[b, :n]).all() and (fin[b, :n] > 0).all()):
             raise AssertionError(f"{case}: cell {b} has unfinished calls")
-    lost = (got[4]["nfail"][:len(cells)].tolist() if static["dyn"]
-            else [0] * len(cells))
-    finish = ref[1].cpu().numpy()
     aux = {k: v.cpu().numpy() for k, v in ref[4].items()}
-    plain_rows = []
+    if static["dyn"] and (aux["ndone"][:nc] != n_real).any():
+        raise AssertionError(f"{case}: calls left unfinished")
+    lost = aux["nfail"][:nc].tolist() if static["dyn"] else [0] * nc
+    finish = ref[1].cpu().numpy()
+    rows_plain = []
     for b, (c, sc) in enumerate(zip(cells, prepared)):
         extras = {}
         if static["dyn"]:
@@ -782,22 +818,25 @@ def check_dyn(case: str, cells, dev) -> dict:
             extras.update(cold_starts=int(aux["ncold"][b]),
                           evictions=int(aux["nevt"][b]))
         mo = fastpath._cell_scan_metrics(sc, finish[b], {}, extras)
-        plain_rows.append(sweep._metrics_from_scan(c, mo))
-    out = {"case": case, "cells": len(cells), "bsz": int(clk.shape[0]),
+        rows_plain.append(sweep._metrics_from_scan(c, mo))
+    out = {"case": case, "cells": nc, "bsz": int(clk.shape[0]),
            "n_b": key[1], "nodes": key[2], "slots": key[3],
            "dyn": static["dyn"], "het": static["het"],
-           "cold": static["cold"],
+           "cold": static["cold"], "fc_push": static["fc_push"],
            "n_steps_budget": static["n_steps"], "max_abs_err": err,
-           "failures": sum(lost),
-           "nodes_used": (got[4]["prov"][:len(cells)].tolist()
-                          if static["dyn"] else None),
+           "failures": lost,
+           "nodes_used": (aux["prov"][:nc].tolist() if static["dyn"]
+                          else None),
+           "cold_starts": (aux["ncold"][:nc].tolist() if static["cold"]
+                           else None),
+           "evictions": (int(aux["nevt"][:nc].sum()) if static["cold"]
+                         else None),
            "plan": ops.event_step_plan(
                n1=n1, n_nodes=static["n_nodes"], n_slots=static["n_slots"],
-               n_fns=key[4], window=static["window"], f64=True,
-               dyn=static["dyn"], cold=static["cold"])}
-    if static["cold"]:
-        out["cold_starts"] = got[4]["ncold"][:len(cells)].tolist()
-        out["evictions"] = int(got[4]["nevt"][:len(cells)].sum())
+               n_fns=key[4], window=static["window"], freeze=freeze,
+               f64=True, fc_push=static["fc_push"],
+               fc_ring=static["fc_ring"], dyn=static["dyn"],
+               cold=static["cold"])}
     out["ms"] = time_call(lambda: ops.event_step(clk, ctr, inp, **static),
                           reps=10)
     out["plain_ms"] = plain_ms
@@ -805,18 +844,26 @@ def check_dyn(case: str, cells, dev) -> dict:
     # re-arrivals and re-dispatches of what the kills lost (2 each)
     steps = max(2 * n + 2 * f for n, f in zip(n_real, lost))
     out["ns_per_step"] = out["ms"] * 1e6 / steps
-    moved = dyn_needed_bytes(prepared, static)
-    # float64 operations this data needs: a completion's ring update (3);
-    # a dispatch's priority over the cell's functions (5 each, 7 with the
-    # enqueue clock, 9 with FC counts too) and its start and finish (2, 6
-    # with a speed, one more with the prewarm charge)
-    per_fn = 5 + 2 * static["dyn"] + 2 * static["use_fc"]
-    ops_n = sum(3 * n + (n + f) * (len(c.feats.fns) * per_fn + 2
-                                   + 4 * static["het"] + static["cold"])
-                for n, f, c in zip(n_real, lost, prepared))
+    moved = f64_needed_bytes(prepared, static)
+    # float64 operations this data needs.  Pull: a completion's ring update
+    # (3); a dispatch's priority over the cell's functions (5 each, 7 with
+    # the enqueue clock, 9 with FC counts too) and its start and finish (2,
+    # 6 with a speed, one more with the prewarm charge).  Freeze, a
+    # dispatch: its estimate (1) and priority (6) at (re-)arrival, its
+    # start and finish (2; 5 more with a speed: the slowdown, the speed and
+    # the measured service; one more with the prewarm charge) and its
+    # completion's ring update (2)
+    if freeze:
+        per = 11 + 5 * static["het"] + static["cold"]
+        ops_n = sum(per * (n + f) for n, f in zip(n_real, lost))
+    else:
+        per_fn = 5 + 2 * static["dyn"] + 2 * static["use_fc"]
+        ops_n = sum(3 * n + (n + f) * (len(c.feats.fns) * per_fn + 2
+                                       + 4 * static["het"] + static["cold"])
+                    for n, f, c in zip(n_real, lost, prepared))
     out["bytes"], out["operations"] = moved, ops_n
     out["bound_ms"], out["bound_by"] = bound(moved, ops_n, torch.float64)
-    return out, dict(zip(cells, plain_rows))
+    return out, dict(zip(cells, rows_plain))
 
 
 def dyn_sample(cells) -> list:
@@ -838,7 +885,7 @@ def dyn_path(name: str, cells, dev, plain: dict | None = None) -> dict:
     every other kernel's plain version not); its rows checked (burst
     sizes, finite metrics; the runner holds every cell to all calls done)
     and held to ``plain``, the rows of a sample of its cells recomputed
-    through the plain version (``check_dyn``).  Returns its numbers and
+    through the plain version (``check_f64``).  Returns its numbers and
     rows."""
     timings: dict = {}
     ops.reset_launches()
@@ -904,7 +951,7 @@ def workload_paths(dev, kern_fz: dict, kern_dy: dict) -> None:
              "fc", 96),
             ("cold_140", "cold pull sept 4 x 8, v140 (32-core burst, n_b "
              "8192)", "sept", 140)):
-        cd[k], rows_k = check_dyn(case, [c for c in cold_cells
+        cd[k], rows_k = check_f64(case, [c for c in cold_cells
                                          if (c.policy, c.intensity)
                                          == (pol, v)], dev)
         cold_plain.update(rows_k)
@@ -949,6 +996,181 @@ def workload_paths(dev, kern_fz: dict, kern_dy: dict) -> None:
         for k, r in cd.items()})
     kern_dy.update({f"cold_{f}": cold[f]
                     for f in ("cells_per_s", "device_share")})
+
+
+def cold_push_cells() -> list:
+    """The cold matrix's push half (benchmarks/engine_bench.py::
+    matrix_specs, ``cold``, whose push cells run at intensity 18 only):
+    FC and SEPT on 4 x 8 cores, least-loaded, a 32-core burst, no warm-up,
+    5 seeds: 10 cells."""
+    return sweep.SweepSpec(policies=("fc", "sept"), assignments=("push",),
+                           nodes=(4,), cores=(8,), workload_cores=32,
+                           intensities=(18,), warm=False, seeds=5).cells()
+
+
+def straggler_push_cells() -> list:
+    """The straggler grid's unhedged push half (benchmarks/engine_bench.
+    py::straggler_spec, its unhedged push cells): FC on 4 x 8 cores under
+    the home balancer, a 32-core burst at intensity 18 (STRAGGLER_V's
+    claim), node 0 healthy or 2 / 4 / 6 / 8x slow from 2 s to 300 s, 5
+    seeds: 25 cells, 20 of them slowed."""
+    degrades = (None,) + tuple(((0, 2.0, 300.0, s),)
+                               for s in (2.0, 4.0, 6.0, 8.0))
+    return sweep.SweepSpec(policies=("fc",), assignments=("push",),
+                           lbs=("home",), nodes=(4,), cores=(8,),
+                           intensities=(18,), degrades=degrades, seeds=5,
+                           workload_cores=32).cells()
+
+
+def steal_cells(policy: str) -> list:
+    """The steal matrix's cells (benchmarks/engine_bench.py::matrix_specs,
+    ``steal``) without hedging: ``policy`` on 3 x 6 cores, least-loaded,
+    node 0 5x slow, node 0 killed at 8 s (``rolling_restart(1, start=8.0)``
+    ), the autoscaler (scale-up at 1 call a slot, a 2 s provision delay, up
+    to 5 nodes), intensities 16 and 25, 2 seeds: 4 cells."""
+    return sweep.SweepSpec(policies=(policy,), assignments=("push",),
+                           nodes=(3,), cores=(6,), intensities=(16, 25),
+                           degrades=(((0, 1.0, 300.0, 5.0),),),
+                           fail_specs=(((0, 8.0),),), autoscale=(True,),
+                           scale_ups=(1.0,), provision_delays=(2.0,),
+                           max_nodes=5, seeds=2).cells()
+
+
+def single_cold_cells() -> list:
+    """Cold single-node cells: FC and SEPT on one node of 10 cores at
+    intensity 60 (660 calls; ``_cold_regime_ok`` holds at any intensity
+    there: 2 prewarms, 10 busy and 10 free containers of each of the 11
+    functions and 2 in flight take 15.5 of the node's 32 GB), 4 seeds."""
+    return sweep.SweepSpec(policies=("fc", "sept"), cores=(10,),
+                           intensities=(60,), warm=False, seeds=4).cells()
+
+
+def freeze64_path(name: str, cells, dev, plain: dict) -> tuple[dict, list]:
+    """One float64 frozen-priority main path: ``run_cells_scan(
+    metrics_only=True)`` over ``cells``, every count set to 0 just before it
+    and read just after (the float64 frozen-priority kernel launched, the
+    float32 freeze kernel for the path's static cells, no plain version);
+    its rows checked (burst sizes, finite metrics; the runner holds every
+    cell with dynamics to all calls done) and held to ``plain``, the rows
+    of the cells the checks ran through the plain version, and its static
+    cells' rows recomputed through the plain version.  Returns its numbers
+    and rows."""
+    timings: dict = {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = sweep.run_cells_scan(cells, metrics_only=True, device=dev,
+                                timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    f64 = counts["event_step_freeze64"]
+    if (f64["kernel"] == 0 or any(v["plain"] for v in counts.values())
+            or any(v["kernel"] for k, v in counts.items()
+                   if k not in ("event_step_freeze64", "event_step_freeze"))):
+        raise AssertionError(f"{name} launches: {counts}")
+    for c, r, want in zip(cells, rows, burst_calls(cells)):
+        if r["n"] != want:
+            raise AssertionError(f"{c.label()} seed {c.seed}: n={r['n']}, "
+                                 f"burst has {want}")
+        for k in ("R_avg", "R_p95", "max_c"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"{c.label()} seed {c.seed}: {k}="
+                                     f"{r[k]}")
+    sample = [i for i, c in enumerate(cells) if c in plain]
+    static_cells = [i for i, c in enumerate(cells) if c not in plain]
+    want = dict(zip(static_cells, plain_rows([cells[i] for i in
+                                              static_cells], dev)))
+    for i in sample:
+        want[i] = plain[cells[i]]
+    for i, w in want.items():
+        if rows[i] != w:
+            raise AssertionError(f"{cells[i].label()} seed {cells[i].seed}: "
+                                 "kernel row differs from the plain row")
+    out = {"cells": len(cells), "wall_s": wall,
+           "cells_per_s": len(cells) / wall, **timings,
+           "other_s": wall - sum(timings.values()),
+           "device_share": timings["device_s"] / wall,
+           "launches": f64["kernel"], "plain_launches": f64["plain"],
+           "freeze_launches": counts["event_step_freeze"]["kernel"],
+           "sample": len(want),
+           "cold": sum(r["cold"] for r in rows),
+           "failures": sum(r["failures"] for r in rows)}
+    print(f"{name}: {len(cells)} cells in {wall:.3f} s = "
+          f"{out['cells_per_s']:.1f} cells/s (fill {timings['fill_s']:.3f} s,"
+          f" device {timings['device_s']:.3f} s = {out['device_share']:.1%} "
+          f"of the wall, fold {timings['fold_s']:.3f} s, other "
+          f"{out['other_s']:.3f} s); float64 frozen-priority kernel "
+          f"launches {f64['kernel']}, plain launches {f64['plain']} (freeze "
+          f"kernel {out['freeze_launches']}); sample: {len(want)} cells "
+          "recomputed through the plain version on the card, rows equal",
+          flush=True)
+    return out, rows
+
+
+def freeze64_paths(dev, kern_fz: dict) -> dict:
+    """Cold starts, node speeds and capacity dynamics on push and single-
+    node cells: the float64 frozen-priority kernel against its plain
+    version on the cold matrix's push buckets (FC, SEPT), the straggler
+    grid's slowed push bucket, the steal matrix's cells without hedging
+    (FC, SEPT) and cold single-node cells; then the cold matrix's push half
+    and the straggler grid's unhedged push half as main paths.  The
+    straggler path's healthy cells go to the freeze kernel, whose launches
+    join its row ``kern_fz``.  Returns the new kernel's row."""
+    cold_cells, strag_cells = cold_push_cells(), straggler_push_cells()
+    ck, plain = {}, {}
+    for k, case, cells in (
+            ("cold_push_fc", "cold push fc 4 x 8 least-loaded, v18 (32-core "
+             "burst, 5 seeds)", [c for c in cold_cells if c.policy == "fc"]),
+            ("cold_push_sept", "cold push sept 4 x 8 least-loaded, v18 "
+             "(32-core burst, 5 seeds)",
+             [c for c in cold_cells if c.policy == "sept"]),
+            ("straggler_push", "straggler push fc 4 x 8 home, v18, node 0 "
+             "2-8x slow (20 cells)",
+             [c for c in strag_cells if c.degrade is not None]),
+            ("steal_fc", "push fc 3 x 6 least-loaded, node 0 killed at 8 s "
+             "and 5x slow, autoscale to 5, v16 / v25", steal_cells("fc")),
+            ("steal_sept", "push sept 3 x 6 least-loaded, node 0 killed at "
+             "8 s and 5x slow, autoscale to 5, v16 / v25",
+             steal_cells("sept")),
+            ("single_cold", "cold single-node fc / sept c10 v60",
+             single_cold_cells())):
+        ck[k], rows_k = check_f64(case, cells, dev)
+        plain.update(rows_k)
+        print("freeze64 event_step vs plain: " + json.dumps(ck[k]),
+              flush=True)
+    if not all(min(ck[k]["failures"]) > 0
+               for k in ("steal_fc", "steal_sept")):
+        raise AssertionError("a steal matrix cell lost no call")
+    cold, cold_rows = freeze64_path("cold push path", cold_cells, dev, plain)
+    if not all(r["cold"] > 0 for r in cold_rows):
+        raise AssertionError("a cold push cell started no container cold")
+    strag, _ = freeze64_path("straggler push path", strag_cells, dev, plain)
+    kern_fz["launches"] += strag["freeze_launches"]
+    kern_fz["launches_by_path"]["straggler push path"] = \
+        strag["freeze_launches"]
+    main = ck["cold_push_fc"]
+    paths = {"cold push path": cold["launches"],
+             "straggler push path": strag["launches"]}
+    return {
+        "name": "event_step_freeze64", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/event_step.cu",
+        "replaces": "src/repro/core/fastpath.py:821",
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        "max_abs_err": max(r["max_abs_err"] for r in ck.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shape": f"cold push fc bucket, {main['cells']} cells, "
+                 f"n_b={main['n_b']}, 4 nodes x 8 slots",
+        "ns_per_step": main["ns_per_step"],
+        "cases": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "ns_per_step", "n_b", "bsz",
+                                         "plan")}
+                  for k, r in ck.items()},
+        **{f"{k}_{f}": r[f] for k, r in (("cold_push", cold),
+                                          ("straggler_push", strag))
+           for f in ("cells_per_s", "device_share")}}
 
 
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
@@ -2193,10 +2415,10 @@ def main() -> int:
                                  intensity=v, seed=s, fail_spec=((0, 8.0),),
                                  degrade=((0, 1.0, 300.0, 5.0),))
                  for v in (16, 45) for s in range(4)])):
-        dy[k], rows_k = check_dyn(case, cells, dev)
+        dy[k], rows_k = check_f64(case, cells, dev)
         plain.update(rows_k)
         print("dyn event_step vs plain: " + json.dumps(dy[k]), flush=True)
-    if dy["fail_het"]["failures"] == 0:
+    if sum(dy["fail_het"]["failures"]) == 0:
         raise AssertionError("the failure bucket lost no call")
     frontier, fr_rows = dyn_path("frontier path", fr80, dev, plain)
     fr640 = frontier_cells(40)
@@ -2237,6 +2459,10 @@ def main() -> int:
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 3d. workloads and cold starts ------------------------------------
     workload_paths(dev, kern_fz, kern_dy)
+
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # -- 3e. cold starts, node speeds and dynamics on push and one node ----
+    kern_f64 = freeze64_paths(dev, kern_fz)
 
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 4. attention kernels vs plain on the card ------------------------
@@ -2445,6 +2671,7 @@ def main() -> int:
         kern,
         kern_fz,
         kern_dy,
+        kern_f64,
         flash_row,
         row("decode_attention", dec["decode_32k"],
             {"main_path": dec["serving"], "rg": dec["rg_ring_2k"],

@@ -11,15 +11,15 @@ assignment (one controller queue, late binding) or push assignment (each
 call routed on arrival, least-loaded or to its home invoker), all five
 policies.  Single-node and push cells run the frozen-priority regime: a
 call's priority is fixed at arrival from the estimator of the node it was
-routed to.  Pull cells may also carry capacity dynamics (scheduled node
-failures, the autoscaler: a ``ClusterDynamics``) and node speeds (a
-``NodeSpeedProfile``) and start cold; such buckets scan in float64, as the
-JAX package's do.  Cells are grouped by padded shape
-(``_ScanCell.bucket``); each bucket is filled on the host, moved to the
-device, packed into the carry planes and scanned in chunks, and the
-per-request records come back in event order.  Other cells -- hedging, resilience, the round-robin balancer --
-raise ``ValueError``; push or single-node cells with dynamics, node speeds
-or cold starts raise ``NotImplementedError``.
+routed to.  Cells may also carry capacity dynamics (scheduled node
+failures, the autoscaler: a ``ClusterDynamics``; under push with the
+least-loaded balancer) and node speeds (a ``NodeSpeedProfile``) and start
+cold; such buckets scan in float64, as the JAX package's do.  Cells are
+grouped by padded shape (``_ScanCell.bucket``); each bucket is filled on
+the host, moved to the device, packed into the carry planes and scanned in
+chunks, and the per-request records come back in event order.  Other
+cells -- hedging, resilience, the round-robin balancer -- raise
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -213,9 +213,7 @@ def scan_eligible(
     """True when the JAX package's scan reproduces a single-node cell, as
     its ``scan_eligible`` answers: ours mode, a known policy, and the
     always-warm regime on the node or (``warm=False``) the ample-memory
-    prewarm regime (:func:`_cold_regime_ok`).  The port scans the warm
-    cells; a cold single-node cell raises ``NotImplementedError`` in
-    :func:`simulate_cells_scan`."""
+    prewarm regime (:func:`_cold_regime_ok`)."""
     if mode != "ours" or policy not in POLICY_NAMES:
         return False
     if not warm:
@@ -246,10 +244,7 @@ def cluster_scan_eligible(
     further needs the least-loaded balancer under push and failures
     confined to the initial fleet with a survivor and no negative time;
     ``profile`` (a ``NodeSpeedProfile``) no more speeds than nodes the
-    cell can reach.
-    The port runs the pull cells of these; push cells with dynamics, node
-    speeds or cold starts raise ``NotImplementedError`` in
-    :func:`simulate_cluster_cells_scan`."""
+    cell can reach."""
     if policy not in POLICY_NAMES or nodes < 1:
         return False
     if assignment == "push":
@@ -313,17 +308,19 @@ class _ScanCell:
                 if self.dynamics is not None else self.nodes)
 
     def dyn_budget(self) -> int:
-        """Upper bound on the scan steps capacity dynamics add to a pull
-        cell (the JAX package's bound): kill events, the re-arrivals of the
-        running calls they lose, autoscaler ticks (a work-conserving
-        makespan bound over the tick interval) and the activations'
-        dispatches."""
+        """Upper bound on the scan steps capacity dynamics add to a cell
+        (the JAX package's bound): kill events, the re-arrivals of the
+        calls they lose (the running ones, and under push the queued ones
+        too), autoscaler ticks (a work-conserving makespan bound over the
+        tick interval) and the activations' dispatches."""
         if not self.dyn:
             return 0
         d = self.dynamics
         n = len(self.feats.t)
         kills = len(d.fail)
         lost = kills * self.cores
+        if self.assignment == "push" and kills:
+            lost += n                # queued-on-node calls are lost too
         extra = kills + lost
         if d.autoscale:
             grow = max(0, d.capacity_bound(self.nodes) - self.nodes)
@@ -344,8 +341,10 @@ class _ScanCell:
         freeze = self.assignment != "pull"
         use_fc = not freeze and self.policy == "fc"
         # single-node FC reads the static window counts; on more than one
-        # node the count depends on the routing, so it needs the rings
-        fc_push = freeze and self.policy == "fc" and self.nodes > 1
+        # node, or with dynamics (re-arrivals log again), the count depends
+        # on the routing, so it needs the rings
+        fc_push = (freeze and self.policy == "fc"
+                   and (self.nodes > 1 or self.dyn))
         if freeze:
             kq = 1                   # fn_ev unused in frozen-priority mode
         else:                        # per-function queue capacity
@@ -371,8 +370,8 @@ class _ScanCell:
 def _key_flags(key: tuple) -> dict[str, bool]:
     """The feature flags a bucket key's mask enables: ``freeze``,
     ``use_fc``, ``fc_push``, ``cold``, ``het`` and ``dyn``.  Any other
-    segment, a combination no cell of the port makes, or ``cold`` / ``het``
-    / ``dyn`` outside the pull regime raises ``NotImplementedError``."""
+    segment, or a combination no cell of the port makes, raises
+    ``NotImplementedError``."""
     mask = key[0]
     known = (_FREEZE_MASK | _USE_FC_MASK | _FC_PUSH_MASK | _COLD_MASK
              | _HET_MASK | _DYN_MASK)
@@ -382,11 +381,6 @@ def _key_flags(key: tuple) -> dict[str, bool]:
              "cold": bool(mask & _COLD_MASK),
              "het": bool(mask & _HET_MASK),
              "dyn": bool(mask & _DYN_MASK)}
-    if flags["freeze"] and (flags["het"] or flags["dyn"] or flags["cold"]):
-        raise NotImplementedError(
-            f"bucket {key}: capacity dynamics, node speeds and cold starts "
-            "under push or on one node (the frozen-priority float64 "
-            "segments) are not ported (ROADMAP queue 1 item 4)")
     if (mask & ~known
             or key[9] != 1
             or (key[8] != 1 and not flags["het"])
@@ -395,8 +389,7 @@ def _key_flags(key: tuple) -> dict[str, bool]:
             or (flags["fc_push"] and not flags["freeze"])
             or (key[7] != 1 and not flags["fc_push"])):
         raise NotImplementedError(
-            f"bucket {key} is outside the warm configurations the port "
-            "scans")
+            f"bucket {key} is outside the configurations the port scans")
     return flags
 
 
@@ -583,7 +576,7 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
                                freeze=static["freeze"],
                                fc_push=static["fc_push"],
                                fc_ring=static["fc_ring"], dyn=static["dyn"],
-                               cold=static["cold"])
+                               het=static["het"], cold=static["cold"])
         res = _kops.event_step(clk, ctr, inp, force=force, **static)
         start, finish, prio, node = (r.cpu().numpy() for r in res[:4])
         aux = {k: v.cpu().numpy() for k, v in res[4].items()}
@@ -743,13 +736,14 @@ def simulate_cells_scan(
 ) -> list:
     """Run a batch of ``(requests, cores, policy[, warm])`` single-node
     cells -- the JAX package's tuple form -- as bucketed scans on
-    ``device``, in the frozen-priority regime.
+    ``device``, in the frozen-priority regime; ``warm`` false is the
+    cold-start regime (float64).
 
-    ``warm`` false (the cold-start regime on one node) raises
-    ``NotImplementedError``, and (with ``validate``) every cell must
-    satisfy :func:`scan_eligible`, else ``ValueError``.  Returns
-    :class:`SimResult` rows with the requests written back, or
-    :class:`ScanMetrics` rows with ``metrics_only=True``."""
+    With ``validate`` every cell must satisfy :func:`scan_eligible`, else
+    ``ValueError``.  Returns :class:`SimResult` rows with the requests
+    written back (a cold cell's ``cold_starts``, ``evictions`` and each
+    request's ``cold_start`` too), or :class:`ScanMetrics` rows with
+    ``metrics_only=True``."""
     dev = resolve_device(device)
     if not batch:
         return []
@@ -758,19 +752,16 @@ def simulate_cells_scan(
     for item in batch:
         requests, cores, policy = item[:3]
         warm = item[3] if len(item) > 3 else True
-        if not warm:
-            raise NotImplementedError(
-                "cold single-node cells need the frozen-priority cold "
-                "segment, not ported yet (ROADMAP queue 1 item 4)")
         if validate and not scan_eligible(
                 requests, cores, policy, memory_mb=memory_mb,
-                container_mb=container_mb):
+                container_mb=container_mb, warm=warm):
             raise ValueError(
-                "the port's single-node scan covers static warm cells "
-                f"(policy={policy!r}, cores={cores})")
+                "the port's single-node scan covers the warm regime and "
+                "the ample-memory cold regime "
+                f"(policy={policy!r}, cores={cores}, warm={warm})")
         cells.append(_ScanCell(requests=requests, feats=feats(requests),
                                cores=cores, nodes=1, policy=policy,
-                               assignment="single"))
+                               assignment="single", warm=warm))
     return _run_scan_cells(cells, dev, metrics_only=metrics_only,
                            timings=timings)
 
@@ -790,14 +781,13 @@ def simulate_cluster_cells_scan(
     ``device``.
 
     Covered: ``assignment`` ``"pull"``, or ``"push"`` with ``lb``
-    ``"least_loaded"`` or ``"home"``; pull cells may carry ``dynamics`` (a
-    ``ClusterDynamics``: failures, the autoscaler), a ``profile`` (a
-    ``NodeSpeedProfile``) and ``warm`` false (the cold-start regime), and
-    scan in float64; and (with ``validate``) every cell must satisfy
-    :func:`cluster_scan_eligible`.  ``hedging`` / ``resilience`` not
-    ``None`` or an ineligible cell raise ``ValueError``; push cells with
-    non-static dynamics, a non-uniform profile or ``warm`` false raise
-    ``NotImplementedError``.  Returns :class:`SimResult` rows with the
+    ``"least_loaded"`` or ``"home"``; cells may carry ``dynamics`` (a
+    ``ClusterDynamics``: failures, the autoscaler; under push with the
+    least-loaded balancer), a ``profile`` (a ``NodeSpeedProfile``) and
+    ``warm`` false (the cold-start regime), and scan in float64; and (with
+    ``validate``) every cell must satisfy :func:`cluster_scan_eligible`.
+    ``hedging`` / ``resilience`` not ``None`` or an ineligible cell raise
+    ``ValueError``.  Returns :class:`SimResult` rows with the
     requests written back (and a dynamic cell's ``failures``,
     ``nodes_used`` and ``timeline``, a cold cell's ``cold_starts``,
     ``evictions`` and each request's ``cold_start``), or
@@ -825,7 +815,8 @@ def simulate_cluster_cells_scan(
                 profile=profile)):
             raise ValueError(
                 "the port's cluster scan covers pull and push cells, with "
-                "dynamics, node speeds and cold starts on pull "
+                "dynamics, node speeds and cold starts, without hedging "
+                "or resilience "
                 f"(policy={policy!r}, nodes={nodes}, cores={cores}, "
                 f"assignment={assignment!r}, lb={lb!r}, warm={warm}, "
                 f"dynamics={dynamics!r}, profile={profile!r}, "
@@ -834,11 +825,6 @@ def simulate_cluster_cells_scan(
                          cores=cores, nodes=nodes, policy=policy,
                          assignment=assignment, lb=lb, dynamics=dynamics,
                          profile=profile, warm=warm)
-        if assignment == "push" and (cell.dyn or cell.het or cell.cold):
-            raise NotImplementedError(
-                "push cells with capacity dynamics, node speeds or cold "
-                "starts need the frozen-priority dyn / het / cold segments, "
-                "not ported yet (ROADMAP queue 1 item 4)")
         cells.append(cell)
     return _run_scan_cells(cells, dev, metrics_only=metrics_only,
                            timings=timings)

@@ -1,8 +1,8 @@
 """The scan carry as two packed planes (own port of
 ``repro.core.fastpath._PlaneLayout`` / ``_make_state0`` / ``_make_planes``
 for the base pull carry, the frozen-priority segments ``freeze`` and
-``fc_push``, the container segment ``cold`` and the pull half of the
-capacity-dynamics segment ``dyn``).
+``fc_push``, the container segment ``cold``, the per-slot speeds ``het``
+of the frozen-priority regime and the capacity-dynamics segment ``dyn``).
 
 Every float entry of a cell's carry flattens into one **clocks plane**
 (``clk``, in the bucket's float type: float32, or float64 for dynamic,
@@ -24,8 +24,8 @@ _FLOAT, _INT, _BOOL = "f", "i", "b"
 
 def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                freeze: bool = False, fc_push: bool = False, n1: int = 0,
-               fc_ring: int = 1, dyn: bool = False, cold: bool = False
-               ) -> dict[str, tuple[tuple[int, ...], str]]:
+               fc_ring: int = 1, dyn: bool = False, het: bool = False,
+               cold: bool = False) -> dict[str, tuple[tuple[int, ...], str]]:
     """Shapes and kinds of one cell's carry: slots, queue heads, channel
     clocks and the estimator rings -- the controller's (an estimator axis
     of length 1) in the pull regime, one per node with ``freeze`` -- then,
@@ -34,16 +34,14 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
     ``n1`` rows), the per-(node, function) arrival-time rings of
     ``fc_ring`` entries (``fc_push``), the containers (``cold``: each
     (node, function)'s free containers, the cold starts and evictions,
-    each row's cold-start flag) and the pull capacity dynamics
-    (``dyn``: each node's activation time, dead flag, kill time and pending
-    activation; each row's re-arrival time, re-queued flag, re-queue
-    clock and enqueue time; the next autoscaler tick, the nodes
-    provisioned, the calls lost and the calls done).  Pull ``het`` adds no
-    carry.  The frozen-priority ``dyn`` segment is not ported."""
-    if dyn and freeze:
-        raise NotImplementedError(
-            "the frozen-priority dyn segment (rord, dseq, dcnt) is not "
-            "ported (ROADMAP queue 1 item 4)")
+    each row's cold-start flag), each slot's effective speed at dispatch
+    (``het`` with ``freeze``; pull ``het`` adds no carry) and the capacity
+    dynamics (``dyn``: each node's activation time, dead flag, kill time
+    and pending activation; each row's re-arrival time; the next
+    autoscaler tick, the nodes provisioned, the calls lost and the calls
+    done; then under pull each row's re-queued flag, re-queue clock and
+    enqueue time, with ``freeze`` each slot's launch sequence, the launch
+    count and each row's re-route rank)."""
     n_est = n_nodes if freeze else 1
     spec = {
         "ai": ((), _INT),
@@ -70,13 +68,20 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
     if cold:
         spec.update(freec=((n_nodes, n_fns), _INT), ncold=((), _INT),
                     nevt=((), _INT), coldq=((n1,), _BOOL))
+    if het and freeze:
+        spec.update(sspd=((n_nodes, n_slots), _FLOAT))
     if dyn:
         spec.update(act_t=((n_nodes,), _FLOAT), dead=((n_nodes,), _BOOL),
                     killq=((n_nodes,), _FLOAT),
                     act_pend=((n_nodes,), _BOOL), rearr=((n1,), _FLOAT),
                     next_tick=((), _FLOAT), prov=((), _INT),
-                    nfail=((), _INT), ndone=((), _INT), xq=((n1,), _BOOL),
-                    rq_rt=((n1,), _FLOAT), enq_t=((n1,), _FLOAT))
+                    nfail=((), _INT), ndone=((), _INT))
+        if freeze:
+            spec.update(dseq=((n_nodes, n_slots), _INT), dcnt=((), _INT),
+                        rord=((n1,), _INT))
+        else:
+            spec.update(xq=((n1,), _BOOL), rq_rt=((n1,), _FLOAT),
+                        enq_t=((n1,), _FLOAT))
     return spec
 
 
@@ -133,27 +138,28 @@ class PlaneLayout:
 
 def carry_layout(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                  freeze: bool = False, fc_push: bool = False, n1: int = 0,
-                 fc_ring: int = 1, dyn: bool = False,
+                 fc_ring: int = 1, dyn: bool = False, het: bool = False,
                  cold: bool = False) -> PlaneLayout:
     return PlaneLayout(carry_spec(n_nodes=n_nodes, n_slots=n_slots,
                                   window=window, n_fns=n_fns, freeze=freeze,
                                   fc_push=fc_push, n1=n1, fc_ring=fc_ring,
-                                  dyn=dyn, cold=cold))
+                                  dyn=dyn, het=het, cold=cold))
 
 
 def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
-                fc_ring: int = 1, dyn: bool = False, cold: bool = False
-                ) -> dict[str, torch.Tensor]:
+                fc_ring: int = 1, dyn: bool = False, het: bool = False,
+                cold: bool = False) -> dict[str, torch.Tensor]:
     """Initial batched carry of a bucket: empty slots and queues, idle
     channels, the estimator rings from the bucket's inputs, with ``freeze``
     / ``fc_push`` no queued entry and empty arrival rings, with ``cold``
-    every container pool empty (no warm-up) and no cold start, and with
-    ``dyn``
+    every container pool empty (no warm-up) and no cold start, with
+    ``het`` and ``freeze`` every slot's speed 1, and with ``dyn``
     the activation and kill times of the inputs ``act0`` / ``killt``, no
     node dead or pending, no re-arrival, the first tick at the autoscale
     interval (+inf without the autoscaler), the cell's nodes provisioned,
-    and every row enqueued at its receive time."""
+    and under pull every row enqueued at its receive time, with ``freeze``
+    no launch counted and every rank 0."""
     t = inp["t"]
     B, ft, dev = t.shape[0], t.dtype, t.device
     n_est, n_fns = inp["ring0"].shape[1], inp["ring0"].shape[2]
@@ -187,6 +193,8 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                   ncold=torch.zeros(B, **i32), nevt=torch.zeros(B, **i32),
                   coldq=torch.zeros(B, t.shape[1], dtype=torch.bool,
                                     device=dev))
+    if het and freeze:
+        st["sspd"] = torch.ones(B, n_nodes, n_slots, dtype=ft, device=dev)
     if dyn:
         n1 = t.shape[1]
         dynp = inp["dynp"]
@@ -200,21 +208,27 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                   next_tick=torch.where(dynp[:, 4] > 0, dynp[:, 0],
                                         float("inf")),
                   prov=inp["nodes"].to(torch.int32),
-                  nfail=torch.zeros(B, **i32), ndone=torch.zeros(B, **i32),
-                  xq=torch.zeros(B, n1, dtype=torch.bool, device=dev),
-                  rq_rt=torch.zeros(B, n1, dtype=ft, device=dev),
-                  enq_t=t)
+                  nfail=torch.zeros(B, **i32), ndone=torch.zeros(B, **i32))
+        if freeze:
+            st.update(dseq=torch.zeros(B, n_nodes, n_slots, **i32),
+                      dcnt=torch.zeros(B, **i32),
+                      rord=torch.zeros(B, n1, **i32))
+        else:
+            st.update(xq=torch.zeros(B, n1, dtype=torch.bool, device=dev),
+                      rq_rt=torch.zeros(B, n1, dtype=ft, device=dev),
+                      enq_t=t)
     return st
 
 
 def make_planes(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
-                fc_ring: int = 1, dyn: bool = False, cold: bool = False):
+                fc_ring: int = 1, dyn: bool = False, het: bool = False,
+                cold: bool = False):
     """Per-cell initial carry of a bucket as the packed ``(clk, ctr)``
     planes, shapes ``(B, f_len)`` in the bucket's float type and ``(B,
     i_len)`` int32."""
     seg = dict(freeze=freeze, fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
-               cold=cold)
+               het=het, cold=cold)
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=inp["ring0"].shape[2],
                           n1=inp["t"].shape[1], **seg)

@@ -238,6 +238,20 @@ def _cluster_shaped(cell: SweepCell) -> bool:
             or cell.degrade is not None)
 
 
+def _scan_capable(cell: SweepCell) -> bool:
+    """The half of a cluster cell's eligibility that
+    :func:`cluster_scan_eligible` cannot see, as the JAX package's
+    ``_cluster_scan_capable`` answers it: that function reads the cell's
+    dynamics axes as set or not, so an axis set to no event (``fail_spec``
+    ``()``) still asks for the least-loaded balancer under push and for a
+    second node, where the cell's ``ClusterDynamics`` is static."""
+    failures = cell.fail_at is not None or cell.fail_spec is not None
+    if (cell.assignment == "push" and cell.lb != "least_loaded"
+            and (failures or cell.autoscale)):
+        return False
+    return not (failures and cell.nodes < 2)
+
+
 def _row(s, cold: int, failures: int, backups: int, steals: int,
          nodes_used: int) -> dict[str, float]:
     """A metrics row's keys shared by both paths, from a ``Summary`` and
@@ -299,9 +313,10 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
     cluster cells through :func:`simulate_cluster_cells_scan`, under pull
     assignment or push with the least-loaded or home balancer, with their
     dynamics, node speeds and warm or cold start, as the JAX package's
-    ``run_cells_scan`` sends them.  A cell outside the scan's regimes
-    raises ``ValueError``; push cells with dynamics, speeds or cold starts
-    and cold single-node cells ``NotImplementedError``.  Rows carry
+    ``run_cells_scan`` sends them.  A cell outside the scan's regimes (as
+    the JAX package's ``_cluster_scan_capable`` and ``cluster_scan_
+    eligible`` or ``scan_eligible`` answer) raises ``ValueError``.  Rows
+    carry
     ``R_avg:<fn>`` and ``S_avg:<fn>`` for each function of the cell's
     ``per_function`` that it calls.  ``metrics_only=True`` shares one
     generated burst between cells with the same workload and never writes
@@ -329,11 +344,10 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
                                   cell.warm)))
         else:
             dyn, prof = _cell_dynamics(cell), _cell_profile(cell)
-            ok = cluster_scan_eligible(reqs, cell.nodes, cell.cores,
-                                       cell.policy,
-                                       assignment=cell.assignment,
-                                       lb=cell.lb, warm=cell.warm,
-                                       dynamics=dyn, profile=prof)
+            ok = _scan_capable(cell) and cluster_scan_eligible(
+                reqs, cell.nodes, cell.cores, cell.policy,
+                assignment=cell.assignment, lb=cell.lb, warm=cell.warm,
+                dynamics=dyn, profile=prof)
             clusters.append((pos, (reqs, cell.nodes, cell.cores,
                                    cell.policy, cell.assignment, cell.lb,
                                    dyn, prof, None, cell.warm)))

@@ -14,7 +14,8 @@ the contiguous tail of its arrival sequence ``fn_ev[f]``, so the global best
 is found over the F queue heads, ties going to the smallest event index.
 
 Single-node and push cells run the frozen-priority regime
-(``freeze``): each arrival is routed at once -- to the least-loaded node
+(``freeze``; with capacity dynamics, node speeds or cold starts in
+float64, see :func:`freeze_scan_ref`): each arrival is routed at once -- to the least-loaded node
 (least ``busy + queued``, first on ties) or, under the home balancer, to
 the first node with a free slot on a walk from its home invoker -- and its
 priority
@@ -47,18 +48,18 @@ from ..core.simulator import OURS_PREWARM_EXTRA
 def event_step_supported(*, freeze, use_fc, fc_push, dyn, het, hedge, cold,
                          dup, stream=False, res=False, **_static) -> bool:
     """True when the static feature set is one the port scans: the pull
-    regime, with or without FC pull counts (``use_fc``), capacity dynamics
-    (``dyn``), node speeds (``het``) and the cold-start containers
-    (``cold``) -- the base pull configuration is the scope of the JAX
-    package's Pallas ``event_step``, ``dyn`` / ``het`` / ``cold`` its
-    oracle's float64 buckets -- or the static warm frozen-priority regime
-    (``freeze``, with or without the push FC rings ``fc_push``), which
-    counts FC without the pull counts.  ``res`` is named here because the
-    port has no resilience segment."""
+    regime or the frozen-priority regime (``freeze``, with or without the
+    push FC rings ``fc_push``; it counts FC without the pull counts
+    ``use_fc``), each with or without capacity dynamics (``dyn``), node
+    speeds (``het``) and the cold-start containers (``cold``) -- the base
+    pull configuration is the scope of the JAX package's Pallas
+    ``event_step``, the rest its oracle's.  Hedging (``hedge``, ``dup``),
+    the chunked stream and the resilience segment (``res``) are not
+    ported."""
     if hedge or dup or stream or res:
         return False
     if freeze:
-        return not (use_fc or dyn or het or cold)
+        return not use_fc
     return not fc_push
 
 
@@ -97,8 +98,9 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                    fc_ring: int = 1, dyn: bool = False, het: bool = False,
                    cold: bool = False):
     """Plain PyTorch event scan of a bucket of cells.  ``freeze`` runs the
-    frozen-priority regime (:func:`freeze_scan_ref`); the rest of this
-    docstring is the pull regime's.
+    frozen-priority regime (:func:`freeze_scan_ref`, with or without
+    ``dyn`` / ``het`` / ``cold``); the rest of this docstring is the pull
+    regime's.
 
     ``clk``/``ctr`` are the ``(B, f_len)`` / ``(B, i_len)`` initial carry
     planes (``repro_torch.core.planes.make_planes``), left unchanged;
@@ -149,7 +151,8 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         return freeze_scan_ref(clk, ctr, inp, n_nodes=n_nodes,
                                n_slots=n_slots, window=window,
                                fc_push=fc_push, fc_ring=fc_ring,
-                               horizon=horizon, n_steps=n_steps) + ({},)
+                               horizon=horizon, n_steps=n_steps, dyn=dyn,
+                               het=het, cold=cold)
     t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
     coef, cumf, fn_ev = inp["coef"], inp["cumf"], inp["fn_ev"].long()
     cores, nodes = inp["cores"].long(), inp["nodes"].long()
@@ -440,20 +443,48 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     return start, finish, prio, node, aux
 
 
+# the re-route rank of a call lost while queued (the JAX package's
+# ``_RORD_Q``): above every launch sequence, so ex-running calls re-arrive
+# first
+RORD_Q = 2 ** 30
+
+
 def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                     window: int, fc_push: bool, fc_ring: int,
-                    horizon: float, n_steps: int):
+                    horizon: float, n_steps: int, dyn: bool = False,
+                    het: bool = False, cold: bool = False):
     """Plain PyTorch event scan of a bucket of frozen-priority cells
     (single node, or push with the least-loaded or home balancer).
 
     ``clk``/``ctr`` are the initial carry planes with the ``freeze`` (and
-    ``fc_push``) segments, left unchanged; ``inp`` holds, besides the pull
-    inputs' ``t``/``fnid``/``p``/``cost``/``coef``/``cores``/``nodes``,
-    ``cnt`` ``(B, n+1)`` float32 (single-node FC's static window counts),
-    ``home0`` ``(B, n+1)`` (each call's home invoker) and ``route`` ``(B,)``
-    (0 least-loaded, 1 home).  Returns ``(start, finish, prio, node)``,
-    each ``(B, n+1)``: ``prio`` and ``node`` are the carry's ``fprio`` and
-    ``node_of`` at the end, each call's values fixed at its arrival."""
+    ``fc_push``, ``cold``, ``het``, ``dyn``) segments, left unchanged;
+    ``inp`` holds, besides the pull inputs'
+    ``t``/``fnid``/``p``/``cost``/``coef``/``cores``/``nodes``, ``cnt``
+    ``(B, n+1)`` (single-node FC's static window counts), ``home0`` ``(B,
+    n+1)`` (each call's home invoker) and ``route`` ``(B,)`` (0
+    least-loaded, 1 home), and the ``dyn`` / ``het`` inputs of
+    :func:`event_step_ref`.
+
+    ``dyn``, ``het`` and ``cold`` are the JAX oracle's float64 branches of
+    this regime.  ``cold`` keeps each (node, function)'s free containers
+    as under pull; a push call's pool is its routed node's.  ``het``
+    divides a dispatch's cost and runtime by its node's speed at dispatch,
+    stamps that speed on the slot (``sspd``), and the node's estimator
+    logs the measured service ``p / sspd`` at completion.  ``dyn`` routes
+    least-loaded over the active nodes; a kill frees its node's slots
+    *and queue*: the calls it was running and those queued on it re-arrive
+    at ``now + failure_detect``, and same-instant re-arrivals replay the
+    reference's order -- ex-running calls by launch sequence (``dseq``,
+    stamped from the launch count ``dcnt`` at each dispatch), then
+    ex-queued calls by their frozen priority (``rord``); a re-arrival is
+    routed, observed and ranked as an arrival; an activation dispatches on
+    its node while that node can take more.
+
+    Returns ``(start, finish, prio, node, aux)``, the first four ``(B,
+    n+1)``: ``prio`` and ``node`` are the carry's ``fprio`` and
+    ``node_of`` at the end, each call's values fixed at its (last)
+    arrival; a call dispatched twice keeps its last dispatch's start and
+    finish; ``aux`` as :func:`event_step_ref`'s."""
     t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
     cnt, home0, coef = inp["cnt"], inp["home0"].long(), inp["coef"]
     cores, nodes = inp["cores"].long(), inp["nodes"].long()
@@ -464,7 +495,7 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     dev, ft = t.device, t.dtype
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
-                          fc_ring=fc_ring)
+                          fc_ring=fc_ring, dyn=dyn, het=het, cold=cold)
     st = {k: v.clone() for k, v in layout.unpack(clk, ctr).items()}
     ai = st["ai"].long()
     fin_s, idx_s = st["fin_s"], st["idx_s"].long()
@@ -486,8 +517,24 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     req_ids = torch.arange(n1, device=dev)[None]
     inf = torch.tensor(float("inf"), dtype=ft, device=dev)
     zero = torch.tensor(0.0, dtype=ft, device=dev)
-    active = node_ids < nodes[:, None]
     c0, c1, c2, c3 = (coef[:, i] for i in range(4))
+    if dyn:
+        act_t, dead, killq = st["act_t"], st["dead"], st["killq"]
+        act_pend, rearr = st["act_pend"], st["rearr"]
+        next_tick, prov = st["next_tick"], st["prov"].long()
+        nfail, ndone = st["nfail"].long(), st["ndone"].long()
+        dseq, dcnt, rord = st["dseq"].long(), st["dcnt"].long(), \
+            st["rord"].long()
+        interval, thr, delay, detect = (inp["dynp"][:, k] for k in range(4))
+        maxn, nreq = inp["maxn"].long(), inp["nreq"].long()
+    else:
+        active = node_ids < nodes[:, None]
+    if het:
+        sspd = st["sspd"]
+    if cold:
+        freec, coldq = st["freec"].long(), st["coldq"]
+        ncold, nevt = st["ncold"].long(), st["nevt"].long()
+        extra = torch.tensor(OURS_PREWARM_EXTRA, dtype=ft, device=dev)
     start = torch.zeros(B, n1, dtype=ft, device=dev)
     finish = torch.zeros(B, n1, dtype=ft, device=dev)
 
@@ -497,20 +544,40 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                 & (fn_ids == f[:, None, None]))
 
     for _ in range(n_steps):
-        # -- event selection: arrival vs earliest completion ---------------
+        # -- event selection: (kill <) arrival <= completion (< re-arrival
+        # < activation < tick) at equal times, the first minimum wins
         t_a = t[rows, ai]
         flat = fin_s.reshape(B, -1)
         kflat = flat.argmin(1)
         t_c = flat[rows, kflat]
-        arr_first = t_a <= t_c
-        now = torch.where(arr_first, t_a, t_c)
+        if dyn:
+            cand = torch.stack(
+                [killq.min(1).values, t_a, t_c, rearr.min(1).values,
+                 torch.where(act_pend, act_t, inf).min(1).values,
+                 next_tick], 1)
+            e = cand.argmin(1)
+            now = cand[rows, e]
+        else:
+            e = (t_a > t_c).long()
+            now = torch.where(t_a <= t_c, t_a, t_c)
         none_left = torch.isinf(now)
         if bool(none_left.all()):
             break                # no event left anywhere: the carry is fixed
-        do_arr = arr_first & ~none_left
-        do_comp = ~arr_first & ~none_left
+        off = 1 if dyn else 0
+        do_arr = (e == off) & ~none_left
+        do_comp = (e == off + 1) & ~none_left
+        if dyn:
+            do_kill = (e == 0) & ~none_left
+            do_re = (e == 3) & ~none_left
+            do_act = (e == 4) & ~none_left
+            do_tick = (e == 5) & ~none_left
+            active = (act_t <= now[:, None]) & ~dead
+            any_kill, any_re, any_act, any_tick = torch.stack(
+                [do_kill.any(), do_re.any(), do_act.any(),
+                 do_tick.any()]).tolist()
 
-        # -- completion: free the slot, feed the node's ring ---------------
+        # -- completion: free the slot, feed the node's ring (with speeds,
+        # the measured service p / sspd) ----------------------------------
         kn = kflat // n_slots
         ks = kflat % n_slots
         j_done = idx_s.reshape(B, -1)[rows, kflat]
@@ -518,6 +585,8 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         m_cf = node_fn(kn, f_done) & do_comp[:, None, None]
         pos = rpos[rows, kn, f_done]
         v = p[rows, j_done]
+        if het:
+            v = v / sspd.reshape(B, -1)[rows, kflat]
         old = ring[rows, kn, f_done, pos]
         full = rlen[rows, kn, f_done] == window
         rsum = torch.where(
@@ -532,30 +601,102 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         busy = busy - m_kn.long()
         fin_s = torch.where(m_kn[:, :, None] & (slot_ids == ks[:, None, None]),
                             inf, fin_s)
+        if cold:
+            # -- release: the container returns to its free pool, or is
+            # evicted when the pool already holds `cores`
+            cap = freec[rows, kn, f_done] >= cores
+            freec = torch.where(node_fn(kn, f_done)
+                                & (do_comp & ~cap)[:, None, None],
+                                freec + 1, freec)
+            nevt = nevt + (do_comp & cap).long()
 
-        # -- arrival: route, observe on the routed node --------------------
+        if dyn:
+            ndone = ndone + do_comp.long()
+        if dyn and any_kill:
+            # -- kill: the node's running calls keep their launch sequence
+            # as their re-route rank, its queued calls leave the queue and
+            # rank after them; all re-arrive after the detection delay ----
+            kk = killq.argmin(1)
+            m_kk = (node_ids == kk[:, None]) & do_kill[:, None]
+            lost = torch.isfinite(fin_s[rows, kk]) & do_kill[:, None]
+            hit = torch.where(lost, idx_s[rows, kk], n)
+            m_lost = torch.zeros(B, n1, dtype=torch.bool, device=dev)
+            m_lost.scatter_(1, hit, True)
+            m_lost[:, n] = False
+            rval = torch.zeros(B, n1, dtype=torch.long, device=dev)
+            rval.scatter_(1, hit, dseq[rows, kk])
+            m_lostq = pend & (node_of == kk[:, None]) & do_kill[:, None]
+            pend = pend & ~m_lostq
+            lost_any = m_lost | m_lostq
+            rord = torch.where(m_lost, rval,
+                               torch.where(m_lostq, RORD_Q, rord))
+            rearr = torch.where(lost_any, (now + detect)[:, None], rearr)
+            nfail = nfail + lost_any.sum(1)
+            fin_s = torch.where(m_kk[:, :, None], inf, fin_s)
+            busy = torch.where(m_kk, 0, busy)
+            qn = torch.where(m_kk, 0, qn)
+            dead = dead | m_kk
+            killq = torch.where(m_kk, inf, killq)
+
+        if dyn and any_tick:
+            # -- autoscaler tick: the queue-per-slot rule ------------------
+            alldone = ndone >= nreq
+            n_alive = active.sum(1)
+            queued = qn.sum(1).to(torch.float32).to(ft)
+            fire = (do_tick & ~alldone & (prov < maxn)
+                    & (queued > thr * (n_alive * cores).clamp(min=1).to(
+                        torch.float32).to(ft)))
+            m_new = (node_ids == prov[:, None]) & fire[:, None]
+            act_t = torch.where(m_new, (now + delay)[:, None], act_t)
+            act_pend = act_pend | m_new
+            prov = prov + fire.long()
+            next_tick = torch.where(do_tick,
+                                    torch.where(alldone, inf,
+                                                now + interval),
+                                    next_tick)
+
+        # -- arrival or re-arrival: route, observe on the routed node -----
         i_ins = ai.clamp(max=n)
+        do_ins = do_arr
+        if dyn and any_re:
+            # same-instant re-arrivals: ex-running calls by launch
+            # sequence, then ex-queued ones by frozen priority, first
+            # index on ties
+            tie = rearr <= rearr.min(1).values[:, None]
+            run_k = torch.where(tie & (rord < RORD_Q), rord, 2 ** 31 - 1)
+            ir_run = run_k.argmin(1)
+            any_run = run_k[rows, ir_run] < 2 ** 31 - 1
+            ir_q = torch.where(tie & (rord >= RORD_Q), fprio, inf).argmin(1)
+            ir = torch.where(any_run, ir_run, ir_q)
+            rearr = torch.where((req_ids == ir[:, None]) & do_re[:, None],
+                                inf, rearr)
+            do_ins = do_arr | do_re
+            i_ins = torch.where(do_arr, i_ins, ir)
         f_i = fnid[rows, i_ins]
-        # least-loaded: least busy + queued, first on ties; padded nodes
+        # least-loaded: least busy + queued, first on ties; inactive nodes
         # never win
         load = torch.where(active, busy + qn, 2 ** 30)
         k_ll = load.argmin(1)
-        # home: walk from the home invoker to the first node with a free
-        # slot, else stay home
-        free_n = (busy < cores[:, None]) & active
-        h0 = home0[rows, i_ins]
-        walk = (h0[:, None] + node_ids) % nodes.clamp(min=1)[:, None]
-        wfree = free_n.gather(1, walk) & active
-        k_home = torch.where(wfree.any(1),
-                             walk[rows, wfree.to(torch.int32).argmax(1)], h0)
-        k_arr = torch.where(route == 1, k_home, k_ll)
+        if dyn:
+            k_arr = k_ll             # the home walk is static-capacity
+        else:
+            # home: walk from the home invoker to the first node with a
+            # free slot, else stay home
+            free_n = (busy < cores[:, None]) & active
+            h0 = home0[rows, i_ins]
+            walk = (h0[:, None] + node_ids) % nodes.clamp(min=1)[:, None]
+            wfree = free_n.gather(1, walk) & active
+            k_home = torch.where(wfree.any(1),
+                                 walk[rows, wfree.to(torch.int32).argmax(1)],
+                                 h0)
+            k_arr = torch.where(route == 1, k_home, k_ll)
         first = narr[rows, k_arr, f_i] == 0
         prev_used = torch.where(first, now, last_t[rows, k_arr, f_i])
-        m_af = node_fn(k_arr, f_i) & do_arr[:, None, None]
+        m_af = node_fn(k_arr, f_i) & do_ins[:, None, None]
         prev_t = torch.where(m_af, prev_used[:, None, None], prev_t)
         last_t = torch.where(m_af, now[:, None, None], last_t)
         narr = narr + m_af.long()
-        qn = qn + ((node_ids == k_arr[:, None]) & do_arr[:, None]).long()
+        qn = qn + ((node_ids == k_arr[:, None]) & do_ins[:, None]).long()
         ai = ai + do_arr.long()
         if fc_push:
             # log the arrival in the node's ring, then count the window
@@ -574,35 +715,81 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         est_i = torch.where(n_k > 0, rsum[rows, k_arr, f_i]
                             / n_k.clamp(min=1).to(ft), zero)
         prio_i = c0 * now + c1 * prev_used + (c2 + c3 * cnt_i) * est_i
-        m_ins = (req_ids == i_ins[:, None]) & do_arr[:, None]
+        m_ins = (req_ids == i_ins[:, None]) & do_ins[:, None]
         pend = pend | m_ins
         fprio = torch.where(m_ins, prio_i[:, None], fprio)
         node_of = torch.where(m_ins, k_arr[:, None].to(node_of.dtype),
                               node_of)
 
-        # -- dispatch on the node the event touched: its least frozen
-        # priority, first index on ties
-        k_d = torch.where(do_arr, k_arr, kn)
+        # -- dispatch on the node the event touched (an activation's: the
+        # new node): its least frozen priority, first index on ties
+        k_d = torch.where(do_ins, k_arr, kn)
+        if dyn:
+            ka = torch.where(act_pend, act_t, inf).argmin(1)
+            k_d = torch.where(do_act, ka, k_d)
         prio_vec = torch.where(pend & (node_of == k_d[:, None]), fprio, inf)
         j = prio_vec.argmin(1)
         prio_j = prio_vec[rows, j]
-        can = ~none_left & (busy[rows, k_d] < cores) & (prio_j < inf)
-        exec_start = torch.maximum(now, chan[rows, k_d]) + cost[rows, j]
+        if dyn:
+            can = ((do_ins | do_comp | do_act) & active[rows, k_d]
+                   & (busy[rows, k_d] < cores) & (prio_j < inf))
+        else:
+            can = ~none_left & (busy[rows, k_d] < cores) & (prio_j < inf)
+        cost_j, p_j = cost[rows, j], p[rows, j]
+        if cold:
+            # -- acquire: a free container of the node and function is a
+            # warm hit, else a prewarmed one starts cold
+            f_j = fnid[rows, j]
+            warm_hit = freec[rows, k_d, f_j] > 0
+            cost_j = cost_j + torch.where(warm_hit, zero, extra)
+            freec = torch.where(node_fn(k_d, f_j)
+                                & (can & warm_hit)[:, None, None],
+                                freec - 1, freec)
+            ncold = ncold + (can & ~warm_hit).long()
+            coldq = torch.where((req_ids == j[:, None]) & can[:, None],
+                                ~warm_hit[:, None], coldq)
+        if het:
+            # the node's speed at dispatch, eff = spd / slowdown, divides
+            # cost and runtime, as (x * slowdown) / spd (XLA's compilation
+            # of the oracle's x / eff); the slot keeps eff itself
+            spd_k, slow = inp["spd"][rows, k_d], _slowdown(inp, k_d, now)
+            eff = spd_k / slow
+            cost_j, p_j = cost_j * slow / spd_k, p_j * slow / spd_k
+        exec_start = torch.maximum(now, chan[rows, k_d]) + cost_j
         m_kd = (node_ids == k_d[:, None]) & can[:, None]
         chan = torch.where(m_kd, exec_start[:, None], chan)
-        fin_j = exec_start + p[rows, j]
+        fin_j = exec_start + p_j
         slot_free = (torch.isinf(fin_s[rows, k_d])
                      & (slot_ids[:, 0] < cores[:, None]))
         s = slot_free.to(torch.int32).argmax(1)
         m_ds = m_kd[:, :, None] & (slot_ids == s[:, None, None])
         fin_s = torch.where(m_ds, fin_j[:, None, None], fin_s)
         idx_s = torch.where(m_ds, j[:, None, None], idx_s)
+        if dyn:
+            dseq = torch.where(m_ds, dcnt[:, None, None], dseq)
+            dcnt = dcnt + can.long()
+        if het:
+            sspd = torch.where(m_ds, eff[:, None, None], sspd)
         busy = busy + m_kd.long()
         qn = qn - m_kd.long()
         pend = pend & ~((req_ids == j[:, None]) & can[:, None])
+        if dyn and any_act:
+            # the activation stays pending while its node can take more
+            still = (do_act & can & (qn.sum(1) > 0)
+                     & (busy[rows, ka] < cores))
+            act_pend = torch.where((node_ids == ka[:, None])
+                                   & do_act[:, None], still[:, None],
+                                   act_pend)
 
         # -- per-dispatch record; no-op events land on sentinel row n ------
         jn = torch.where(can, j, n)
         start[rows, jn] = exec_start
         finish[rows, jn] = fin_j
-    return start, finish, fprio, node_of
+    aux = {}
+    i32 = torch.int32
+    if dyn:
+        aux = {"nfail": nfail.to(i32), "ndone": ndone.to(i32),
+               "prov": prov.to(i32), "act_t": act_t, "dead": dead}
+    if cold:
+        aux.update(ncold=ncold.to(i32), nevt=nevt.to(i32), coldq=coldq)
+    return start, finish, fprio, node_of, aux

@@ -10,7 +10,9 @@ plain version: ``KERNEL_LAUNCHES`` / ``REF_LAUNCHES`` for ``event_step``'s
 pull kernel, ``FREEZE_LAUNCHES`` / ``FREEZE_REF_LAUNCHES`` for its
 frozen-priority kernel (single-node and push buckets), ``DYN_LAUNCHES`` /
 ``DYN_REF_LAUNCHES`` for its float64 pull kernel (pull buckets with
-capacity dynamics, node speeds or cold starts),
+capacity dynamics, node speeds or cold starts), ``FREEZE64_LAUNCHES`` /
+``FREEZE64_REF_LAUNCHES`` for its float64 frozen-priority kernel
+(single-node and push buckets with them),
 ``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
 ``DECODE_REF_LAUNCHES`` for the attention kernels, ``RGLRU_LAUNCHES`` /
 ``RGLRU_REF_LAUNCHES`` and ``RWKV6_LAUNCHES`` / ``RWKV6_REF_LAUNCHES`` for
@@ -45,6 +47,8 @@ FREEZE_LAUNCHES = 0
 FREEZE_REF_LAUNCHES = 0
 DYN_LAUNCHES = 0
 DYN_REF_LAUNCHES = 0
+FREEZE64_LAUNCHES = 0
+FREEZE64_REF_LAUNCHES = 0
 FLASH_LAUNCHES = 0
 FLASH_REF_LAUNCHES = 0
 DECODE_LAUNCHES = 0
@@ -61,6 +65,7 @@ _COUNTS = {
     "event_step": ("KERNEL_LAUNCHES", "REF_LAUNCHES"),
     "event_step_freeze": ("FREEZE_LAUNCHES", "FREEZE_REF_LAUNCHES"),
     "event_step_dyn": ("DYN_LAUNCHES", "DYN_REF_LAUNCHES"),
+    "event_step_freeze64": ("FREEZE64_LAUNCHES", "FREEZE64_REF_LAUNCHES"),
     "flash_attention": ("FLASH_LAUNCHES", "FLASH_REF_LAUNCHES"),
     "decode_attention": ("DECODE_LAUNCHES", "DECODE_REF_LAUNCHES"),
     "rglru_scan": ("RGLRU_LAUNCHES", "RGLRU_REF_LAUNCHES"),
@@ -143,11 +148,29 @@ EVENT_STEP_DYN_LAYOUT = ("chan", "fin_s", "last_t", "prev_t", "ring", "rsum",
                          "rlen", "rpos", "dead", "act_pend", "prov", "nfail",
                          "ndone", "xq", "freec", "ncold", "nevt", "coldq")
 
+# carry entries of the float64 frozen-priority kernel, in the order of
+# ``struct F64Layout`` in csrc/event_step.cu (an entry of a segment the
+# bucket lacks is 0)
+EVENT_STEP_FREEZE64_LAYOUT = (
+    "chan", "fin_s", "fprio", "last_t", "prev_t", "ring", "rsum", "fcr",
+    "sspd", "act_t", "killq", "rearr", "next_tick", "ai", "busy", "idx_s",
+    "narr", "node_of", "pend", "qn", "rlen", "rpos", "fcp", "freec", "ncold",
+    "nevt", "coldq", "dead", "act_pend", "prov", "nfail", "ndone", "dseq",
+    "dcnt", "rord")
+# lane-owned words of the float64 frozen-priority kernel's wide path
+# (``kF64SlotWords``, ``kF64NodeWords``): 6 a slot, 12 a node
+EVENT_STEP_FREEZE64_WIDE_WORDS = (6, 12)
+# slots a lane the float64 frozen-priority kernel is built for in shared
+# memory (the push grids' 4 x 8 cores and 3 x 6 autoscaled to 8 nodes); a
+# wider cell takes its wide path
+EVENT_STEP_FREEZE64_PER_LANE = (1, 2)
+
 # the launchers of csrc/event_step.cu and their pointer arguments: inputs,
 # outputs, scratch, layout, dims, plan
 EVENT_STEP_LAUNCHERS = {"event_step_launch": 19,
                         "event_step_freeze_launch": 20,
-                        "event_step_dyn_launch": 31}
+                        "event_step_dyn_launch": 31,
+                        "event_step_freeze64_launch": 33}
 _event_step_fns: dict = {}
 
 
@@ -204,16 +227,72 @@ def _dyn_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int, window: int,
             "cell_bytes": cell, "scratch_words": words}
 
 
+def event_step_freeze64_cell_bytes(staged: bool, n1: int, n_nodes: int,
+                                   n_fns: int, window: int,
+                                   cold: bool) -> int:
+    """Bytes of one cell's estimators, queue and free containers, and when
+    ``staged`` its rows, in the float64 frozen-priority kernel
+    (``f64_cell_bytes`` in csrc/event_step.cu): the float64 arrays (sum,
+    last and previous arrival, rings, rows t / p / cost, queue keys), the
+    int32 ones (length, position, arrivals, FC ring position; with
+    ``cold`` the free containers; queue nodes) and the 8-bit fnid."""
+    e = n_nodes * n_fns
+    nbytes = (8 * (3 * _round_up(e, 2) + _round_up(e * window, 2)
+                   + (4 if staged else 1) * _round_up(n1, 2))
+              + 4 * (4 * _round_up(e, 4) + _round_up(e if cold else 0, 4)
+                     + _round_up(n1, 4))
+              + (_round_up(n1, 16) if staged else 0))
+    return _round_up(nbytes, 16)
+
+
+def _freeze64_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int,
+                   window: int, fc_push: bool, fc_ring: int, dyn: bool,
+                   cold: bool) -> dict:
+    """The float64 frozen-priority kernel's plan (see
+    :func:`event_step_plan`)."""
+    nsl = n_nodes * n_slots
+    per_lane = next((pl for pl in EVENT_STEP_FREEZE64_PER_LANE
+                     if 32 * pl >= nsl), None)
+    cell = event_step_freeze64_cell_bytes(True, n1, n_nodes, n_fns, window,
+                                          cold)
+    staged = (per_lane is not None and n_nodes <= 32 and n_fns <= 256
+              and cell <= SMEM_BLOCK_BYTES)
+    words = 0
+    if not staged:
+        per_lane = max(1, -(-nsl // 32))
+        slot_w, node_w = EVENT_STEP_FREEZE64_WIDE_WORDS
+        words = (32 * (slot_w * per_lane + node_w * -(-n_nodes // 32))
+                 + event_step_freeze64_cell_bytes(
+                     False, n1, n_nodes, n_fns, window, cold) // 4)
+    if dyn:
+        words += 2 * _round_up(n1, 2) + _round_up(n1, 4)
+    if fc_push:
+        words += 2 * n_nodes * n_fns * fc_ring
+    return {"per_lane": per_lane, "wide": not staged, "staged": staged,
+            "cell_bytes": cell if staged else 0, "scratch_words": words}
+
+
 def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
                     window: int, freeze: bool = False, fc_push: bool = False,
                     fc_ring: int = 1, f64: bool = False,
                     dyn: bool = False, cold: bool = False) -> dict:
     """How the kernel runs a bucket of this shape, from the shape alone:
     the pull kernel's plan, with ``freeze`` the frozen-priority kernel's
-    (whose push FC rings, ``fc_push``, take ``fc_ring`` entries), or with
+    (whose push FC rings, ``fc_push``, take ``fc_ring`` entries), with
     ``f64`` the float64 pull kernel's (``dyn`` / ``het`` / ``cold``
     buckets; ``dyn`` sizes its per-row scratch, ``cold`` its free-container
-    counts).
+    counts), and with both the float64 frozen-priority kernel's.
+
+    The float64 frozen-priority kernel owns up to 2 slots and one node a
+    lane and stages, in shared memory, the rows t / p / cost (float64) and
+    fnid (8-bit), the per-(node, function) estimators and rings (float64),
+    the free containers (``cold``) and the queue (a 64-bit key and a node a
+    row) when one cell's fit (n_b up to ~5,000 at the push widths); else,
+    or past 64 slots, 32 nodes or 256 functions, it takes the wide path
+    (``per_lane`` = ceil(slots / 32)): all of that and its lane arrays in
+    the scratch, rows read in place.  The scratch adds, with ``dyn``, 3
+    words a row (re-arrival time, re-route rank), and with ``fc_push`` the
+    float64 FC rings.
 
     The float64 pull kernel owns up to 8 slots and one node and one
     function a lane (``per_lane``: its slots a lane), its ring in shared
@@ -241,6 +320,9 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     32)) in the scratch too, so every width is taken.  The push FC rings
     are always in the scratch.  ``scratch_words``: the scratch's 32-bit
     words a cell."""
+    if f64 and freeze:
+        return _freeze64_plan(n1, n_nodes, n_slots, n_fns, window, fc_push,
+                              fc_ring, dyn, cold)
     if f64:
         return _dyn_plan(n1, n_nodes, n_slots, n_fns, window, dyn, cold)
     if freeze:
@@ -507,6 +589,79 @@ def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
     return (*outs, aux)
 
 
+def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
+                              horizon, n_steps, fc_push, fc_ring, dyn, het,
+                              cold):
+    dev = clk.device
+    B, n1 = inp["t"].shape
+    n_fns, ncoef = inp["ring0"].shape[2], inp["coef"].shape[1]
+    f64, i32 = torch.float64, torch.int32
+    layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
+                          n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
+                          fc_ring=fc_ring, dyn=dyn, het=het, cold=cold)
+    n_ep = inp["epn"].shape[1] if het else 1
+
+    def opt(on, key, dtype, shape):
+        return _checked(inp[key], key, dtype, shape, dev) if on else None
+
+    args = _bucket_args(clk, ctr, inp, layout, ncoef, f64) + [
+        _checked(inp["cnt"], "cnt", f64, (B, n1), dev),
+        _checked(inp["home0"], "home0", i32, (B, n1), dev),
+        _checked(inp["route"], "route", i32, (B,), dev),
+        opt(dyn, "dynp", f64, (B, 5)), opt(dyn, "maxn", i32, (B,)),
+        opt(dyn, "nreq", i32, (B,)),
+        opt(het, "spd", f64, (B, n_nodes)), opt(het, "epn", i32, (B, n_ep)),
+        opt(het, "ept0", f64, (B, n_ep)), opt(het, "ept1", f64, (B, n_ep)),
+        opt(het, "epf", f64, (B, n_ep)),
+    ]
+    plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
+                           n_fns=n_fns, window=window, freeze=True, f64=True,
+                           fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
+                           cold=cold)
+    outs = [torch.zeros(B, n1, dtype=f64, device=dev) for _ in range(3)]
+    outs.append(torch.zeros(B, n1, dtype=i32, device=dev))
+    summ = act = dead = csum = coldq = None
+    if dyn:
+        summ = torch.zeros(B, 3, dtype=i32, device=dev)
+        act = torch.zeros(B, n_nodes, dtype=f64, device=dev)
+        dead = torch.zeros(B, n_nodes, dtype=i32, device=dev)
+    if cold:
+        # cold starts and evictions; each row's flag (the kernel copies the
+        # carry's in first)
+        csum = torch.zeros(B, 2, dtype=i32, device=dev)
+        coldq = torch.empty(B, n1, dtype=i32, device=dev)
+    scratch = (torch.empty(B * plan["scratch_words"], dtype=i32, device=dev)
+               if plan["scratch_words"] else None)
+    offs = layout.offsets()
+    lay = (ctypes.c_int * len(EVENT_STEP_FREEZE64_LAYOUT))(
+        *(offs.get(k, 0) for k in EVENT_STEP_FREEZE64_LAYOUT))
+    dims = (ctypes.c_int * 16)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
+                               ncoef, n_ep, layout.f_len, layout.i_len,
+                               int(bool(fc_push)), fc_ring, int(dyn),
+                               int(het), int(cold), n_steps)
+    plan_c = (ctypes.c_int * 5)(plan["per_lane"], int(plan["staged"]),
+                                int(plan["wide"]), plan["cell_bytes"],
+                                plan["scratch_words"])
+    fn = _event_step_lib("event_step_freeze64_launch")
+    ptrs = [None if x is None else x.data_ptr()
+            for x in args + outs + [summ, act, dead, csum, coldq, scratch]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*ptrs, ctypes.addressof(lay), ctypes.addressof(dims),
+                 ctypes.addressof(plan_c), float(horizon), stream)
+    if err != 0:
+        raise RuntimeError("event_step_freeze64_launch failed: CUDA error "
+                           f"{err}")
+    aux = {}
+    if dyn:
+        aux = {"nfail": summ[:, 0], "ndone": summ[:, 1], "prov": summ[:, 2],
+               "act_t": act, "dead": dead.to(torch.bool)}
+    if cold:
+        aux.update(ncold=csum[:, 0], nevt=csum[:, 1],
+                   coldq=coldq.to(torch.bool))
+    return (*outs, aux)
+
+
 def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
                n_slots: int, window: int, use_fc: bool, horizon: float,
                n_steps: int, fc_ring: int = 1, **flags):
@@ -515,22 +670,24 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     ``clk``/``ctr`` are the ``(B, f_len)`` / ``(B, i_len)`` carry planes
     (``repro_torch.core.planes.make_planes``) and ``inp`` the bucket's input
     tensors; ``flags`` are the JAX package's feature flags (``freeze``,
-    ``fc_push``, ``dyn``, ...), which must describe the pull regime (with
-    capacity dynamics ``dyn``, node speeds ``het`` and the cold-start
-    containers ``cold`` or without) or the static warm frozen-priority
-    regime (``freeze``, with the push FC rings of ``fc_ring`` entries when
-    ``fc_push``), or the call raises ``NotImplementedError``.
-    Frozen-priority buckets go to their own kernel (``event_step_plan(...,
-    freeze=True)``), whose ``prio`` and ``node`` are each call's values
-    fixed at its arrival; ``dyn`` / ``het`` / ``cold`` buckets (float64) to
-    the float64 pull kernel (``event_step_plan(..., f64=True)``).  Returns
-    ``(start, finish, prio, node, aux)``: rows ``[:n]`` are the per-request
-    records (a call dispatched twice keeps its last dispatch) and row ``n``
-    is the no-op sentinel (the kernels leave it 0); ``aux`` is ``{}``, or
-    with ``dyn`` each cell's ``nfail``, ``ndone``, ``prov`` (B,),
-    ``act_t`` and ``dead`` (B, nodes) at the end, and with ``cold`` its
-    ``ncold``, ``nevt`` (B,) and ``coldq`` (B, n+1)
-    (``event_step.event_step_ref``).
+    ``fc_push``, ``dyn``, ...), which must describe the pull regime or the
+    frozen-priority regime (``freeze``, with the push FC rings of
+    ``fc_ring`` entries when ``fc_push``), each with capacity dynamics
+    ``dyn``, node speeds ``het`` and the cold-start containers ``cold`` or
+    without, or the call raises ``NotImplementedError``.  Each goes to its
+    own kernel: static frozen-priority buckets to the freeze kernel
+    (``event_step_plan(..., freeze=True)``), whose ``prio`` and ``node``
+    are each call's values fixed at its arrival; ``dyn`` / ``het`` /
+    ``cold`` buckets (float64) to the float64 pull kernel
+    (``event_step_plan(..., f64=True)``) or, with ``freeze``, the float64
+    frozen-priority kernel (``event_step_plan(..., freeze=True,
+    f64=True)``).  Returns ``(start, finish, prio, node, aux)``: rows
+    ``[:n]`` are the per-request records (a call dispatched twice keeps
+    its last dispatch) and row ``n`` is the no-op sentinel (the kernels
+    leave it 0); ``aux`` is ``{}``, or with ``dyn`` each cell's ``nfail``,
+    ``ndone``, ``prov`` (B,), ``act_t`` and ``dead`` (B, nodes) at the
+    end, and with ``cold`` its ``ncold``, ``nevt`` (B,) and ``coldq`` (B,
+    n+1) (``event_step.event_step_ref``).
     The kernel keeps the FC counts itself from ``t`` and ``fnid`` and does
     not read ``cumf``, which must equal ``event_step.fc_prefix_counts`` of
     them (their prefix count over the real rows), as the bucket runner
@@ -542,14 +699,14 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     version on CPU tensors; ``"ref"`` runs the plain version on any
     device."""
     global KERNEL_LAUNCHES, REF_LAUNCHES, FREEZE_LAUNCHES, FREEZE_REF_LAUNCHES
-    global DYN_LAUNCHES, DYN_REF_LAUNCHES
+    global DYN_LAUNCHES, DYN_REF_LAUNCHES, FREEZE64_LAUNCHES
+    global FREEZE64_REF_LAUNCHES
     _check_force(force)
     if not event_step_supported(use_fc=use_fc, **flags):
         raise NotImplementedError(
-            "event_step covers the pull regime (with or without dyn / het / "
-            "cold) and the static warm frozen-priority regime (freeze, "
-            "fc_push) only (no hedge/dup/stream/res, no freeze with "
-            "dyn/het/cold: ROADMAP queue 1 item 4)")
+            "event_step covers the pull and the frozen-priority regimes, "
+            "with or without dyn / het / cold (no hedge/dup/stream/res, no "
+            "pull FC counts under freeze, no push FC rings under pull)")
     freeze, fc_push = bool(flags.get("freeze")), bool(flags.get("fc_push"))
     dyn, het = bool(flags.get("dyn")), bool(flags.get("het"))
     cold = bool(flags.get("cold"))
@@ -560,12 +717,20 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
         out = event_step_ref(clk, ctr, inp, use_fc=use_fc, freeze=freeze,
                              fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
                              het=het, cold=cold, **static)
-        if freeze:
+        if freeze and f64:
+            FREEZE64_REF_LAUNCHES += 1
+        elif freeze:
             FREEZE_REF_LAUNCHES += 1
         elif f64:
             DYN_REF_LAUNCHES += 1
         else:
             REF_LAUNCHES += 1
+        return out
+    if freeze and f64:
+        out = _event_step_freeze64_cuda(clk, ctr, inp, fc_push=fc_push,
+                                        fc_ring=fc_ring, dyn=dyn, het=het,
+                                        cold=cold, **static)
+        FREEZE64_LAUNCHES += 1
         return out
     if freeze:
         out = _event_step_freeze_cuda(clk, ctr, inp, fc_push=fc_push,

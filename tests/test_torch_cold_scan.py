@@ -24,8 +24,9 @@ Contracts (tolerance 0 unless a line says otherwise):
   ``CLUSTER_XCHECK_RTOL``;
 * ``scan_eligible`` and ``cluster_scan_eligible`` answer as the JAX
   package's, the trace replay's cells included (never eligible: 32
-  functions do not fit a node warm); cold push and single-node cells raise
-  ``NotImplementedError`` naming ROADMAP queue 1 item 4.
+  functions do not fit a node warm); cold push and single-node cells run
+  and equal the JAX package's results (``tests/test_torch_freeze64_
+  scan.py`` holds that regime bit for bit).
 
 The CUDA kernel is held against the plain version in
 ``tests/test_torch_cold_gpu.py``, on the card.
@@ -373,16 +374,31 @@ def test_trace_replay_cells_are_ineligible_as_in_jax():
 
 
 def test_cold_push_and_single_node_raise_not_implemented():
-    reqs = tsweep.make_workload(_cell("fc", 2, 4, 12, 0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tfp.simulate_cluster_scan(reqs, 2, 4, "fc", assignment="push",
-                                  warm=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tfp.simulate_cells_scan([(reqs, 4, "sept", False)], device="cpu")
-    for c in (_cell("fc", 2, 4, 12, 0, assignment="push", lb="home"),
-              _cell("sept", 1, 4, 12, 0)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            tsweep.run_cells_scan([c], metrics_only=True, device="cpu")
+    """Cold push and single-node cells, which raised before the float64
+    frozen-priority scan, now run and equal the JAX package's results
+    (``tests/test_torch_freeze64_scan.py`` holds them bit for bit)."""
+    c = _cell("fc", 2, 4, 12, 0)
+    jc = jsweep.SweepCell(**dataclasses.asdict(c))
+    reqs, jreqs = tsweep.make_workload(c), jsweep.make_workload(jc)
+    got = tfp.simulate_cluster_scan(reqs, 2, 4, "fc", assignment="push",
+                                    warm=False, device="cpu")
+    want = jfp.simulate_cluster_scan(jreqs, 2, 4, "fc", assignment="push",
+                                     warm=False)
+    assert (got.cold_starts, got.evictions) == (want.cold_starts,
+                                                want.evictions)
+    assert [(q.finish, q.cold_start) for q in reqs] == \
+        [(q.finish, q.cold_start) for q in jreqs]
+    got = tfp.simulate_cells_scan([(reqs, 4, "sept", False)],
+                                  metrics_only=True, device="cpu")[0]
+    want = jfp.simulate_cells_scan([(jreqs, 4, "sept", False)],
+                                   metrics_only=True)[0]
+    assert got.cold_starts == want.cold_starts > 0
+    np.testing.assert_array_equal(got.resp, want.resp)
+    cells = [_cell("fc", 2, 4, 12, 0, assignment="push", lb="home"),
+             _cell("sept", 1, 4, 12, 0)]
+    assert tsweep.run_cells_scan(cells, metrics_only=True, device="cpu") \
+        == jsweep.run_cells_scan([jsweep.SweepCell(**dataclasses.asdict(x))
+                                  for x in cells], metrics_only=True)
     key = (1 | 1 << 3,) + (256, 1, 4, 16, 1, 10, 1, 1, 1, 0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tfp._key_flags(key)
+    flags = tfp._key_flags(key)
+    assert flags["freeze"] and flags["cold"] and not flags["dyn"]

@@ -28,7 +28,8 @@ Contracts (tolerance 0 unless a line says otherwise):
   ``CROSS_CHECK_EXACT`` counters equal, the ``CROSS_CHECK_KEYS`` within
   ``CLUSTER_XCHECK_RTOL``;
 * ``cluster_scan_eligible`` answers as the JAX package's; push cells with
-  dynamics raise ``NotImplementedError``; a step budget cut short raises.
+  dynamics run and equal the JAX package's results (with the home
+  balancer they are refused, as there); a step budget cut short raises.
 
 The CUDA kernel is held against the plain version in
 ``tests/test_torch_dyn_gpu.py``, on the card.
@@ -437,14 +438,29 @@ def test_eligibility_answers_as_jax():
 
 
 def test_push_dynamics_raise_not_implemented():
-    reqs = tsweep.make_workload(_burst_cell("fc", 2, 6, 15, 0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tfp.simulate_cluster_scan(reqs, 2, 6, "fc", assignment="push",
-                                  dynamics=ClusterDynamics(fail=((0, 5.0),)),
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    """Push cells with capacity dynamics, which raised before the float64
+    frozen-priority scan, now run and equal the JAX package's results
+    (``tests/test_torch_freeze64_scan.py`` holds them bit for bit); with
+    the home balancer they stay outside the scan, as in the JAX package."""
+    c = _burst_cell("fc", 2, 6, 15, 0)
+    jc = jsweep.SweepCell(**dataclasses.asdict(c))
+    reqs, jreqs = tsweep.make_workload(c), jsweep.make_workload(jc)
+    got = tfp.simulate_cluster_scan(
+        reqs, 2, 6, "fc", assignment="push",
+        dynamics=ClusterDynamics(fail=((0, 5.0),)), device="cpu")
+    want = jfp.simulate_cluster_scan(
+        jreqs, 2, 6, "fc", assignment="push",
+        dynamics=jcluster.ClusterDynamics(fail=((0, 5.0),)))
+    assert got.failures == want.failures > 0
+    assert [q.finish for q in reqs] == [q.finish for q in jreqs]
+    cells = [_burst_cell("fc", 2, 6, 15, 0, assignment="push",
+                         autoscale=True)]
+    assert tsweep.run_cells_scan(cells, device="cpu") == \
+        jsweep.run_cells_scan([jsweep.SweepCell(**dataclasses.asdict(x))
+                               for x in cells])
+    with pytest.raises(ValueError):
         tsweep.run_cells_scan([_burst_cell("fc", 2, 6, 15, 0,
-                                           assignment="push",
+                                           assignment="push", lb="home",
                                            autoscale=True)], device="cpu")
 
 

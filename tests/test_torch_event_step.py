@@ -195,22 +195,80 @@ def test_burst_bucket_bit_identical(policy, use_fc):
 
 def test_supported_matrix_equals_jax():
     """The port's scope is the JAX package's Pallas scope (base pull) plus
-    the static warm frozen-priority regime -- ``freeze``, with or without
-    ``fc_push``, and no other segment (``tests/test_torch_freeze_scan.py``
-    holds that regime to the JAX oracle) -- and the pull regime with
+    the frozen-priority regime -- ``freeze``, with or without ``fc_push``,
     capacity dynamics (``dyn``), node speeds (``het``) and cold starts
-    (``cold``), with or without FC counts (``tests/test_torch_dyn_scan.py``,
-    ``tests/test_torch_cold_scan.py``)."""
-    others = ("dyn", "het", "cold", "hedge", "dup", "stream")
+    (``cold``), without the pull FC counts (``tests/test_torch_freeze_
+    scan.py`` and ``tests/test_torch_freeze64_scan.py`` hold that regime
+    to the JAX oracle) -- and the pull regime with ``dyn``, ``het`` and
+    ``cold``, with or without FC counts (``tests/test_torch_dyn_scan.py``,
+    ``tests/test_torch_cold_scan.py``).  Hedging, racing copies and the
+    chunked stream stay out."""
+    others = ("hedge", "dup", "stream")
     for bits in itertools.product([False, True], repeat=len(FEATURES) + 2):
         flags = dict(zip(FEATURES + ("use_fc", "stream"), bits))
         frozen = (flags["freeze"] and not flags["use_fc"]
                   and not any(flags[k] for k in others))
         pull64 = (not flags["freeze"] and not flags["fc_push"]
                   and (flags["dyn"] or flags["het"] or flags["cold"])
-                  and not any(flags[k] for k in others[3:]))
+                  and not any(flags[k] for k in others))
         assert event_step_supported(**flags) == (jax_supported(**flags)
                                                  or frozen or pull64), flags
+
+
+def _freeze64_equals_jax(feat):
+    """A push bucket of two real-burst cells with ``feat`` (capacity
+    dynamics, node speeds or cold starts) through the port's
+    ``event_step`` on the CPU and the JAX oracle in float64: rows ``[:n]``
+    and the summary bit-identical."""
+    from repro_torch.core import sweep as tsweep
+
+    kw = {"dyn": dict(fail_spec=((0, 5.0),), autoscale=True,
+                      provision_delay=2.0, scale_up=1.0, max_nodes=3),
+          "het": dict(degrade=((0, 1.0, 300.0, 5.0),)),
+          "cold": dict(warm=False)}[feat]
+    cells = []
+    for s in range(2):
+        c = tsweep.SweepCell(policy="sept", nodes=2, cores=2, intensity=10,
+                             seed=s, assignment="push", **kw)
+        reqs = tsweep.make_workload(c)
+        cells.append(tfp._ScanCell(
+            requests=reqs, feats=tfp._arrival_features(reqs), cores=2,
+            nodes=2, policy="sept", assignment="push", warm=c.warm,
+            dynamics=tsweep._cell_dynamics(c),
+            profile=tsweep._cell_profile(c)))
+    key = tuple(max(col) for col in zip(*{c.bucket() for c in cells}))
+    host, static = tfp._fill_bucket(key, cells), tfp._scan_static(key)
+    assert static["freeze"] and static[feat]
+    seg = {k: static[k] for k in ("n_nodes", "n_slots", "window", "freeze",
+                                  "fc_push", "dyn", "het", "hedge", "cold",
+                                  "dup", "fc_ring")}
+    with jax.enable_x64():
+        arrs = {k: jnp.asarray(v) for k, v in host.items()}
+        clk, ctr = jax.vmap(partial(jfp._make_planes, n_copies=1,
+                                    **seg))(arrs)
+        want = jax.tree_util.tree_map(np.asarray, jops.event_step(
+            clk, ctr, arrs, force="ref", n_copies=1, n_ep=key[8],
+            use_fc=False, horizon=static["horizon"],
+            n_steps=static["n_steps"], **seg))
+    got = tops.event_step(torch.from_numpy(np.array(clk)),
+                          torch.from_numpy(np.array(ctr)),
+                          {k: torch.from_numpy(v) for k, v in host.items()},
+                          **static)
+    n = key[1]
+    if feat == "dyn":
+        (j_s, es_s, fs_s, _, _), summ = want
+        rows = [np.zeros_like(es_s[:, :n + 1]) for _ in range(2)]
+        for b in range(len(j_s)):
+            for r, v in zip(rows, (es_s, fs_s)):
+                r[b, j_s[b]] = v[b]
+        rows += [summ["prio"], summ["node"]]
+    else:
+        rows, summ = list(want[:4]), want[4]
+    for a, b in zip(rows, got[:4]):
+        np.testing.assert_array_equal(np.asarray(a)[:, :n], b.numpy()[:, :n])
+    assert bool(got[4]) == (feat != "het")    # het adds no summary
+    for k, v in got[4].items():
+        np.testing.assert_array_equal(np.asarray(summ[k]), v.numpy())
 
 
 @pytest.mark.parametrize("feat", FEATURES + ("stream", "res"))
@@ -225,9 +283,11 @@ def test_unsupported_flags_raise(feat):
         flags["use_fc"] = True
     if feat in ("dyn", "het", "cold"):
         # capacity dynamics, node speeds and cold starts are in scope under
-        # pull; the frozen-priority regime's dyn / het / cold segments are
-        # not ported
-        flags["freeze"] = True
+        # pull and, since the float64 frozen-priority scan, under freeze:
+        # that call runs and equals the JAX oracle; with hedging, still
+        # not ported, it raises
+        _freeze64_equals_jax(feat)
+        flags.update(freeze=True, hedge=True)
     with pytest.raises(NotImplementedError):
         tops.event_step(clk_t, ctr_t, tens, **{**static, **flags})
 

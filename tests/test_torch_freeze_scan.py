@@ -373,9 +373,14 @@ def test_ineligible_cells_raise():
                  (reqs, 64, "sept")):              # beyond the warm regime
         with pytest.raises(ValueError):
             tfp.simulate_cells_scan([item], device="cpu")
-    # a cold start on one node needs the frozen-priority cold segment
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tfp.simulate_cells_scan([(reqs, 4, "fc", False)], device="cpu")
+    # a cold start on one node runs the float64 frozen-priority scan
+    # (tests/test_torch_freeze64_scan.py holds it to the JAX package);
+    # outside the ample-memory regime it is ineligible
+    res = tfp.simulate_cells_scan([(reqs, 4, "fc", False)], device="cpu")[0]
+    assert res.cold_starts > 0 and all(q.finish > 0 for q in reqs)
+    with pytest.raises(ValueError):
+        tfp.simulate_cells_scan([(reqs, 4, "fc", False)], memory_mb=512,
+                                device="cpu")
     with pytest.raises(ValueError):
         tfp.simulate_cluster_cells_scan(
             [(reqs, 2, 4, "fc", "push", "round_robin")], device="cpu")

@@ -1,7 +1,8 @@
 """Card times of the port's kernels, to compare two trees.
 
     python3 tools/scan_bench.py [--src DIR]
-                                [--mode scans|event_step|dyn|sweep|serve]
+                                [--mode scans|event_step|freeze|dyn|
+                                        freeze64|sweep|serve]
                                 [--profile] [--repeat N] [--arch ARCH]
 
 Imports ``repro_torch`` from DIR (default: the ``src`` of the checkout
@@ -25,9 +26,20 @@ cores, n_b = 1,024, SEPT and FC) and each tiled to 4,096 cells, with
 Its ``bound_ms`` is the bytes' time (its operations take less), the bytes
 counted by ``chip_smoke.needed_bytes``.
 
+``--mode freeze``: the float32 frozen-priority kernel on
+``chip_smoke.py``'s freeze checks but the 16 x 18 one (Table 3's single-node
+FC and SEPT buckets at 10 cores, intensity 120; push FC on 4 x 8 cores,
+least-loaded and home; Fig 6's fleet), each bucket built by DIR's own
+bucket runner: ``ms``.
+
 ``--mode dyn``: the float64 pull kernel on ``chip_smoke.py``'s three
 float64 checks (the frontier and straggler grids' samples, the failure +
 speed bucket), each bucket built by DIR's own bucket runner: ``ms``.
+
+``--mode freeze64``: the float64 frozen-priority kernel on
+``chip_smoke.py``'s six checks of it (the cold matrix's push buckets, the
+straggler grid's slowed push bucket, the steal matrix's cells without
+hedging, cold single-node cells): ``ms``.  DIR must have that kernel.
 
 ``--mode sweep``: the sweep's main path as ``chip_smoke.py`` runs it
 (``chip_smoke.main_sweep``, 2,000 cells), once on one seed to warm up and
@@ -250,6 +262,62 @@ def dyn_cases(chip_smoke):
                      ops.event_step(clk, ctr, inp, **static))
 
 
+def freeze_cases(chip_smoke):
+    """(name, fn) of each float32 frozen-priority case, built by the
+    imported tree's bucket runner from ``chip_smoke.py``'s freeze checks."""
+    from repro_torch.core import fastpath
+    from repro_torch.core.planes import make_planes
+    from repro_torch.kernels import ops
+
+    cases = {
+        "single_fc_c10_v120": [("fc", 1, 10, 120, s, None, 10)
+                               for s in range(256)],
+        "single_sept_c10_v120": [("sept", 1, 10, 120, s, None, 10)
+                                 for s in range(256)],
+        "push_fc_ll_4x8": [("fc", 4, 8, 30, s, "least_loaded", 16)
+                           for s in range(256)],
+        "push_fc_home_4x8": [("fc", 4, 8, 30, s, "home", 16)
+                             for s in range(256)],
+        "push_fc_home_fig6": [("fc", 4, 18, 30, s, "home", 72)
+                              for s in range(64)]}
+    for name, specs in cases.items():
+        key, _, host = chip_smoke.freeze_bucket(specs)
+        static = fastpath._scan_static(key)
+        inp = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+        clk, ctr = make_planes(inp, n_nodes=static["n_nodes"],
+                               n_slots=static["n_slots"],
+                               window=static["window"], freeze=True,
+                               fc_push=static["fc_push"],
+                               fc_ring=static["fc_ring"])
+        yield name, (lambda clk=clk, ctr=ctr, inp=inp, static=static:
+                     ops.event_step(clk, ctr, inp, **static))
+
+
+def freeze64_cases(chip_smoke):
+    """(name, fn) of each float64 frozen-priority case: ``chip_smoke.py``'s
+    checks of that kernel, built by the imported tree's bucket runner."""
+    from repro_torch.core import fastpath
+    from repro_torch.kernels import ops
+
+    cold, strag = chip_smoke.cold_push_cells(), \
+        chip_smoke.straggler_push_cells()
+    cases = {
+        "cold_push_fc": [c for c in cold if c.policy == "fc"],
+        "cold_push_sept": [c for c in cold if c.policy == "sept"],
+        "straggler_push": [c for c in strag if c.degrade is not None],
+        "steal_fc": chip_smoke.steal_cells("fc"),
+        "steal_sept": chip_smoke.steal_cells("sept"),
+        "single_cold": chip_smoke.single_cold_cells()}
+    dev = torch.device("cuda")
+    for name, cells in cases.items():
+        prepared = [chip_smoke.scan_cell(c) for c in cells]
+        key = tuple(max(col) for col in zip(*{c.bucket() for c in prepared}))
+        inp, clk, ctr, static = chip_smoke.bucket_tensors(
+            key, fastpath._fill_bucket(key, prepared), dev)
+        yield name, (lambda clk=clk, ctr=ctr, inp=inp, static=static:
+                     ops.event_step(clk, ctr, inp, **static))
+
+
 def serve_case(chip_smoke, arch: str) -> dict:
     """``--mode serve``'s numbers for ``arch`` on the imported tree."""
     from repro_torch.models import decode_step, init_cache
@@ -287,8 +355,8 @@ def serve_case(chip_smoke, arch: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--mode", choices=("scans", "event_step", "dyn",
-                                       "sweep", "serve"),
+    ap.add_argument("--mode", choices=("scans", "event_step", "freeze",
+                                       "dyn", "freeze64", "sweep", "serve"),
                     default="scans")
     ap.add_argument("--arch", default="qwen3_1_7b",
                     help="the arch served (--mode serve)")
@@ -328,9 +396,13 @@ def main() -> int:
                 "launches": launches, "plain_launches": plain}),
                 flush=True)
         return 0
-    if args.mode == "dyn":
-        for name, fn in dyn_cases(chip_smoke):
-            print(json.dumps({"src": args.src, "kernel": "event_step_dyn",
+    modes = {"freeze": ("event_step_freeze", freeze_cases),
+             "dyn": ("event_step_dyn", dyn_cases),
+             "freeze64": ("event_step_freeze64", freeze64_cases)}
+    if args.mode in modes:
+        kernel, cases = modes[args.mode]
+        for name, fn in cases(chip_smoke):
+            print(json.dumps({"src": args.src, "kernel": kernel,
                               "case": name, "ms": time_call(fn, 10)}),
                   flush=True)
         return 0
