@@ -96,6 +96,21 @@ version on the card first:
    unhedged push half (25 cells: its 5 healthy cells go to the float32
    freeze kernel), every row held to the plain version's.
 
+   Then straggler hedging (steal and duplicate) through the float64
+   frozen-priority kernel's hedged instantiations: the kernel against its
+   plain version, bit for bit (rows, backups, steals, calls lost and done,
+   attempts, steps taken), on the straggler grid's hedged push bucket
+   (home balancer, node 0 2-8x slow, hedging at 3x the estimate, 20
+   cells), the steal matrix's cells with a kill and the autoscaler (FC),
+   the dup matrix's push cells at intensity 16 (4 copies a call), a cold
+   bucket with node speeds, one node (steals go back to it) and 3 x 24
+   cores (the wide path); then ``run_cells_scan(metrics_only=True)`` over
+   the whole straggler grid (120 cells: 75 pull, 25 unhedged and 20
+   hedged push), the steal matrix (32 cells) and the dup matrix (24 cells;
+   its pull half a no-op of hedging), each checked cell's row held to the
+   plain version's, and the straggler grid's claim: how much of the p95
+   that node 0's slowdown costs the push model hedging recovers.
+
 5. The other decoder-only families served at full width in bfloat16 as
    in 2: deepseek_7b, qwen2_5_14b, gemma3_27b (5 local : 1 global
    windowed attention, 62 layers), qwen2_moe_a2_7b (60 experts, top-4)
@@ -243,17 +258,21 @@ def mega_bucket(policy: str, n_cells: int, seed0: int = 0, nodes: int = 4,
     return key, cells, fastpath._fill_bucket(key, cells)
 
 
-def bucket_tensors(key, host, dev):
+def bucket_tensors(key, host, dev, cells=None):
     """A filled bucket on the card, its carry planes and its static
-    ``event_step`` arguments, as the bucket runner makes them."""
-    static = fastpath._scan_static(key)
+    ``event_step`` arguments, as the bucket runner makes them (for the
+    prepared ``cells``, whose step budget a hedged bucket takes)."""
+    static = (fastpath._scan_static(key) if cells is None
+              else fastpath._bucket_static(key, cells))
     inp = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    hedge = ({k: static[k] for k in ("hedge", "dup", "n_copies")}
+             if static.get("hedge") else {})
     clk, ctr = make_planes(inp, n_nodes=static["n_nodes"],
                            n_slots=static["n_slots"],
                            window=static["window"], freeze=static["freeze"],
                            fc_push=static["fc_push"],
                            fc_ring=static["fc_ring"], dyn=static["dyn"],
-                           het=static["het"], cold=static["cold"])
+                           het=static["het"], cold=static["cold"], **hedge)
     return inp, clk, ctr, static
 
 
@@ -420,12 +439,16 @@ def scan_cell(c) -> "fastpath._ScanCell":
     at one node without dynamics or speeds, else a pull or push cluster
     cell with its dynamics, speeds and warm or cold start."""
     reqs = sweep.make_workload(c)
+    # hedging only where the cell has it (tools/scan_bench.py runs this on
+    # trees from before it)
+    kw = ({"hedging": sweep._cell_hedging(c)}
+          if getattr(c, "hedge_multiple", None) is not None else {})
     return fastpath._ScanCell(
         requests=reqs, feats=fastpath._arrival_features(reqs),
         cores=c.cores, nodes=c.nodes, policy=c.policy,
         assignment=c.assignment if sweep._cluster_shaped(c) else "single",
         lb=c.lb, dynamics=sweep._cell_dynamics(c),
-        profile=sweep._cell_profile(c), warm=c.warm)
+        profile=sweep._cell_profile(c), warm=c.warm, **kw)
 
 
 def plain_rows(cells, dev) -> list[dict]:
@@ -706,12 +729,13 @@ def frontier_claim(cells, rows) -> list[str]:
     return lines + [f"claim: {claim}"]
 
 
-def f64_needed_bytes(cells, static: dict) -> int:
+def f64_needed_bytes(cells, static: dict, backups=None) -> int:
     """Bytes the float64 scan of ``cells`` must move, each read once and
     each write once, at each cell's own widths (its nodes -- with the
     autoscaler its node cap --, cores and functions; under ``freeze`` its
     ``n + 1`` queue entries and, with ``fc_push``, rings of the entries its
-    FC window needs): the carry planes (8-byte clocks, 4-byte counters),
+    FC window needs, and for a hedged cell the one entry each of its
+    ``backups`` logs on the node it goes to): the carry planes (8-byte clocks, 4-byte counters),
     rows ``[:n+1]`` of t / p / cost (8 bytes) and fnid (4), five
     coefficients, cores and nodes; under pull the ``n`` queue entries of
     ``fn_ev``, under ``freeze`` the route and the static FC counts and the
@@ -720,17 +744,21 @@ def f64_needed_bytes(cells, static: dict) -> int:
     cap and call count; with ``het`` each node's speed and each episode;
     and the outputs: rows ``[:n]`` of start / finish / prio (8) and node
     (4), with ``dyn`` the summary (three counts, each node's activation
-    time and dead flag), with ``cold`` each row's flag and two counts."""
+    time and dead flag), with ``cold`` each row's flag and two counts; with
+    ``hedge`` the carry's hedge segments (under ``dup`` its copies' queue
+    entries), three parameters, four counts and each row's attempts."""
     freeze, fc_push = static["freeze"], static["fc_push"]
     total = 0
-    for c in cells:
+    for i, c in enumerate(cells):
         n = len(c.feats.t)
         nodes = c.node_cap()
+        ring = int(c.feats.count.max()) if fc_push else 1
         lay = carry_layout(
             n_nodes=nodes, n_slots=c.cores, window=static["window"],
             n_fns=len(c.feats.fns), freeze=freeze, fc_push=fc_push,
-            n1=n + 1, fc_ring=int(c.feats.count.max()) if fc_push else 1,
-            dyn=static["dyn"], het=static["het"], cold=static["cold"])
+            n1=n + 1, fc_ring=ring, dyn=static["dyn"], het=static["het"],
+            cold=static["cold"], hedge=c.hedge, dup=c.dup,
+            n_copies=c.n_copies)
         if freeze:
             rows = (8 * n * (c.policy == "fc" and not fc_push)
                     + 4 * n * (c.lb == "home" and c.assignment == "push")
@@ -745,6 +773,10 @@ def f64_needed_bytes(cells, static: dict) -> int:
             nbytes += 8 * nodes + 28 * len(c.profile.episodes)
         if static["cold"]:
             nbytes += 4 * n + 8
+        if c.hedge:
+            nbytes += 20 + 16 + 4 * n
+            if fc_push:
+                nbytes += 8 * int(backups[i])
         total += nbytes
     return total
 
@@ -766,11 +798,13 @@ def check_f64(case: str, cells, dev) -> tuple[dict, dict]:
         raise AssertionError(f"{case}: cells of several feature sets")
     key = tuple(max(col) for col in zip(*keys))
     inp, clk, ctr, static = bucket_tensors(
-        key, fastpath._fill_bucket(key, prepared), dev)
-    if not (static["dyn"] or static["het"] or static["cold"]):
+        key, fastpath._fill_bucket(key, prepared), dev, prepared)
+    hedge = static["hedge"]
+    if not (static["dyn"] or static["het"] or static["cold"] or hedge):
         raise AssertionError(f"{case}: not a float64 bucket")
     freeze = static["freeze"]
-    what, counter = (("freeze64", "FREEZE64_LAUNCHES") if freeze
+    what, counter = (("hedge", "HEDGE_LAUNCHES") if hedge
+                     else ("freeze64", "FREEZE64_LAUNCHES") if freeze
                      else ("dyn", "DYN_LAUNCHES"))
     n1 = key[1] + 1
     plain = []                       # the plain version, run once
@@ -804,7 +838,8 @@ def check_f64(case: str, cells, dev) -> tuple[dict, dict]:
         if not (np.isfinite(fin[b, :n]).all() and (fin[b, :n] > 0).all()):
             raise AssertionError(f"{case}: cell {b} has unfinished calls")
     aux = {k: v.cpu().numpy() for k, v in ref[4].items()}
-    if static["dyn"] and (aux["ndone"][:nc] != n_real).any():
+    if ((static["dyn"] or hedge)
+            and (aux["ndone"][:nc] != n_real).any()):
         raise AssertionError(f"{case}: calls left unfinished")
     lost = aux["nfail"][:nc].tolist() if static["dyn"] else [0] * nc
     finish = ref[1].cpu().numpy()
@@ -817,6 +852,9 @@ def check_f64(case: str, cells, dev) -> tuple[dict, dict]:
         if static["cold"]:
             extras.update(cold_starts=int(aux["ncold"][b]),
                           evictions=int(aux["nevt"][b]))
+        if hedge:
+            extras.update(backups=int(aux["nbk"][b]),
+                          steals=int(aux["nstl"][b]))
         mo = fastpath._cell_scan_metrics(sc, finish[b], {}, extras)
         rows_plain.append(sweep._metrics_from_scan(c, mo))
     out = {"case": case, "cells": nc, "bsz": int(clk.shape[0]),
@@ -831,20 +869,28 @@ def check_f64(case: str, cells, dev) -> tuple[dict, dict]:
                            else None),
            "evictions": (int(aux["nevt"][:nc].sum()) if static["cold"]
                          else None),
+           "backups": aux["nbk"][:nc].tolist() if hedge else None,
+           "steals": aux["nstl"][:nc].tolist() if hedge else None,
+           "attempts": int(aux["att"][:nc].sum()) if hedge else None,
+           "steps": aux["stepc"][:nc].tolist() if hedge else None,
            "plan": ops.event_step_plan(
                n1=n1, n_nodes=static["n_nodes"], n_slots=static["n_slots"],
                n_fns=key[4], window=static["window"], freeze=freeze,
                f64=True, fc_push=static["fc_push"],
                fc_ring=static["fc_ring"], dyn=static["dyn"],
-               cold=static["cold"])}
+               cold=static["cold"], hedge=hedge, dup=static["dup"],
+               n_copies=static["n_copies"])}
     out["ms"] = time_call(lambda: ops.event_step(clk, ctr, inp, **static),
                           reps=10)
     out["plain_ms"] = plain_ms
     # the longest cell's events: its arrivals and completions, the
-    # re-arrivals and re-dispatches of what the kills lost (2 each)
-    steps = max(2 * n + 2 * f for n, f in zip(n_real, lost))
+    # re-arrivals and re-dispatches of what the kills lost (2 each); with
+    # hedging the kernel counts its steps (deadline fires included)
+    steps = (max(out["steps"]) if hedge
+             else max(2 * n + 2 * f for n, f in zip(n_real, lost)))
     out["ns_per_step"] = out["ms"] * 1e6 / steps
-    moved = f64_needed_bytes(prepared, static)
+    moved = f64_needed_bytes(prepared, static,
+                             aux["nbk"][:nc] if hedge else None)
     # float64 operations this data needs.  Pull: a completion's ring update
     # (3); a dispatch's priority over the cell's functions (5 each, 7 with
     # the enqueue clock, 9 with FC counts too) and its start and finish (2,
@@ -852,10 +898,15 @@ def check_f64(case: str, cells, dev) -> tuple[dict, dict]:
     # dispatch: its estimate (1) and priority (6) at (re-)arrival, its
     # start and finish (2; 5 more with a speed: the slowdown, the speed and
     # the measured service; one more with the prewarm charge) and its
-    # completion's ring update (2)
+    # completion's ring update (2); with hedging the watch's arm at each
+    # insertion (the controller's estimate, its floor, multiple and sum: 4)
+    # and the controller ring's update at each completion (2), a backup an
+    # insertion and a dispatch more
     if freeze:
-        per = 11 + 5 * static["het"] + static["cold"]
-        ops_n = sum(per * (n + f) for n, f in zip(n_real, lost))
+        per = 11 + 5 * static["het"] + static["cold"] + 6 * hedge
+        nbk = aux["nbk"][:nc].tolist() if hedge else [0] * nc
+        ops_n = sum(per * (n + f + k)
+                    for n, f, k in zip(n_real, lost, nbk))
     else:
         per_fn = 5 + 2 * static["dyn"] + 2 * static["use_fc"]
         ops_n = sum(3 * n + (n + f) * (len(c.feats.fns) * per_fn + 2
@@ -1170,6 +1221,279 @@ def freeze64_paths(dev, kern_fz: dict) -> dict:
                   for k, r in ck.items()},
         **{f"{k}_{f}": r[f] for k, r in (("cold_push", cold),
                                           ("straggler_push", strag))
+           for f in ("cells_per_s", "device_share")}}
+
+
+DEG5 = ((0, 1.0, 300.0, 5.0),)
+
+
+def straggler_grid_cells() -> list:
+    """The whole straggler grid (benchmarks/engine_bench.py::
+    straggler_spec with its cell filter): FC on 4 x 8 cores, a 32-core
+    burst, node 0 healthy or 2 / 4 / 6 / 8x slow from 2 s to 300 s, 5
+    seeds; pull at intensities 18, 45 and 96 (75 cells), push under the
+    home balancer at 18 (STRAGGLER_V's claim), unhedged (25 cells) and,
+    slowed, hedged at 3x the estimate (20 cells): 120 cells."""
+    degrades = (None,) + tuple(((0, 2.0, 300.0, s),)
+                               for s in (2.0, 4.0, 6.0, 8.0))
+
+    def keep(c):
+        if c.hedge_multiple is not None:
+            return (c.assignment == "push" and c.degrade is not None
+                    and c.intensity == 18)
+        return c.assignment == "pull" or c.intensity == 18
+
+    return sweep.SweepSpec(policies=("fc",), nodes=(4,), cores=(8,),
+                           intensities=(18, 45, 96),
+                           assignments=("pull", "push"), lbs=("home",),
+                           degrades=degrades, hedge_multiples=(None, 3.0),
+                           seeds=5, workload_cores=32,
+                           cell_filter=keep).cells()
+
+
+def steal_matrix_cells() -> list:
+    """The steal matrix (benchmarks/engine_bench.py::matrix_specs,
+    ``steal``): FC and SEPT on 3 x 6 cores, least-loaded, node 0 5x slow,
+    hedging at 2x the estimate (steal), node 0 killed at 8 s or not, the
+    autoscaler (scale-up at 1 call a slot, a 2 s provision delay, up to 5
+    nodes) or not, intensities 16 and 25, 2 seeds: 32 cells."""
+    return sweep.SweepSpec(policies=("fc", "sept"), nodes=(3,), cores=(6,),
+                           intensities=(16, 25), assignments=("push",),
+                           degrades=(DEG5,), hedge_multiples=(2.0,),
+                           fail_specs=(None, ((0, 8.0),)),
+                           autoscale=(False, True), scale_ups=(1.0,),
+                           provision_delays=(2.0,), max_nodes=5,
+                           seeds=2).cells()
+
+
+def dup_matrix_cells() -> list:
+    """The dup matrix (benchmarks/engine_bench.py::matrix_specs, ``dup``):
+    FC on 3 x 6 cores, node 0 5x slow, duplicate hedging at 2x the
+    estimate, intensities 16 and 45, 4 seeds; pull with node 0 killed at
+    8 s or not (16 cells), push without failures (8 cells): 24 cells."""
+    return sweep.SweepSpec(
+        policies=("fc",), nodes=(3,), cores=(6,), intensities=(16, 45),
+        assignments=("pull", "push"), degrades=(DEG5,),
+        hedge_multiples=(2.0,), hedge_mode="duplicate",
+        fail_specs=(None, ((0, 8.0),)), seeds=4,
+        cell_filter=lambda c: not (c.assignment == "push"
+                                   and c.fail_spec is not None)).cells()
+
+
+def hedge_path(name: str, cells, dev, plain: dict) -> tuple[dict, list]:
+    """One main path with hedged cells: ``run_cells_scan(metrics_only=
+    True)`` over ``cells``, every count set to 0 just before it and read
+    just after (the hedged kernels launched; beside them only the other
+    event-step kernels, whatever cells of the path they take; no plain
+    version); its rows checked (burst sizes, finite metrics; the runner
+    holds every hedged cell to all calls done) and held to ``plain``, the
+    rows of the cells the checks ran through the plain version.  Returns
+    its numbers and rows."""
+    timings: dict = {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = sweep.run_cells_scan(cells, metrics_only=True, device=dev,
+                                timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    hk = counts["event_step_hedge"]
+    if (hk["kernel"] == 0 or any(v["plain"] for v in counts.values())
+            or any(v["kernel"] for k, v in counts.items()
+                   if not k.startswith("event_step"))):
+        raise AssertionError(f"{name} launches: {counts}")
+    for c, r, want in zip(cells, rows, burst_calls(cells)):
+        if r["n"] != want:
+            raise AssertionError(f"{c.label()} seed {c.seed}: n={r['n']}, "
+                                 f"burst has {want}")
+        for k in ("R_avg", "R_p95", "max_c"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"{c.label()} seed {c.seed}: {k}="
+                                     f"{r[k]}")
+        if r["backups"] and not (c.assignment == "push"
+                                 and c.hedge_multiple is not None):
+            # hedging acts on push cells only
+            raise AssertionError(f"{c.label()}: backups {r['backups']}")
+    sample = [i for i, c in enumerate(cells) if c in plain]
+    for i in sample:
+        if rows[i] != plain[cells[i]]:
+            raise AssertionError(f"{cells[i].label()} seed {cells[i].seed}: "
+                                 "kernel row differs from the plain row")
+    if not sample:
+        raise AssertionError(f"{name}: no row held to the plain version")
+    by_kernel = {k: v["kernel"] for k, v in counts.items() if v["kernel"]}
+    out = {"cells": len(cells), "wall_s": wall,
+           "cells_per_s": len(cells) / wall, **timings,
+           "other_s": wall - sum(timings.values()),
+           "device_share": timings["device_s"] / wall,
+           "launches": hk["kernel"], "plain_launches": hk["plain"],
+           "by_kernel": by_kernel, "sample": len(sample),
+           "backups": sum(r["backups"] for r in rows),
+           "failures": sum(r["failures"] for r in rows)}
+    print(f"{name}: {len(cells)} cells in {wall:.3f} s = "
+          f"{out['cells_per_s']:.1f} cells/s (fill {timings['fill_s']:.3f} s,"
+          f" device {timings['device_s']:.3f} s = {out['device_share']:.1%} "
+          f"of the wall, fold {timings['fold_s']:.3f} s, other "
+          f"{out['other_s']:.3f} s); hedged kernel launches {hk['kernel']}, "
+          f"plain launches {hk['plain']} (every kernel: {by_kernel}); "
+          f"{out['backups']} backups, {out['failures']} calls lost; sample: "
+          f"{len(sample)} cells recomputed through the plain version on the "
+          "card, rows equal", flush=True)
+    return out, rows
+
+
+def straggler_claim(cells, rows) -> str:
+    """The straggler grid's claim, with benchmarks/engine_bench.py::
+    straggler_rows's arithmetic: the metrics of each cell identity averaged
+    over its seeds; at the worst severity and the claim intensity, the
+    share of the p95 that node 0's slowdown costs the push model (healthy
+    against slowed, unhedged) that hedging wins back, and the pull model's
+    p95 beside it."""
+    groups: dict = {}
+    for c, r in zip(cells, rows):
+        groups.setdefault(dataclasses.replace(c, seed=0), []).append(r)
+    agg = {c: {k: float(np.mean([r[k] for r in rs])) for k in rs[0]}
+           for c, rs in groups.items()}
+
+    def sev(c):
+        prof = sweep._cell_profile(c)
+        return prof.max_slowdown() if prof is not None else 1.0
+
+    sev_max = max(sev(c) for c in agg)
+    v_claim = min(c.intensity for c in agg)
+
+    def find(assignment, s, hedged):
+        for c, r in agg.items():
+            if (c.assignment == assignment and sev(c) == s
+                    and c.intensity == v_claim
+                    and (c.hedge_multiple is not None) == hedged):
+                return r
+        return None
+
+    healthy, degraded = find("push", 1.0, False), find("push", sev_max, False)
+    hedged, pull_deg = find("push", sev_max, True), find("pull", sev_max,
+                                                         False)
+    if not (healthy and degraded and hedged):
+        return "no-straggler-point"
+    lost = degraded["R_p95"] - healthy["R_p95"]
+    rec = (degraded["R_p95"] - hedged["R_p95"]) / max(lost, 1e-9)
+    claim = (f"sev{sev_max:g}: push p95 {healthy['R_p95']:.1f}->"
+             f"{degraded['R_p95']:.1f}, hedged {hedged['R_p95']:.1f} "
+             f"(recovered {rec:.0%}, {hedged['backups']:.0f} backups)")
+    if pull_deg is not None:
+        claim += f", pull {pull_deg['R_p95']:.1f}"
+    return claim
+
+
+def hedge_check_cases() -> list:
+    """Phase 3f's kernel-vs-plain buckets, ``(name, case, cells)``: the
+    straggler grid's hedged push cells, the steal matrix's FC cells with a
+    kill and the autoscaler, the dup matrix's push cells at intensity 16, a
+    cold bucket with node speeds, one node and 3 x 24 cores (the wide
+    path)."""
+    strag, steal, dup = (straggler_grid_cells(), steal_matrix_cells(),
+                         dup_matrix_cells())
+    return [
+        ("straggler_hedged", "straggler hedged push fc 4 x 8 home, v18 "
+         "(32-core burst), node 0 2-8x slow, hedge 3x (20 cells)",
+         [c for c in strag if c.hedge_multiple is not None]),
+        ("steal_fc", "steal matrix fc 3 x 6 least-loaded, node 0 killed "
+         "at 8 s and 5x slow, autoscale to 5, hedge 2x, v16 / v25",
+         [c for c in steal if c.policy == "fc" and c.autoscale
+          and c.fail_spec]),
+        ("dup_push", "dup matrix push fc 3 x 6 least-loaded, node 0 5x "
+         "slow, duplicate 2x, v16 (4 copies a call, 4 seeds)",
+         [c for c in dup if c.assignment == "push"
+          and c.intensity == 16]),
+        ("cold_het", "cold push fc 3 x 4 least-loaded, node 0 5x slow "
+         "and node 1 at 0.7, hedge 2x, v16",
+         [sweep.SweepCell(policy="fc", assignment="push", nodes=3, cores=4,
+                          intensity=16, seed=s, warm=False, degrade=DEG5,
+                          node_speeds=(1.0, 0.7), hedge_multiple=2.0)
+          for s in range(2)]),
+        ("self_steal", "one node fc c4 v5, node 0 4x slow, hedge 3x "
+         "(steals go back to the node)",
+         [sweep.SweepCell(policy="fc", assignment="push", nodes=1, cores=4,
+                          intensity=5, seed=s,
+                          degrade=((0, 2.0, 300.0, 4.0),),
+                          hedge_multiple=3.0) for s in range(4)]),
+        ("wide", "push sept 3 x 24 least-loaded, node 0 5x slow, hedge "
+         "2x, v16 (36-core burst; the wide path)",
+         [sweep.SweepCell(policy="sept", assignment="push", nodes=3,
+                          cores=24, intensity=16, seed=s, workload_cores=36,
+                          degrade=DEG5, hedge_multiple=2.0)
+          for s in range(2)])]
+
+
+def hedge_paths(dev, rows_by_kernel: dict) -> dict:
+    """Straggler hedging: the float64 frozen-priority kernel's hedged
+    instantiations against their plain version on the straggler grid's
+    hedged push bucket, the steal matrix's FC cells with a kill and the
+    autoscaler, the dup matrix's push cells at intensity 16, a cold bucket
+    with node speeds, one node and 3 x 24 cores (the wide path); then the
+    whole straggler grid, the steal matrix and the dup matrix as main
+    paths, and the straggler grid's claim.  The other event-step kernels'
+    launches on these paths join their rows in ``rows_by_kernel``.
+    Returns the hedged kernels' row."""
+    strag, steal, dup = (straggler_grid_cells(), steal_matrix_cells(),
+                         dup_matrix_cells())
+    if (len(strag), len(steal), len(dup)) != (120, 32, 24):
+        raise AssertionError("grid sizes: "
+                             f"{len(strag)}, {len(steal)}, {len(dup)}")
+    hk, plain = {}, {}
+    for k, case, cells in hedge_check_cases():
+        hk[k], rows_k = check_f64(case, cells, dev)
+        plain.update(rows_k)
+        print("hedge event_step vs plain: " + json.dumps(hk[k]), flush=True)
+    if not hk["wide"]["plan"]["wide"]:
+        raise AssertionError(f"3 x 24 cores: plan {hk['wide']['plan']}")
+    if not all(min(hk[k]["backups"]) > 0 for k in hk if k != "wide"):
+        raise AssertionError("a hedged check cell issued no backup")
+    if max(hk["steal_fc"]["failures"]) <= 6:
+        # more than a node's 6 slots: calls lost queued too
+        raise AssertionError("the steal cells lost no queued call")
+    paths, numbers, strag_rows = {}, {}, None
+    for pname, cells in (("straggler grid path", strag),
+                         ("steal matrix path", steal),
+                         ("dup matrix path", dup)):
+        numbers[pname], rows = hedge_path(pname, cells, dev, plain)
+        paths[pname] = numbers[pname]["launches"]
+        for kname, n in numbers[pname]["by_kernel"].items():
+            if kname in rows_by_kernel:
+                row = rows_by_kernel[kname]
+                row["launches"] += n
+                row["launches_by_path"][pname] = n
+        if pname == "straggler grid path":
+            strag_rows = rows
+    print(f"straggler: 120 cells on the card (5 seeds); claim: "
+          f"{straggler_claim(strag, strag_rows)}", flush=True)
+    main = hk["straggler_hedged"]
+    return {
+        "name": "event_step_hedge", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/event_step_hedge.cu",
+        "sources": {"steal": "src/repro_torch/kernels/csrc/"
+                             "event_step_hedge.cu",
+                    "duplicate": "src/repro_torch/kernels/csrc/"
+                                 "event_step_dup.cu",
+                    "body": "src/repro_torch/kernels/csrc/"
+                            "event_step_freeze64.cuh"},
+        "replaces": "src/repro/core/fastpath.py:821",
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        "max_abs_err": max(r["max_abs_err"] for r in hk.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shape": f"straggler hedged push fc bucket, {main['cells']} cells, "
+                 f"n_b={main['n_b']}, 4 nodes x 8 slots",
+        "ns_per_step": main["ns_per_step"],
+        "cases": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "ns_per_step", "n_b", "bsz",
+                                         "plan")}
+                  for k, r in hk.items()},
+        **{f"{k}_{f}": numbers[p][f] for k, p in (
+            ("straggler", "straggler grid path"),
+            ("steal", "steal matrix path"), ("dup", "dup matrix path"))
            for f in ("cells_per_s", "device_share")}}
 
 
@@ -2259,7 +2583,9 @@ def main() -> int:
     rglru_mod._lib()
     rwkv6_mod._lib()
     print(f"build: {time.perf_counter() - t0:.3f} s "
-          f"({', '.join(logs) or 'cached'})", flush=True)
+          f"({', '.join(logs) or 'cached'}); nvcc seconds by source: "
+          + json.dumps({k: round(v, 1) for k, v in
+                        sorted(build.BUILD_SECONDS.items())}), flush=True)
     for src, log in logs.items():
         for line in log.strip().splitlines():
             print(f"  nvcc {src}: {line}")
@@ -2318,7 +2644,7 @@ def main() -> int:
     kern = {"name": "event_step", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/event_step.cu",
             "replaces": "src/repro/kernels/event_step.py:52",
-            "launches": launches,
+            "launches": launches, "launches_by_path": {"main path": launches},
             "max_abs_err": max(sept["max_abs_err"], fc["max_abs_err"],
                                pad["max_abs_err"], wide["max_abs_err"]),
             "ms": fc["ms"], "plain_ms": fc["plain_ms"],
@@ -2463,6 +2789,13 @@ def main() -> int:
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 3e. cold starts, node speeds and dynamics on push and one node ----
     kern_f64 = freeze64_paths(dev, kern_fz)
+
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # -- 3f. straggler hedging: steal and duplicate ----------------------
+    kern_hedge = hedge_paths(dev, {"event_step": kern,
+                                   "event_step_freeze": kern_fz,
+                                   "event_step_dyn": kern_dy,
+                                   "event_step_freeze64": kern_f64})
 
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 4. attention kernels vs plain on the card ------------------------
@@ -2672,6 +3005,7 @@ def main() -> int:
         kern_fz,
         kern_dy,
         kern_f64,
+        kern_hedge,
         flash_row,
         row("decode_attention", dec["decode_32k"],
             {"main_path": dec["serving"], "rg": dec["rg_ring_2k"],

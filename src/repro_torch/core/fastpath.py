@@ -13,13 +13,14 @@ policies.  Single-node and push cells run the frozen-priority regime: a
 call's priority is fixed at arrival from the estimator of the node it was
 routed to.  Cells may also carry capacity dynamics (scheduled node
 failures, the autoscaler: a ``ClusterDynamics``; under push with the
-least-loaded balancer) and node speeds (a ``NodeSpeedProfile``) and start
-cold; such buckets scan in float64, as the JAX package's do.  Cells are
-grouped by padded shape (``_ScanCell.bucket``); each bucket is filled on
-the host, moved to the device, packed into the carry planes and scanned in
-chunks, and the per-request records come back in event order.  Other
-cells -- hedging, resilience, the round-robin balancer -- raise
-``ValueError``.
+least-loaded balancer), node speeds (a ``NodeSpeedProfile``) and
+straggler hedging (a ``HedgingSpec``: under push, steal, or duplicate on
+a fixed fleet; under pull a structural no-op) and start cold; such
+buckets scan in float64, as the JAX package's do.  Cells are grouped by
+padded shape (``_ScanCell.bucket``); each bucket is filled on the host,
+moved to the device, packed into the carry planes and scanned in chunks,
+and the per-request records come back in event order.  Other cells --
+resilience, the round-robin balancer -- raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -98,16 +99,18 @@ LB_ROUTE = {"least_loaded": 0, "home": 1}
 # a bucket key's feature mask has the JAX package's bit order
 # (``_CARRY_SEGMENTS``): bit 0 ``freeze`` (single-node and push cells),
 # bit 1 ``use_fc`` (pull FC counts), bit 2 ``fc_push`` (FC on more than one
-# node under push), bit 3 ``cold`` (the warm=False containers), bit 6
-# ``het`` (node speeds), bit 7 ``dyn`` (capacity dynamics); the port sets no
-# other bit
+# node under push), bit 3 ``cold`` (the warm=False containers), bit 4
+# ``hedge`` (straggler hedging under push), bit 5 ``dup`` (its duplicate
+# mode), bit 6 ``het`` (node speeds), bit 7 ``dyn`` (capacity dynamics);
+# the port sets no other bit
 _FREEZE_MASK = 1 << 0
 _USE_FC_MASK = 1 << 1
 _FC_PUSH_MASK = 1 << 2
 _COLD_MASK = 1 << 3
+_HEDGE_MASK = 1 << 4
+_DUP_MASK = 1 << 5
 _HET_MASK = 1 << 6
 _DYN_MASK = 1 << 7
-_BASE_FLAGS = dict(hedge=False, dup=False)
 
 # cells per chunk: a one-warp block per cell needs thousands of cells in
 # flight on the card; the CPU's plain version runs a few hundred at a time.
@@ -234,6 +237,7 @@ def cluster_scan_eligible(
     container_mb: int = CLUSTER_CONTAINER_MB,
     dynamics=None,
     profile=None,
+    hedging=None,
 ) -> bool:
     """True when the JAX package's scan reproduces a cluster cell, as its
     ``cluster_scan_eligible`` answers for these arguments: a known policy,
@@ -244,7 +248,8 @@ def cluster_scan_eligible(
     further needs the least-loaded balancer under push and failures
     confined to the initial fleet with a survivor and no negative time;
     ``profile`` (a ``NodeSpeedProfile``) no more speeds than nodes the
-    cell can reach."""
+    cell can reach; ``hedging`` (a ``HedgingSpec``) a known mode, and no
+    duplicate mode under push with capacity dynamics."""
     if policy not in POLICY_NAMES or nodes < 1:
         return False
     if assignment == "push":
@@ -253,6 +258,11 @@ def cluster_scan_eligible(
     elif assignment != "pull":
         return False
     dyn = dynamics is not None and not dynamics.is_static
+    if hedging is not None:
+        if getattr(hedging, "mode", None) not in ("steal", "duplicate"):
+            return False             # not a HedgingSpec
+        if hedging.mode == "duplicate" and dyn and assignment == "push":
+            return False             # racing copies under churn
     cap = dynamics.capacity_bound(nodes) if dynamics is not None else nodes
     if profile is not None and len(profile.speeds) > cap:
         return False                 # speeds beyond the fleet
@@ -289,10 +299,27 @@ class _ScanCell:
     dynamics: object | None = None   # ClusterDynamics | None
     profile: object | None = None    # NodeSpeedProfile | None
     warm: bool = True
+    hedging: object | None = None    # HedgingSpec | None
 
     @property
     def cold(self) -> bool:
         return not self.warm
+
+    @property
+    def hedge(self) -> bool:
+        # hedging acts only on calls queued on a node, which pull never
+        # has: pull cells run without it and report no backup
+        return self.hedging is not None and self.assignment == "push"
+
+    @property
+    def dup(self) -> bool:
+        return self.hedge and self.hedging.mode == "duplicate"
+
+    @property
+    def n_copies(self) -> int:
+        """Queue entries a call takes: the original and, in duplicate
+        mode, one racing copy an allowed backup."""
+        return 1 + int(self.hedging.max_backups) if self.dup else 1
 
     @property
     def dyn(self) -> bool:
@@ -334,6 +361,28 @@ class _ScanCell:
             extra += ticks + grow * (1 + self.cores)
         return extra
 
+    def hedge_budget(self) -> int:
+        """Optimistic extra scan steps for hedging, which the bucket key
+        carries as the JAX package's does (``n``).  The port scans hedged
+        buckets at :meth:`hedge_budget_full`: its scans stop at their last
+        event, so the strict bound costs no step more."""
+        return len(self.feats.t) if self.hedge else 0
+
+    def hedge_budget_full(self) -> int:
+        """Strict bound on the extra scan steps hedging takes: every arm
+        fires at most once and arms are at most ``n (1 + max_backups)``;
+        a duplicate copy adds its completion (``n (1 + 2 max_backups)``);
+        under push with dynamics each call lost queued may keep one more
+        deadline (``fails * cores + n``)."""
+        if not self.hedge:
+            return 0
+        n = len(self.feats.t)
+        hmax = int(self.hedging.max_backups)
+        full = n * (1 + 2 * hmax) if self.dup else n * (1 + hmax)
+        if self.dyn and self.assignment == "push":
+            full += len(self.dynamics.fail) * self.cores + n
+        return full
+
     def bucket(self) -> tuple:
         """Padded shape key, in the JAX package's 11-field layout: (feature
         mask, requests, nodes, slots, functions, per-function queue
@@ -341,50 +390,59 @@ class _ScanCell:
         freeze = self.assignment != "pull"
         use_fc = not freeze and self.policy == "fc"
         # single-node FC reads the static window counts; on more than one
-        # node, or with dynamics (re-arrivals log again), the count depends
-        # on the routing, so it needs the rings
+        # node, or with dynamics or hedging (re-arrivals and steals log
+        # again), the count depends on the routing, so it needs the rings
         fc_push = (freeze and self.policy == "fc"
-                   and (self.nodes > 1 or self.dyn))
+                   and (self.nodes > 1 or self.dyn or self.hedge))
         if freeze:
             kq = 1                   # fn_ev unused in frozen-priority mode
         else:                        # per-function queue capacity
             kq = _pow2(int(np.bincount(self.feats.fn_ids).max())
                        if len(self.feats.fn_ids) else 1)
         # the per-(node, fn) ring is sized to the worst global window
-        # count, which bounds any node-local count from above
-        fc_ring = (_pow2(int(self.feats.count.max()))
+        # count, which bounds any node-local count from above; a hedged
+        # call is logged again on each backup's node
+        fc_mult = 1 + int(self.hedging.max_backups) if self.hedge else 1
+        fc_ring = (_pow2(int(self.feats.count.max()) * fc_mult)
                    if fc_push and len(self.feats.count) else 1)
         n_ep = _pow2(max(1, len(self.profile.episodes))) if self.het else 1
-        extra = self.dyn_budget()
+        extra = self.dyn_budget() + self.hedge_budget()
         mask = ((_FREEZE_MASK if freeze else 0)
                 | (_USE_FC_MASK if use_fc else 0)
                 | (_FC_PUSH_MASK if fc_push else 0)
                 | (_COLD_MASK if self.cold else 0)
+                | (_HEDGE_MASK if self.hedge else 0)
+                | (_DUP_MASK if self.dup else 0)
                 | (_HET_MASK if self.het else 0)
                 | (_DYN_MASK if self.dyn else 0))
         return (mask, _pow2(len(self.feats.t)), _pow2(self.node_cap()),
                 _pow2(self.cores), _pow2(len(self.feats.fns)), kq,
-                DEFAULT_WINDOW, fc_ring, n_ep, 1, _pow2(extra) if extra else 0)
+                DEFAULT_WINDOW, fc_ring, n_ep, self.n_copies,
+                _pow2(extra) if extra else 0)
 
 
 def _key_flags(key: tuple) -> dict[str, bool]:
     """The feature flags a bucket key's mask enables: ``freeze``,
-    ``use_fc``, ``fc_push``, ``cold``, ``het`` and ``dyn``.  Any other
-    segment, or a combination no cell of the port makes, raises
-    ``NotImplementedError``."""
+    ``use_fc``, ``fc_push``, ``cold``, ``hedge``, ``dup``, ``het`` and
+    ``dyn``.  Any other segment, or a combination no cell of the port
+    makes, raises ``NotImplementedError``."""
     mask = key[0]
     known = (_FREEZE_MASK | _USE_FC_MASK | _FC_PUSH_MASK | _COLD_MASK
-             | _HET_MASK | _DYN_MASK)
+             | _HEDGE_MASK | _DUP_MASK | _HET_MASK | _DYN_MASK)
     flags = {"freeze": bool(mask & _FREEZE_MASK),
              "use_fc": bool(mask & _USE_FC_MASK),
              "fc_push": bool(mask & _FC_PUSH_MASK),
              "cold": bool(mask & _COLD_MASK),
+             "hedge": bool(mask & _HEDGE_MASK),
+             "dup": bool(mask & _DUP_MASK),
              "het": bool(mask & _HET_MASK),
              "dyn": bool(mask & _DYN_MASK)}
     if (mask & ~known
-            or key[9] != 1
+            or (key[9] != 1) != flags["dup"] or key[9] < 1
+            or (flags["hedge"] and not flags["freeze"])
+            or (flags["dup"] and (not flags["hedge"] or flags["dyn"]))
             or (key[8] != 1 and not flags["het"])
-            or (key[10] != 0) != flags["dyn"]
+            or (key[10] != 0) != (flags["dyn"] or flags["hedge"])
             or (flags["use_fc"] and flags["freeze"])
             or (flags["fc_push"] and not flags["freeze"])
             or (key[7] != 1 and not flags["fc_push"])):
@@ -396,18 +454,18 @@ def _key_flags(key: tuple) -> dict[str, bool]:
 def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
     """Host input arrays of one bucket at batch ``bsz``.  ``t`` is +inf and
     ``cores`` 0, so an unfilled row is an idle padded cell.  Floats are
-    float64 in ``dyn``, ``het`` and ``cold`` buckets (the JAX package's
-    ``_use64``: failure, autoscaler and cold-start accounting hang on
-    exact orderings of completions against kills and dispatches), float32
-    else."""
+    float64 in ``dyn``, ``het``, ``cold`` and ``hedge`` buckets (the JAX
+    package's ``_use64``: failure, autoscaler, cold-start and backup
+    accounting hang on exact orderings of completions against kills,
+    deadlines and dispatches), float32 else."""
     flags = _key_flags(key)
     freeze, use_fc = flags["freeze"], flags["use_fc"]
     _, n_b, nodes_b, _, f_b, kq, window, _, n_ep = key[:9]
     n1 = n_b + 1
     # one estimator a node in frozen-priority mode, the controller's else
     n_est = nodes_b if freeze else 1
-    fdt = (np.float64 if flags["dyn"] or flags["het"] or flags["cold"]
-           else np.float32)
+    fdt = (np.float64 if (flags["dyn"] or flags["het"] or flags["cold"]
+                          or flags["hedge"]) else np.float32)
     i32 = np.int32
     inp = {
         "t": np.full((bsz, n1), np.inf, dtype=fdt),
@@ -449,6 +507,11 @@ def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
         inp["ept0"] = np.zeros((bsz, n_ep), dtype=fdt)
         inp["ept1"] = np.zeros((bsz, n_ep), dtype=fdt)
         inp["epf"] = np.ones((bsz, n_ep), dtype=fdt)
+    if flags["hedge"]:
+        # the deadline's multiple and floor, the backup cap
+        inp["hmult"] = np.ones(bsz, dtype=fdt)
+        inp["hfloor"] = np.zeros(bsz, dtype=fdt)
+        inp["hmax"] = np.zeros(bsz, dtype=i32)
     return inp
 
 
@@ -482,6 +545,11 @@ def _fill_bucket(key: tuple, cells: list[_ScanCell]) -> dict[str, np.ndarray]:
         if flags["het"]:
             (inp["spd"][b], inp["epn"][b], inp["ept0"][b], inp["ept1"][b],
              inp["epf"][b]) = cell.profile.arrays(nodes_b, n_ep)
+        if flags["hedge"]:
+            h = cell.hedging
+            inp["hmult"][b] = h.multiple
+            inp["hfloor"][b] = h.floor_s
+            inp["hmax"][b] = h.max_backups
         if not flags["freeze"]:
             if flags["dyn"]:
                 inp["coef"][b] = _PULL_COEF_DYN[cell.policy]
@@ -519,14 +587,27 @@ def _fill_bucket(key: tuple, cells: list[_ScanCell]) -> dict[str, np.ndarray]:
     return inp
 
 
-def _scan_static(key: tuple) -> dict:
+def _scan_static(key: tuple, xtra: int | None = None) -> dict:
     """Static ``event_step`` arguments of a bucket: its padded widths and
-    feature flags, and one step per event: 2 n_b, plus the dynamics'
-    budget."""
+    feature flags, the queue entries a call takes (``n_copies``), and one
+    step per event: 2 n_b, plus the dynamics' and hedging's budget
+    (``xtra``, else the key's)."""
     _, n_b, nodes_b, slots_b, _, _, window, fc_ring = key[:8]
-    return dict(_BASE_FLAGS, **_key_flags(key), n_nodes=nodes_b,
-                n_slots=slots_b, window=window, fc_ring=fc_ring,
-                horizon=DEFAULT_FC_HORIZON, n_steps=2 * n_b + key[10])
+    return dict(_key_flags(key), n_nodes=nodes_b, n_slots=slots_b,
+                window=window, fc_ring=fc_ring, n_copies=key[9],
+                horizon=DEFAULT_FC_HORIZON,
+                n_steps=2 * n_b + (key[10] if xtra is None else xtra))
+
+
+def _bucket_static(key: tuple, cells: list[_ScanCell]) -> dict:
+    """Static ``event_step`` arguments for scanning ``cells`` under
+    ``key``: a hedged bucket takes its cells' strict step budget
+    (:meth:`_ScanCell.hedge_budget_full`, with the dynamics'), so that
+    every call finishes in one scan; any other takes the key's."""
+    if not _key_flags(key)["hedge"]:
+        return _scan_static(key)
+    return _scan_static(key, _pow2(max(
+        c.dyn_budget() + c.hedge_budget_full() for c in cells)))
 
 
 def _chunk_cells(key: tuple, device: torch.device) -> int:
@@ -550,19 +631,35 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
     and return per-cell ``(start, finish, prio, node, extras)`` arrays in
     event order; in frozen-priority buckets ``prio`` and ``node`` are each
     call's priority and node fixed at its arrival, and a call dispatched
-    twice (lost to a kill) keeps its last dispatch.  ``extras`` is
-    ``None``, or for a ``dyn`` cell its calls lost (``failures``), nodes
-    provisioned (``nodes_used``) and realized ``timeline``, and for a
-    ``cold`` cell its ``cold_starts``, ``evictions`` and each row's
-    cold-start flag (``coldq``); a ``dyn`` cell that ends with calls
-    unfinished exhausted the step budget, which is a scan bug, and
-    raises.  ``timings`` accumulates host-fill and device
-    seconds (the device phase covers transfers, plane packing, the scan
-    and the copy back, which waits for the device).  ``force="ref"`` runs
-    the plain version on any device (``ops.event_step``)."""
-    static = _scan_static(key)
+    twice (lost to a kill) keeps its last dispatch; in duplicate-mode
+    buckets ``start``, ``finish`` and ``node`` are each call's winning
+    copy's.  ``extras`` is ``None``, or for a ``dyn`` cell its calls lost
+    (``failures``), nodes provisioned (``nodes_used``) and realized
+    ``timeline``, for a ``cold`` cell its ``cold_starts``, ``evictions``
+    and each row's cold-start flag (``coldq``), and for a ``hedge`` cell
+    its ``backups``, ``steals`` and each row's ``attempts``.  A ``dyn``
+    or ``hedge`` cell that ends with calls unfinished exhausted the step
+    budget (:func:`_bucket_static`), which is a scan bug, and raises.
+    ``timings`` accumulates host-fill and device seconds (the
+    device phase covers transfers, plane packing, the scan and the copy
+    back, which waits for the device).  ``force="ref"`` runs the plain
+    version on any device (``ops.event_step``)."""
+    static = _bucket_static(key, cells)
     chunk = _chunk_cells(key, device)
     out: list[tuple] = []
+
+    def scan(inp, static):
+        clk, ctr = make_planes(
+            inp, n_nodes=static["n_nodes"], n_slots=static["n_slots"],
+            window=static["window"], freeze=static["freeze"],
+            fc_push=static["fc_push"], fc_ring=static["fc_ring"],
+            dyn=static["dyn"], het=static["het"], cold=static["cold"],
+            hedge=static["hedge"], dup=static["dup"],
+            n_copies=static["n_copies"])
+        res = _kops.event_step(clk, ctr, inp, force=force, **static)
+        return ([r.cpu().numpy() for r in res[:4]],
+                {k: v.cpu().numpy() for k, v in res[4].items()})
+
     for lo in range(0, len(cells), chunk):
         part = cells[lo:lo + chunk]
         t0 = time.perf_counter()
@@ -570,30 +667,27 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
         _add_time(timings, "fill_s", t0)
         t0 = time.perf_counter()
         inp = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
-        clk, ctr = make_planes(inp, n_nodes=static["n_nodes"],
-                               n_slots=static["n_slots"],
-                               window=static["window"],
-                               freeze=static["freeze"],
-                               fc_push=static["fc_push"],
-                               fc_ring=static["fc_ring"], dyn=static["dyn"],
-                               het=static["het"], cold=static["cold"])
-        res = _kops.event_step(clk, ctr, inp, force=force, **static)
-        start, finish, prio, node = (r.cpu().numpy() for r in res[:4])
-        aux = {k: v.cpu().numpy() for k, v in res[4].items()}
+        (start, finish, prio, node), aux = scan(inp, static)
         _add_time(timings, "device_s", t0)
         for b, cell in enumerate(part):
-            extras = {} if static["dyn"] or static["cold"] else None
+            extras = ({} if static["dyn"] or static["cold"]
+                      or static["hedge"] else None)
+            if static["hedge"]:
+                extras.update(backups=int(aux["nbk"][b]),
+                              steals=int(aux["nstl"][b]),
+                              attempts=aux["att"][b])
             if static["cold"]:
                 extras.update(cold_starts=int(aux["ncold"][b]),
                               evictions=int(aux["nevt"][b]),
                               coldq=aux["coldq"][b])
-            if static["dyn"]:
+            if static["dyn"] or static["hedge"]:
                 n, done = len(cell.feats.t), int(aux["ndone"][b])
                 if done != n:
                     raise RuntimeError(
-                        f"scan dynamics step budget exhausted: cell "
-                        f"resolved {done}/{n} requests (bucket xtra="
-                        f"{key[10]}); this is a scan budget bug")
+                        f"scan step budget exhausted: cell resolved "
+                        f"{done}/{n} requests ({static['n_steps']} steps); "
+                        f"this is a scan budget bug")
+            if static["dyn"]:
                 used = int(aux["prov"][b])
                 extras.update(failures=int(aux["nfail"][b]),
                               nodes_used=used,
@@ -631,7 +725,8 @@ def _cell_scan_metrics(cell: _ScanCell, finish, req_cache: dict,
     arrays with the write-back arithmetic (``c = finish + RESP_OVERHEAD_S``;
     ``resp = c - r``; ``stretch = resp / max(ref-or-p_true, 1e-9)``), and
     its ``extras`` (a dynamic cell's calls lost and nodes provisioned, a
-    cold cell's cold starts and evictions).
+    cold cell's cold starts and evictions, a hedged cell's backups and
+    steals).
     ``req_cache`` memoizes per-workload arrays by list identity."""
     f = cell.feats
     n = len(f.t)
@@ -655,6 +750,8 @@ def _cell_scan_metrics(cell: _ScanCell, finish, req_cache: dict,
                        cold_starts=ex.get("cold_starts", 0),
                        evictions=ex.get("evictions", 0),
                        failures=ex.get("failures", 0),
+                       backups=ex.get("backups", 0),
+                       steals=ex.get("steals", 0),
                        nodes_used=ex.get("nodes_used", cell.nodes))
 
 
@@ -682,7 +779,7 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
             f = cell.feats
             t_list = f.t.tolist()
             ex = extras or {}
-            coldq = ex.get("coldq")
+            coldq, att = ex.get("coldq"), ex.get("attempts")
             for e, ridx in enumerate(f.order.tolist()):
                 req = cell.requests[ridx]
                 req.node = f"node{int(node[e])}"
@@ -696,6 +793,8 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
                 req.finish = float(finish[e])
                 req.c = req.finish + RESP_OVERHEAD_S
                 req.failed = None
+                if att is not None:      # a hedged cell's backups
+                    req.attempts = int(att[e])
             meta = {"mode": "ours", "policy": cell.policy,
                     "cores": cell.cores, "backend": "scan"}
             if cell.assignment != "single":
@@ -705,6 +804,8 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
                 requests=cell.requests, cold_starts=ex.get("cold_starts", 0),
                 evictions=ex.get("evictions", 0),
                 creations=0, failures=ex.get("failures", 0),
+                backups_issued=ex.get("backups", 0),
+                steals_won=ex.get("steals", 0),
                 nodes_used=ex.get("nodes_used", cell.nodes),
                 timeline=ex.get("timeline"), meta=meta)
         _add_time(timings, "fold_s", t0)
@@ -783,14 +884,17 @@ def simulate_cluster_cells_scan(
     Covered: ``assignment`` ``"pull"``, or ``"push"`` with ``lb``
     ``"least_loaded"`` or ``"home"``; cells may carry ``dynamics`` (a
     ``ClusterDynamics``: failures, the autoscaler; under push with the
-    least-loaded balancer), a ``profile`` (a ``NodeSpeedProfile``) and
-    ``warm`` false (the cold-start regime), and scan in float64; and (with
-    ``validate``) every cell must satisfy :func:`cluster_scan_eligible`.
-    ``hedging`` / ``resilience`` not ``None`` or an ineligible cell raise
-    ``ValueError``.  Returns :class:`SimResult` rows with the
-    requests written back (and a dynamic cell's ``failures``,
-    ``nodes_used`` and ``timeline``, a cold cell's ``cold_starts``,
-    ``evictions`` and each request's ``cold_start``), or
+    least-loaded balancer), a ``profile`` (a ``NodeSpeedProfile``),
+    ``hedging`` (a ``HedgingSpec``: steal, or duplicate without dynamics
+    under push; pull runs it as the no-op it is) and ``warm`` false (the
+    cold-start regime), and scan in float64; and (with ``validate``)
+    every cell must satisfy :func:`cluster_scan_eligible`.
+    ``resilience`` not ``None`` or an ineligible cell raise
+    ``ValueError``.  Returns :class:`SimResult` rows with the requests
+    written back (and a dynamic cell's ``failures``, ``nodes_used`` and
+    ``timeline``, a cold cell's ``cold_starts``, ``evictions`` and each
+    request's ``cold_start``, a hedged cell's ``backups_issued``,
+    ``steals_won`` and each request's ``attempts``), or
     :class:`ScanMetrics` rows with ``metrics_only=True``."""
     dev = resolve_device(device)
     if not batch:
@@ -803,8 +907,9 @@ def simulate_cluster_cells_scan(
         lb = item[5] if len(item) > 5 else "least_loaded"
         dynamics = item[6] if len(item) > 6 else None
         profile = item[7] if len(item) > 7 else None
+        hedging = item[8] if len(item) > 8 else None
         warm = item[9] if len(item) > 9 else True
-        extras = [x for i, x in enumerate(item[8:], 8) if i != 9]
+        extras = list(item[10:])
         ported = (assignment in ("pull", "push")
                   and (assignment == "pull" or lb in LB_ROUTE)
                   and all(x is None for x in extras))
@@ -812,19 +917,19 @@ def simulate_cluster_cells_scan(
                 requests, nodes, cores, policy, assignment=assignment,
                 lb=lb, warm=warm, memory_mb=memory_mb,
                 container_mb=container_mb, dynamics=dynamics,
-                profile=profile)):
+                profile=profile, hedging=hedging)):
             raise ValueError(
                 "the port's cluster scan covers pull and push cells, with "
-                "dynamics, node speeds and cold starts, without hedging "
-                "or resilience "
+                "dynamics, node speeds, hedging and cold starts, without "
+                "resilience "
                 f"(policy={policy!r}, nodes={nodes}, cores={cores}, "
                 f"assignment={assignment!r}, lb={lb!r}, warm={warm}, "
                 f"dynamics={dynamics!r}, profile={profile!r}, "
-                f"extras={extras!r})")
+                f"hedging={hedging!r}, extras={extras!r})")
         cell = _ScanCell(requests=requests, feats=feats(requests),
                          cores=cores, nodes=nodes, policy=policy,
                          assignment=assignment, lb=lb, dynamics=dynamics,
-                         profile=profile, warm=warm)
+                         profile=profile, warm=warm, hedging=hedging)
         cells.append(cell)
     return _run_scan_cells(cells, dev, metrics_only=metrics_only,
                            timings=timings)
@@ -842,11 +947,12 @@ def simulate_cluster_scan(
     container_mb: int = CLUSTER_CONTAINER_MB,
     dynamics=None,
     profile=None,
+    hedging=None,
     device: str | torch.device | None = None,
 ) -> SimResult:
     """Single-cell convenience wrapper over
     :func:`simulate_cluster_cells_scan`."""
     return simulate_cluster_cells_scan(
         [(requests, nodes, cores_per_node, policy, assignment, lb, dynamics,
-          profile, None, warm)],
+          profile, hedging, warm)],
         memory_mb=memory_mb, container_mb=container_mb, device=device)[0]

@@ -1,8 +1,9 @@
 """The scan carry as two packed planes (own port of
 ``repro.core.fastpath._PlaneLayout`` / ``_make_state0`` / ``_make_planes``
 for the base pull carry, the frozen-priority segments ``freeze`` and
-``fc_push``, the container segment ``cold``, the per-slot speeds ``het``
-of the frozen-priority regime and the capacity-dynamics segment ``dyn``).
+``fc_push``, the container segment ``cold``, the straggler-hedging
+segments ``hedge`` and ``dup``, the per-slot speeds ``het`` of the
+frozen-priority regime and the capacity-dynamics segment ``dyn``).
 
 Every float entry of a cell's carry flattens into one **clocks plane**
 (``clk``, in the bucket's float type: float32, or float64 for dynamic,
@@ -25,7 +26,8 @@ _FLOAT, _INT, _BOOL = "f", "i", "b"
 def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                freeze: bool = False, fc_push: bool = False, n1: int = 0,
                fc_ring: int = 1, dyn: bool = False, het: bool = False,
-               cold: bool = False) -> dict[str, tuple[tuple[int, ...], str]]:
+               cold: bool = False, hedge: bool = False, dup: bool = False,
+               n_copies: int = 1) -> dict[str, tuple[tuple[int, ...], str]]:
     """Shapes and kinds of one cell's carry: slots, queue heads, channel
     clocks and the estimator rings -- the controller's (an estimator axis
     of length 1) in the pull regime, one per node with ``freeze`` -- then,
@@ -34,7 +36,16 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
     ``n1`` rows), the per-(node, function) arrival-time rings of
     ``fc_ring`` entries (``fc_push``), the containers (``cold``: each
     (node, function)'s free containers, the cold starts and evictions,
-    each row's cold-start flag), each slot's effective speed at dispatch
+    each row's cold-start flag), the hedge watches (``hedge``: each row's
+    deadline, attempts and stolen flag, the backups issued, the
+    controller's estimator ring, each queue entry's push sequence, the
+    step count and the calls done; with ``dyn`` each row's no-more-hedging
+    flag and, with ``freeze``, its second deadline), the racing copies
+    (``dup``: each row's first-completion flag, the winner's start, finish
+    and node, each queue entry's start; the queue entries -- ``pend``,
+    ``fprio``, ``node_of``, ``qseq``, ``start_q`` -- are then ``n_copies *
+    n1`` long, entry ``c * n1 + j`` copy ``c`` of row ``j``), each slot's
+    effective speed at dispatch
     (``het`` with ``freeze``; pull ``het`` adds no carry) and the capacity
     dynamics (``dyn``: each node's activation time, dead flag, kill time
     and pending activation; each row's re-arrival time; the next
@@ -43,6 +54,7 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
     enqueue time, with ``freeze`` each slot's launch sequence, the launch
     count and each row's re-route rank)."""
     n_est = n_nodes if freeze else 1
+    nq = n_copies * n1 if dup else n1
     spec = {
         "ai": ((), _INT),
         "head": ((n_fns,), _INT),
@@ -60,14 +72,28 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
         "narr": ((n_est, n_fns), _INT),
     }
     if freeze:
-        spec.update(pend=((n1,), _BOOL), fprio=((n1,), _FLOAT),
-                    node_of=((n1,), _INT))
+        spec.update(pend=((nq,), _BOOL), fprio=((nq,), _FLOAT),
+                    node_of=((nq,), _INT))
     if fc_push:
         spec.update(fcr=((n_nodes, n_fns, fc_ring), _FLOAT),
                     fcp=((n_nodes, n_fns), _INT))
     if cold:
         spec.update(freec=((n_nodes, n_fns), _INT), ncold=((), _INT),
                     nevt=((), _INT), coldq=((n1,), _BOOL))
+    if hedge:
+        spec.update(hedge_t=((n1,), _FLOAT), att=((n1,), _INT),
+                    nbk=((), _INT), stolen=((n1,), _BOOL),
+                    cring=((n_fns, window), _FLOAT), crsum=((n_fns,), _FLOAT),
+                    crlen=((n_fns,), _INT), crpos=((n_fns,), _INT),
+                    qseq=((nq,), _INT), stepc=((), _INT), ndone=((), _INT))
+        if dyn:
+            spec["unhedge"] = ((n1,), _BOOL)
+            if freeze:
+                spec["hedge_t2"] = ((n1,), _FLOAT)
+    if dup:
+        spec.update(done0=((n1,), _BOOL), win_start=((n1,), _FLOAT),
+                    win_fin=((n1,), _FLOAT), win_node=((n1,), _INT),
+                    start_q=((nq,), _FLOAT))
     if het and freeze:
         spec.update(sspd=((n_nodes, n_slots), _FLOAT))
     if dyn:
@@ -139,21 +165,26 @@ class PlaneLayout:
 def carry_layout(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                  freeze: bool = False, fc_push: bool = False, n1: int = 0,
                  fc_ring: int = 1, dyn: bool = False, het: bool = False,
-                 cold: bool = False) -> PlaneLayout:
+                 cold: bool = False, hedge: bool = False, dup: bool = False,
+                 n_copies: int = 1) -> PlaneLayout:
     return PlaneLayout(carry_spec(n_nodes=n_nodes, n_slots=n_slots,
                                   window=window, n_fns=n_fns, freeze=freeze,
                                   fc_push=fc_push, n1=n1, fc_ring=fc_ring,
-                                  dyn=dyn, het=het, cold=cold))
+                                  dyn=dyn, het=het, cold=cold, hedge=hedge,
+                                  dup=dup, n_copies=n_copies))
 
 
 def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
                 fc_ring: int = 1, dyn: bool = False, het: bool = False,
-                cold: bool = False) -> dict[str, torch.Tensor]:
+                cold: bool = False, hedge: bool = False, dup: bool = False,
+                n_copies: int = 1) -> dict[str, torch.Tensor]:
     """Initial batched carry of a bucket: empty slots and queues, idle
     channels, the estimator rings from the bucket's inputs, with ``freeze``
     / ``fc_push`` no queued entry and empty arrival rings, with ``cold``
     every container pool empty (no warm-up) and no cold start, with
+    ``hedge`` no watch armed, no attempt or backup and the controller's
+    ring empty (it has no warm-up), with ``dup`` no winner yet, with
     ``het`` and ``freeze`` every slot's speed 1, and with ``dyn``
     the activation and kill times of the inputs ``act0`` / ``killt``, no
     node dead or pending, no re-arrival, the first tick at the autoscale
@@ -179,11 +210,12 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
         "prev_t": torch.zeros(B, n_est, n_fns, dtype=ft, device=dev),
         "narr": torch.zeros(B, n_est, n_fns, **i32),
     }
+    n1 = t.shape[1]
+    nq = n_copies * n1 if dup else n1
     if freeze:
-        n1 = t.shape[1]
-        st.update(pend=torch.zeros(B, n1, dtype=torch.bool, device=dev),
-                  fprio=torch.zeros(B, n1, dtype=ft, device=dev),
-                  node_of=torch.zeros(B, n1, **i32))
+        st.update(pend=torch.zeros(B, nq, dtype=torch.bool, device=dev),
+                  fprio=torch.zeros(B, nq, dtype=ft, device=dev),
+                  node_of=torch.zeros(B, nq, **i32))
     if fc_push:
         st.update(fcr=torch.full((B, n_nodes, n_fns, fc_ring), -float("inf"),
                                  dtype=ft, device=dev),
@@ -193,10 +225,31 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                   ncold=torch.zeros(B, **i32), nevt=torch.zeros(B, **i32),
                   coldq=torch.zeros(B, t.shape[1], dtype=torch.bool,
                                     device=dev))
+    if hedge:
+        st.update(hedge_t=torch.full((B, n1), float("inf"), dtype=ft,
+                                     device=dev),
+                  att=torch.zeros(B, n1, **i32), nbk=torch.zeros(B, **i32),
+                  stolen=torch.zeros(B, n1, dtype=torch.bool, device=dev),
+                  cring=torch.zeros(B, n_fns, window, dtype=ft, device=dev),
+                  crsum=torch.zeros(B, n_fns, dtype=ft, device=dev),
+                  crlen=torch.zeros(B, n_fns, **i32),
+                  crpos=torch.zeros(B, n_fns, **i32),
+                  qseq=torch.zeros(B, nq, **i32), stepc=torch.zeros(B, **i32),
+                  ndone=torch.zeros(B, **i32))
+        if dyn:
+            st["unhedge"] = torch.zeros(B, n1, dtype=torch.bool, device=dev)
+            if freeze:
+                st["hedge_t2"] = torch.full((B, n1), float("inf"), dtype=ft,
+                                            device=dev)
+    if dup:
+        st.update(done0=torch.zeros(B, n1, dtype=torch.bool, device=dev),
+                  win_start=torch.zeros(B, n1, dtype=ft, device=dev),
+                  win_fin=torch.zeros(B, n1, dtype=ft, device=dev),
+                  win_node=torch.zeros(B, n1, **i32),
+                  start_q=torch.zeros(B, nq, dtype=ft, device=dev))
     if het and freeze:
         st["sspd"] = torch.ones(B, n_nodes, n_slots, dtype=ft, device=dev)
     if dyn:
-        n1 = t.shape[1]
         dynp = inp["dynp"]
         st.update(act_t=inp["act0"],
                   dead=torch.zeros(B, n_nodes, dtype=torch.bool, device=dev),
@@ -223,12 +276,13 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
 def make_planes(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
                 fc_ring: int = 1, dyn: bool = False, het: bool = False,
-                cold: bool = False):
+                cold: bool = False, hedge: bool = False, dup: bool = False,
+                n_copies: int = 1):
     """Per-cell initial carry of a bucket as the packed ``(clk, ctr)``
     planes, shapes ``(B, f_len)`` in the bucket's float type and ``(B,
     i_len)`` int32."""
     seg = dict(freeze=freeze, fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
-               het=het, cold=cold)
+               het=het, cold=cold, hedge=hedge, dup=dup, n_copies=n_copies)
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=inp["ring0"].shape[2],
                           n1=inp["t"].shape[1], **seg)

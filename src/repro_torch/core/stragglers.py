@@ -1,6 +1,7 @@
-"""Heterogeneous node speeds and failure schedules (own copy of the parts of
-``repro.core.stragglers`` that the scan needs): :class:`NodeSpeedProfile`
-with its tensor form, and :func:`rolling_restart`."""
+"""Heterogeneous node speeds, straggler hedging and failure schedules (own
+copy of the parts of ``repro.core.stragglers`` that the scan needs):
+:class:`NodeSpeedProfile` with its tensor form, :class:`HedgingSpec` and
+:func:`rolling_restart`."""
 
 from __future__ import annotations
 
@@ -105,6 +106,45 @@ class NodeSpeedProfile:
         for i, (n, t0, t1, f) in enumerate(self.episodes):
             epn[i], ept0[i], ept1[i], epf[i] = n, t0, t1, f
         return spd, epn, ept0, ept1, epf
+
+
+HEDGE_MODES = ("steal", "duplicate")
+
+
+@dataclass(frozen=True)
+class HedgingSpec:
+    """Estimate-driven straggler hedging (as
+    ``repro.core.stragglers.HedgingSpec``).
+
+    A watch armed at controller receive fires at ``now + multiple x
+    max(E[p], floor_s)`` (the controller's last-``window`` estimate); a
+    call still queued on its node past the deadline is hedged, at most
+    ``max_backups`` times: ``mode="steal"`` cancels it on its node and
+    re-submits it to the least-loaded peer, ``mode="duplicate"`` leaves it
+    queued and races a copy on the least-loaded peer (the first completion
+    wins).  Hedging acts only on queued calls, so under pull it is a
+    structural no-op (``backups_issued == 0``)."""
+
+    multiple: float = 3.0
+    floor_s: float = 0.5
+    max_backups: int = 3
+    mode: str = "steal"
+
+    def __post_init__(self) -> None:
+        if not (self.multiple > 0):
+            raise ValueError(f"hedge multiple must be > 0, got {self.multiple}")
+        if self.floor_s < 0:
+            raise ValueError(f"hedge floor must be >= 0, got {self.floor_s}")
+        if self.max_backups < 0:
+            raise ValueError(f"max_backups must be >= 0, "
+                             f"got {self.max_backups}")
+        if self.mode not in HEDGE_MODES:
+            raise ValueError(f"unknown hedge mode {self.mode!r}; "
+                             f"available: {HEDGE_MODES}")
+
+    def deadline(self, now: float, estimate: float) -> float:
+        """When the watch armed at ``now`` fires."""
+        return now + self.multiple * max(estimate, self.floor_s)
 
 
 def rolling_restart(node_count: int, start: float = 30.0,

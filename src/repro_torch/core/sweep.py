@@ -3,11 +3,12 @@
 Counterpart of the parts of ``repro.core.sweep`` that the interactive-sweep
 path uses: :class:`SweepCell` restricted to the fields of a cell the port
 scans (one node, or a cluster under pull or push assignment, with
-capacity dynamics -- the autoscaler, failures -- node speeds and the
-cold-start regime; every arrival process, per-function metric columns),
-a :class:`SweepSpec` over the policy, assignment, balancer, arrival,
-intensity, fleet, autoscaler, failure and speed axes, whose ``cells()``
-yields the JAX package's cells in the JAX package's order, and
+capacity dynamics -- the autoscaler, failures -- node speeds, straggler
+hedging and the cold-start regime; every arrival process, per-function
+metric columns), a :class:`SweepSpec` over the policy, assignment,
+balancer, arrival, intensity, fleet, autoscaler, failure, speed and
+hedging axes, whose ``cells()`` yields the JAX package's cells in the JAX
+package's order (pruned by its ``cell_filter``), and
 :func:`run_cells_scan`, which runs a list of cells through the bucketed
 scan and returns one metrics row per cell.
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -31,7 +32,7 @@ from .fastpath import (
 from .cluster import ClusterDynamics
 from .metrics import summarize, summarize_arrays
 from .request import Request
-from .stragglers import NodeSpeedProfile
+from .stragglers import HedgingSpec, NodeSpeedProfile
 from .traces import generate_trace_requests
 from .workload import (
     generate_burst,
@@ -64,6 +65,12 @@ class SweepCell:
     # per-node speed multipliers and degradation episodes
     node_speeds: tuple[float, ...] | None = None
     degrade: tuple[tuple[int, float, float, float], ...] | None = None
+    # straggler hedging: the estimate-multiple deadline (None: off); the
+    # knobs below fill out the HedgingSpec
+    hedge_multiple: float | None = None
+    hedge_floor_s: float = 0.5
+    hedge_max_backups: int = 3
+    hedge_mode: str = "steal"
     seed: int = 0
     duration_s: float = 60.0
     workload_cores: int | None = None  # burst sized for this many cores
@@ -96,6 +103,8 @@ class SweepCell:
         prof = _cell_profile(self)
         if prof is not None:
             parts.append(f"deg{prof.max_slowdown():g}")
+        if self.hedge_multiple is not None:
+            parts.append(f"hedge{self.hedge_multiple:g}")
         return "_".join(parts)
 
 
@@ -118,6 +127,10 @@ class SweepSpec:
     fail_specs: Sequence[tuple | None] = (None,)
     node_speeds: Sequence[tuple | None] = (None,)
     degrades: Sequence[tuple | None] = (None,)
+    hedge_multiples: Sequence[float | None] = (None,)
+    hedge_floor_s: float = 0.5           # HedgingSpec knobs (all hedged cells)
+    hedge_max_backups: int = 3
+    hedge_mode: str = "steal"
     seeds: int | Sequence[int] = 3
     base_seed: int = 0
     duration_s: float = 60.0
@@ -127,6 +140,8 @@ class SweepSpec:
     trace_repeat: int = 1
     trace_scale: float = 1.0
     warm: bool = True
+    # prunes the cartesian product (ragged grids)
+    cell_filter: Callable[[SweepCell], bool] | None = None
 
     def seed_list(self) -> list[int]:
         if isinstance(self.seeds, int):
@@ -147,6 +162,10 @@ class SweepSpec:
                          node_speeds=tuple(spd) if spd else None,
                          degrade=(tuple(tuple(e) for e in deg)
                                   if deg else None),
+                         hedge_multiple=hedge,
+                         hedge_floor_s=self.hedge_floor_s,
+                         hedge_max_backups=self.hedge_max_backups,
+                         hedge_mode=self.hedge_mode,
                          seed=seed, duration_s=self.duration_s,
                          workload_cores=self.workload_cores,
                          per_function=tuple(self.per_function),
@@ -154,12 +173,14 @@ class SweepSpec:
                          trace_repeat=self.trace_repeat,
                          trace_scale=self.trace_scale, warm=self.warm)
                for (pol, asg, lb, arr, inten, c, n, auto, pd, su, fail, fspec,
-                    spd, deg, seed) in itertools.product(
+                    spd, deg, hedge, seed) in itertools.product(
                    self.policies, self.assignments, self.lbs, self.arrivals,
                    self.intensities, self.cores, self.nodes, self.autoscale,
                    self.provision_delays, self.scale_ups, self.failures,
                    self.fail_specs, self.node_speeds, self.degrades,
-                   self.seed_list())]
+                   self.hedge_multiples, self.seed_list())]
+        if self.cell_filter is not None:
+            out = [c for c in out if self.cell_filter(c)]
         # the balancer only means something on push cells and the
         # autoscaler knobs on autoscale cells: collapsing them elsewhere
         # would duplicate cells, so keep the first of each
@@ -229,13 +250,25 @@ def _cell_profile(cell: SweepCell) -> NodeSpeedProfile | None:
     return NodeSpeedProfile.from_any(cell.node_speeds, cell.degrade)
 
 
+def _cell_hedging(cell: SweepCell) -> HedgingSpec | None:
+    """The cell's hedging, or ``None`` when it is off."""
+    if cell.hedge_multiple is None:
+        return None
+    return HedgingSpec(multiple=cell.hedge_multiple,
+                       floor_s=cell.hedge_floor_s,
+                       max_backups=cell.hedge_max_backups,
+                       mode=cell.hedge_mode)
+
+
 def _cluster_shaped(cell: SweepCell) -> bool:
     """Does the cell go to the cluster scan?  As in the JAX package's
-    ``_cluster_scan_capable``: more than one node, or any dynamics or
-    node-speed axis set, so a one-node autoscale cell is a cluster cell."""
+    ``_cluster_scan_capable``: more than one node, or any dynamics,
+    node-speed or hedging axis set, so a one-node autoscale cell, or a
+    one-node hedged push cell (which steals from itself), is a cluster
+    cell."""
     return (cell.nodes > 1 or cell.autoscale or cell.fail_at is not None
             or cell.fail_spec is not None or cell.node_speeds is not None
-            or cell.degrade is not None)
+            or cell.degrade is not None or cell.hedge_multiple is not None)
 
 
 def _scan_capable(cell: SweepCell) -> bool:
@@ -244,8 +277,13 @@ def _scan_capable(cell: SweepCell) -> bool:
     ``_cluster_scan_capable`` answers it: that function reads the cell's
     dynamics axes as set or not, so an axis set to no event (``fail_spec``
     ``()``) still asks for the least-loaded balancer under push and for a
-    second node, where the cell's ``ClusterDynamics`` is static."""
+    second node, where the cell's ``ClusterDynamics`` is static; and a
+    duplicate-mode hedged push cell with any dynamics axis set is
+    refused."""
     failures = cell.fail_at is not None or cell.fail_spec is not None
+    if (cell.hedge_multiple is not None and cell.hedge_mode == "duplicate"
+            and (failures or cell.autoscale) and cell.assignment == "push"):
+        return False                 # racing copies under churn
     if (cell.assignment == "push" and cell.lb != "least_loaded"
             and (failures or cell.autoscale)):
         return False
@@ -309,10 +347,11 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
     metrics rows in order.
 
     Single-node cells (one node, whatever their assignment, and no
-    dynamics or speeds) run through :func:`simulate_cells_scan` and
-    cluster cells through :func:`simulate_cluster_cells_scan`, under pull
-    assignment or push with the least-loaded or home balancer, with their
-    dynamics, node speeds and warm or cold start, as the JAX package's
+    dynamics, speeds or hedging) run through :func:`simulate_cells_scan`
+    and cluster cells through :func:`simulate_cluster_cells_scan`, under
+    pull assignment or push with the least-loaded or home balancer, with
+    their dynamics, node speeds, hedging and warm or cold start, as the
+    JAX package's
     ``run_cells_scan`` sends them.  A cell outside the scan's regimes (as
     the JAX package's ``_cluster_scan_capable`` and ``cluster_scan_
     eligible`` or ``scan_eligible`` answer) raises ``ValueError``.  Rows
@@ -344,13 +383,14 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
                                   cell.warm)))
         else:
             dyn, prof = _cell_dynamics(cell), _cell_profile(cell)
+            hedging = _cell_hedging(cell)
             ok = _scan_capable(cell) and cluster_scan_eligible(
                 reqs, cell.nodes, cell.cores, cell.policy,
                 assignment=cell.assignment, lb=cell.lb, warm=cell.warm,
-                dynamics=dyn, profile=prof)
+                dynamics=dyn, profile=prof, hedging=hedging)
             clusters.append((pos, (reqs, cell.nodes, cell.cores,
                                    cell.policy, cell.assignment, cell.lb,
-                                   dyn, prof, None, cell.warm)))
+                                   dyn, prof, hedging, cell.warm)))
         if not ok:
             raise ValueError(f"cell {cell.label()} is not scan-eligible")
     results: list = [None] * len(cells)

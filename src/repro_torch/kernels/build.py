@@ -15,6 +15,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -27,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FAILED: dict[str, str] = {}      # source -> nvcc log of a failed build
+# source -> wall seconds of its nvcc in the last build_all
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def build_dir() -> Path:
@@ -60,11 +64,14 @@ def lib_path(name: str) -> Path:
 def build_all() -> dict[str, str]:
     """Compile every source whose library is missing, all at once.  Returns
     each compiled source's ``nvcc`` output (``-Xptxas=-v`` register and
-    spill report); raises ``RuntimeError`` with the log if one fails."""
+    spill report), and leaves each one's wall seconds in
+    ``BUILD_SECONDS``; raises ``RuntimeError`` with the log if one
+    fails."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for src in sorted(CSRC.glob("*.cu")):
         lib = lib_path(src.stem)
         if lib.exists() or src.stem in _FAILED:
@@ -74,9 +81,20 @@ def build_all() -> dict[str, str]:
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, lib)
-    logs, failed = {}, []
+    outs, failed = {}, []
+
+    def wait(name, proc):
+        outs[name] = proc.communicate()[0]
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+
+    waits = [threading.Thread(target=wait, args=(name, proc))
+             for name, (proc, _, _) in procs.items()]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
+    logs = {name: outs[name] for name in procs}
     for name, (proc, tmp, lib) in procs.items():
-        logs[name] = proc.communicate()[0]
         if proc.returncode:
             failed.append(name)
             _FAILED[name] = logs[name]

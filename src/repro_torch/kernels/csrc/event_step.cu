@@ -3,7 +3,9 @@
 // (freeze_kernel) for single-node and push cells, the float64 pull
 // kernel (dyn_kernel) for pull cells with capacity dynamics, node speeds
 // or cold starts, and the float64 frozen-priority kernel
-// (freeze64_kernel) for single-node and push cells with them.
+// (freeze64_kernel, its body in event_step_freeze64.cuh) for single-node
+// and push cells with them; its hedged sets are built from
+// event_step_hedge.cu and event_step_dup.cu.
 //
 // The pull kernel replaces the TPU kernel
 // repro/kernels/event_step.py::_event_kernel (launched by
@@ -103,14 +105,15 @@
 #include <cstring>
 #include <type_traits>
 
+#include "event_step_common.cuh"
+#include "event_step_freeze64.cuh"
+
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned NO_KEY = 0xffffffffu;   // above every non-NaN key
 constexpr int kLayout = 14;   // carry entries, see struct Layout
 constexpr int kDims = 13;     // integer launch dimensions, see struct Dims
 constexpr int kPlan = 4;      // per_lane, staged, cell_bytes, scratch_words
-constexpr int kMaxCellsPerBlock = 16;
 // lane-owned arrays of the wide path: 5 a slot, 2 a node, 13 a function
 constexpr int kWideArrays = 20;
 
@@ -143,10 +146,6 @@ struct Args {
   int* node;
   uint32_t* scratch;    // the wide path's state (PL = 0), else null
 };
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
 
 // Shared-memory bytes of one cell: the ring, and with STAGED its rows.
 // ops.event_step_cell_bytes computes the same.
@@ -247,25 +246,6 @@ struct Rows {
     if constexpr (S) return fn_[i]; else return __ldg(fn_ + i);
   }
 };
-
-// dst[i] = src[i] for i < count, as 8 bits, eight loads in flight a lane.
-__device__ __forceinline__ void stage8(uint8_t* dst, const int* src,
-                                       int count, int lane) {
-  constexpr int U = 8;
-  for (int i0 = lane; i0 < count; i0 += 32 * U) {
-    int v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + 32 * u;
-      v[u] = i < count ? __ldg(src + i) : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + 32 * u;
-      if (i < count) dst[i] = static_cast<uint8_t>(v[u]);
-    }
-  }
-}
 
 template <int PL, bool STAGED>
 __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
@@ -664,39 +644,6 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
       }
     }
   }
-}
-
-// Cells a block and blocks of a launch of `kernel` over B cells of `cell`
-// shared-memory bytes each: as many cells a block as fit (at most
-// kMaxCellsPerBlock), then as few as keep the same number of waves, so that
-// every SM gets cells.  Sets the kernel's dynamic shared-memory limit.
-template <typename K>
-int block_shape(K kernel, int B, int cell, int* cpb, int* blocks) {
-  int dev = 0, n_sm = 0, smem_max = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_max,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (cell > smem_max) return static_cast<int>(cudaErrorInvalidValue);
-  const int cap = cell > 0 ? std::min(kMaxCellsPerBlock, smem_max / cell)
-                           : kMaxCellsPerBlock;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           cap * cell);
-  int blocks_sm = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_sm, kernel,
-                                                      32 * cap, cap * cell);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long per_wave = static_cast<long>(n_sm) * std::max(1, blocks_sm) * cap;
-  const long waves = (B + per_wave - 1) / per_wave;
-  const long spread = static_cast<long>(n_sm) * waves;
-  *cpb = static_cast<int>(std::min<long>(cap, (B + spread - 1) / spread));
-  *blocks = (B + *cpb - 1) / *cpb;
-  return static_cast<int>(cudaSuccess);
 }
 
 template <int PL, bool STAGED>
@@ -1280,11 +1227,6 @@ int launch_freeze_pl(bool staged, const FArgs& a, const FLayout& L,
 constexpr int kDLayout = 30;  // carry entries, see struct DLayout
 constexpr int kDDims = 16;    // integer launch dimensions, see struct DDims
 constexpr int kDPlan = 5;     // per_lane, staged, wide, cell_bytes, words
-constexpr unsigned long long NO_KEY64 = ~0ull;
-// a cold start's prewarm charge (repro_torch/core/simulator.py
-// OURS_PREWARM_EXTRA)
-constexpr double kPrewarmExtra = 0.35;
-
 // Offsets of the carry entries: the first twelve in the clk plane, the rest
 // in the ctr plane (EVENT_STEP_DYN_LAYOUT in ops.py); the entries of a
 // segment the bucket lacks (dyn, cold) are 0.
@@ -1357,91 +1299,6 @@ __host__ __device__ constexpr long dyn_scratch_words(bool wide, int pls,
                : 0L) +
          (dyn ? 7L * round_up(n1, 2) + 2L * F : 0L);
 }
-
-// An order-preserving 64-bit key of a double (-0.0 taken as +0.0).
-__device__ __forceinline__ unsigned long long order_key64(double x) {
-  const unsigned long long u =
-      static_cast<unsigned long long>(__double_as_longlong(__dadd_rn(x, 0.0)));
-  return (u >> 63) ? ~u : (u | 0x8000000000000000ull);
-}
-
-__device__ __forceinline__ double key_double(unsigned long long k) {
-  return __longlong_as_double(static_cast<long long>(
-      (k >> 63) ? (k & 0x7fffffffffffffffull) : ~k));
-}
-
-// The least 64-bit key across the warp.
-__device__ __forceinline__ unsigned long long warp_min64(
-    unsigned long long k) {
-  const unsigned hi = __reduce_min_sync(FULL, static_cast<unsigned>(k >> 32));
-  const unsigned lo = __reduce_min_sync(
-      FULL, static_cast<unsigned>(k >> 32) == hi ? static_cast<unsigned>(k)
-                                                 : 0xffffffffu);
-  return (static_cast<unsigned long long>(hi) << 32) | lo;
-}
-
-// The least (key, index) across the warp: the key, and the least index of
-// the lanes that hold it (INT_MAX if none does).
-__device__ __forceinline__ unsigned long long warp_argmin64(
-    unsigned long long k, int idx, int* at) {
-  const unsigned long long m = warp_min64(k);
-  *at = __reduce_min_sync(FULL, k == m ? idx : INT_MAX);
-  return m;
-}
-
-// Entries a lane owns: N in registers, or (N == 0) in the scratch, entry q
-// at p[32 q] (p already at the lane's first word).
-template <typename T, int N>
-struct Lane {
-  T v[N];
-  __device__ __forceinline__ explicit Lane(T*) {}
-  __device__ __forceinline__ T& operator[](int q) { return v[q]; }
-};
-
-template <typename T>
-struct Lane<T, 0> {
-  T* p;
-  __device__ __forceinline__ explicit Lane(T* base) : p(base) {}
-  __device__ __forceinline__ T& operator[](int q) const { return p[q * 32]; }
-};
-
-// Entry e of a lane-owned array of `pl` entries a lane, on every lane.
-template <typename T, int N>
-__device__ __forceinline__ T lane_get(Lane<T, N>& arr, int pl, int e) {
-  const int src = e / pl, qe = e % pl;
-  T v;
-  if constexpr (N == 0) {
-    v = arr[qe];
-  } else {
-    v = arr[0];
-#pragma unroll
-    for (int q = 1; q < N; ++q)
-      if (q == qe) v = arr[q];
-  }
-  return __shfl_sync(FULL, v, src);
-}
-
-// Rows of a float64 cell: in shared memory (fnid as 8 bits) or in place.
-template <bool S>
-struct DRows {
-  using Fn = std::conditional_t<S, uint8_t, int>;
-  const double* t_;
-  const double* p_;
-  const double* c_;
-  const Fn* fn_;
-  __device__ __forceinline__ double t(int i) const {
-    if constexpr (S) return t_[i]; else return __ldg(t_ + i);
-  }
-  __device__ __forceinline__ double p(int i) const {
-    if constexpr (S) return p_[i]; else return __ldg(p_ + i);
-  }
-  __device__ __forceinline__ double cost(int i) const {
-    if constexpr (S) return c_[i]; else return __ldg(c_ + i);
-  }
-  __device__ __forceinline__ int fn(int i) const {
-    if constexpr (S) return fn_[i]; else return __ldg(fn_ + i);
-  }
-};
 
 template <int PL, bool STAGED, bool COLD>
 __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
@@ -2089,830 +1946,51 @@ int launch_dyn_pl(bool staged, const DArgs& a, const DLayout& L,
                                              stream, PL, words);
 }
 
-// ---------------------------------------------------------------------------
-// The float64 frozen-priority regime: single-node and push cells with
-// capacity dynamics (`DYN`: scheduled node failures, the autoscaler; push
-// routes least-loaded), node speeds (`HET`) or the cold-start containers
-// (`COLD`), the freeze branch of _scan_cell_kernel in float64 that the JAX
-// package runs as XLA's lax.scan (repro/core/fastpath.py:821).  The plain
-// PyTorch version is repro_torch/kernels/event_step.py::freeze_scan_ref
-// with dyn / het / cold.
-//
-// freeze_kernel's design in float64, with dyn_kernel's clocks and carried
-// candidate events.  A first, exact kernel; what bounds it is the same
-// serial chain of one event a step.
-// - One warp a cell.  The register path (PL = 1 or 2 slots a lane, one node
-//   a lane: up to 64 slots and 32 nodes) stages the rows t / p / cost
-//   (float64) and fnid (8 bits), the per-(node, function) estimators and
-//   runtime rings, the free containers (COLD) and the queue -- each row's
-//   frozen priority as a 64-bit order key and the node it waits on (-1
-//   once dispatched, lost or not yet arrived) -- in shared memory, when one
-//   cell's fit (n_b up to ~5,000 at the push widths).  Otherwise the wide
-//   path (PL = 0) keeps all of that and the lane arrays in a device-memory
-//   scratch and reads the rows in place.
-// - The estimators, the free containers and the FC rings' positions are
-//   read and written by lane 0 alone (one entry an event), which hands
-//   over what the warp needs by a shuffle.  A queue row i is read and
-//   written by lane i % 32, as in freeze_kernel.
-// - Candidate events, taken in the oracle's precedence (kill < arrival <=
-//   completion < re-arrival < activation < tick, the first minimum wins),
-//   each carried as a warp-uniform value and found again only when the
-//   event that moves it happens.
-// - A kill frees its node's slots and its queue: the running calls get
-//   their launch sequence (stamped from the launch count at dispatch) as
-//   their re-route rank, the queued ones the rank kRordQ, and all their
-//   re-arrival time, in per-row arrays of the scratch (written by the slot
-//   owners and the row lanes, then a __syncwarp).  A re-arrival takes,
-//   among the rows due at that instant, the least rank, then among
-//   ex-queued rows the least (frozen-priority key, row); it is routed,
-//   observed and ranked like an arrival, and the first queued row (lo)
-//   moves back to it if it is below.
-// - HET: the node's speed at dispatch divides cost and runtime as
-//   (x * slowdown) / speed, as XLA compiles the oracle's x / (speed /
-//   slowdown); the slot keeps the call's measured service p / eff (eff =
-//   speed / slowdown), which its completion logs in the node's ring.
-// - COLD: a dispatch takes a free container of the node and function (lane
-//   0) or starts cold, adding kPrewarmExtra to the cost before the speed
-//   divides it; a completion returns the container or evicts it at
-//   `cores` free ones.  Each row's flag starts as the carry's and lane 0
-//   writes it at dispatch.
-// - DYN, HET and COLD are template parameters, so the float32 kernels and
-//   every combination carry only the state they use.
-// Outputs: start / finish written at each dispatch (a re-dispatched call
-// keeps its last), prio / node each row's frozen values (the carry's,
-// overwritten at each arrival and re-arrival), the summary and the cold
-// counts at the end.
-// ---------------------------------------------------------------------------
-
-constexpr int kF64Layout = 35;  // carry entries, see struct F64Layout
-constexpr int kF64Dims = 16;    // integer launch dimensions, see F64Dims
-constexpr int kF64Plan = 5;     // per_lane, staged, wide, cell_bytes, words
-// lane-owned words of the wide path: a slot's completion time and measured
-// service (2 words each), row and launch sequence; a node's channel clock,
-// activation, kill time and speed (2 each), busy, queued, dead and pending
-constexpr int kF64SlotWords = 6;
-constexpr int kF64NodeWords = 12;
-constexpr int kRordQ = 1 << 30;   // the re-route rank of a call lost queued
-constexpr unsigned long long KEY64_INF = 0xfff0000000000000ull;  // +inf
-
-// Offsets of the carry entries: the first thirteen in the clk plane, the
-// rest in the ctr plane (EVENT_STEP_FREEZE64_LAYOUT in ops.py); the entries
-// of a segment the bucket lacks are 0.
-struct F64Layout {
-  int chan, fin_s, fprio, last_t, prev_t, ring, rsum, fcr, sspd, act_t,
-      killq, rearr, next_tick;
-  int ai, busy, idx_s, narr, node_of, pend, qn, rlen, rpos, fcp, freec,
-      ncold, nevt, coldq, dead, act_pend, prov, nfail, ndone, dseq, dcnt,
-      rord;
-};
-
-struct F64Dims {
-  int B, n, n_nodes, n_slots, window, n_fns, ncoef, n_ep, f_len, i_len,
-      fc_push, fc_ring, dyn, het, cold, n_steps;
-};
-
-struct F64Args {
-  const double* clk;
-  const int* ctr;
-  const double* t;
-  const int* fnid;
-  const double* p;
-  const double* cost;
-  const double* coef;
-  const int* cores;
-  const int* nodes;
-  const double* cnt;
-  const int* home0;
-  const int* route;
-  const double* dynp;
-  const int* maxn;
-  const int* nreq;
-  const double* spd;
-  const int* epn;
-  const double* ept0;
-  const double* ept1;
-  const double* epf;
-  double* start;
-  double* finish;
-  double* prio;
-  int* node;
-  int* summ;         // (B, 3): calls lost, calls done, nodes provisioned
-  double* act_out;   // (B, nodes): activation times at the end
-  int* dead_out;     // (B, nodes): dead flags at the end
-  int* cold_out;     // (B, 2): cold starts, evictions
-  int* coldq_out;    // (B, n + 1): each row's cold-start flag
-  uint32_t* scratch;
-};
-
-// Bytes of one cell's estimators, queue and free containers, and (staged)
-// its rows, in shared memory (staged) or the scratch: the float64 arrays
-// (sum, last and previous arrival; the rings; the rows; the queue keys),
-// then the int32 ones (length, position, arrivals, FC ring position; the
-// free containers; the queue nodes), then the staged fnid.
-// ops.event_step_freeze64_cell_bytes computes the same.
-__host__ __device__ constexpr int f64_cell_bytes(bool staged, int n1, int E,
-                                                 int W, int nfree) {
-  return round_up(8 * (3 * round_up(E, 2) + round_up(E * W, 2) +
-                       (staged ? 4 : 1) * round_up(n1, 2)) +
-                      4 * (4 * round_up(E, 4) + round_up(nfree, 4) +
-                           round_up(n1, 4)) +
-                      (staged ? round_up(n1, 16) : 0),
-                  16);
-}
-
-// Scratch words of one cell: (wide) the lane arrays and the estimators and
-// queue, then (dyn) each row's re-arrival time and rank, then (push FC)
-// the float64 rings.  ops.event_step_plan computes the same.
-__host__ __device__ constexpr long f64_scratch_words(bool wide, int pls,
-                                                     int pln, int n1, int E,
-                                                     int W, int nfree,
-                                                     bool dyn, bool fc_push,
-                                                     int RF) {
-  return (wide ? 32L * (kF64SlotWords * pls + kF64NodeWords * pln) +
-                     f64_cell_bytes(false, n1, E, W, nfree) / 4
-               : 0L) +
-         (dyn ? 2L * round_up(n1, 2) + round_up(n1, 4) : 0L) +
-         (fc_push ? 2L * E * RF : 0L);
-}
-
-template <int PL, bool COLD, bool HET, bool DYN>
-__global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
-    freeze64_kernel(const F64Args a, const F64Layout L, const F64Dims D,
-                    const int cells_per_block, const int bytes_per_cell,
-                    const float horizon_f, const int pl_wide,
-                    const int words) {
-  constexpr bool STAGED = PL > 0;      // the register path stages
-  constexpr int NQ = PL > 0 ? 1 : 0;   // nodes a lane: 1, or the scratch
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * cells_per_block + warp;
-  if (b >= D.B) return;
-
-  const int n = D.n, n1 = D.n + 1;
-  const int NN = D.n_nodes, NS = D.n_slots, NSL = D.n_nodes * D.n_slots;
-  const int F = D.n_fns, W = D.window, E = NN * F, RF = D.fc_ring;
-  const bool FCP = D.fc_push != 0;
-  const double inf = __longlong_as_double(0x7ff0000000000000ll);
-  const double horizon = static_cast<double>(horizon_f);
-  const size_t row = static_cast<size_t>(b) * n1;
-  const double* clk = a.clk + static_cast<size_t>(b) * D.f_len;
-  const int* ctr = a.ctr + static_cast<size_t>(b) * D.i_len;
-  const int pls = PL > 0 ? PL : pl_wide;           // slots a lane
-  const int pln = PL > 0 ? 1 : (NN + 31) / 32;     // nodes a lane
-  const int nfree = COLD ? E : 0;
-
-  // -- the cell's scratch: (wide) lane arrays, estimators and queue; then
-  // the per-row dynamics arrays and the FC rings
-  uint32_t* wp = a.scratch == nullptr
-                     ? nullptr
-                     : a.scratch + static_cast<size_t>(b) * words;
-  auto dbl = [&](int cnt) {
-    double* p = reinterpret_cast<double*>(wp) + lane;
-    if constexpr (PL == 0) wp += 64 * cnt;
-    return p;
-  };
-  auto i32 = [&](int cnt) {
-    int* p = reinterpret_cast<int*>(wp) + lane;
-    if constexpr (PL == 0) wp += 32 * cnt;
-    return p;
-  };
-  Lane<double, PL> s_fin(dbl(pls)), s_v(dbl(pls));
-  Lane<int, PL> s_row(i32(pls)), s_dseq(i32(pls));
-  Lane<double, NQ> n_chan(dbl(pln)), n_act(dbl(pln)), n_kill(dbl(pln)),
-      n_spd(dbl(pln));
-  Lane<int, NQ> n_busy(i32(pln)), n_qn(i32(pln)), n_dead(i32(pln)),
-      n_pend(i32(pln));
-  unsigned char* cb;
-  if constexpr (STAGED) {
-    cb = smem + static_cast<size_t>(warp) * bytes_per_cell;
-  } else {
-    cb = reinterpret_cast<unsigned char*>(wp);
-    wp += f64_cell_bytes(false, n1, E, W, nfree) / 4;
-  }
-  const int E2 = round_up(E, 2), E4 = round_up(E, 4), N2 = round_up(n1, 2);
-  double* const e_rsum = reinterpret_cast<double*>(cb);
-  double* const e_last = e_rsum + E2;
-  double* const e_prev = e_last + E2;
-  double* const ring = e_prev + E2;
-  double* const rows_d = ring + round_up(E * W, 2);
-  unsigned long long* const q_key = reinterpret_cast<unsigned long long*>(
-      rows_d + (STAGED ? 3 * N2 : 0));
-  int* const e_rlen = reinterpret_cast<int*>(q_key + N2);
-  int* const e_rpos = e_rlen + E4;
-  int* const e_narr = e_rpos + E4;
-  int* const e_fcp = e_narr + E4;
-  int* const fcnt = e_fcp + E4;
-  int* const q_node = fcnt + round_up(nfree, 4);
-  double* const r_rearr = reinterpret_cast<double*>(wp);
-  int* const r_rord = reinterpret_cast<int*>(r_rearr + N2);
-  double* const fcr = reinterpret_cast<double*>(
-      wp + (DYN ? 2 * N2 + round_up(n1, 4) : 0));
-
-  DRows<STAGED> R;
-  if constexpr (STAGED) {
-    double* st = rows_d;
-    double* sp = st + N2;
-    double* sc = sp + N2;
-    uint8_t* sfn = reinterpret_cast<uint8_t*>(q_node + round_up(n1, 4));
-    for (int i = lane; i < n1; i += 32) {
-      st[i] = __ldg(a.t + row + i);
-      sp[i] = __ldg(a.p + row + i);
-      sc[i] = __ldg(a.cost + row + i);
-    }
-    stage8(sfn, a.fnid + row, n1, lane);
-    R = DRows<STAGED>{st, sp, sc, sfn};
-  } else {
-    R = DRows<STAGED>{a.t + row, a.p + row, a.cost + row, a.fnid + row};
-  }
-  for (int i = lane; i < E; i += 32) {
-    e_rsum[i] = __ldg(clk + L.rsum + i);
-    e_last[i] = __ldg(clk + L.last_t + i);
-    e_prev[i] = __ldg(clk + L.prev_t + i);
-    e_rlen[i] = __ldg(ctr + L.rlen + i);
-    e_rpos[i] = __ldg(ctr + L.rpos + i);
-    e_narr[i] = __ldg(ctr + L.narr + i);
-    e_fcp[i] = FCP ? __ldg(ctr + L.fcp + i) : 0;
-    if constexpr (COLD) fcnt[i] = __ldg(ctr + L.freec + i);
-  }
-  for (int i = lane; i < E * W; i += 32) ring[i] = __ldg(clk + L.ring + i);
-  if (FCP)
-    for (int i = lane; i < E * RF; i += 32) fcr[i] = __ldg(clk + L.fcr + i);
-  // the queue, the frozen outputs and the per-row carry: row i by lane
-  // i % 32
-  double* const o_start = a.start + row;
-  double* const o_finish = a.finish + row;
-  double* const o_prio = a.prio + row;
-  int* const o_node = a.node + row;
-  int* const o_coldq = COLD ? a.coldq_out + row : nullptr;
-  int hi = 0;         // one past the last queued row
-  int n_re = 0;       // rows with a re-arrival pending
-  for (int i = lane; i < n1; i += 32) {
-    const bool pend = __ldg(ctr + L.pend + i) != 0;
-    const double fp = __ldg(clk + L.fprio + i);
-    const int nd = __ldg(ctr + L.node_of + i);
-    q_key[i] = order_key64(fp);
-    q_node[i] = pend ? nd : -1;
-    o_prio[i] = fp;
-    o_node[i] = nd;
-    if (pend) hi = i + 1;
-    if constexpr (COLD) o_coldq[i] = __ldg(ctr + L.coldq + i);
-    if constexpr (DYN) {
-      r_rearr[i] = __ldg(clk + L.rearr + i);
-      r_rord[i] = __ldg(ctr + L.rord + i);
-      n_re += r_rearr[i] != inf;
-    }
-  }
-  hi = __reduce_max_sync(FULL, hi);
-  if constexpr (DYN) n_re = __reduce_add_sync(FULL, n_re);
-  const bool carried = hi > 0;    // calls queued in the carry
-  __syncwarp();
-
-  const double* cf = a.coef + static_cast<size_t>(b) * D.ncoef;
-  const double c0 = __ldg(cf), c1 = __ldg(cf + 1), c2 = __ldg(cf + 2),
-               c3 = __ldg(cf + 3);
-  const int cores = __ldg(a.cores + b), nodes = __ldg(a.nodes + b);
-  const int route = __ldg(a.route + b);
-  double interval = 0.0, thr = 0.0, delay = 0.0, detect = 0.0;
-  int maxn = 0, nreq = 0;
-  if constexpr (DYN) {
-    const double* dp = a.dynp + static_cast<size_t>(b) * 5;
-    interval = __ldg(dp);
-    thr = __ldg(dp + 1);
-    delay = __ldg(dp + 2);
-    detect = __ldg(dp + 3);
-    maxn = __ldg(a.maxn + b);
-    nreq = __ldg(a.nreq + b);
-  }
-  const int* epn = HET ? a.epn + static_cast<size_t>(b) * D.n_ep : nullptr;
-  const double* ept0 =
-      HET ? a.ept0 + static_cast<size_t>(b) * D.n_ep : nullptr;
-  const double* ept1 =
-      HET ? a.ept1 + static_cast<size_t>(b) * D.n_ep : nullptr;
-  const double* epf = HET ? a.epf + static_cast<size_t>(b) * D.n_ep : nullptr;
-
-  // -- slots and nodes, from the planes into the owning lanes
-#pragma unroll
-  for (int q = 0; q < pls; ++q) {
-    const int e = lane * pls + q;
-    const bool se = e < NSL;
-    s_fin[q] = se ? __ldg(clk + L.fin_s + e) : inf;
-    s_row[q] = se ? min(max(__ldg(ctr + L.idx_s + e), 0), n) : n;
-    s_v[q] = HET && se ? __ddiv_rn(R.p(s_row[q]), __ldg(clk + L.sspd + e))
-                       : 0.0;
-    s_dseq[q] = DYN && se ? __ldg(ctr + L.dseq + e) : 0;
-  }
-  bool qn_zero = true;
-  for (int q = 0; q < pln; ++q) {
-    const int e = lane * pln + q;
-    const bool ne = e < NN;
-    n_busy[q] = ne ? __ldg(ctr + L.busy + e) : 0;
-    n_qn[q] = ne ? __ldg(ctr + L.qn + e) : 0;
-    n_chan[q] = ne ? __ldg(clk + L.chan + e) : 0.0;
-    n_act[q] = ne && DYN ? __ldg(clk + L.act_t + e) : 0.0;
-    n_kill[q] = ne && DYN ? __ldg(clk + L.killq + e) : inf;
-    n_dead[q] = ne && DYN ? __ldg(ctr + L.dead + e) : 0;
-    n_pend[q] = ne && DYN ? __ldg(ctr + L.act_pend + e) : 0;
-    n_spd[q] = ne && HET ? __ldg(a.spd + static_cast<size_t>(b) * NN + e)
-                         : 1.0;
-    if (n_qn[q] != 0) qn_zero = false;
-  }
-  // in a fresh carry a node's queued count is the number of calls queued
-  // on it, and a node with none is skipped
-  const bool counted = !carried && __all_sync(FULL, qn_zero);
-  int ai = __ldg(ctr + L.ai);
-  int lo = 0;     // the first queued row (none before it)
-  double t_a = ai <= n ? R.t(ai) : inf;
-  int ncold = COLD ? __ldg(ctr + L.ncold) : 0;
-  int nevt = COLD ? __ldg(ctr + L.nevt) : 0;
-  int nfail = DYN ? __ldg(ctr + L.nfail) : 0;
-  int ndone = DYN ? __ldg(ctr + L.ndone) : 0;
-  int prov = DYN ? __ldg(ctr + L.prov) : 0;
-  int dcnt = DYN ? __ldg(ctr + L.dcnt) : 0;
-  double next_tick = DYN ? __ldg(clk + L.next_tick) : inf;
-
-  unsigned long long nx_key;
-  double nx_t;
-  auto find_completion = [&]() {
-    unsigned long long k = NO_KEY64;
-#pragma unroll
-    for (int q = 0; q < pls; ++q) k = min(k, order_key64(s_fin[q]));
-    nx_key = warp_min64(k);
-    nx_t = nx_key == NO_KEY64 ? inf : key_double(nx_key);
-  };
-  double kill_t = inf, act_min = inf;
-  int kill_k = 0, act_k = 0;
-  auto find_node = [&](bool kill) {
-    unsigned long long k = NO_KEY64;
-    int idx = INT_MAX;
-    for (int q = 0; q < pln; ++q) {
-      const int e = lane * pln + q;
-      const double v = kill ? n_kill[q] : (n_pend[q] ? n_act[q] : inf);
-      const unsigned long long kv = order_key64(v);
-      if (e < NN && kv < k) { k = kv; idx = e; }
-    }
-    int at;
-    const unsigned long long m = warp_argmin64(k, idx, &at);
-    const double v = m == NO_KEY64 ? inf : key_double(m);
-    if (kill) { kill_t = v; kill_k = at == INT_MAX ? 0 : at; }
-    else { act_min = v; act_k = at == INT_MAX ? 0 : at; }
-  };
-  double re_min = inf;
-  auto find_rearr = [&]() {     // the least re-arrival time
-    __syncwarp();
-    unsigned long long k = NO_KEY64;
-    for (int i = lane; i < n1; i += 32) k = min(k, order_key64(r_rearr[i]));
-    k = warp_min64(k);
-    re_min = k == NO_KEY64 ? inf : key_double(k);
-  };
-  // the queued calls of every node (the autoscaler's rule, an activation)
-  auto queued_all = [&]() {
-    int s = 0;
-    for (int q = 0; q < pln; ++q) s += lane * pln + q < NN ? n_qn[q] : 0;
-    return __reduce_add_sync(FULL, s);
-  };
-  auto active_node = [&](int q, int e, double now) {
-    if constexpr (DYN) return e < NN && n_act[q] <= now && !n_dead[q];
-    else return e < nodes;
-  };
-  find_completion();
-  if constexpr (DYN) {
-    find_node(true);
-    find_node(false);
-    if (n_re > 0) find_rearr();
-  }
-
-  for (int step = 0; step < D.n_steps; ++step) {
-    // -- event selection: (kill <) arrival <= completion (< re-arrival <
-    // activation < tick), the first minimum wins
-    double now;
-    int ev;
-    if constexpr (DYN) {
-      now = kill_t;
-      ev = 0;
-      if (t_a < now) { now = t_a; ev = 1; }
-      if (nx_t < now) { now = nx_t; ev = 2; }
-      if (re_min < now) { now = re_min; ev = 3; }
-      if (act_min < now) { now = act_min; ev = 4; }
-      if (next_tick < now) { now = next_tick; ev = 5; }
-    } else {
-      ev = t_a <= nx_t ? 1 : 2;
-      now = ev == 1 ? t_a : nx_t;
-    }
-    if (now == inf) break;      // no event left: the carry is fixed
-
-    int k_d = -1;               // the node a dispatch is tried on
-    int ins = -1;               // the row an (re-)arrival inserts
-    if (ev == 1) {
-      ins = ai;
-    } else if (ev == 2) {
-      // -- completion: free the slot and its node, feed the node's ring
-      int ce = INT_MAX;
-#pragma unroll
-      for (int q = pls - 1; q >= 0; --q)
-        if (order_key64(s_fin[q]) == nx_key) ce = lane * pls + q;
-      const int kflat = __reduce_min_sync(FULL, ce);
-      const int j_done = lane_get(s_row, pls, kflat);
-      const int kn = kflat / NS;
-      const double v = HET ? lane_get(s_v, pls, kflat) : R.p(j_done);
-#pragma unroll
-      for (int q = 0; q < pls; ++q)
-        if (lane * pls + q == kflat) s_fin[q] = inf;
-      for (int q = 0; q < pln; ++q)
-        if (lane * pln + q == kn) n_busy[q] -= 1;
-      find_completion();
-      const int f_done = R.fn(j_done);
-      int evict = 0;
-      if (lane == 0) {
-        const int ec = kn * F + f_done;
-        const int rl = e_rlen[ec], pos = e_rpos[ec];
-        const bool full = rl == W;
-        double* const rg = ring + static_cast<size_t>(ec) * W;
-        e_rsum[ec] = __dsub_rn(__dadd_rn(e_rsum[ec], v), full ? rg[pos] : 0.0);
-        rg[pos] = v;
-        e_rlen[ec] = full ? rl : rl + 1;
-        e_rpos[ec] = pos + 1 == W ? 0 : pos + 1;
-        if constexpr (COLD) {
-          // release: the container returns to its node's free pool of
-          // the function, or is evicted when the pool holds `cores`
-          int& c = fcnt[ec];
-          evict = c >= cores;
-          if (!evict) c += 1;
-        }
-      }
-      if constexpr (COLD) nevt += __shfl_sync(FULL, evict, 0);
-      if constexpr (DYN) ndone += 1;
-      k_d = kn;
-    } else if (ev == 0) {
-      // -- kill: the node's running and queued calls re-arrive after the
-      // detection delay, ranked; its slots and queue are emptied
-      const int kk = kill_k;
-      const double back = __dadd_rn(now, detect);
-      int lost = 0;
-#pragma unroll
-      for (int q = 0; q < pls; ++q) {
-        const int e = lane * pls + q;
-        if (e < NSL && e / NS == kk) {
-          if (s_fin[q] != inf) {
-            r_rearr[s_row[q]] = back;
-            r_rord[s_row[q]] = s_dseq[q];
-            ++lost;
-          }
-          s_fin[q] = inf;
-        }
-      }
-      int i = (lo & ~31) + lane;
-      if (i < lo) i += 32;
-      for (; i < hi; i += 32) {
-        if (q_node[i] == kk) {
-          q_node[i] = -1;
-          r_rearr[i] = back;
-          r_rord[i] = kRordQ;
-          ++lost;
-        }
-      }
-      lost = __reduce_add_sync(FULL, lost);
-      for (int q = 0; q < pln; ++q) {
-        if (lane * pln + q == kk) {
-          n_busy[q] = 0;
-          n_qn[q] = 0;
-          n_dead[q] = 1;
-          n_kill[q] = inf;
-        }
-      }
-      nfail += lost;
-      n_re += lost;
-      if (lost > 0) re_min = back < re_min ? back : re_min;
-      find_node(true);
-      find_completion();
-      __syncwarp();
-    } else if (ev == 5) {
-      // -- autoscaler tick: provision one node while the queue per live
-      // slot is above the threshold (both counts as float32, as the oracle)
-      const bool alldone = ndone >= nreq;
-      int alive = 0;
-      for (int q = 0; q < pln; ++q)
-        alive += active_node(q, lane * pln + q, now) ? 1 : 0;
-      alive = __reduce_add_sync(FULL, alive);
-      const int queued = queued_all();
-      const bool fire =
-          !alldone && prov < maxn &&
-          static_cast<double>(static_cast<float>(queued)) >
-              __dmul_rn(thr, static_cast<double>(
-                                 static_cast<float>(max(alive * cores, 1))));
-      if (fire) {
-        for (int q = 0; q < pln; ++q) {
-          if (lane * pln + q == prov) {
-            n_act[q] = __dadd_rn(now, delay);
-            n_pend[q] = 1;
-          }
-        }
-        ++prov;
-        find_node(false);
-      }
-      next_tick = alldone ? inf : __dadd_rn(now, interval);
-    } else if (ev == 3) {
-      // -- re-arrival: among the rows due now, the least rank (ex-running
-      // calls in launch order), then the least (priority key, row)
-      __syncwarp();
-      int rk = INT_MAX, rr = INT_MAX, qr = INT_MAX;
-      unsigned long long qk = NO_KEY64;
-      for (int i = lane; i < n1; i += 32) {
-        if (r_rearr[i] == re_min) {
-          const int o = r_rord[i];
-          if (o < kRordQ) {
-            if (o < rk) { rk = o; rr = i; }
-          } else if (q_key[i] < qk) {
-            qk = q_key[i];
-            qr = i;
-          }
-        }
-      }
-      const int rmin = __reduce_min_sync(FULL, rk);
-      if (rmin != INT_MAX) {
-        ins = __reduce_min_sync(FULL, rk == rmin ? rr : INT_MAX);
-      } else {
-        warp_argmin64(qk, qr, &ins);
-      }
-      if ((ins & 31) == lane) r_rearr[ins] = inf;
-      n_re -= 1;
-      if (n_re > 0) find_rearr(); else re_min = inf;
-    } else {
-      k_d = act_k;               // ev 4: the activation's node
-    }
-
-    if (ins >= 0) {
-      // -- arrival or re-arrival: route, observe on the routed node
-      // (lane 0), log the FC ring and count its window (the warp), freeze
-      // the priority
-      const int i = ins, f = R.fn(i);
-      int k_arr;
-      if (!DYN && route == 1) {
-        // the first node with a free slot on the walk from home
-        const int h0 = __ldg(a.home0 + row + i);
-        const int m = max(nodes, 1);
-        int wb = INT_MAX;
-        for (int q = 0; q < pln; ++q) {
-          const int e = lane * pln + q;
-          if (e < NN && e < nodes && n_busy[q] < cores) {
-            int w = (e - h0) % m;
-            if (w < 0) w += m;
-            wb = min(wb, w);
-          }
-        }
-        const int wmin = __reduce_min_sync(FULL, wb);
-        if (wmin == INT_MAX) {
-          k_arr = h0;
-        } else {
-          k_arr = (h0 + wmin) % m;
-          if (k_arr < 0) k_arr += m;
-        }
-      } else {
-        // least busy + queued over the active nodes, first on ties
-        int lb = INT_MAX, eb = INT_MAX;
-        for (int q = 0; q < pln; ++q) {
-          const int e = lane * pln + q;
-          if (e < NN) {
-            const int ld =
-                active_node(q, e, now) ? n_busy[q] + n_qn[q] : (1 << 30);
-            if (ld < lb) { lb = ld; eb = e; }
-          }
-        }
-        const int lmin = __reduce_min_sync(FULL, lb);
-        k_arr = __reduce_min_sync(FULL, lb == lmin ? eb : INT_MAX);
-      }
-      const int ei = k_arr * F + f;
-      int pf = 0;
-      double prev_used = now, est = 0.0;
-      if (lane == 0) {
-        const int narr0 = e_narr[ei];
-        prev_used = narr0 == 0 ? now : e_last[ei];
-        const int rl = e_rlen[ei];
-        est = rl > 0 ? __ddiv_rn(e_rsum[ei], static_cast<double>(rl)) : 0.0;
-        pf = e_fcp[ei];
-        e_prev[ei] = prev_used;
-        e_last[ei] = now;
-        e_narr[ei] = narr0 + 1;
-        if (FCP) e_fcp[ei] = pf + 1 == RF ? 0 : pf + 1;
-      }
-      double cnt_i;
-      if (FCP) {
-        pf = __shfl_sync(FULL, pf, 0);
-        double* const fr = fcr + static_cast<size_t>(ei) * RF;
-        const double lim = __dsub_rn(now, horizon);
-        int c = 0;
-        for (int r = lane; r < RF; r += 32) {
-          const double x = r == pf ? now : fr[r];
-          c += x > lim ? 1 : 0;
-        }
-        if (pf % 32 == lane) fr[pf] = now;
-        cnt_i = static_cast<double>(__reduce_add_sync(FULL, c));
-      } else {
-        cnt_i = __ldg(a.cnt + row + i);
-      }
-      const double w = __dadd_rn(c2, __dmul_rn(c3, cnt_i));
-      double prio = __dadd_rn(__dadd_rn(__dmul_rn(c0, now),
-                                        __dmul_rn(c1, prev_used)),
-                              __dmul_rn(w, est));
-      prio = __shfl_sync(FULL, prio, 0);
-      if ((i & 31) == lane) {
-        q_key[i] = order_key64(prio);
-        q_node[i] = k_arr;
-        o_prio[i] = prio;
-        o_node[i] = k_arr;
-      }
-      for (int q = 0; q < pln; ++q)
-        if (lane * pln + q == k_arr) n_qn[q] += 1;
-      lo = min(lo, i);
-      if (ev == 1) {
-        ++ai;
-        hi = max(hi, ai);
-        t_a = ai <= n ? R.t(ai) : inf;
-      }
-      k_d = k_arr;
-    }
-
-    // -- dispatch on the node the event touched, when it is active, has a
-    // free slot below cores and a call queued: the least frozen priority,
-    // then the least row
-    bool can = false;
-    if (k_d >= 0 && k_d < NN) {
-      bool ok = lane_get(n_busy, pln, k_d) < cores &&
-                !(counted && lane_get(n_qn, pln, k_d) <= 0);
-      if constexpr (DYN)
-        ok = ok && lane_get(n_act, pln, k_d) <= now &&
-             !lane_get(n_dead, pln, k_d);
-      unsigned long long kmin = NO_KEY64;
-      int j = INT_MAX;
-      if (ok) {
-        unsigned long long bk = NO_KEY64;
-        int bj = INT_MAX;
-        int i = (lo & ~31) + lane;
-        if (i < lo) i += 32;
-        for (; i < hi; i += 32) {
-          if (q_node[i] == k_d) {
-            const unsigned long long k = q_key[i];
-            if (k < bk) { bk = k; bj = i; }
-          }
-        }
-        kmin = warp_argmin64(bk, bj, &j);
-      }
-      can = ok && kmin < KEY64_INF;
-      if (can) {
-        const double chan_kd = lane_get(n_chan, pln, k_d);
-        const int f_j = R.fn(j);
-        double cost_j = R.cost(j), p_j = R.p(j), v_j = p_j;
-        if constexpr (COLD) {
-          // acquire: a free container of the node and function is a warm
-          // hit, else a prewarmed one starts cold
-          int hit = 0;
-          if (lane == 0) {
-            int& c = fcnt[k_d * F + f_j];
-            hit = c > 0;
-            if (hit) c -= 1;
-            o_coldq[j] = !hit;
-          }
-          hit = __shfl_sync(FULL, hit, 0);
-          cost_j = __dadd_rn(cost_j, hit ? 0.0 : kPrewarmExtra);
-          ncold += !hit;
-        }
-        if constexpr (HET) {
-          // the node's speed at dispatch divides cost and runtime, as
-          // (x * slowdown) / speed; the slot keeps p / (speed / slowdown)
-          double slow = 1.0;
-          for (int ep = 0; ep < D.n_ep; ++ep)
-            if (__ldg(epn + ep) == k_d && __ldg(ept0 + ep) <= now &&
-                now < __ldg(ept1 + ep))
-              slow = __dmul_rn(slow, __ldg(epf + ep));
-          const double spd_k = lane_get(n_spd, pln, k_d);
-          v_j = __ddiv_rn(p_j, __ddiv_rn(spd_k, slow));
-          cost_j = __ddiv_rn(__dmul_rn(cost_j, slow), spd_k);
-          p_j = __ddiv_rn(__dmul_rn(p_j, slow), spd_k);
-        }
-        const double exec_start = __dadd_rn(fmax(now, chan_kd), cost_j);
-        const double fin_j = __dadd_rn(exec_start, p_j);
-        // ... into its first free slot below cores (slot 0 if none)
-        int se = INT_MAX;
-#pragma unroll
-        for (int q = pls - 1; q >= 0; --q) {
-          const int e = lane * pls + q;
-          if (e < NSL && e / NS == k_d && e % NS < cores && s_fin[q] == inf)
-            se = e;
-        }
-        se = __reduce_min_sync(FULL, se);
-        const bool none_free = se == INT_MAX;
-        if (none_free) se = k_d * NS;
-#pragma unroll
-        for (int q = 0; q < pls; ++q) {
-          if (lane * pls + q == se) {
-            s_fin[q] = fin_j;
-            s_row[q] = j;
-            s_v[q] = v_j;
-            s_dseq[q] = dcnt;
-          }
-        }
-        for (int q = 0; q < pln; ++q) {
-          if (lane * pln + q == k_d) {
-            n_chan[q] = exec_start;
-            n_busy[q] += 1;
-            n_qn[q] -= 1;
-          }
-        }
-        if constexpr (DYN) ++dcnt;
-        if ((j & 31) == lane) {
-          q_node[j] = -1;
-          o_start[j] = exec_start;
-          o_finish[j] = fin_j;
-        }
-        if (none_free) {
-          find_completion();
-        } else {
-          const unsigned long long kj = order_key64(fin_j);
-          if (kj < nx_key) { nx_key = kj; nx_t = fin_j; }
-        }
-        // the first queued row moves past the rows no longer queued
-        if (j == lo) {
-          for (int base = lo & ~31;; base += 32) {
-            const int r = base + lane;
-            const unsigned m =
-                __ballot_sync(FULL, r >= lo && r < hi && q_node[r] >= 0);
-            if (m != 0) { lo = base + __ffs(m) - 1; break; }
-            if (base + 32 >= hi) { lo = hi; break; }
-          }
-        }
-      }
-    }
-    if constexpr (DYN) {
-      if (ev == 4) {
-        // the activation stays pending while its node can take more
-        const bool still = can && queued_all() > 0 &&
-                           lane_get(n_busy, pln, act_k) < cores;
-        if (!still) {
-          for (int q = 0; q < pln; ++q)
-            if (lane * pln + q == act_k) n_pend[q] = 0;
-          find_node(false);
-        }
-      }
-    }
-  }
-
-  if (COLD && lane == 0) {
-    a.cold_out[static_cast<size_t>(b) * 2] = ncold;
-    a.cold_out[static_cast<size_t>(b) * 2 + 1] = nevt;
-  }
-  if constexpr (DYN) {
-    int* const sm = a.summ + static_cast<size_t>(b) * 3;
-    if (lane == 0) {
-      sm[0] = nfail;
-      sm[1] = ndone;
-      sm[2] = prov;
-    }
-    for (int q = 0; q < pln; ++q) {
-      const int e = lane * pln + q;
-      if (e < NN) {
-        a.act_out[static_cast<size_t>(b) * NN + e] = n_act[q];
-        a.dead_out[static_cast<size_t>(b) * NN + e] = n_dead[q];
-      }
-    }
-  }
-}
-
-template <int PL, bool COLD, bool HET, bool DYN>
-int launch_f64(const F64Args& a, const F64Layout& L, const F64Dims& D,
-               int cell, float horizon, cudaStream_t stream, int pl,
-               int words) {
-  auto kernel = freeze64_kernel<PL, COLD, HET, DYN>;
-  int cpb = 0, blocks = 0;
-  const int e = block_shape(kernel, D.B, cell, &cpb, &blocks);
-  if (e != 0) return e;
-  kernel<<<blocks, 32 * cpb, static_cast<size_t>(cpb) * cell, stream>>>(
-      a, L, D, cpb, cell, horizon, pl, words);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The instantiation of the bucket's segments: each of the seven sets of
 // cold / het / dyn is compiled for 1 and 2 slots a lane in shared memory
-// (ops.EVENT_STEP_FREEZE64_PER_LANE) and for the wide path.
+// (ops.EVENT_STEP_FREEZE64_PER_LANE) and for the wide path; the hedged
+// sets are compiled in csrc/event_step_hedge.cu and csrc/event_step_dup.cu.
 template <int PL>
-int launch_f64_pl(const F64Args& a, const F64Layout& L, const F64Dims& D,
-                  int cell, float horizon, cudaStream_t stream, int pl,
-                  int words) {
+int launch_f64_pl(const F64Args& a, const H64Args& h, const F64Layout& L,
+                  const F64Dims& D, int cell, float horizon,
+                  cudaStream_t stream, int pl, int words) {
   const int m = (D.cold ? 1 : 0) | (D.het ? 2 : 0) | (D.dyn ? 4 : 0);
   switch (m) {
-    case 1: return launch_f64<PL, true, false, false>(a, L, D, cell, horizon,
-                                                      stream, pl, words);
-    case 2: return launch_f64<PL, false, true, false>(a, L, D, cell, horizon,
-                                                      stream, pl, words);
-    case 3: return launch_f64<PL, true, true, false>(a, L, D, cell, horizon,
-                                                     stream, pl, words);
-    case 4: return launch_f64<PL, false, false, true>(a, L, D, cell, horizon,
-                                                      stream, pl, words);
-    case 5: return launch_f64<PL, true, false, true>(a, L, D, cell, horizon,
-                                                     stream, pl, words);
-    case 6: return launch_f64<PL, false, true, true>(a, L, D, cell, horizon,
-                                                     stream, pl, words);
-    case 7: return launch_f64<PL, true, true, true>(a, L, D, cell, horizon,
-                                                    stream, pl, words);
+    case 1: return launch_f64<PL, true, false, false>(a, h, L, D, cell,
+                                                      horizon, stream, pl,
+                                                      words);
+    case 2: return launch_f64<PL, false, true, false>(a, h, L, D, cell,
+                                                      horizon, stream, pl,
+                                                      words);
+    case 3: return launch_f64<PL, true, true, false>(a, h, L, D, cell,
+                                                     horizon, stream, pl,
+                                                     words);
+    case 4: return launch_f64<PL, false, false, true>(a, h, L, D, cell,
+                                                      horizon, stream, pl,
+                                                      words);
+    case 5: return launch_f64<PL, true, false, true>(a, h, L, D, cell,
+                                                     horizon, stream, pl,
+                                                     words);
+    case 6: return launch_f64<PL, false, true, true>(a, h, L, D, cell,
+                                                     horizon, stream, pl,
+                                                     words);
+    case 7: return launch_f64<PL, true, true, true>(a, h, L, D, cell,
+                                                    horizon, stream, pl,
+                                                    words);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch_f64_set(int pl_sel, const F64Args& a, const H64Args& h,
+                   const F64Layout& L, const F64Dims& D, int cell,
+                   float horizon, cudaStream_t stream, int pl, int words) {
+  switch (pl_sel) {
+    case 0: return launch_f64_pl<0>(a, h, L, D, cell, horizon, stream, pl,
+                                    words);
+    case 1: return launch_f64_pl<1>(a, h, L, D, cell, horizon, stream, pl,
+                                    words);
+    case 2: return launch_f64_pl<2>(a, h, L, D, cell, horizon, stream, pl,
+                                    words);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -3122,51 +2200,11 @@ extern "C" int event_step_freeze64_launch(
     double* act_out, int* dead_out, int* cold_out, int* coldq_out,
     int* scratch, const int* layout, const int* dims, const int* plan,
     float horizon, void* stream) {
-  F64Layout L;
-  F64Dims D;
-  int P[kF64Plan];
-  static_assert(sizeof(F64Layout) == kF64Layout * sizeof(int),
-                "layout size");
-  static_assert(sizeof(F64Dims) == kF64Dims * sizeof(int), "dims size");
-  std::memcpy(&L, layout, sizeof(L));
-  std::memcpy(&D, dims, sizeof(D));
-  std::memcpy(P, plan, sizeof(P));
-  if (D.B == 0) return static_cast<int>(cudaSuccess);
-  const int pl = P[0];
-  const bool staged = P[1] != 0, wide = P[2] != 0;
-  const int cell = P[3], words = P[4];
-  const int n1 = D.n + 1, NSL = D.n_nodes * D.n_slots;
-  const int E = D.n_nodes * D.n_fns;
-  const int pln = (D.n_nodes + 31) / 32;
-  const bool dyn = D.dyn != 0, het = D.het != 0, cold = D.cold != 0;
-  const int nfree = cold ? E : 0;
   const F64Args a{clk, ctr, t, fnid, p, cost, coef, cores, nodes, cnt,
                   home0, route, dynp, maxn, nreq, spd, epn, ept0, ept1, epf,
                   start, finish, prio, node, summ, act_out, dead_out,
                   cold_out, coldq_out, reinterpret_cast<uint32_t*>(scratch)};
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (!(dyn || het || cold) || pl < 1 || 32 * pl < NSL ||
-      D.fc_ring < 1 || D.ncoef < 4 || wide == staged ||
-      (!wide && (D.n_nodes > 32 || D.n_fns > 256)) ||
-      words != f64_scratch_words(wide, pl, pln, n1, E, D.window, nfree, dyn,
-                                 D.fc_push != 0, D.fc_ring) ||
-      (words % 2 != 0) || (words > 0 && scratch == nullptr) ||
-      (dyn && (dynp == nullptr || maxn == nullptr || nreq == nullptr ||
-               summ == nullptr || act_out == nullptr ||
-               dead_out == nullptr)) ||
-      (het && (spd == nullptr || epn == nullptr || ept0 == nullptr ||
-               ept1 == nullptr || epf == nullptr || D.n_ep < 1)) ||
-      (cold && (cold_out == nullptr || coldq_out == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (wide) {
-    if (cell != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_f64_pl<0>(a, L, D, 0, horizon, s, pl, words);
-  }
-  if (cell != f64_cell_bytes(true, n1, E, D.window, nfree))
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (pl) {
-    case 1: return launch_f64_pl<1>(a, L, D, cell, horizon, s, pl, words);
-    case 2: return launch_f64_pl<2>(a, L, D, cell, horizon, s, pl, words);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const H64Args h{nullptr, nullptr, nullptr, nullptr, nullptr};
+  return f64_launch_checked(a, h, layout, dims, plan, horizon, stream, false,
+                            launch_f64_set);
 }

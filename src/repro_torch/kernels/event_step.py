@@ -51,13 +51,17 @@ def event_step_supported(*, freeze, use_fc, fc_push, dyn, het, hedge, cold,
     regime or the frozen-priority regime (``freeze``, with or without the
     push FC rings ``fc_push``; it counts FC without the pull counts
     ``use_fc``), each with or without capacity dynamics (``dyn``), node
-    speeds (``het``) and the cold-start containers (``cold``) -- the base
-    pull configuration is the scope of the JAX package's Pallas
-    ``event_step``, the rest its oracle's.  Hedging (``hedge``, ``dup``),
-    the chunked stream and the resilience segment (``res``) are not
-    ported."""
-    if hedge or dup or stream or res:
+    speeds (``het``) and the cold-start containers (``cold``), and under
+    ``freeze`` with or without straggler hedging (``hedge``; its duplicate
+    mode ``dup`` without ``dyn``) -- the base pull configuration is the
+    scope of the JAX package's Pallas ``event_step``, the rest its
+    oracle's.  The chunked stream and the resilience segment (``res``) are
+    not ported."""
+    if stream or res:
         return False
+    if hedge or dup:
+        return (freeze and hedge and not use_fc
+                and not (dup and dyn))
     if freeze:
         return not use_fc
     return not fc_push
@@ -96,11 +100,12 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                    window: int, use_fc: bool, horizon: float,
                    n_steps: int, freeze: bool = False, fc_push: bool = False,
                    fc_ring: int = 1, dyn: bool = False, het: bool = False,
-                   cold: bool = False):
+                   cold: bool = False, hedge: bool = False, dup: bool = False,
+                   n_copies: int = 1):
     """Plain PyTorch event scan of a bucket of cells.  ``freeze`` runs the
     frozen-priority regime (:func:`freeze_scan_ref`, with or without
-    ``dyn`` / ``het`` / ``cold``); the rest of this docstring is the pull
-    regime's.
+    ``dyn`` / ``het`` / ``cold`` / ``hedge`` / ``dup``); the rest of this
+    docstring is the pull regime's.
 
     ``clk``/``ctr`` are the ``(B, f_len)`` / ``(B, i_len)`` initial carry
     planes (``repro_torch.core.planes.make_planes``), left unchanged;
@@ -152,7 +157,8 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                                n_slots=n_slots, window=window,
                                fc_push=fc_push, fc_ring=fc_ring,
                                horizon=horizon, n_steps=n_steps, dyn=dyn,
-                               het=het, cold=cold)
+                               het=het, cold=cold, hedge=hedge, dup=dup,
+                               n_copies=n_copies)
     t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
     coef, cumf, fn_ev = inp["coef"], inp["cumf"], inp["fn_ev"].long()
     cores, nodes = inp["cores"].long(), inp["nodes"].long()
@@ -452,39 +458,70 @@ RORD_Q = 2 ** 30
 def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                     window: int, fc_push: bool, fc_ring: int,
                     horizon: float, n_steps: int, dyn: bool = False,
-                    het: bool = False, cold: bool = False):
+                    het: bool = False, cold: bool = False,
+                    hedge: bool = False, dup: bool = False,
+                    n_copies: int = 1):
     """Plain PyTorch event scan of a bucket of frozen-priority cells
     (single node, or push with the least-loaded or home balancer).
 
     ``clk``/``ctr`` are the initial carry planes with the ``freeze`` (and
-    ``fc_push``, ``cold``, ``het``, ``dyn``) segments, left unchanged;
-    ``inp`` holds, besides the pull inputs'
+    ``fc_push``, ``cold``, ``hedge``, ``dup``, ``het``, ``dyn``) segments,
+    left unchanged; ``inp`` holds, besides the pull inputs'
     ``t``/``fnid``/``p``/``cost``/``coef``/``cores``/``nodes``, ``cnt``
     ``(B, n+1)`` (single-node FC's static window counts), ``home0`` ``(B,
     n+1)`` (each call's home invoker) and ``route`` ``(B,)`` (0
-    least-loaded, 1 home), and the ``dyn`` / ``het`` inputs of
-    :func:`event_step_ref`.
+    least-loaded, 1 home), the ``dyn`` / ``het`` inputs of
+    :func:`event_step_ref`, and with ``hedge`` ``hmult`` / ``hfloor``
+    (the deadline's multiple and floor) and ``hmax`` (the backup cap),
+    ``(B,)``.
 
-    ``dyn``, ``het`` and ``cold`` are the JAX oracle's float64 branches of
-    this regime.  ``cold`` keeps each (node, function)'s free containers
-    as under pull; a push call's pool is its routed node's.  ``het``
-    divides a dispatch's cost and runtime by its node's speed at dispatch,
-    stamps that speed on the slot (``sspd``), and the node's estimator
-    logs the measured service ``p / sspd`` at completion.  ``dyn`` routes
-    least-loaded over the active nodes; a kill frees its node's slots
-    *and queue*: the calls it was running and those queued on it re-arrive
-    at ``now + failure_detect``, and same-instant re-arrivals replay the
-    reference's order -- ex-running calls by launch sequence (``dseq``,
-    stamped from the launch count ``dcnt`` at each dispatch), then
-    ex-queued calls by their frozen priority (``rord``); a re-arrival is
+    ``dyn``, ``het``, ``cold``, ``hedge`` and ``dup`` are the JAX
+    oracle's float64 branches of this regime.  ``cold`` keeps each (node,
+    function)'s free containers as under pull; a push call's pool is its
+    routed node's.  ``het`` divides a dispatch's cost and runtime by its
+    node's speed at dispatch, stamps that speed on the slot (``sspd``), and
+    the node's estimator logs the measured service ``p / sspd`` at
+    completion.  ``dyn`` routes least-loaded over the active nodes; a kill
+    frees its node's slots *and queue*: the calls it was running and those
+    queued on it re-arrive at ``now + failure_detect``, and same-instant
+    re-arrivals replay the reference's order -- ex-running calls by launch
+    sequence (``dseq``, stamped from the launch count ``dcnt`` at each
+    dispatch), then ex-queued calls by their frozen priority (``rord``,
+    then the push sequence ``qseq`` under ``hedge``); a re-arrival is
     routed, observed and ranked as an arrival; an activation dispatches on
     its node while that node can take more.
+
+    ``hedge`` arms each call's watch at its (re-)arrival from the
+    controller's estimator ring (which logs every completion's raw ``p``):
+    ``now + hmult * max(E[p], hfloor)``.  The earliest deadline is an
+    event, after completions (with ``dyn``: after every other event); it
+    acts when its call is still queued and under ``hmax`` attempts (with
+    ``dyn``, and not lost while running), else it is a no-op that still
+    takes a step.  A steal cancels the call on its node and inserts it, as
+    an arrival, on the least-loaded live peer (its own node when none):
+    observed there, re-logged in the FC ring, its priority recomputed and
+    its watch re-armed; ``att`` and the backups count one more.  Equal
+    priorities on a node dispatch by push sequence (``qseq``, the step
+    count at insertion).  A dispatched call's watch is cleared.  With
+    ``dyn`` a kill adds an attempt to every call it loses and clears its
+    stolen flag; a call lost queued keeps its deadlines after ``now +
+    failure_detect`` (two slots, ``hedge_t`` <= ``hedge_t2``), a call lost
+    running never hedges again.  ``dup`` races a copy instead: queue entry
+    ``c * (n+1) + j`` is copy ``c`` of row ``j`` (``n_copies`` of them),
+    issued on the least-loaded live peer (none: a no-op); the first
+    completion of any copy is the call's (its start, finish and node),
+    clears the watch, and counts a steal when a copy won.
 
     Returns ``(start, finish, prio, node, aux)``, the first four ``(B,
     n+1)``: ``prio`` and ``node`` are the carry's ``fprio`` and
     ``node_of`` at the end, each call's values fixed at its (last)
     arrival; a call dispatched twice keeps its last dispatch's start and
-    finish; ``aux`` as :func:`event_step_ref`'s."""
+    finish; under ``dup`` start, finish and node are the winning copy's
+    and ``prio`` the original's.  ``aux`` as :func:`event_step_ref`'s,
+    and with ``hedge`` each cell's backups (``nbk``), calls stolen or won
+    by a copy (``nstl``), calls done (``ndone``, first completions), steps
+    taken (``stepc``: the carry's count and one for each step with an
+    event, a no-op fire included) and each row's attempts (``att``)."""
     t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
     cnt, home0, coef = inp["cnt"], inp["home0"].long(), inp["coef"]
     cores, nodes = inp["cores"].long(), inp["nodes"].long()
@@ -493,9 +530,17 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     n = n1 - 1
     n_fns = inp["ring0"].shape[2]
     dev, ft = t.device, t.dtype
+    if dup and not hedge:
+        raise ValueError("dup needs hedge")
+    nq = n_copies * n1 if dup else n1
+    if dup:
+        # a queue entry's row features are its original row's
+        fnid, p, cost = (x.repeat(1, n_copies) for x in (fnid, p, cost))
+        cnt, home0 = cnt.repeat(1, n_copies), home0.repeat(1, n_copies)
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
-                          fc_ring=fc_ring, dyn=dyn, het=het, cold=cold)
+                          fc_ring=fc_ring, dyn=dyn, het=het, cold=cold,
+                          hedge=hedge, dup=dup, n_copies=n_copies)
     st = {k: v.clone() for k, v in layout.unpack(clk, ctr).items()}
     ai = st["ai"].long()
     fin_s, idx_s = st["fin_s"], st["idx_s"].long()
@@ -514,7 +559,8 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     fn_ids = torch.arange(n_fns, device=dev)[None, None]
     win_ids = torch.arange(window, device=dev)[None, None, None]
     fc_ids = torch.arange(fc_ring, device=dev)[None, None, None]
-    req_ids = torch.arange(n1, device=dev)[None]
+    req_ids = torch.arange(nq, device=dev)[None]
+    oreq_ids = torch.arange(n1, device=dev)[None]
     inf = torch.tensor(float("inf"), dtype=ft, device=dev)
     zero = torch.tensor(0.0, dtype=ft, device=dev)
     c0, c1, c2, c3 = (coef[:, i] for i in range(4))
@@ -535,8 +581,25 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         freec, coldq = st["freec"].long(), st["coldq"]
         ncold, nevt = st["ncold"].long(), st["nevt"].long()
         extra = torch.tensor(OURS_PREWARM_EXTRA, dtype=ft, device=dev)
+    if hedge:
+        hedge_t, att, nbk = st["hedge_t"], st["att"].long(), st["nbk"].long()
+        stolen, qseq = st["stolen"], st["qseq"].long()
+        cring, crsum = st["cring"], st["crsum"]
+        crlen, crpos = st["crlen"].long(), st["crpos"].long()
+        stepc, ndone = st["stepc"].long(), st["ndone"].long()
+        stepc0 = stepc.clone()
+        hmult, hfloor, hmax = inp["hmult"], inp["hfloor"], inp["hmax"].long()
+        if dyn:
+            unhedge, hedge_t2 = st["unhedge"], st["hedge_t2"]
+        cwin_ids = torch.arange(window, device=dev)[None, None]
+        cfn_ids = torch.arange(n_fns, device=dev)[None]
+    if dup:
+        done0, start_q = st["done0"], st["start_q"]
+        win_start, win_fin = st["win_start"], st["win_fin"]
+        win_node = st["win_node"]
     start = torch.zeros(B, n1, dtype=ft, device=dev)
     finish = torch.zeros(B, n1, dtype=ft, device=dev)
+    nstep = torch.zeros(B, dtype=torch.long, device=dev)
 
     def node_fn(k, f):
         """(B, nodes, F) mask of entry (k, f) of each cell."""
@@ -545,16 +608,23 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
 
     for _ in range(n_steps):
         # -- event selection: (kill <) arrival <= completion (< re-arrival
-        # < activation < tick) at equal times, the first minimum wins
+        # < activation < tick) (< hedge deadline) at equal times, the first
+        # minimum wins
         t_a = t[rows, ai]
         flat = fin_s.reshape(B, -1)
         kflat = flat.argmin(1)
         t_c = flat[rows, kflat]
         if dyn:
-            cand = torch.stack(
-                [killq.min(1).values, t_a, t_c, rearr.min(1).values,
-                 torch.where(act_pend, act_t, inf).min(1).values,
-                 next_tick], 1)
+            cand = [killq.min(1).values, t_a, t_c, rearr.min(1).values,
+                    torch.where(act_pend, act_t, inf).min(1).values,
+                    next_tick]
+            if hedge:
+                cand.append(hedge_t.min(1).values)
+            cand = torch.stack(cand, 1)
+            e = cand.argmin(1)
+            now = cand[rows, e]
+        elif hedge:
+            cand = torch.stack([t_a, t_c, hedge_t.min(1).values], 1)
             e = cand.argmin(1)
             now = cand[rows, e]
         else:
@@ -566,6 +636,8 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         off = 1 if dyn else 0
         do_arr = (e == off) & ~none_left
         do_comp = (e == off + 1) & ~none_left
+        if hedge:
+            do_hedge = (e == (6 if dyn else 2)) & ~none_left
         if dyn:
             do_kill = (e == 0) & ~none_left
             do_re = (e == 3) & ~none_left
@@ -597,6 +669,21 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                            v[:, None, None, None], ring)
         rlen = torch.where(m_cf & ~full[:, None, None], rlen + 1, rlen)
         rpos = torch.where(m_cf, (rpos + 1) % window, rpos)
+        if hedge:
+            # the controller's ring logs every completion's raw p
+            cpos = crpos[rows, f_done]
+            cfull = crlen[rows, f_done] == window
+            cold_v = cring[rows, f_done, cpos]
+            m_cfd = (cfn_ids == f_done[:, None]) & do_comp[:, None]
+            p_done = p[rows, j_done]
+            crsum = torch.where(
+                m_cfd, crsum + p_done[:, None]
+                - torch.where(cfull, cold_v, zero)[:, None], crsum)
+            cring = torch.where(m_cfd[:, :, None]
+                                & (cwin_ids == cpos[:, None, None]),
+                                p_done[:, None, None], cring)
+            crlen = torch.where(m_cfd & ~cfull[:, None], crlen + 1, crlen)
+            crpos = torch.where(m_cfd, (cpos + 1)[:, None] % window, crpos)
         m_kn = (node_ids == kn[:, None]) & do_comp[:, None]
         busy = busy - m_kn.long()
         fin_s = torch.where(m_kn[:, :, None] & (slot_ids == ks[:, None, None]),
@@ -609,6 +696,36 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                                 & (do_comp & ~cap)[:, None, None],
                                 freec + 1, freec)
             nevt = nevt + (do_comp & cap).long()
+        if dup:
+            # -- the first completion among a call's copies wins
+            orig_done = j_done % n1
+            take = do_comp & ~done0[rows, orig_done]
+            m_win = (oreq_ids == orig_done[:, None]) & take[:, None]
+            done0 = done0 | m_win
+            win_start = torch.where(m_win, start_q[rows, j_done][:, None],
+                                    win_start)
+            win_fin = torch.where(m_win, now[:, None], win_fin)
+            win_node = torch.where(m_win, kn[:, None].to(win_node.dtype),
+                                   win_node)
+        if hedge:
+            # -- the earliest deadline fires: it acts on a call still
+            # queued and under its backup cap, else it is a no-op
+            if dup:
+                hedge_t = torch.where(m_win, inf, hedge_t)
+                stolen = stolen | (m_win & (j_done >= n1)[:, None])
+            jh = hedge_t.argmin(1)
+            act_able = do_hedge & pend[rows, jh] & (att[rows, jh] < hmax)
+            if dyn:
+                act_able = act_able & ~unhedge[rows, jh]
+                m_jh = (oreq_ids == jh[:, None]) & do_hedge[:, None]
+                hedge_t = torch.where(m_jh, hedge_t2, hedge_t)
+                hedge_t2 = torch.where(m_jh, inf, hedge_t2)
+            else:
+                hedge_t = torch.where((oreq_ids == jh[:, None])
+                                      & do_hedge[:, None], inf, hedge_t)
+            old_node = node_of[rows, jh].long()
+            peer_ok = active & (node_ids != old_node[:, None])
+            steal_ok = act_able & peer_ok.any(1) if dup else act_able
 
         if dyn:
             ndone = ndone + do_comp.long()
@@ -632,6 +749,22 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                                torch.where(m_lostq, RORD_Q, rord))
             rearr = torch.where(lost_any, (now + detect)[:, None], rearr)
             nfail = nfail + lost_any.sum(1)
+            if hedge:
+                # a loss is an attempt and voids a steal; a call lost
+                # queued keeps its deadlines after the outage, one lost
+                # running never hedges again
+                att = torch.where(lost_any, att + 1, att)
+                stolen = stolen & ~lost_any
+                back = (now + detect)[:, None]
+                h1k = torch.where(hedge_t > back, hedge_t, inf)
+                h2k = torch.where(hedge_t2 > back, hedge_t2, inf)
+                hedge_t = torch.where(m_lostq, torch.minimum(h1k, h2k),
+                                      hedge_t)
+                hedge_t2 = torch.where(m_lostq, torch.maximum(h1k, h2k),
+                                       hedge_t2)
+                hedge_t = torch.where(m_lost, inf, hedge_t)
+                hedge_t2 = torch.where(m_lost, inf, hedge_t2)
+                unhedge = unhedge | m_lost
             fin_s = torch.where(m_kk[:, :, None], inf, fin_s)
             busy = torch.where(m_kk, 0, busy)
             qn = torch.where(m_kk, 0, qn)
@@ -655,23 +788,36 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                                                 now + interval),
                                     next_tick)
 
-        # -- arrival or re-arrival: route, observe on the routed node -----
+        # -- arrival, re-arrival or steal: route, observe on the routed
+        # node -----------------------------------------------------------
         i_ins = ai.clamp(max=n)
         do_ins = do_arr
+        if hedge:
+            # a steal re-inserts the call; a copy enters at its entry
+            alt = (((att[rows, jh] + 1) * n1 + jh).clamp(max=nq - 1)
+                   if dup else jh)
+            do_ins = do_arr | steal_ok
+            i_ins = torch.where(do_arr, i_ins, alt)
         if dyn and any_re:
             # same-instant re-arrivals: ex-running calls by launch
-            # sequence, then ex-queued ones by frozen priority, first
-            # index on ties
+            # sequence, then ex-queued ones by frozen priority (then push
+            # sequence), first index on ties
             tie = rearr <= rearr.min(1).values[:, None]
             run_k = torch.where(tie & (rord < RORD_Q), rord, 2 ** 31 - 1)
             ir_run = run_k.argmin(1)
             any_run = run_k[rows, ir_run] < 2 ** 31 - 1
-            ir_q = torch.where(tie & (rord >= RORD_Q), fprio, inf).argmin(1)
+            qp = torch.where(tie & (rord >= RORD_Q), fprio, inf)
+            if hedge:
+                qk = torch.where(qp <= qp.min(1).values[:, None], qseq,
+                                 2 ** 31 - 1)
+                ir_q = qk.argmin(1)
+            else:
+                ir_q = qp.argmin(1)
             ir = torch.where(any_run, ir_run, ir_q)
             rearr = torch.where((req_ids == ir[:, None]) & do_re[:, None],
                                 inf, rearr)
-            do_ins = do_arr | do_re
-            i_ins = torch.where(do_arr, i_ins, ir)
+            do_ins = do_ins | do_re
+            i_ins = torch.where(do_re, ir, i_ins)
         f_i = fnid[rows, i_ins]
         # least-loaded: least busy + queued, first on ties; inactive nodes
         # never win
@@ -690,12 +836,22 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                                  walk[rows, wfree.to(torch.int32).argmax(1)],
                                  h0)
             k_arr = torch.where(route == 1, k_home, k_ll)
+        if hedge:
+            # the steal's or copy's target: the least-loaded live peer,
+            # else (a steal) the call's own node
+            load_x = torch.where(peer_ok, busy + qn, 2 ** 30)
+            k_tgt = torch.where(peer_ok.any(1), load_x.argmin(1), old_node)
+            k_arr = torch.where(steal_ok, k_tgt, k_arr)
         first = narr[rows, k_arr, f_i] == 0
         prev_used = torch.where(first, now, last_t[rows, k_arr, f_i])
         m_af = node_fn(k_arr, f_i) & do_ins[:, None, None]
         prev_t = torch.where(m_af, prev_used[:, None, None], prev_t)
         last_t = torch.where(m_af, now[:, None, None], last_t)
         narr = narr + m_af.long()
+        if hedge and not dup:
+            # the stolen call leaves its old node's queue
+            qn = qn - ((node_ids == old_node[:, None])
+                       & steal_ok[:, None]).long()
         qn = qn + ((node_ids == k_arr[:, None]) & do_ins[:, None]).long()
         ai = ai + do_arr.long()
         if fc_push:
@@ -720,25 +876,65 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         fprio = torch.where(m_ins, prio_i[:, None], fprio)
         node_of = torch.where(m_ins, k_arr[:, None].to(node_of.dtype),
                               node_of)
+        if hedge:
+            # (re-)arm the original's watch from the controller estimate
+            n_c = crlen[rows, f_i]
+            est_h = torch.where(n_c > 0, crsum[rows, f_i]
+                                / n_c.clamp(min=1).to(ft), zero)
+            arm = now + hmult * torch.maximum(est_h, hfloor)
+            m_w = (oreq_ids == (i_ins % n1)[:, None]) & do_ins[:, None]
+            if dyn:
+                # merged into the sorted pair: a re-arrival may find its
+                # pre-kill deadline still pending
+                lo1 = torch.minimum(hedge_t, hedge_t2)
+                hi1 = torch.maximum(hedge_t, hedge_t2)
+                hedge_t = torch.where(m_w, torch.minimum(lo1, arm[:, None]),
+                                      hedge_t)
+                hedge_t2 = torch.where(
+                    m_w, torch.minimum(hi1, torch.maximum(lo1,
+                                                          arm[:, None])),
+                    hedge_t2)
+            else:
+                hedge_t = torch.where(m_w, arm[:, None], hedge_t)
+            att = att + ((oreq_ids == jh[:, None]) & steal_ok[:, None]).long()
+            nbk = nbk + steal_ok.long()
+            if dup:
+                ndone = ndone + take.long()
+            else:
+                stolen = stolen | ((oreq_ids == jh[:, None])
+                                   & steal_ok[:, None])
+                if not dyn:
+                    ndone = ndone + do_comp.long()
+            qseq = torch.where(m_ins, stepc[:, None], qseq)
 
         # -- dispatch on the node the event touched (an activation's: the
-        # new node): its least frozen priority, first index on ties
+        # new node): its least frozen priority, first index (under hedge:
+        # least push sequence) on ties
         k_d = torch.where(do_ins, k_arr, kn)
         if dyn:
             ka = torch.where(act_pend, act_t, inf).argmin(1)
             k_d = torch.where(do_act, ka, k_d)
         prio_vec = torch.where(pend & (node_of == k_d[:, None]), fprio, inf)
-        j = prio_vec.argmin(1)
-        prio_j = prio_vec[rows, j]
+        if hedge:
+            prio_j = prio_vec.min(1).values
+            j = torch.where(prio_vec == prio_j[:, None], qseq,
+                            2 ** 30).argmin(1)
+        else:
+            j = prio_vec.argmin(1)
+            prio_j = prio_vec[rows, j]
         if dyn:
             can = ((do_ins | do_comp | do_act) & active[rows, k_d]
                    & (busy[rows, k_d] < cores) & (prio_j < inf))
+        elif hedge:
+            can = ((do_ins | do_comp) & (busy[rows, k_d] < cores)
+                   & (prio_j < inf))
         else:
             can = ~none_left & (busy[rows, k_d] < cores) & (prio_j < inf)
         cost_j, p_j = cost[rows, j], p[rows, j]
         if cold:
             # -- acquire: a free container of the node and function is a
-            # warm hit, else a prewarmed one starts cold
+            # warm hit, else a prewarmed one starts cold; the flag is the
+            # original's own dispatch's
             f_j = fnid[rows, j]
             warm_hit = freec[rows, k_d, f_j] > 0
             cost_j = cost_j + torch.where(warm_hit, zero, extra)
@@ -746,7 +942,7 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                                 & (can & warm_hit)[:, None, None],
                                 freec - 1, freec)
             ncold = ncold + (can & ~warm_hit).long()
-            coldq = torch.where((req_ids == j[:, None]) & can[:, None],
+            coldq = torch.where((oreq_ids == j[:, None]) & can[:, None],
                                 ~warm_hit[:, None], coldq)
         if het:
             # the node's speed at dispatch, eff = spd / slowdown, divides
@@ -772,7 +968,21 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             sspd = torch.where(m_ds, eff[:, None, None], sspd)
         busy = busy + m_kd.long()
         qn = qn - m_kd.long()
-        pend = pend & ~((req_ids == j[:, None]) & can[:, None])
+        m_j = (req_ids == j[:, None]) & can[:, None]
+        pend = pend & ~m_j
+        if hedge:
+            # a dispatched original's watch can never act again; a copy's
+            # dispatch leaves it live
+            m_oj = (oreq_ids == j[:, None]) & can[:, None]
+            hedge_t = torch.where(m_oj, inf, hedge_t)
+            if dyn:
+                hedge_t2 = torch.where(m_oj, inf, hedge_t2)
+            # every step counts, the no-op fires too; the steps past a
+            # cell's last event change nothing
+            stepc = stepc + 1
+            nstep = nstep + (~none_left).long()
+        if dup:
+            start_q = torch.where(m_j, exec_start[:, None], start_q)
         if dyn and any_act:
             # the activation stays pending while its node can take more
             still = (do_act & can & (qn.sum(1) > 0)
@@ -782,9 +992,10 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                                    act_pend)
 
         # -- per-dispatch record; no-op events land on sentinel row n ------
-        jn = torch.where(can, j, n)
-        start[rows, jn] = exec_start
-        finish[rows, jn] = fin_j
+        if not dup:
+            jn = torch.where(can, j, n)
+            start[rows, jn] = exec_start
+            finish[rows, jn] = fin_j
     aux = {}
     i32 = torch.int32
     if dyn:
@@ -792,4 +1003,10 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                "prov": prov.to(i32), "act_t": act_t, "dead": dead}
     if cold:
         aux.update(ncold=ncold.to(i32), nevt=nevt.to(i32), coldq=coldq)
+    if hedge:
+        aux.update(nbk=nbk.to(i32), nstl=stolen.sum(1).to(i32),
+                   att=att.to(i32), ndone=ndone.to(i32),
+                   stepc=(stepc0 + nstep).to(i32))
+    if dup:
+        return win_start, win_fin, fprio[:, :n1], win_node, aux
     return start, finish, fprio, node_of, aux

@@ -12,7 +12,9 @@ frozen-priority kernel (single-node and push buckets), ``DYN_LAUNCHES`` /
 ``DYN_REF_LAUNCHES`` for its float64 pull kernel (pull buckets with
 capacity dynamics, node speeds or cold starts), ``FREEZE64_LAUNCHES`` /
 ``FREEZE64_REF_LAUNCHES`` for its float64 frozen-priority kernel
-(single-node and push buckets with them),
+(single-node and push buckets with them), ``HEDGE_LAUNCHES`` /
+``HEDGE_REF_LAUNCHES`` for that kernel's hedged instantiations (push
+buckets with straggler hedging, steal or duplicate; their own sources),
 ``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
 ``DECODE_REF_LAUNCHES`` for the attention kernels, ``RGLRU_LAUNCHES`` /
 ``RGLRU_REF_LAUNCHES`` and ``RWKV6_LAUNCHES`` / ``RWKV6_REF_LAUNCHES`` for
@@ -49,6 +51,8 @@ DYN_LAUNCHES = 0
 DYN_REF_LAUNCHES = 0
 FREEZE64_LAUNCHES = 0
 FREEZE64_REF_LAUNCHES = 0
+HEDGE_LAUNCHES = 0
+HEDGE_REF_LAUNCHES = 0
 FLASH_LAUNCHES = 0
 FLASH_REF_LAUNCHES = 0
 DECODE_LAUNCHES = 0
@@ -66,6 +70,7 @@ _COUNTS = {
     "event_step_freeze": ("FREEZE_LAUNCHES", "FREEZE_REF_LAUNCHES"),
     "event_step_dyn": ("DYN_LAUNCHES", "DYN_REF_LAUNCHES"),
     "event_step_freeze64": ("FREEZE64_LAUNCHES", "FREEZE64_REF_LAUNCHES"),
+    "event_step_hedge": ("HEDGE_LAUNCHES", "HEDGE_REF_LAUNCHES"),
     "flash_attention": ("FLASH_LAUNCHES", "FLASH_REF_LAUNCHES"),
     "decode_attention": ("DECODE_LAUNCHES", "DECODE_REF_LAUNCHES"),
     "rglru_scan": ("RGLRU_LAUNCHES", "RGLRU_REF_LAUNCHES"),
@@ -149,14 +154,16 @@ EVENT_STEP_DYN_LAYOUT = ("chan", "fin_s", "last_t", "prev_t", "ring", "rsum",
                          "ndone", "xq", "freec", "ncold", "nevt", "coldq")
 
 # carry entries of the float64 frozen-priority kernel, in the order of
-# ``struct F64Layout`` in csrc/event_step.cu (an entry of a segment the
-# bucket lacks is 0)
+# ``struct F64Layout`` in csrc/event_step_freeze64.cuh (an entry of a
+# segment the bucket lacks is 0)
 EVENT_STEP_FREEZE64_LAYOUT = (
     "chan", "fin_s", "fprio", "last_t", "prev_t", "ring", "rsum", "fcr",
     "sspd", "act_t", "killq", "rearr", "next_tick", "ai", "busy", "idx_s",
     "narr", "node_of", "pend", "qn", "rlen", "rpos", "fcp", "freec", "ncold",
     "nevt", "coldq", "dead", "act_pend", "prov", "nfail", "ndone", "dseq",
-    "dcnt", "rord")
+    "dcnt", "rord", "hedge_t", "hedge_t2", "cring", "crsum", "win_start",
+    "win_fin", "start_q", "att", "nbk", "stolen", "crlen", "crpos", "qseq",
+    "stepc", "unhedge", "done0", "win_node")
 # lane-owned words of the float64 frozen-priority kernel's wide path
 # (``kF64SlotWords``, ``kF64NodeWords``): 6 a slot, 12 a node
 EVENT_STEP_FREEZE64_WIDE_WORDS = (6, 12)
@@ -165,12 +172,17 @@ EVENT_STEP_FREEZE64_WIDE_WORDS = (6, 12)
 # wider cell takes its wide path
 EVENT_STEP_FREEZE64_PER_LANE = (1, 2)
 
-# the launchers of csrc/event_step.cu and their pointer arguments: inputs,
-# outputs, scratch, layout, dims, plan
+# the event-step launchers and their pointer arguments: inputs, outputs,
+# scratch, layout, dims, plan; each in csrc/event_step.cu but the hedged
+# ones, in their own sources (``EVENT_STEP_SOURCES``)
 EVENT_STEP_LAUNCHERS = {"event_step_launch": 19,
                         "event_step_freeze_launch": 20,
                         "event_step_dyn_launch": 31,
-                        "event_step_freeze64_launch": 33}
+                        "event_step_freeze64_launch": 33,
+                        "event_step_hedge_launch": 38,
+                        "event_step_dup_launch": 38}
+EVENT_STEP_SOURCES = {"event_step_hedge_launch": "event_step_hedge",
+                      "event_step_dup_launch": "event_step_dup"}
 _event_step_fns: dict = {}
 
 
@@ -228,33 +240,47 @@ def _dyn_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int, window: int,
 
 
 def event_step_freeze64_cell_bytes(staged: bool, n1: int, n_nodes: int,
-                                   n_fns: int, window: int,
-                                   cold: bool) -> int:
-    """Bytes of one cell's estimators, queue and free containers, and when
-    ``staged`` its rows, in the float64 frozen-priority kernel
-    (``f64_cell_bytes`` in csrc/event_step.cu): the float64 arrays (sum,
-    last and previous arrival, rings, rows t / p / cost, queue keys), the
-    int32 ones (length, position, arrivals, FC ring position; with
-    ``cold`` the free containers; queue nodes) and the 8-bit fnid."""
+                                   n_fns: int, window: int, cold: bool,
+                                   hedge: bool = False, dyn: bool = False,
+                                   dup: bool = False,
+                                   n_copies: int = 1) -> int:
+    """Bytes of one cell's estimators, queue and free containers, hedge
+    state and, when ``staged``, its rows, in the float64 frozen-priority
+    kernel (``f64_cell_bytes`` in csrc/event_step_freeze64.cuh): the
+    float64 arrays (sum, last and previous arrival, rings; with ``hedge``
+    the controller's sums and ring; rows t / p / cost; queue keys; with
+    ``hedge`` each row's deadline, two with ``dyn``; with ``dup`` each
+    queue entry's start), the int32 ones (length, position, arrivals, FC
+    ring position; with ``cold`` the free containers; queue nodes; with
+    ``hedge`` the controller's lengths and positions, each row's attempts
+    and flags, each entry's push sequence) and the 8-bit fnid.  Under
+    ``dup`` the queue has ``n_copies * n1`` entries."""
     e = n_nodes * n_fns
-    nbytes = (8 * (3 * _round_up(e, 2) + _round_up(e * window, 2)
-                   + (4 if staged else 1) * _round_up(n1, 2))
-              + 4 * (4 * _round_up(e, 4) + _round_up(e if cold else 0, 4)
-                     + _round_up(n1, 4))
-              + (_round_up(n1, 16) if staged else 0))
+    nq = n_copies * n1 if dup else n1
+    r2, q2, q4 = _round_up(n1, 2), _round_up(nq, 2), _round_up(nq, 4)
+    f64 = (3 * _round_up(e, 2) + _round_up(e * window, 2)
+           + (3 if staged else 0) * r2 + q2)
+    i32 = 4 * _round_up(e, 4) + _round_up(e if cold else 0, 4) + q4
+    if hedge:
+        f64 += (_round_up(n_fns, 2) + _round_up(n_fns * window, 2)
+                + (2 if dyn else 1) * r2 + (q2 if dup else 0))
+        i32 += 2 * _round_up(n_fns, 4) + _round_up(n1, 4) + q4
+    nbytes = 8 * f64 + 4 * i32 + (_round_up(n1, 16) if staged else 0)
     return _round_up(nbytes, 16)
 
 
 def _freeze64_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int,
                    window: int, fc_push: bool, fc_ring: int, dyn: bool,
-                   cold: bool) -> dict:
+                   cold: bool, hedge: bool, dup: bool,
+                   n_copies: int) -> dict:
     """The float64 frozen-priority kernel's plan (see
     :func:`event_step_plan`)."""
     nsl = n_nodes * n_slots
     per_lane = next((pl for pl in EVENT_STEP_FREEZE64_PER_LANE
                      if 32 * pl >= nsl), None)
+    hs = dict(hedge=hedge, dyn=dyn, dup=dup, n_copies=n_copies)
     cell = event_step_freeze64_cell_bytes(True, n1, n_nodes, n_fns, window,
-                                          cold)
+                                          cold, **hs)
     staged = (per_lane is not None and n_nodes <= 32 and n_fns <= 256
               and cell <= SMEM_BLOCK_BYTES)
     words = 0
@@ -263,7 +289,7 @@ def _freeze64_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int,
         slot_w, node_w = EVENT_STEP_FREEZE64_WIDE_WORDS
         words = (32 * (slot_w * per_lane + node_w * -(-n_nodes // 32))
                  + event_step_freeze64_cell_bytes(
-                     False, n1, n_nodes, n_fns, window, cold) // 4)
+                     False, n1, n_nodes, n_fns, window, cold, **hs) // 4)
     if dyn:
         words += 2 * _round_up(n1, 2) + _round_up(n1, 4)
     if fc_push:
@@ -275,7 +301,9 @@ def _freeze64_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int,
 def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
                     window: int, freeze: bool = False, fc_push: bool = False,
                     fc_ring: int = 1, f64: bool = False,
-                    dyn: bool = False, cold: bool = False) -> dict:
+                    dyn: bool = False, cold: bool = False,
+                    hedge: bool = False, dup: bool = False,
+                    n_copies: int = 1) -> dict:
     """How the kernel runs a bucket of this shape, from the shape alone:
     the pull kernel's plan, with ``freeze`` the frozen-priority kernel's
     (whose push FC rings, ``fc_push``, take ``fc_ring`` entries), with
@@ -286,8 +314,11 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     The float64 frozen-priority kernel owns up to 2 slots and one node a
     lane and stages, in shared memory, the rows t / p / cost (float64) and
     fnid (8-bit), the per-(node, function) estimators and rings (float64),
-    the free containers (``cold``) and the queue (a 64-bit key and a node a
-    row) when one cell's fit (n_b up to ~5,000 at the push widths); else,
+    the free containers (``cold``), the queue (a 64-bit key and a node a
+    row) and with ``hedge`` the controller's ring, each row's deadlines
+    and hedge word and each entry's push sequence (``dup``: ``n_copies``
+    queue entries a row, each with its start) when one cell's fit (n_b up
+    to ~5,000 at the push widths, ~1,600 with 4 copies); else,
     or past 64 slots, 32 nodes or 256 functions, it takes the wide path
     (``per_lane`` = ceil(slots / 32)): all of that and its lane arrays in
     the scratch, rows read in place.  The scratch adds, with ``dyn``, 3
@@ -322,7 +353,7 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     words a cell."""
     if f64 and freeze:
         return _freeze64_plan(n1, n_nodes, n_slots, n_fns, window, fc_push,
-                              fc_ring, dyn, cold)
+                              fc_ring, dyn, cold, hedge, dup, n_copies)
     if f64:
         return _dyn_plan(n1, n_nodes, n_slots, n_fns, window, dyn, cold)
     if freeze:
@@ -382,12 +413,13 @@ def event_step_freeze_cell_bytes(n1: int, n_nodes: int, n_fns: int,
 
 
 def _event_step_lib(name: str):
-    """The launcher ``name`` of csrc/event_step.cu, built at first use: its
-    tensor and array pointers, the FC horizon, the stream."""
+    """The launcher ``name`` (of csrc/event_step.cu, or its source in
+    ``EVENT_STEP_SOURCES``), built at first use: its tensor and array
+    pointers, the FC horizon, the stream."""
     if name not in _event_step_fns:
         from .build import load
 
-        fn = getattr(load("event_step"), name)
+        fn = getattr(load(EVENT_STEP_SOURCES.get(name, "event_step")), name)
         fn.argtypes = ([ctypes.c_void_p] * EVENT_STEP_LAUNCHERS[name]
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -591,14 +623,15 @@ def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
 
 def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
                               horizon, n_steps, fc_push, fc_ring, dyn, het,
-                              cold):
+                              cold, hedge=False, dup=False, n_copies=1):
     dev = clk.device
     B, n1 = inp["t"].shape
     n_fns, ncoef = inp["ring0"].shape[2], inp["coef"].shape[1]
     f64, i32 = torch.float64, torch.int32
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
-                          fc_ring=fc_ring, dyn=dyn, het=het, cold=cold)
+                          fc_ring=fc_ring, dyn=dyn, het=het, cold=cold,
+                          hedge=hedge, dup=dup, n_copies=n_copies)
     n_ep = inp["epn"].shape[1] if het else 1
 
     def opt(on, key, dtype, shape):
@@ -614,10 +647,15 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
         opt(het, "ept0", f64, (B, n_ep)), opt(het, "ept1", f64, (B, n_ep)),
         opt(het, "epf", f64, (B, n_ep)),
     ]
+    if hedge:
+        args += [_checked(inp["hmult"], "hmult", f64, (B,), dev),
+                 _checked(inp["hfloor"], "hfloor", f64, (B,), dev),
+                 _checked(inp["hmax"], "hmax", i32, (B,), dev)]
     plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
                            n_fns=n_fns, window=window, freeze=True, f64=True,
                            fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
-                           cold=cold)
+                           cold=cold, hedge=hedge, dup=dup,
+                           n_copies=n_copies)
     outs = [torch.zeros(B, n1, dtype=f64, device=dev) for _ in range(3)]
     outs.append(torch.zeros(B, n1, dtype=i32, device=dev))
     summ = act = dead = csum = coldq = None
@@ -630,28 +668,37 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
         # carry's in first)
         csum = torch.zeros(B, 2, dtype=i32, device=dev)
         coldq = torch.empty(B, n1, dtype=i32, device=dev)
+    hout = []
+    if hedge:
+        # backups, calls stolen or won by a copy, calls done, steps taken;
+        # each row's attempts
+        hout = [torch.zeros(B, 4, dtype=i32, device=dev),
+                torch.zeros(B, n1, dtype=i32, device=dev)]
     scratch = (torch.empty(B * plan["scratch_words"], dtype=i32, device=dev)
                if plan["scratch_words"] else None)
     offs = layout.offsets()
     lay = (ctypes.c_int * len(EVENT_STEP_FREEZE64_LAYOUT))(
         *(offs.get(k, 0) for k in EVENT_STEP_FREEZE64_LAYOUT))
-    dims = (ctypes.c_int * 16)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
+    dims = (ctypes.c_int * 19)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
                                ncoef, n_ep, layout.f_len, layout.i_len,
                                int(bool(fc_push)), fc_ring, int(dyn),
-                               int(het), int(cold), n_steps)
+                               int(het), int(cold), n_steps, int(hedge),
+                               int(dup), n_copies)
     plan_c = (ctypes.c_int * 5)(plan["per_lane"], int(plan["staged"]),
                                 int(plan["wide"]), plan["cell_bytes"],
                                 plan["scratch_words"])
-    fn = _event_step_lib("event_step_freeze64_launch")
+    name = ("event_step_dup_launch" if dup else "event_step_hedge_launch"
+            if hedge else "event_step_freeze64_launch")
+    fn = _event_step_lib(name)
     ptrs = [None if x is None else x.data_ptr()
-            for x in args + outs + [summ, act, dead, csum, coldq, scratch]]
+            for x in args + outs + [summ, act, dead, csum, coldq] + hout
+            + [scratch]]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, ctypes.addressof(lay), ctypes.addressof(dims),
                  ctypes.addressof(plan_c), float(horizon), stream)
     if err != 0:
-        raise RuntimeError("event_step_freeze64_launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
     aux = {}
     if dyn:
         aux = {"nfail": summ[:, 0], "ndone": summ[:, 1], "prov": summ[:, 2],
@@ -659,6 +706,10 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
     if cold:
         aux.update(ncold=csum[:, 0], nevt=csum[:, 1],
                    coldq=coldq.to(torch.bool))
+    if hedge:
+        hsum, att = hout
+        aux.update(nbk=hsum[:, 0], nstl=hsum[:, 1], att=att,
+                   ndone=hsum[:, 2], stepc=hsum[:, 3])
     return (*outs, aux)
 
 
@@ -681,13 +732,18 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     ``cold`` buckets (float64) to the float64 pull kernel
     (``event_step_plan(..., f64=True)``) or, with ``freeze``, the float64
     frozen-priority kernel (``event_step_plan(..., freeze=True,
-    f64=True)``).  Returns ``(start, finish, prio, node, aux)``: rows
-    ``[:n]`` are the per-request records (a call dispatched twice keeps
-    its last dispatch) and row ``n`` is the no-op sentinel (the kernels
-    leave it 0); ``aux`` is ``{}``, or with ``dyn`` each cell's ``nfail``,
-    ``ndone``, ``prov`` (B,), ``act_t`` and ``dead`` (B, nodes) at the
-    end, and with ``cold`` its ``ncold``, ``nevt`` (B,) and ``coldq`` (B,
-    n+1) (``event_step.event_step_ref``).
+    f64=True)``); ``hedge`` buckets (frozen-priority only; ``dup`` without
+    ``dyn``, its ``n_copies`` queue entries a call) to that kernel's hedged
+    instantiations (csrc/event_step_hedge.cu, csrc/event_step_dup.cu),
+    counted apart as ``event_step_hedge``.  Returns ``(start, finish,
+    prio, node, aux)``: rows ``[:n]`` are the per-request records (a call
+    dispatched twice keeps its last dispatch; under ``dup`` the winning
+    copy's) and row ``n`` is the no-op sentinel (the kernels leave it 0);
+    ``aux`` is ``{}``, or with ``dyn`` each cell's ``nfail``, ``ndone``,
+    ``prov`` (B,), ``act_t`` and ``dead`` (B, nodes) at the end, with
+    ``cold`` its ``ncold``, ``nevt`` (B,) and ``coldq`` (B, n+1), and with
+    ``hedge`` its ``nbk``, ``nstl``, ``ndone``, ``stepc`` (B,) and ``att``
+    (B, n+1) (``event_step.event_step_ref``).
     The kernel keeps the FC counts itself from ``t`` and ``fnid`` and does
     not read ``cumf``, which must equal ``event_step.fc_prefix_counts`` of
     them (their prefix count over the real rows), as the bucket runner
@@ -700,24 +756,29 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     device."""
     global KERNEL_LAUNCHES, REF_LAUNCHES, FREEZE_LAUNCHES, FREEZE_REF_LAUNCHES
     global DYN_LAUNCHES, DYN_REF_LAUNCHES, FREEZE64_LAUNCHES
-    global FREEZE64_REF_LAUNCHES
+    global FREEZE64_REF_LAUNCHES, HEDGE_LAUNCHES, HEDGE_REF_LAUNCHES
     _check_force(force)
     if not event_step_supported(use_fc=use_fc, **flags):
         raise NotImplementedError(
             "event_step covers the pull and the frozen-priority regimes, "
-            "with or without dyn / het / cold (no hedge/dup/stream/res, no "
-            "pull FC counts under freeze, no push FC rings under pull)")
+            "with or without dyn / het / cold, and hedge / dup under the "
+            "frozen-priority regime (dup without dyn); no stream/res, no "
+            "pull FC counts under freeze, no push FC rings under pull")
     freeze, fc_push = bool(flags.get("freeze")), bool(flags.get("fc_push"))
     dyn, het = bool(flags.get("dyn")), bool(flags.get("het"))
-    cold = bool(flags.get("cold"))
-    f64 = dyn or het or cold
+    cold, hedge = bool(flags.get("cold")), bool(flags.get("hedge"))
+    dup, n_copies = bool(flags.get("dup")), int(flags.get("n_copies", 1))
+    f64 = dyn or het or cold or hedge
     static = dict(n_nodes=n_nodes, n_slots=n_slots, window=window,
                   horizon=horizon, n_steps=n_steps)
     if force == "ref" or clk.device.type != "cuda":
         out = event_step_ref(clk, ctr, inp, use_fc=use_fc, freeze=freeze,
                              fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
-                             het=het, cold=cold, **static)
-        if freeze and f64:
+                             het=het, cold=cold, hedge=hedge, dup=dup,
+                             n_copies=n_copies, **static)
+        if hedge:
+            HEDGE_REF_LAUNCHES += 1
+        elif freeze and f64:
             FREEZE64_REF_LAUNCHES += 1
         elif freeze:
             FREEZE_REF_LAUNCHES += 1
@@ -729,8 +790,12 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     if freeze and f64:
         out = _event_step_freeze64_cuda(clk, ctr, inp, fc_push=fc_push,
                                         fc_ring=fc_ring, dyn=dyn, het=het,
-                                        cold=cold, **static)
-        FREEZE64_LAUNCHES += 1
+                                        cold=cold, hedge=hedge, dup=dup,
+                                        n_copies=n_copies, **static)
+        if hedge:
+            HEDGE_LAUNCHES += 1
+        else:
+            FREEZE64_LAUNCHES += 1
         return out
     if freeze:
         out = _event_step_freeze_cuda(clk, ctr, inp, fc_push=fc_push,

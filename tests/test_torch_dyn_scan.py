@@ -288,8 +288,8 @@ def _grid_cuts():
                                          seeds=1).cells()
           if c.assignment == "pull"]
     dup = dict(matrix_specs(quick=True))["dup"]
-    du = [dataclasses.replace(c, hedge_multiple=None, hedge_mode="steal")
-          for c in dup.cells() if c.assignment == "pull"]
+    # the pull half keeps its hedging, a no-op under pull (no backups)
+    du = [c for c in dup.cells() if c.assignment == "pull"]
     return {"frontier": fr.cells(), "straggler-pull": st, "dup-pull": du}
 
 

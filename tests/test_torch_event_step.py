@@ -199,15 +199,19 @@ def test_supported_matrix_equals_jax():
     capacity dynamics (``dyn``), node speeds (``het``) and cold starts
     (``cold``), without the pull FC counts (``tests/test_torch_freeze_
     scan.py`` and ``tests/test_torch_freeze64_scan.py`` hold that regime
-    to the JAX oracle) -- and the pull regime with ``dyn``, ``het`` and
-    ``cold``, with or without FC counts (``tests/test_torch_dyn_scan.py``,
-    ``tests/test_torch_cold_scan.py``).  Hedging, racing copies and the
+    to the JAX oracle), there with or without hedging (``hedge``; its
+    racing copies ``dup`` without ``dyn``; ``tests/test_torch_hedge_
+    scan.py``) -- and the pull regime with ``dyn``, ``het`` and ``cold``,
+    with or without FC counts (``tests/test_torch_dyn_scan.py``,
+    ``tests/test_torch_cold_scan.py``).  Hedging under pull and the
     chunked stream stay out."""
     others = ("hedge", "dup", "stream")
     for bits in itertools.product([False, True], repeat=len(FEATURES) + 2):
         flags = dict(zip(FEATURES + ("use_fc", "stream"), bits))
         frozen = (flags["freeze"] and not flags["use_fc"]
-                  and not any(flags[k] for k in others))
+                  and not flags["stream"]
+                  and (not flags["dup"]
+                       or (flags["hedge"] and not flags["dyn"])))
         pull64 = (not flags["freeze"] and not flags["fc_push"]
                   and (flags["dyn"] or flags["het"] or flags["cold"])
                   and not any(flags[k] for k in others))
@@ -284,10 +288,10 @@ def test_unsupported_flags_raise(feat):
     if feat in ("dyn", "het", "cold"):
         # capacity dynamics, node speeds and cold starts are in scope under
         # pull and, since the float64 frozen-priority scan, under freeze:
-        # that call runs and equals the JAX oracle; with hedging, still
-        # not ported, it raises
+        # that call runs and equals the JAX oracle; with the resilience
+        # segment, still not ported, it raises
         _freeze64_equals_jax(feat)
-        flags.update(freeze=True, hedge=True)
+        flags.update(freeze=True, res=True)
     with pytest.raises(NotImplementedError):
         tops.event_step(clk_t, ctr_t, tens, **{**static, **flags})
 

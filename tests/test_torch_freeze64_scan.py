@@ -34,9 +34,10 @@ Contracts (tolerance 0 unless a line says otherwise):
   ``CROSS_CHECK_EXACT`` counters equal, the ``CROSS_CHECK_KEYS`` within
   ``CLUSTER_XCHECK_RTOL``;
 * eligibility answers as the JAX package's: push dynamics with the home
-  balancer and failures on one node are refused (``ValueError``), as are
-  hedged cells; a step budget cut short raises; the kernel's plan (staged
-  or wide, scratch words) follows from the shape.
+  balancer and failures on one node are refused (``ValueError``); a hedged
+  cell is taken (steal), and refused in duplicate mode with dynamics; a
+  step budget cut short raises; the kernel's plan (staged or wide,
+  scratch words) follows from the shape.
 
 The CUDA kernel is held against the plain version in
 ``tests/test_torch_freeze64_gpu.py``, on the card.
@@ -480,7 +481,8 @@ def test_queued_loss_counts_exact_against_the_reference(no_alias):
 # -- eligibility, refusals ----------------------------------------------------
 def test_eligibility_answers_as_jax():
     """Push dynamics need the least-loaded balancer, failures a second
-    node; a hedged cell is outside the port.  The port's ``run_cells_scan``
+    node; a hedged cell is taken (steal), and refused in duplicate mode
+    under push with dynamics.  The port's ``run_cells_scan``
     takes a cell exactly when the JAX package's capability matrix and
     ``cluster_scan_eligible`` do, and refuses the rest with
     ``ValueError``; a dynamics axis set to no event is refused as a set
@@ -522,10 +524,22 @@ def test_eligibility_answers_as_jax():
     assert [tsweep._scan_capable(c) for c in cases[:4]] == [False] * 4
     assert [tsweep._scan_capable(c) for c in cases[-3:]] == \
         [False, False, True]
+    from repro_torch.core.cluster import ClusterDynamics
+    from repro_torch.core.stragglers import HedgingSpec as THedgingSpec
+
+    # a steal-mode hedged cell runs (the JAX package's answer too)
+    assert jfp.cluster_scan_eligible(jreqs, 2, 4, "fc", assignment="push",
+                                     hedging=HedgingSpec(multiple=2.0))
+    res = tfp.simulate_cluster_cells_scan(
+        [(reqs, 2, 4, "fc", "push", "least_loaded", None, None,
+          THedgingSpec(multiple=2.0))], metrics_only=True, device="cpu")[0]
+    assert len(res.resp) == len(reqs) and res.backups >= 0
+    # duplicate mode under push with a failure is refused
     with pytest.raises(ValueError):
         tfp.simulate_cluster_cells_scan(
-            [(reqs, 2, 4, "fc", "push", "least_loaded", None, None,
-              HedgingSpec(multiple=2.0))], device="cpu")
+            [(reqs, 2, 4, "fc", "push", "least_loaded",
+              ClusterDynamics(fail=((0, 5.0),)), None,
+              THedgingSpec(multiple=2.0, mode="duplicate"))], device="cpu")
 
 
 def test_an_exhausted_step_budget_raises(monkeypatch):
