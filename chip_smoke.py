@@ -111,6 +111,24 @@ version on the card first:
    plain version's, and the straggler grid's claim: how much of the p95
    that node 0's slowdown costs the push model hedging recovers.
 
+   Then request resilience (timeouts, retries with backoff, admission
+   shedding) through the float64 frozen-priority kernel's resilience
+   instantiations: the kernel against its plain version, bit for bit
+   (rows, timeouts, sheds, retries, wasted seconds, calls resolved, steps
+   taken, each call's failure flag, cause and submissions), on the retry
+   storm's bucket (benchmarks/engine_bench.py::storm_rows: a ramp burst
+   for 8 cores at intensity 14, 6x over [T/3, T/2), on 2 x 4 push
+   least-loaded SEPT under its six client behaviours, 2 seeds), FC with
+   backoff retries and shedding at intensity 40, the home balancer with
+   immediate retries, an absolute timeout, one node and 3 x 24 cores (the
+   wide path); then the storm's 60 cells (10 seeds) through
+   ``simulate_cluster_cells_scan`` as storm_rows calls it, with its
+   hysteresis (windowed goodput after the burst against before it, naive
+   retries against backoff with shedding), and the README's resilience
+   grid (SEPT and FC on 2 x 4 push, timeout / retries / shedding each on
+   or off, 5 seeds: 80 cells) through ``run_cells_scan(metrics_only=
+   True)``, each with a sample recomputed through the plain version.
+
 5. The other decoder-only families served at full width in bfloat16 as
    in 2: deepseek_7b, qwen2_5_14b, gemma3_27b (5 local : 1 global
    windowed attention, 62 layers), qwen2_moe_a2_7b (60 experts, top-4)
@@ -130,6 +148,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import inspect
@@ -149,6 +168,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import fastpath  # noqa: E402
 from repro_torch.core import sweep  # noqa: E402
 from repro_torch.core.planes import carry_layout, make_planes  # noqa: E402
+from repro_torch.core.workload import generate_trace_burst  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
@@ -267,6 +287,8 @@ def bucket_tensors(key, host, dev, cells=None):
     inp = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
     hedge = ({k: static[k] for k in ("hedge", "dup", "n_copies")}
              if static.get("hedge") else {})
+    if static.get("res"):
+        hedge["res"] = True
     clk, ctr = make_planes(inp, n_nodes=static["n_nodes"],
                            n_slots=static["n_slots"],
                            window=static["window"], freeze=static["freeze"],
@@ -439,10 +461,13 @@ def scan_cell(c) -> "fastpath._ScanCell":
     at one node without dynamics or speeds, else a pull or push cluster
     cell with its dynamics, speeds and warm or cold start."""
     reqs = sweep.make_workload(c)
-    # hedging only where the cell has it (tools/scan_bench.py runs this on
-    # trees from before it)
+    # hedging and resilience only where the cell has them
+    # (tools/scan_bench.py runs this on trees from before them)
     kw = ({"hedging": sweep._cell_hedging(c)}
           if getattr(c, "hedge_multiple", None) is not None else {})
+    if any(getattr(c, f, None) is not None for f in (
+            "timeout_multiple", "retry_attempts", "shed_threshold")):
+        kw["resilience"] = sweep._cell_resilience(c)
     return fastpath._ScanCell(
         requests=reqs, feats=fastpath._arrival_features(reqs),
         cores=c.cores, nodes=c.nodes, policy=c.policy,
@@ -746,19 +771,22 @@ def f64_needed_bytes(cells, static: dict, backups=None) -> int:
     (4), with ``dyn`` the summary (three counts, each node's activation
     time and dead flag), with ``cold`` each row's flag and two counts; with
     ``hedge`` the carry's hedge segments (under ``dup`` its copies' queue
-    entries), three parameters, four counts and each row's attempts."""
+    entries), three parameters, four counts and each row's attempts; with
+    ``res`` the carry's res segment, twelve parameters, five counts, the
+    wasted seconds and each row's failure flag, cause and submissions."""
     freeze, fc_push = static["freeze"], static["fc_push"]
     total = 0
     for i, c in enumerate(cells):
         n = len(c.feats.t)
         nodes = c.node_cap()
         ring = int(c.feats.count.max()) if fc_push else 1
+        res = getattr(c, "res", False)
         lay = carry_layout(
             n_nodes=nodes, n_slots=c.cores, window=static["window"],
             n_fns=len(c.feats.fns), freeze=freeze, fc_push=fc_push,
             n1=n + 1, fc_ring=ring, dyn=static["dyn"], het=static["het"],
             cold=static["cold"], hedge=c.hedge, dup=c.dup,
-            n_copies=c.n_copies)
+            n_copies=c.n_copies, **({"res": True} if res else {}))
         if freeze:
             rows = (8 * n * (c.policy == "fc" and not fc_push)
                     + 4 * n * (c.lb == "home" and c.assignment == "push")
@@ -776,6 +804,11 @@ def f64_needed_bytes(cells, static: dict, backups=None) -> int:
         if c.hedge:
             nbytes += 20 + 16 + 4 * n
             if fc_push:
+                nbytes += 8 * int(backups[i])
+        if res:
+            nbytes += 96 + 28 + 12 * n
+            if fc_push and backups is not None:
+                # each retry admitted logs one entry more on its node
                 nbytes += 8 * int(backups[i])
         total += nbytes
     return total
@@ -1494,6 +1527,463 @@ def hedge_paths(dev, rows_by_kernel: dict) -> dict:
         **{f"{k}_{f}": numbers[p][f] for k, p in (
             ("straggler", "straggler grid path"),
             ("steal", "steal matrix path"), ("dup", "dup matrix path"))
+           for f in ("cells_per_s", "device_share")}}
+
+
+# -- 3g: request resilience ----------------------------------------------------
+# the retry-storm benchmark (benchmarks/engine_bench.py::storm_rows): six
+# client behaviours, (name, retry mode, shedding), on one ramp burst a seed
+STORM_SCENARIOS = (
+    ("no-retry", None, False),
+    ("no-retry+shed", None, True),
+    ("naive", "immediate", False),
+    ("naive+shed", "immediate", True),
+    ("backoff", "backoff", False),
+    ("backoff+shed", "backoff", True),
+)
+STORM_T = 60.0
+
+
+def storm_spec(mode, shed):
+    """A storm behaviour's lifecycle: a timeout at 3x the estimate (floor
+    2 s), 4 attempts retried at once or with backoff (0.5 s doubling to at
+    most 8 s, jitter 0.5) or none, shedding at 2 s of queued E[p] a free
+    slot or none."""
+    # imported here: tools/scan_bench.py imports this script beside trees
+    # from before the resilience module
+    from repro_torch.core.resilience import (AdmissionPolicy, ResilienceSpec,
+                                             RetryPolicy, TimeoutSpec)
+
+    retry = (RetryPolicy(max_attempts=4, mode=mode, base_delay_s=0.5,
+                         cap_delay_s=8.0, jitter=0.5)
+             if mode is not None else None)
+    return ResilienceSpec(timeout=TimeoutSpec(multiple=3.0, floor_s=2.0),
+                          retry=retry,
+                          admission=(AdmissionPolicy(threshold_s=2.0)
+                                     if shed else None))
+
+
+def storm_burst(seed: int) -> list:
+    """The storm's ramp burst of seed ``seed``: sized for 8 cores at
+    intensity 14 over 60 s, 6x over [T/3, T/2)."""
+    return generate_trace_burst(cores=8, intensity=14, seed=1000 + seed,
+                                kind="ramp", duration_s=STORM_T,
+                                burst_factor=6.0, burst_start_frac=1 / 3,
+                                burst_end_frac=1 / 2)
+
+
+def storm_items(seeds) -> tuple[list, list]:
+    """The storm's cells (name, retry mode, shedding, seed), behaviour
+    major, and their ``simulate_cluster_cells_scan`` items as storm_rows
+    builds them: a fresh copy of the seed's burst on 2 x 4 push
+    least-loaded SEPT."""
+    bursts = {s: storm_burst(s) for s in seeds}
+    cells = [(name, mode, shed, s) for name, mode, shed in STORM_SCENARIOS
+             for s in seeds]
+    items = [(copy.deepcopy(bursts[s]), 2, 4, "sept", "push", "least_loaded",
+              None, None, None, True, storm_spec(mode, shed))
+             for _, mode, shed, s in cells]
+    return cells, items
+
+
+def storm_prepared(seeds) -> list:
+    """The bucket runner's prepared cells of the storm's items."""
+    return [fastpath._ScanCell(requests=it[0],
+                               feats=fastpath._arrival_features(it[0]),
+                               cores=4, nodes=2, policy="sept",
+                               assignment="push", resilience=it[10])
+            for it in storm_items(seeds)[1]]
+
+
+def res_cell(policy, nodes, cores, intensity, seed, **kw):
+    return sweep.SweepCell(policy=policy, assignment="push", nodes=nodes,
+                           cores=cores, intensity=intensity, seed=seed, **kw)
+
+
+def res_check_cases() -> list:
+    """Phase 3g's kernel-vs-plain buckets, ``(name, case, prepared
+    cells)``.  The plain version takes 2-5 ms a step on the card, so the
+    checks beside the storm and FC at intensity 40 are cut to keep the
+    phase near 30 s: the home balancer at intensity 10, the absolute
+    timeout and one node at 15, and the wide path at 4, one seed
+    (n_b 256 each)."""
+    full = dict(timeout_multiple=2.0, timeout_floor_s=1.0, retry_attempts=3,
+                shed_threshold=2.0)
+    return [
+        ("storm", "storm push sept 2 x 4 least-loaded, ramp burst v14 (6x "
+         "over [T/3, T/2)), the six client behaviours, 2 seeds",
+         storm_prepared(range(2))),
+        ("fc_backoff_shed", "push fc 2 x 4 least-loaded v40, timeout 3x "
+         "(floor 2 s), 3 attempts with backoff, shed at 2.0 (4 seeds)",
+         [scan_cell(res_cell("fc", 2, 4, 40, s, timeout_multiple=3.0,
+                             timeout_floor_s=2.0, retry_attempts=3,
+                             shed_threshold=2.0)) for s in range(4)]),
+        ("home_immediate", "push sept 3 x 4 home v10, timeout 2x (floor "
+         "1 s), 3 attempts at once (4 seeds)",
+         [scan_cell(res_cell("sept", 3, 4, 10, s, lb="home",
+                             timeout_multiple=2.0, timeout_floor_s=1.0,
+                             retry_attempts=3, retry_mode="immediate"))
+          for s in range(4)]),
+        ("absolute", "push sept 2 x 4 least-loaded v15, absolute timeout "
+         "0.5 s (2 seeds)",
+         [scan_cell(res_cell("sept", 2, 4, 15, s, timeout_multiple=3.0,
+                             timeout_absolute_s=0.5)) for s in range(2)]),
+        ("one_node", "one node fc c4 v15, timeout 2x (floor 1 s), 3 "
+         "attempts with backoff, shed at 2.0 (4 seeds)",
+         [scan_cell(res_cell("fc", 1, 4, 15, s, **full))
+          for s in range(4)]),
+        ("wide", "push sept 3 x 24 least-loaded v4 (36-core burst), "
+         "timeout 2x (floor 1 s), 3 attempts with backoff, shed at 2.0 "
+         "(1 seed; the wide path)",
+         [scan_cell(res_cell("sept", 3, 24, 4, 0, workload_cores=36,
+                             **full))])]
+
+
+def check_res(case: str, prepared, dev) -> tuple[dict, list]:
+    """The float64 frozen-priority kernel's resilience set against its
+    plain version on the card: rows [:n_b] of start, finish, prio and node
+    and the summary (timeouts, sheds, retries, wasted seconds, calls
+    resolved, steps taken, each row's failure flag, cause and submissions)
+    bit-identical, every call resolved and one step an event; then its
+    time, ns a step, the plain version's time (the comparison run), the
+    plan and the bound of this bucket's work.  Also returns each cell's
+    plain rows and summary (numpy), against which a path's results of
+    these cells are held."""
+    keys = {c.bucket() for c in prepared}
+    if len({k[0] for k in keys}) != 1:
+        raise AssertionError(f"{case}: cells of several feature sets")
+    key = tuple(max(col) for col in zip(*keys))
+    inp, clk, ctr, static = bucket_tensors(
+        key, fastpath._fill_bucket(key, prepared), dev, prepared)
+    if not static["res"]:
+        raise AssertionError(f"{case}: not a resilience bucket")
+    n1 = key[1] + 1
+    plain = []                       # the plain version, run once
+    plain_ms = time_call(lambda: plain.append(ops.event_step(
+        clk, ctr, inp, force="ref", **static)), reps=1, warmup=False)
+    ref = plain[0]
+    k0 = ops.RES_LAUNCHES
+    got = ops.event_step(clk, ctr, inp, **static)
+    torch.cuda.synchronize()
+    if ops.RES_LAUNCHES != k0 + 1:
+        raise AssertionError(f"{case}: event_step did not launch the res "
+                             "kernel")
+    err = 0.0
+    for name, a, b in zip(("start", "finish", "prio", "node"), ref, got):
+        a, b = a[:, :n1 - 1], b[:, :n1 - 1]
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:5].tolist()
+            raise AssertionError(f"res event_step {name} differs from the "
+                                 f"plain version ({case}) at {bad}")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    if ref[4].keys() != got[4].keys():
+        raise AssertionError(f"{case}: summaries of different keys")
+    for k in ref[4]:
+        if not torch.equal(ref[4][k], got[4][k]):
+            raise AssertionError(f"res event_step summary {k} differs "
+                                 f"from the plain version ({case})")
+    nc = len(prepared)
+    n_real = np.array([len(c.feats.t) for c in prepared])
+    aux = {k: v.cpu().numpy()[:nc] for k, v in ref[4].items()}
+    rows = [r.cpu().numpy()[:nc] for r in ref[:4]]
+    plain_cells = [{**{k: v[b] for k, v in aux.items()},
+                    **dict(zip(("start", "finish", "prio", "node"),
+                               (r[b] for r in rows)))} for b in range(nc)]
+    failed = aux["nfl"].sum(1)
+    if (aux["ndn"] != n_real).any():
+        raise AssertionError(f"{case}: calls left unresolved")
+    # one step an event: each arrival, completion, timeout and re-arrival
+    if (aux["stepc"] != 2 * n_real - failed + aux["nto"]
+            + aux["nrt"]).any():
+        raise AssertionError(f"{case}: steps {aux['stepc'].tolist()}")
+    out = {"case": case, "cells": nc, "bsz": int(clk.shape[0]),
+           "n_b": key[1], "nodes": key[2], "slots": key[3],
+           "fc_push": static["fc_push"],
+           "n_steps_budget": static["n_steps"], "max_abs_err": err,
+           "timed_out": aux["nto"].tolist(), "shed": aux["nsh"].tolist(),
+           "retries": aux["nrt"].tolist(), "failed": failed.tolist(),
+           "wasted_s": aux["wst"].tolist(), "steps": aux["stepc"].tolist(),
+           "plan": ops.event_step_plan(
+               n1=n1, n_nodes=static["n_nodes"], n_slots=static["n_slots"],
+               n_fns=key[4], window=static["window"], freeze=True,
+               f64=True, fc_push=static["fc_push"],
+               fc_ring=static["fc_ring"], res=True)}
+    out["ms"] = time_call(lambda: ops.event_step(clk, ctr, inp, **static),
+                          reps=10)
+    out["plain_ms"] = plain_ms
+    out["ns_per_step"] = out["ms"] * 1e6 / int(aux["stepc"].max())
+    moved = f64_needed_bytes(prepared, static, aux["nrt"])
+    # float64 operations this data needs: each insertion (n + retries -
+    # sheds) its estimate and priority (7), its dispatch's start and finish
+    # (2) and the gauge's share (2); each completion (n - failed) the two
+    # rings' updates (4); each submission (n + retries) the controller's
+    # estimate, the gauge over the free slots and its comparison (3) and
+    # the deadline (3); each timeout or retry the backoff (9) and the
+    # wasted seconds or the re-arrival time (3)
+    ops_n = int(sum(11 * (n + r - sh) + 4 * (n - f) + 6 * (n + r)
+                    + 12 * (t + r) for n, r, sh, f, t in zip(
+                        n_real, aux["nrt"], aux["nsh"], failed,
+                        aux["nto"])))
+    out["bytes"], out["operations"] = moved, ops_n
+    out["bound_ms"], out["bound_by"] = bound(moved, ops_n, torch.float64)
+    return out, plain_cells
+
+
+def res_timings(cells: int, wall: float, timings: dict) -> dict:
+    """A path's wall, cells a second and the device's share of the wall."""
+    return {"cells": cells, "wall_s": wall, "cells_per_s": cells / wall,
+            **timings, "other_s": wall - sum(timings.values()),
+            "device_share": timings["device_s"] / wall}
+
+
+def result_equals_plain(r, p: dict) -> bool:
+    """Does a written-back resilience result ``r`` hold the plain
+    version's rows and summary ``p`` of its cell (event order): its
+    counters, and each request's start, finish, priority and node, or
+    (failed for good) its cause, and its resubmissions?"""
+    if ((r.timed_out, r.shed, r.retries_issued, r.wasted_work)
+            != (int(p["nto"]), int(p["nsh"]), int(p["nrt"]),
+                float(p["wst"]))):
+        return False
+    order = fastpath._arrival_features(r.requests).order
+    for e, ridx in enumerate(order.tolist()):
+        q = r.requests[ridx]
+        if (q.attempts != max(int(p["ratt"][e]) - 1, 0)
+                or q.priority != float(p["prio"][e])
+                or q.node != f"node{int(p['node'][e])}"):
+            return False
+        if bool(p["nfl"][e]):
+            cause = "timeout" if int(p["fcz"][e]) == 1 else "shed"
+            if (q.failed, q.start, q.c) != (cause, None, None):
+                return False
+        elif (q.failed, q.start, q.finish) != (
+                None, float(p["start"][e]), float(p["finish"][e])):
+            return False
+    return True
+
+
+def storm_path(dev, plain: list) -> tuple[dict, list, list]:
+    """The storm as storm_rows runs it: its 60 cells (6 behaviours x 10
+    seeds) through ``simulate_cluster_cells_scan``, every count set to 0
+    just before it and read just after (the res kernel launched, nothing
+    else, no plain version); every call done or failed; seeds 0 and 1
+    held to ``plain``, the storm check's plain rows and summaries of those
+    cells (``storm_items(range(2))``' order): the counters and each
+    request's start, finish, priority, node, failure and attempts.
+    Returns its numbers, cells and results."""
+    cells, items = storm_items(range(10))
+    timings: dict = {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = fastpath.simulate_cluster_cells_scan(items, device=dev,
+                                                   timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    rk = counts["event_step_res"]
+    if (rk["kernel"] == 0 or any(v["plain"] for v in counts.values())
+            or any(v["kernel"] for k, v in counts.items()
+                   if k != "event_step_res")):
+        raise AssertionError(f"storm path launches: {counts}")
+    for c, r in zip(cells, results):
+        if any((q.c is None) == (q.failed is None) for q in r.requests):
+            raise AssertionError(f"storm {c}: a call neither done nor failed")
+    names = [name for name, _, _ in STORM_SCENARIOS]
+    sample = [i for i, c in enumerate(cells) if c[3] < 2]
+    for i in sample:
+        p = plain[2 * names.index(cells[i][0]) + cells[i][3]]
+        if not result_equals_plain(results[i], p):
+            raise AssertionError(f"storm {cells[i]}: kernel result differs "
+                                 "from the plain rows")
+    out = {**res_timings(len(cells), wall, timings),
+           "launches": rk["kernel"], "plain_launches": rk["plain"],
+           "sample": len(sample),
+           "timed_out": sum(r.timed_out for r in results),
+           "shed": sum(r.shed for r in results),
+           "retries": sum(r.retries_issued for r in results)}
+    print(f"storm path: {len(cells)} cells in {wall:.3f} s = "
+          f"{out['cells_per_s']:.1f} cells/s (fill {timings['fill_s']:.3f} s,"
+          f" device {timings['device_s']:.3f} s = {out['device_share']:.1%} "
+          f"of the wall, fold {timings['fold_s']:.3f} s, other "
+          f"{out['other_s']:.3f} s); res kernel launches {rk['kernel']}, "
+          f"plain launches {rk['plain']}; {out['timed_out']} timeouts, "
+          f"{out['shed']} sheds, {out['retries']} retries; sample: "
+          f"{len(sample)} cells recomputed through the plain version on the "
+          "card, results equal", flush=True)
+    return out, cells, results
+
+
+def windowed_goodput(requests, a: float, b: float) -> float:
+    """Completions a second that clients saw in [a, b)."""
+    n = sum(1 for r in requests if r.c is not None and a <= r.c < b)
+    return n / max(b - a, 1e-9)
+
+
+def storm_claim(cells, results) -> dict:
+    """storm_rows' arithmetic: each behaviour's windowed goodput before
+    the burst ([5 s, T/3)) and after it releases ([T/2 + 0.10 T, T/2 +
+    0.35 T)), averaged over the seeds, the recovery (post over pre) and the
+    counts; the hysteresis is backoff+shed's recovery less naive's."""
+    t0, t1 = STORM_T / 3.0, STORM_T / 2.0
+    pre_w = (5.0, t0)
+    post_w = (t1 + 0.10 * STORM_T, min(t1 + 0.35 * STORM_T, STORM_T))
+    summary: dict = {}
+    for (name, _, _, _), sr in zip(cells, results):
+        d = summary.setdefault(name, {"pre": [], "post": [], "timed_out": 0,
+                                      "shed": 0, "retries_issued": 0})
+        d["pre"].append(windowed_goodput(sr.requests, *pre_w))
+        d["post"].append(windowed_goodput(sr.requests, *post_w))
+        d["timed_out"] += sr.timed_out
+        d["shed"] += sr.shed
+        d["retries_issued"] += sr.retries_issued
+    for d in summary.values():
+        d["pre"] = sum(d["pre"]) / len(d["pre"])
+        d["post"] = sum(d["post"]) / len(d["post"])
+        d["recovery"] = d["post"] / max(d["pre"], 1e-9)
+    naive, good = summary["naive"], summary["backoff+shed"]
+    return {"scenarios": summary, "naive_recovery": naive["recovery"],
+            "backoff_shed_recovery": good["recovery"],
+            "hysteresis": good["recovery"] - naive["recovery"]}
+
+
+def res_grid_cells() -> list:
+    """The README's resilience grid: SEPT and FC on 2 x 4 push, the
+    timeout at 3x the estimate or none, 3 attempts with backoff or none,
+    shedding at 2.0 or none, intensity 30, 5 seeds: 80 cells, 10 of them
+    with no policy."""
+    return sweep.SweepSpec(policies=("sept", "fc"), nodes=(2,), cores=(4,),
+                           assignments=("push",),
+                           timeout_multiples=(None, 3.0),
+                           retry_attempts=(None, 3),
+                           shed_thresholds=(None, 2.0), seeds=5).cells()
+
+
+def res_grid_path(dev) -> tuple[dict, dict]:
+    """The README grid through ``run_cells_scan(metrics_only=True)``, every
+    count set to 0 just before it and read just after (the res kernel and,
+    for the cells with no policy, the freeze kernel; no plain version);
+    every call done or failed; seed 0's cells with no policy and its SEPT
+    cell with every policy recomputed through the plain version on the
+    card, rows equal.  Returns its numbers and the kernels' launches."""
+    cells = res_grid_cells()
+    if len(cells) != 80:
+        raise AssertionError(f"README grid: {len(cells)} cells")
+    timings: dict = {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = sweep.run_cells_scan(cells, metrics_only=True, device=dev,
+                                timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    rk = counts["event_step_res"]
+    if (rk["kernel"] == 0 or counts["event_step_freeze"]["kernel"] == 0
+            or any(v["plain"] for v in counts.values())
+            or any(v["kernel"] for k, v in counts.items()
+                   if k not in ("event_step_res", "event_step_freeze"))):
+        raise AssertionError(f"README grid launches: {counts}")
+    for c, r, want in zip(cells, rows, burst_calls(cells)):
+        got = r["n"] + r.get("n_failed", 0.0)
+        if got != want or not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"{c.label()} seed {c.seed}: row {r}")
+    bare = [i for i, c in enumerate(cells)
+            if c.seed == 0 and sweep._cell_resilience(c) is None]
+    full = [i for i, c in enumerate(cells)
+            if c.seed == 0 and c.policy == "sept" and c.timeout_multiple
+            and c.retry_attempts and c.shed_threshold]
+    want = dict(zip(bare, plain_rows([cells[i] for i in bare], dev)))
+    plain = fastpath._run_scan_cells([scan_cell(cells[i]) for i in full],
+                                     dev, force="ref")
+    for i, p in zip(full, plain):
+        want[i] = sweep._cell_metrics(cells[i], p)
+    for i, w in want.items():
+        if rows[i] != w:
+            raise AssertionError(f"{cells[i].label()} seed {cells[i].seed}: "
+                                 "kernel row differs from the plain row")
+    out = {**res_timings(len(cells), wall, timings),
+           "launches": rk["kernel"], "plain_launches": rk["plain"],
+           "freeze_launches": counts["event_step_freeze"]["kernel"],
+           "sample": len(want),
+           "timed_out": sum(r.get("timed_out", 0.0) for r in rows),
+           "shed": sum(r.get("shed", 0.0) for r in rows)}
+    print(f"README grid path: {len(cells)} cells in {wall:.3f} s = "
+          f"{out['cells_per_s']:.1f} cells/s (fill {timings['fill_s']:.3f} s,"
+          f" device {timings['device_s']:.3f} s = {out['device_share']:.1%} "
+          f"of the wall, fold {timings['fold_s']:.3f} s, other "
+          f"{out['other_s']:.3f} s); res kernel launches {rk['kernel']}, "
+          f"plain launches {rk['plain']} (freeze kernel "
+          f"{out['freeze_launches']}); {out['timed_out']:.0f} timeouts, "
+          f"{out['shed']:.0f} sheds; sample: {len(want)} cells recomputed "
+          "through the plain version on the card, rows equal", flush=True)
+    return out, counts
+
+
+def res_paths(dev, kern_fz: dict) -> dict:
+    """Request resilience: the float64 frozen-priority kernel's resilience
+    set against its plain version on the storm's bucket, FC with backoff
+    and shedding at intensity 40, the home balancer with immediate
+    retries, an absolute timeout, one node and 3 x 24 cores (the wide
+    path); then the storm (60 cells) and the README grid (80 cells) as main
+    paths, and the storm's hysteresis.  The README grid's freeze kernel
+    launches join its row ``kern_fz``.  Returns the res kernel's row."""
+    rk, plain = {}, {}
+    for k, case, prepared in res_check_cases():
+        rk[k], plain[k] = check_res(case, prepared, dev)
+        print("res event_step vs plain: " + json.dumps(rk[k]), flush=True)
+    if not rk["wide"]["plan"]["wide"]:
+        raise AssertionError(f"3 x 24 cores: plan {rk['wide']['plan']}")
+    storm = rk["storm"]
+    for i, (name, mode, shed, _) in enumerate(storm_items(range(2))[0]):
+        if (storm["timed_out"][i] == 0 or (storm["shed"][i] > 0) != shed
+                or (storm["retries"][i] > 0) != (mode is not None)):
+            raise AssertionError(f"storm check {name}: {storm}")
+    if not (min(rk["fc_backoff_shed"]["shed"]) > 0
+            and min(rk["fc_backoff_shed"]["retries"]) > 0):
+        raise AssertionError("the fc backoff cells shed or retried nothing")
+    numbers = {}
+    numbers["storm path"], cells, results = storm_path(dev, plain["storm"])
+    claim = storm_claim(cells, results)
+    parts = [f"{name} pre={d['pre']:.2f}/s post={d['post']:.2f}/s "
+             f"recovery={d['recovery']:.2f} timed_out={d['timed_out']} "
+             f"shed={d['shed']} retries={d['retries_issued']}"
+             for name, d in claim["scenarios"].items()]
+    print(f"storm: 60 cells on the card (10 seeds); " + "; ".join(parts)
+          + f"; naive_recovery={claim['naive_recovery']:.2f} "
+          f"backoff_shed_recovery={claim['backoff_shed_recovery']:.2f} "
+          f"hysteresis={claim['hysteresis']:.2f} (exact: "
+          + json.dumps({k: claim[k] for k in (
+              "naive_recovery", "backoff_shed_recovery", "hysteresis")})
+          + ")", flush=True)
+    numbers["README grid path"], counts = res_grid_path(dev)
+    fz = counts["event_step_freeze"]["kernel"]
+    kern_fz["launches"] += fz
+    kern_fz["launches_by_path"]["README grid path"] = fz
+    paths = {p: v["launches"] for p, v in numbers.items()}
+    main = rk["storm"]
+    return {
+        "name": "event_step_res", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/event_step_res.cu",
+        "sources": {"set": "src/repro_torch/kernels/csrc/event_step_res.cu",
+                    "body": "src/repro_torch/kernels/csrc/"
+                            "event_step_freeze64.cuh"},
+        "replaces": "src/repro/core/fastpath.py:821",
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        "max_abs_err": max(r["max_abs_err"] for r in rk.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shape": f"storm bucket, {main['cells']} cells, n_b={main['n_b']}, "
+                 "2 nodes x 4 slots",
+        "ns_per_step": main["ns_per_step"],
+        "cases": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "ns_per_step", "n_b", "bsz",
+                                         "plan")}
+                  for k, r in rk.items()},
+        "storm": claim,
+        **{f"{k}_{f}": numbers[p][f] for k, p in (
+            ("storm", "storm path"), ("grid", "README grid path"))
            for f in ("cells_per_s", "device_share")}}
 
 
@@ -2798,6 +3288,10 @@ def main() -> int:
                                    "event_step_freeze64": kern_f64})
 
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # -- 3g. request resilience: timeouts, retries, shedding ---------------
+    kern_res = res_paths(dev, kern_fz)
+
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 4. attention kernels vs plain on the card ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -3006,6 +3500,7 @@ def main() -> int:
         kern_dy,
         kern_f64,
         kern_hedge,
+        kern_res,
         flash_row,
         row("decode_attention", dec["decode_32k"],
             {"main_path": dec["serving"], "rg": dec["rg_ring_2k"],

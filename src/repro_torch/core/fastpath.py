@@ -15,12 +15,15 @@ routed to.  Cells may also carry capacity dynamics (scheduled node
 failures, the autoscaler: a ``ClusterDynamics``; under push with the
 least-loaded balancer), node speeds (a ``NodeSpeedProfile``) and
 straggler hedging (a ``HedgingSpec``: under push, steal, or duplicate on
-a fixed fleet; under pull a structural no-op) and start cold; such
-buckets scan in float64, as the JAX package's do.  Cells are grouped by
+a fixed fleet; under pull a structural no-op) and start cold, or carry the
+request lifecycle (a ``ResilienceSpec``: timeouts, retries, shedding;
+push, warm, on a fixed uniform fleet without hedging); such buckets scan
+in float64, as the JAX package's do.  Cells are grouped by
 padded shape (``_ScanCell.bucket``); each bucket is filled on the host,
 moved to the device, packed into the carry planes and scanned in chunks,
-and the per-request records come back in event order.  Other cells --
-resilience, the round-robin balancer -- raise ``ValueError``.
+and the per-request records come back in event order.  Other cells -- the
+round-robin balancer, resilience beside pull, cold starts, dynamics,
+hedging or node speeds -- raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -101,8 +104,8 @@ LB_ROUTE = {"least_loaded": 0, "home": 1}
 # bit 1 ``use_fc`` (pull FC counts), bit 2 ``fc_push`` (FC on more than one
 # node under push), bit 3 ``cold`` (the warm=False containers), bit 4
 # ``hedge`` (straggler hedging under push), bit 5 ``dup`` (its duplicate
-# mode), bit 6 ``het`` (node speeds), bit 7 ``dyn`` (capacity dynamics);
-# the port sets no other bit
+# mode), bit 6 ``het`` (node speeds), bit 7 ``dyn`` (capacity dynamics),
+# bit 8 ``res`` (the request lifecycle); the port sets no other bit
 _FREEZE_MASK = 1 << 0
 _USE_FC_MASK = 1 << 1
 _FC_PUSH_MASK = 1 << 2
@@ -111,6 +114,7 @@ _HEDGE_MASK = 1 << 4
 _DUP_MASK = 1 << 5
 _HET_MASK = 1 << 6
 _DYN_MASK = 1 << 7
+_RES_MASK = 1 << 8
 
 # cells per chunk: a one-warp block per cell needs thousands of cells in
 # flight on the card; the CPU's plain version runs a few hundred at a time.
@@ -238,6 +242,7 @@ def cluster_scan_eligible(
     dynamics=None,
     profile=None,
     hedging=None,
+    resilience=None,
 ) -> bool:
     """True when the JAX package's scan reproduces a cluster cell, as its
     ``cluster_scan_eligible`` answers for these arguments: a known policy,
@@ -249,7 +254,9 @@ def cluster_scan_eligible(
     confined to the initial fleet with a survivor and no negative time;
     ``profile`` (a ``NodeSpeedProfile``) no more speeds than nodes the
     cell can reach; ``hedging`` (a ``HedgingSpec``) a known mode, and no
-    duplicate mode under push with capacity dynamics."""
+    duplicate mode under push with capacity dynamics; ``resilience`` (a
+    ``ResilienceSpec`` that is not null) push, warm, and no dynamics,
+    hedging or node speeds."""
     if policy not in POLICY_NAMES or nodes < 1:
         return False
     if assignment == "push":
@@ -258,6 +265,12 @@ def cluster_scan_eligible(
     elif assignment != "pull":
         return False
     dyn = dynamics is not None and not dynamics.is_static
+    if resilience is not None and not resilience.is_null:
+        # the res segment models the static warm push regime
+        if (assignment != "push" or not warm or dyn
+                or hedging is not None
+                or (profile is not None and not profile.is_uniform)):
+            return False
     if hedging is not None:
         if getattr(hedging, "mode", None) not in ("steal", "duplicate"):
             return False             # not a HedgingSpec
@@ -300,6 +313,11 @@ class _ScanCell:
     profile: object | None = None    # NodeSpeedProfile | None
     warm: bool = True
     hedging: object | None = None    # HedgingSpec | None
+    resilience: object | None = None  # ResilienceSpec | None
+
+    @property
+    def res(self) -> bool:
+        return self.resilience is not None and not self.resilience.is_null
 
     @property
     def cold(self) -> bool:
@@ -383,6 +401,28 @@ class _ScanCell:
             full += len(self.dynamics.fail) * self.cores + n
         return full
 
+    def res_budget(self) -> int:
+        """Optimistic extra scan steps for the request lifecycle, which the
+        bucket key carries as the JAX package's does: ``n`` without retries
+        (a deadline fires at most once a submission), ``2 n`` with them.
+        The port scans resilience buckets at :meth:`res_budget_full`."""
+        if not self.res:
+            return 0
+        n = len(self.feats.t)
+        return n if int(self.resilience.max_attempts) <= 1 else 2 * n
+
+    def res_budget_full(self) -> int:
+        """Strict bound on the extra scan steps of the request lifecycle:
+        each of the ``n max_attempts`` submissions at most one insertion
+        (the first is the arrival's step) and one terminal event
+        (completion or deadline), and each resubmission its re-arrival --
+        ``n (2 max_attempts - 1)``, rounded up to ``2 n max_attempts``; a
+        shed happens inside its insertion's step and a deadline re-armed
+        overwrites the old one."""
+        if not self.res:
+            return 0
+        return 2 * len(self.feats.t) * int(self.resilience.max_attempts)
+
     def bucket(self) -> tuple:
         """Padded shape key, in the JAX package's 11-field layout: (feature
         mask, requests, nodes, slots, functions, per-function queue
@@ -390,10 +430,12 @@ class _ScanCell:
         freeze = self.assignment != "pull"
         use_fc = not freeze and self.policy == "fc"
         # single-node FC reads the static window counts; on more than one
-        # node, or with dynamics or hedging (re-arrivals and steals log
-        # again), the count depends on the routing, so it needs the rings
+        # node, or with dynamics, hedging or retries (re-arrivals, steals
+        # and retries log again; a shed call is not logged), the count
+        # depends on the routing, so it needs the rings
         fc_push = (freeze and self.policy == "fc"
-                   and (self.nodes > 1 or self.dyn or self.hedge))
+                   and (self.nodes > 1 or self.dyn or self.hedge
+                        or self.res))
         if freeze:
             kq = 1                   # fn_ev unused in frozen-priority mode
         else:                        # per-function queue capacity
@@ -403,10 +445,13 @@ class _ScanCell:
         # count, which bounds any node-local count from above; a hedged
         # call is logged again on each backup's node
         fc_mult = 1 + int(self.hedging.max_backups) if self.hedge else 1
+        if self.res:
+            # and each admitted resubmission on its node
+            fc_mult = max(fc_mult, int(self.resilience.max_attempts))
         fc_ring = (_pow2(int(self.feats.count.max()) * fc_mult)
                    if fc_push and len(self.feats.count) else 1)
         n_ep = _pow2(max(1, len(self.profile.episodes))) if self.het else 1
-        extra = self.dyn_budget() + self.hedge_budget()
+        extra = self.dyn_budget() + self.hedge_budget() + self.res_budget()
         mask = ((_FREEZE_MASK if freeze else 0)
                 | (_USE_FC_MASK if use_fc else 0)
                 | (_FC_PUSH_MASK if fc_push else 0)
@@ -414,7 +459,8 @@ class _ScanCell:
                 | (_HEDGE_MASK if self.hedge else 0)
                 | (_DUP_MASK if self.dup else 0)
                 | (_HET_MASK if self.het else 0)
-                | (_DYN_MASK if self.dyn else 0))
+                | (_DYN_MASK if self.dyn else 0)
+                | (_RES_MASK if self.res else 0))
         return (mask, _pow2(len(self.feats.t)), _pow2(self.node_cap()),
                 _pow2(self.cores), _pow2(len(self.feats.fns)), kq,
                 DEFAULT_WINDOW, fc_ring, n_ep, self.n_copies,
@@ -423,12 +469,12 @@ class _ScanCell:
 
 def _key_flags(key: tuple) -> dict[str, bool]:
     """The feature flags a bucket key's mask enables: ``freeze``,
-    ``use_fc``, ``fc_push``, ``cold``, ``hedge``, ``dup``, ``het`` and
-    ``dyn``.  Any other segment, or a combination no cell of the port
-    makes, raises ``NotImplementedError``."""
+    ``use_fc``, ``fc_push``, ``cold``, ``hedge``, ``dup``, ``het``,
+    ``dyn`` and ``res``.  Any other segment, or a combination no cell of
+    the port makes, raises ``NotImplementedError``."""
     mask = key[0]
     known = (_FREEZE_MASK | _USE_FC_MASK | _FC_PUSH_MASK | _COLD_MASK
-             | _HEDGE_MASK | _DUP_MASK | _HET_MASK | _DYN_MASK)
+             | _HEDGE_MASK | _DUP_MASK | _HET_MASK | _DYN_MASK | _RES_MASK)
     flags = {"freeze": bool(mask & _FREEZE_MASK),
              "use_fc": bool(mask & _USE_FC_MASK),
              "fc_push": bool(mask & _FC_PUSH_MASK),
@@ -436,13 +482,18 @@ def _key_flags(key: tuple) -> dict[str, bool]:
              "hedge": bool(mask & _HEDGE_MASK),
              "dup": bool(mask & _DUP_MASK),
              "het": bool(mask & _HET_MASK),
-             "dyn": bool(mask & _DYN_MASK)}
+             "dyn": bool(mask & _DYN_MASK),
+             "res": bool(mask & _RES_MASK)}
     if (mask & ~known
             or (key[9] != 1) != flags["dup"] or key[9] < 1
             or (flags["hedge"] and not flags["freeze"])
             or (flags["dup"] and (not flags["hedge"] or flags["dyn"]))
             or (key[8] != 1 and not flags["het"])
-            or (key[10] != 0) != (flags["dyn"] or flags["hedge"])
+            or (key[10] != 0) != (flags["dyn"] or flags["hedge"]
+                                  or flags["res"])
+            or (flags["res"] and (not flags["freeze"] or flags["dyn"]
+                                  or flags["het"] or flags["cold"]
+                                  or flags["hedge"]))
             or (flags["use_fc"] and flags["freeze"])
             or (flags["fc_push"] and not flags["freeze"])
             or (key[7] != 1 and not flags["fc_push"])):
@@ -454,10 +505,10 @@ def _key_flags(key: tuple) -> dict[str, bool]:
 def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
     """Host input arrays of one bucket at batch ``bsz``.  ``t`` is +inf and
     ``cores`` 0, so an unfilled row is an idle padded cell.  Floats are
-    float64 in ``dyn``, ``het``, ``cold`` and ``hedge`` buckets (the JAX
-    package's ``_use64``: failure, autoscaler, cold-start and backup
-    accounting hang on exact orderings of completions against kills,
-    deadlines and dispatches), float32 else."""
+    float64 in ``dyn``, ``het``, ``cold``, ``hedge`` and ``res`` buckets
+    (the JAX package's ``_use64``: failure, autoscaler, cold-start, backup,
+    timeout and shed accounting hang on exact orderings of completions
+    against kills, deadlines and dispatches), float32 else."""
     flags = _key_flags(key)
     freeze, use_fc = flags["freeze"], flags["use_fc"]
     _, n_b, nodes_b, _, f_b, kq, window, _, n_ep = key[:9]
@@ -465,7 +516,7 @@ def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
     # one estimator a node in frozen-priority mode, the controller's else
     n_est = nodes_b if freeze else 1
     fdt = (np.float64 if (flags["dyn"] or flags["het"] or flags["cold"]
-                          or flags["hedge"]) else np.float32)
+                          or flags["hedge"] or flags["res"]) else np.float32)
     i32 = np.int32
     inp = {
         "t": np.full((bsz, n1), np.inf, dtype=fdt),
@@ -512,6 +563,15 @@ def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
         inp["hmult"] = np.ones(bsz, dtype=fdt)
         inp["hfloor"] = np.zeros(bsz, dtype=fdt)
         inp["hmax"] = np.zeros(bsz, dtype=i32)
+    if flags["res"]:
+        # ResilienceSpec.arrays(): timeout [on, multiple, floor, absolute],
+        # retry [max attempts, base, cap, jitter, on timeout, on shed],
+        # shedding [on, threshold]; an idle cell has all off and one
+        # attempt
+        inp["rto_p"] = np.zeros((bsz, 4), dtype=fdt)
+        inp["rrt_p"] = np.zeros((bsz, 6), dtype=fdt)
+        inp["rrt_p"][:, 0] = 1.0
+        inp["adm_p"] = np.zeros((bsz, 2), dtype=fdt)
     return inp
 
 
@@ -550,6 +610,9 @@ def _fill_bucket(key: tuple, cells: list[_ScanCell]) -> dict[str, np.ndarray]:
             inp["hmult"][b] = h.multiple
             inp["hfloor"][b] = h.floor_s
             inp["hmax"][b] = h.max_backups
+        if flags["res"]:
+            inp["rto_p"][b], inp["rrt_p"][b], inp["adm_p"][b] = \
+                cell.resilience.arrays()
         if not flags["freeze"]:
             if flags["dyn"]:
                 inp["coef"][b] = _PULL_COEF_DYN[cell.policy]
@@ -601,13 +664,17 @@ def _scan_static(key: tuple, xtra: int | None = None) -> dict:
 
 def _bucket_static(key: tuple, cells: list[_ScanCell]) -> dict:
     """Static ``event_step`` arguments for scanning ``cells`` under
-    ``key``: a hedged bucket takes its cells' strict step budget
-    (:meth:`_ScanCell.hedge_budget_full`, with the dynamics'), so that
-    every call finishes in one scan; any other takes the key's."""
-    if not _key_flags(key)["hedge"]:
+    ``key``: a hedged or resilience bucket takes its cells' strict step
+    budget (:meth:`_ScanCell.hedge_budget_full`,
+    :meth:`_ScanCell.res_budget_full`, with the dynamics'), so that every
+    call finishes in one scan (the scan stops at its last event, so the
+    bound costs no step); any other takes the key's."""
+    flags = _key_flags(key)
+    if not (flags["hedge"] or flags["res"]):
         return _scan_static(key)
     return _scan_static(key, _pow2(max(
-        c.dyn_budget() + c.hedge_budget_full() for c in cells)))
+        c.dyn_budget() + c.hedge_budget_full() + c.res_budget_full()
+        for c in cells)))
 
 
 def _chunk_cells(key: tuple, device: torch.device) -> int:
@@ -635,11 +702,15 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
     buckets ``start``, ``finish`` and ``node`` are each call's winning
     copy's.  ``extras`` is ``None``, or for a ``dyn`` cell its calls lost
     (``failures``), nodes provisioned (``nodes_used``) and realized
-    ``timeline``, for a ``cold`` cell its ``cold_starts``, ``evictions``
-    and each row's cold-start flag (``coldq``), and for a ``hedge`` cell
-    its ``backups``, ``steals`` and each row's ``attempts``.  A ``dyn``
-    or ``hedge`` cell that ends with calls unfinished exhausted the step
-    budget (:func:`_bucket_static`), which is a scan bug, and raises.
+    and ``timeline``, for a ``cold`` cell its ``cold_starts``, ``evictions``
+    and each row's cold-start flag (``coldq``), for a ``hedge`` cell
+    its ``backups``, ``steals`` and each row's ``attempts``, and for a
+    ``res`` cell its ``timed_out``, ``shed``, ``retries_issued``,
+    ``wasted_work`` and each row's failure flag (``failed_mask``), cause
+    (``failed_cause``: 1 timeout, 2 shed) and submissions
+    (``attempts_res``).  A ``dyn``, ``hedge`` or ``res`` cell that ends
+    with calls unresolved exhausted the step budget
+    (:func:`_bucket_static`), which is a scan bug, and raises.
     ``timings`` accumulates host-fill and device seconds (the
     device phase covers transfers, plane packing, the scan and the copy
     back, which waits for the device).  ``force="ref"`` runs the plain
@@ -655,10 +726,10 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
             fc_push=static["fc_push"], fc_ring=static["fc_ring"],
             dyn=static["dyn"], het=static["het"], cold=static["cold"],
             hedge=static["hedge"], dup=static["dup"],
-            n_copies=static["n_copies"])
-        res = _kops.event_step(clk, ctr, inp, force=force, **static)
-        return ([r.cpu().numpy() for r in res[:4]],
-                {k: v.cpu().numpy() for k, v in res[4].items()})
+            n_copies=static["n_copies"], res=static["res"])
+        out = _kops.event_step(clk, ctr, inp, force=force, **static)
+        return ([r.cpu().numpy() for r in out[:4]],
+                {k: v.cpu().numpy() for k, v in out[4].items()})
 
     for lo in range(0, len(cells), chunk):
         part = cells[lo:lo + chunk]
@@ -671,7 +742,7 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
         _add_time(timings, "device_s", t0)
         for b, cell in enumerate(part):
             extras = ({} if static["dyn"] or static["cold"]
-                      or static["hedge"] else None)
+                      or static["hedge"] or static["res"] else None)
             if static["hedge"]:
                 extras.update(backups=int(aux["nbk"][b]),
                               steals=int(aux["nstl"][b]),
@@ -680,8 +751,17 @@ def _run_scan_bucket(key: tuple, cells: list[_ScanCell],
                 extras.update(cold_starts=int(aux["ncold"][b]),
                               evictions=int(aux["nevt"][b]),
                               coldq=aux["coldq"][b])
-            if static["dyn"] or static["hedge"]:
-                n, done = len(cell.feats.t), int(aux["ndone"][b])
+            if static["res"]:
+                extras.update(timed_out=int(aux["nto"][b]),
+                              shed=int(aux["nsh"][b]),
+                              retries_issued=int(aux["nrt"][b]),
+                              wasted_work=float(aux["wst"][b]),
+                              failed_mask=aux["nfl"][b],
+                              failed_cause=aux["fcz"][b],
+                              attempts_res=aux["ratt"][b])
+            if static["dyn"] or static["hedge"] or static["res"]:
+                n = len(cell.feats.t)
+                done = int(aux["ndn" if static["res"] else "ndone"][b])
                 if done != n:
                     raise RuntimeError(
                         f"scan step budget exhausted: cell resolved "
@@ -757,10 +837,16 @@ def _cell_scan_metrics(cell: _ScanCell, finish, req_cache: dict,
 
 def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
                     metrics_only: bool = False,
-                    timings: dict | None = None) -> list:
+                    timings: dict | None = None,
+                    force: str | None = None) -> list:
     """Bucket, scan and write back a list of prepared cells, in input
     order.  ``metrics_only=True`` returns :class:`ScanMetrics` rows and
-    leaves the requests untouched, so cells may share a workload."""
+    leaves the requests untouched, so cells may share a workload; a
+    resilience cell, whose failed calls have no response, raises there
+    (the JAX package's rule) and writes back: a call that failed for good
+    has no start, finish or response, its ``failed`` cause and its
+    resubmissions as ``attempts``.  ``force="ref"`` scans with the plain
+    version on any device."""
     buckets: dict[tuple, list[int]] = {}
     for i, cell in enumerate(cells):
         buckets.setdefault(cell.bucket(), []).append(i)
@@ -768,11 +854,15 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
     req_cache: dict = {}
     for key, idxs in buckets.items():
         arrays = _run_scan_bucket(key, [cells[i] for i in idxs], device,
-                                  timings)
+                                  timings, force)
         t0 = time.perf_counter()
         for i, (start, finish, prio, node, extras) in zip(idxs, arrays):
             cell = cells[i]
             if metrics_only:
+                if cell.res:
+                    raise ValueError(
+                        "metrics_only is not supported for resilience "
+                        "cells; run them through the write-back path")
                 results[i] = _cell_scan_metrics(cell, finish, req_cache,
                                                 extras)
                 continue
@@ -780,6 +870,8 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
             t_list = f.t.tolist()
             ex = extras or {}
             coldq, att = ex.get("coldq"), ex.get("attempts")
+            fmask, fcause = ex.get("failed_mask"), ex.get("failed_cause")
+            ratt = ex.get("attempts_res")
             for e, ridx in enumerate(f.order.tolist()):
                 req = cell.requests[ridx]
                 req.node = f"node{int(node[e])}"
@@ -789,12 +881,21 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
                 # last dispatch's
                 req.cold_start = (bool(coldq[e]) if coldq is not None
                                   else False)
+                if fmask is not None and bool(fmask[e]):
+                    # failed for good: the start and finish recorded are a
+                    # cancelled attempt's, and the client saw no response
+                    req.start = req.finish = req.c = None
+                    req.failed = "timeout" if int(fcause[e]) == 1 else "shed"
+                    req.attempts = max(int(ratt[e]) - 1, 0)
+                    continue
                 req.start = float(start[e])
                 req.finish = float(finish[e])
                 req.c = req.finish + RESP_OVERHEAD_S
                 req.failed = None
                 if att is not None:      # a hedged cell's backups
                     req.attempts = int(att[e])
+                if ratt is not None:     # a resilience cell's resubmissions
+                    req.attempts = max(int(ratt[e]) - 1, 0)
             meta = {"mode": "ours", "policy": cell.policy,
                     "cores": cell.cores, "backend": "scan"}
             if cell.assignment != "single":
@@ -807,6 +908,9 @@ def _run_scan_cells(cells: list[_ScanCell], device: torch.device,
                 backups_issued=ex.get("backups", 0),
                 steals_won=ex.get("steals", 0),
                 nodes_used=ex.get("nodes_used", cell.nodes),
+                timed_out=ex.get("timed_out", 0), shed=ex.get("shed", 0),
+                retries_issued=ex.get("retries_issued", 0),
+                wasted_work=ex.get("wasted_work", 0.0),
                 timeline=ex.get("timeline"), meta=meta)
         _add_time(timings, "fold_s", t0)
     return results
@@ -886,16 +990,20 @@ def simulate_cluster_cells_scan(
     ``ClusterDynamics``: failures, the autoscaler; under push with the
     least-loaded balancer), a ``profile`` (a ``NodeSpeedProfile``),
     ``hedging`` (a ``HedgingSpec``: steal, or duplicate without dynamics
-    under push; pull runs it as the no-op it is) and ``warm`` false (the
-    cold-start regime), and scan in float64; and (with ``validate``)
-    every cell must satisfy :func:`cluster_scan_eligible`.
-    ``resilience`` not ``None`` or an ineligible cell raise
-    ``ValueError``.  Returns :class:`SimResult` rows with the requests
-    written back (and a dynamic cell's ``failures``, ``nodes_used`` and
-    ``timeline``, a cold cell's ``cold_starts``, ``evictions`` and each
-    request's ``cold_start``, a hedged cell's ``backups_issued``,
-    ``steals_won`` and each request's ``attempts``), or
-    :class:`ScanMetrics` rows with ``metrics_only=True``."""
+    under push; pull runs it as the no-op it is), ``warm`` false (the
+    cold-start regime) or ``resilience`` (a ``ResilienceSpec``: push,
+    warm, a fixed uniform fleet, no hedging), and scan in float64; and
+    (with ``validate``) every cell must satisfy
+    :func:`cluster_scan_eligible`, else ``ValueError``.  Returns
+    :class:`SimResult` rows with the requests written back (and a dynamic
+    cell's ``failures``, ``nodes_used`` and ``timeline``, a cold cell's
+    ``cold_starts``, ``evictions`` and each request's ``cold_start``, a
+    hedged cell's ``backups_issued``, ``steals_won`` and each request's
+    ``attempts``, a resilience cell's ``timed_out``, ``shed``,
+    ``retries_issued``, ``wasted_work`` and each request's ``failed`` and
+    ``attempts``), or :class:`ScanMetrics` rows with
+    ``metrics_only=True`` (which a resilience cell refuses with
+    ``ValueError``)."""
     dev = resolve_device(device)
     if not batch:
         return []
@@ -909,27 +1017,28 @@ def simulate_cluster_cells_scan(
         profile = item[7] if len(item) > 7 else None
         hedging = item[8] if len(item) > 8 else None
         warm = item[9] if len(item) > 9 else True
-        extras = list(item[10:])
-        ported = (assignment in ("pull", "push")
-                  and (assignment == "pull" or lb in LB_ROUTE)
-                  and all(x is None for x in extras))
+        resilience = item[10] if len(item) > 10 else None
+        ported = (len(item) <= 11 and assignment in ("pull", "push")
+                  and (assignment == "pull" or lb in LB_ROUTE))
         if not ported or (validate and not cluster_scan_eligible(
                 requests, nodes, cores, policy, assignment=assignment,
                 lb=lb, warm=warm, memory_mb=memory_mb,
                 container_mb=container_mb, dynamics=dynamics,
-                profile=profile, hedging=hedging)):
+                profile=profile, hedging=hedging, resilience=resilience)):
             raise ValueError(
                 "the port's cluster scan covers pull and push cells, with "
-                "dynamics, node speeds, hedging and cold starts, without "
-                "resilience "
+                "dynamics, node speeds, hedging and cold starts, and push "
+                "cells on a fixed uniform warm fleet with resilience "
                 f"(policy={policy!r}, nodes={nodes}, cores={cores}, "
                 f"assignment={assignment!r}, lb={lb!r}, warm={warm}, "
                 f"dynamics={dynamics!r}, profile={profile!r}, "
-                f"hedging={hedging!r}, extras={extras!r})")
+                f"hedging={hedging!r}, resilience={resilience!r}, "
+                f"extras={list(item[11:])!r})")
         cell = _ScanCell(requests=requests, feats=feats(requests),
                          cores=cores, nodes=nodes, policy=policy,
                          assignment=assignment, lb=lb, dynamics=dynamics,
-                         profile=profile, warm=warm, hedging=hedging)
+                         profile=profile, warm=warm, hedging=hedging,
+                         resilience=resilience)
         cells.append(cell)
     return _run_scan_cells(cells, dev, metrics_only=metrics_only,
                            timings=timings)
@@ -948,11 +1057,12 @@ def simulate_cluster_scan(
     dynamics=None,
     profile=None,
     hedging=None,
+    resilience=None,
     device: str | torch.device | None = None,
 ) -> SimResult:
     """Single-cell convenience wrapper over
     :func:`simulate_cluster_cells_scan`."""
     return simulate_cluster_cells_scan(
         [(requests, nodes, cores_per_node, policy, assignment, lb, dynamics,
-          profile, hedging, warm)],
+          profile, hedging, warm, resilience)],
         memory_mb=memory_mb, container_mb=container_mb, device=device)[0]

@@ -1,6 +1,7 @@
 """Response-time / stretch aggregation (own copy of the core of
 ``repro.core.metrics``): average, 50/75/95/99th percentiles of R(i) and
-S(i), max c(i), and the per-function summaries Fig 5 reads."""
+S(i), max c(i), the per-function summaries Fig 5 reads, and the columns
+of a resilience cell (``resilience_row``)."""
 
 from __future__ import annotations
 
@@ -91,3 +92,42 @@ def summarize(
             summary.per_function[fn] = summarize(
                 [r for r in done if r.fn == fn], stretch_ref=ref)
     return summary
+
+
+def resilience_row(
+    requests: list[Request],
+    *,
+    timed_out: int = 0,
+    shed: int = 0,
+    retries_issued: int = 0,
+    wasted_work: float = 0.0,
+) -> dict[str, float]:
+    """A resilience cell's columns (the JAX package's ``resilience_row``):
+    its counters, ``goodput`` (calls completed a second of makespan),
+    ``R_ok_p95`` (the 95th percentile of the completed calls' response
+    times: the failed calls have none) and ``wasted_frac`` (wasted
+    execution seconds over all execution seconds).  A cell where every call
+    failed gives 0.0 for the derived columns."""
+    done = [r for r in requests if r.c is not None]
+    failed = [r for r in requests if r.c is None and r.failed is not None]
+    makespan = max((r.c for r in done), default=0.0)
+    goodput = len(done) / makespan if makespan > 0 else 0.0
+    if done:
+        r_ok_p95 = float(np.percentile(
+            np.array([r.response_time for r in done]), 95))
+    else:
+        r_ok_p95 = 0.0
+    busy = sum(r.finish - r.start for r in done
+               if r.start is not None and r.finish is not None)
+    total = wasted_work + busy
+    wasted_frac = wasted_work / total if total > 0 else 0.0
+    return {
+        "goodput": goodput,
+        "R_ok_p95": r_ok_p95,
+        "wasted_frac": wasted_frac,
+        "timed_out": float(timed_out),
+        "shed": float(shed),
+        "retries_issued": float(retries_issued),
+        "wasted_work": float(wasted_work),
+        "n_failed": float(len(failed)),
+    }

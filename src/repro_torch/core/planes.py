@@ -3,11 +3,13 @@
 for the base pull carry, the frozen-priority segments ``freeze`` and
 ``fc_push``, the container segment ``cold``, the straggler-hedging
 segments ``hedge`` and ``dup``, the per-slot speeds ``het`` of the
-frozen-priority regime and the capacity-dynamics segment ``dyn``).
+frozen-priority regime, the capacity-dynamics segment ``dyn`` and the
+request-lifecycle segment ``res``).
 
 Every float entry of a cell's carry flattens into one **clocks plane**
 (``clk``, in the bucket's float type: float32, or float64 for dynamic,
-heterogeneous and cold buckets) and every int/bool entry into one
+heterogeneous, cold, hedged and resilience buckets) and every int/bool
+entry into one
 **counters plane** (``ctr``, int32), in sorted-key order.  The layout is a pure
 function of the carry's shapes, so the packer here and the kernels'
 unpackers (the CUDA ``event_step`` kernels take the offsets as launch
@@ -27,7 +29,8 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                freeze: bool = False, fc_push: bool = False, n1: int = 0,
                fc_ring: int = 1, dyn: bool = False, het: bool = False,
                cold: bool = False, hedge: bool = False, dup: bool = False,
-               n_copies: int = 1) -> dict[str, tuple[tuple[int, ...], str]]:
+               n_copies: int = 1,
+               res: bool = False) -> dict[str, tuple[tuple[int, ...], str]]:
     """Shapes and kinds of one cell's carry: slots, queue heads, channel
     clocks and the estimator rings -- the controller's (an estimator axis
     of length 1) in the pull regime, one per node with ``freeze`` -- then,
@@ -52,7 +55,13 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
     autoscaler tick, the nodes provisioned, the calls lost and the calls
     done; then under pull each row's re-queued flag, re-queue clock and
     enqueue time, with ``freeze`` each slot's launch sequence, the launch
-    count and each row's re-route rank)."""
+    count and each row's re-route rank), then the request lifecycle
+    (``res``: each row's timeout deadline, retry re-arrival time and the
+    E[p] its admission added to the shed gauge, the gauge itself, each
+    row's submissions, terminal-failure flag and cause (1 timeout, 2 shed),
+    each slot's execution start, the timeouts, sheds and retries counted,
+    the wasted seconds, the calls resolved, each row's push sequence and
+    the step count, and the controller's estimator ring)."""
     n_est = n_nodes if freeze else 1
     nq = n_copies * n1 if dup else n1
     spec = {
@@ -108,6 +117,16 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
         else:
             spec.update(xq=((n1,), _BOOL), rq_rt=((n1,), _FLOAT),
                         enq_t=((n1,), _FLOAT))
+    if res:
+        spec.update(to_t=((n1,), _FLOAT), rto=((n1,), _FLOAT),
+                    eps=((n1,), _FLOAT), qep=((), _FLOAT),
+                    ratt=((n1,), _INT), nfl=((n1,), _BOOL),
+                    fcz=((n1,), _INT), sst=((n_nodes, n_slots), _FLOAT),
+                    nto=((), _INT), nsh=((), _INT), nrt=((), _INT),
+                    wst=((), _FLOAT), ndn=((), _INT), qsq=((n1,), _INT),
+                    stp=((), _INT), zring=((n_fns, window), _FLOAT),
+                    zrsum=((n_fns,), _FLOAT), zrlen=((n_fns,), _INT),
+                    zrpos=((n_fns,), _INT))
     return spec
 
 
@@ -166,19 +185,20 @@ def carry_layout(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                  freeze: bool = False, fc_push: bool = False, n1: int = 0,
                  fc_ring: int = 1, dyn: bool = False, het: bool = False,
                  cold: bool = False, hedge: bool = False, dup: bool = False,
-                 n_copies: int = 1) -> PlaneLayout:
+                 n_copies: int = 1, res: bool = False) -> PlaneLayout:
     return PlaneLayout(carry_spec(n_nodes=n_nodes, n_slots=n_slots,
                                   window=window, n_fns=n_fns, freeze=freeze,
                                   fc_push=fc_push, n1=n1, fc_ring=fc_ring,
                                   dyn=dyn, het=het, cold=cold, hedge=hedge,
-                                  dup=dup, n_copies=n_copies))
+                                  dup=dup, n_copies=n_copies, res=res))
 
 
 def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
                 fc_ring: int = 1, dyn: bool = False, het: bool = False,
                 cold: bool = False, hedge: bool = False, dup: bool = False,
-                n_copies: int = 1) -> dict[str, torch.Tensor]:
+                n_copies: int = 1, res: bool = False
+                ) -> dict[str, torch.Tensor]:
     """Initial batched carry of a bucket: empty slots and queues, idle
     channels, the estimator rings from the bucket's inputs, with ``freeze``
     / ``fc_push`` no queued entry and empty arrival rings, with ``cold``
@@ -190,7 +210,9 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
     node dead or pending, no re-arrival, the first tick at the autoscale
     interval (+inf without the autoscaler), the cell's nodes provisioned,
     and under pull every row enqueued at its receive time, with ``freeze``
-    no launch counted and every rank 0."""
+    no launch counted and every rank 0, and with ``res`` no deadline or
+    retry pending, nothing counted, the gauge at 0 and the controller's
+    ring empty (nodes get the warm-up's seed, the controller none)."""
     t = inp["t"]
     B, ft, dev = t.shape[0], t.dtype, t.device
     n_est, n_fns = inp["ring0"].shape[1], inp["ring0"].shape[2]
@@ -270,6 +292,23 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
             st.update(xq=torch.zeros(B, n1, dtype=torch.bool, device=dev),
                       rq_rt=torch.zeros(B, n1, dtype=ft, device=dev),
                       enq_t=t)
+    if res:
+        fz = dict(dtype=ft, device=dev)
+        st.update(to_t=torch.full((B, n1), float("inf"), **fz),
+                  rto=torch.full((B, n1), float("inf"), **fz),
+                  eps=torch.zeros(B, n1, **fz), qep=torch.zeros(B, **fz),
+                  ratt=torch.zeros(B, n1, **i32),
+                  nfl=torch.zeros(B, n1, dtype=torch.bool, device=dev),
+                  fcz=torch.zeros(B, n1, **i32),
+                  sst=torch.zeros(B, n_nodes, n_slots, **fz),
+                  nto=torch.zeros(B, **i32), nsh=torch.zeros(B, **i32),
+                  nrt=torch.zeros(B, **i32), wst=torch.zeros(B, **fz),
+                  ndn=torch.zeros(B, **i32), qsq=torch.zeros(B, n1, **i32),
+                  stp=torch.zeros(B, **i32),
+                  zring=torch.zeros(B, n_fns, window, **fz),
+                  zrsum=torch.zeros(B, n_fns, **fz),
+                  zrlen=torch.zeros(B, n_fns, **i32),
+                  zrpos=torch.zeros(B, n_fns, **i32))
     return st
 
 
@@ -277,12 +316,13 @@ def make_planes(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
                 fc_ring: int = 1, dyn: bool = False, het: bool = False,
                 cold: bool = False, hedge: bool = False, dup: bool = False,
-                n_copies: int = 1):
+                n_copies: int = 1, res: bool = False):
     """Per-cell initial carry of a bucket as the packed ``(clk, ctr)``
     planes, shapes ``(B, f_len)`` in the bucket's float type and ``(B,
     i_len)`` int32."""
     seg = dict(freeze=freeze, fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
-               het=het, cold=cold, hedge=hedge, dup=dup, n_copies=n_copies)
+               het=het, cold=cold, hedge=hedge, dup=dup, n_copies=n_copies,
+               res=res)
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=inp["ring0"].shape[2],
                           n1=inp["t"].shape[1], **seg)

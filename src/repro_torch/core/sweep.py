@@ -4,10 +4,11 @@ Counterpart of the parts of ``repro.core.sweep`` that the interactive-sweep
 path uses: :class:`SweepCell` restricted to the fields of a cell the port
 scans (one node, or a cluster under pull or push assignment, with
 capacity dynamics -- the autoscaler, failures -- node speeds, straggler
-hedging and the cold-start regime; every arrival process, per-function
-metric columns), a :class:`SweepSpec` over the policy, assignment,
-balancer, arrival, intensity, fleet, autoscaler, failure, speed and
-hedging axes, whose ``cells()`` yields the JAX package's cells in the JAX
+hedging, the cold-start regime and the request lifecycle -- timeouts,
+retries, shedding; every arrival process, per-function metric columns), a
+:class:`SweepSpec` over the policy, assignment, balancer, arrival,
+intensity, fleet, autoscaler, failure, speed, hedging, timeout, retry and
+shedding axes, whose ``cells()`` yields the JAX package's cells in the JAX
 package's order (pruned by its ``cell_filter``), and
 :func:`run_cells_scan`, which runs a list of cells through the bucketed
 scan and returns one metrics row per cell.
@@ -30,8 +31,14 @@ from .fastpath import (
     simulate_cluster_cells_scan,
 )
 from .cluster import ClusterDynamics
-from .metrics import summarize, summarize_arrays
+from .metrics import PERCENTILES, resilience_row, summarize, summarize_arrays
 from .request import Request
+from .resilience import (
+    AdmissionPolicy,
+    ResilienceSpec,
+    RetryPolicy,
+    TimeoutSpec,
+)
 from .stragglers import HedgingSpec, NodeSpeedProfile
 from .traces import generate_trace_requests
 from .workload import (
@@ -71,6 +78,18 @@ class SweepCell:
     hedge_floor_s: float = 0.5
     hedge_max_backups: int = 3
     hedge_mode: str = "steal"
+    # request lifecycle (None on an axis: that policy off); the knobs below
+    # fill out the TimeoutSpec and RetryPolicy
+    timeout_multiple: float | None = None   # deadline mult x max(E[p], floor)
+    retry_attempts: int | None = None       # submissions allowed in all
+    retry_mode: str = "backoff"             # backoff | immediate
+    shed_threshold: float | None = None     # queued E[p] a free slot
+    timeout_floor_s: float = 0.5
+    timeout_absolute_s: float | None = None
+    retry_base_s: float = 0.5
+    retry_cap_s: float = 8.0
+    retry_jitter: float = 0.5
+    retry_on: tuple[str, ...] = ("timeout", "shed", "kill")
     seed: int = 0
     duration_s: float = 60.0
     workload_cores: int | None = None  # burst sized for this many cores
@@ -105,6 +124,15 @@ class SweepCell:
             parts.append(f"deg{prof.max_slowdown():g}")
         if self.hedge_multiple is not None:
             parts.append(f"hedge{self.hedge_multiple:g}")
+        if self.timeout_multiple is not None or self.timeout_absolute_s:
+            parts.append(f"to{self.timeout_absolute_s:g}s"
+                         if self.timeout_absolute_s
+                         else f"to{self.timeout_multiple:g}x")
+        if self.retry_attempts is not None:
+            suffix = "i" if self.retry_mode == "immediate" else "b"
+            parts.append(f"rt{self.retry_attempts}{suffix}")
+        if self.shed_threshold is not None:
+            parts.append(f"shed{self.shed_threshold:g}")
         return "_".join(parts)
 
 
@@ -131,6 +159,17 @@ class SweepSpec:
     hedge_floor_s: float = 0.5           # HedgingSpec knobs (all hedged cells)
     hedge_max_backups: int = 3
     hedge_mode: str = "steal"
+    # request-lifecycle axes (None: that policy off) and shared knobs
+    timeout_multiples: Sequence[float | None] = (None,)
+    retry_attempts: Sequence[int | None] = (None,)
+    retry_modes: Sequence[str] = ("backoff",)
+    shed_thresholds: Sequence[float | None] = (None,)
+    timeout_floor_s: float = 0.5
+    timeout_absolute_s: float | None = None
+    retry_base_s: float = 0.5
+    retry_cap_s: float = 8.0
+    retry_jitter: float = 0.5
+    retry_on: tuple[str, ...] = ("timeout", "shed", "kill")
     seeds: int | Sequence[int] = 3
     base_seed: int = 0
     duration_s: float = 60.0
@@ -166,6 +205,19 @@ class SweepSpec:
                          hedge_floor_s=self.hedge_floor_s,
                          hedge_max_backups=self.hedge_max_backups,
                          hedge_mode=self.hedge_mode,
+                         timeout_multiple=tmult,
+                         # the retry mode means something on retrying
+                         # cells only
+                         retry_attempts=ratt,
+                         retry_mode=rmode if ratt is not None else "backoff",
+                         shed_threshold=shed,
+                         timeout_floor_s=self.timeout_floor_s,
+                         timeout_absolute_s=(self.timeout_absolute_s
+                                             if tmult is not None else None),
+                         retry_base_s=self.retry_base_s,
+                         retry_cap_s=self.retry_cap_s,
+                         retry_jitter=self.retry_jitter,
+                         retry_on=tuple(self.retry_on),
                          seed=seed, duration_s=self.duration_s,
                          workload_cores=self.workload_cores,
                          per_function=tuple(self.per_function),
@@ -173,19 +225,23 @@ class SweepSpec:
                          trace_repeat=self.trace_repeat,
                          trace_scale=self.trace_scale, warm=self.warm)
                for (pol, asg, lb, arr, inten, c, n, auto, pd, su, fail, fspec,
-                    spd, deg, hedge, seed) in itertools.product(
+                    spd, deg, hedge, tmult, ratt, rmode, shed,
+                    seed) in itertools.product(
                    self.policies, self.assignments, self.lbs, self.arrivals,
                    self.intensities, self.cores, self.nodes, self.autoscale,
                    self.provision_delays, self.scale_ups, self.failures,
                    self.fail_specs, self.node_speeds, self.degrades,
-                   self.hedge_multiples, self.seed_list())]
+                   self.hedge_multiples, self.timeout_multiples,
+                   self.retry_attempts, self.retry_modes,
+                   self.shed_thresholds, self.seed_list())]
         if self.cell_filter is not None:
             out = [c for c in out if self.cell_filter(c)]
-        # the balancer only means something on push cells and the
-        # autoscaler knobs on autoscale cells: collapsing them elsewhere
-        # would duplicate cells, so keep the first of each
+        # the balancer only means something on push cells, the autoscaler
+        # knobs on autoscale cells and the retry mode on retrying cells:
+        # collapsing them elsewhere would duplicate cells, so keep the first
+        # of each
         if (len(self.lbs) > 1 or len(self.provision_delays) > 1
-                or len(self.scale_ups) > 1):
+                or len(self.scale_ups) > 1 or len(self.retry_modes) > 1):
             out = list(dict.fromkeys(out))
         return out
 
@@ -260,15 +316,40 @@ def _cell_hedging(cell: SweepCell) -> HedgingSpec | None:
                        mode=cell.hedge_mode)
 
 
+def _cell_resilience(cell: SweepCell) -> ResilienceSpec | None:
+    """The cell's request lifecycle, or ``None`` when every policy of it is
+    off (the JAX package's ``_cell_resilience``)."""
+    if (cell.timeout_multiple is None and cell.retry_attempts is None
+            and cell.shed_threshold is None):
+        return None
+    timeout = None
+    if cell.timeout_multiple is not None:
+        timeout = TimeoutSpec(multiple=cell.timeout_multiple,
+                              floor_s=cell.timeout_floor_s,
+                              absolute_s=cell.timeout_absolute_s)
+    retry = None
+    if cell.retry_attempts is not None:
+        retry = RetryPolicy(max_attempts=cell.retry_attempts,
+                            mode=cell.retry_mode,
+                            base_delay_s=cell.retry_base_s,
+                            cap_delay_s=cell.retry_cap_s,
+                            jitter=cell.retry_jitter,
+                            retry_on=tuple(cell.retry_on))
+    admission = (AdmissionPolicy(threshold_s=cell.shed_threshold)
+                 if cell.shed_threshold is not None else None)
+    return ResilienceSpec(timeout=timeout, retry=retry, admission=admission)
+
+
 def _cluster_shaped(cell: SweepCell) -> bool:
     """Does the cell go to the cluster scan?  As in the JAX package's
     ``_cluster_scan_capable``: more than one node, or any dynamics,
-    node-speed or hedging axis set, so a one-node autoscale cell, or a
-    one-node hedged push cell (which steals from itself), is a cluster
-    cell."""
+    node-speed, hedging or lifecycle axis set, so a one-node autoscale
+    cell, a one-node hedged push cell (which steals from itself) or a
+    one-node resilience cell is a cluster cell."""
     return (cell.nodes > 1 or cell.autoscale or cell.fail_at is not None
             or cell.fail_spec is not None or cell.node_speeds is not None
-            or cell.degrade is not None or cell.hedge_multiple is not None)
+            or cell.degrade is not None or cell.hedge_multiple is not None
+            or _cell_resilience(cell) is not None)
 
 
 def _scan_capable(cell: SweepCell) -> bool:
@@ -277,10 +358,16 @@ def _scan_capable(cell: SweepCell) -> bool:
     ``_cluster_scan_capable`` answers it: that function reads the cell's
     dynamics axes as set or not, so an axis set to no event (``fail_spec``
     ``()``) still asks for the least-loaded balancer under push and for a
-    second node, where the cell's ``ClusterDynamics`` is static; and a
-    duplicate-mode hedged push cell with any dynamics axis set is
-    refused."""
+    second node, where the cell's ``ClusterDynamics`` is static; a
+    duplicate-mode hedged push cell with any dynamics axis set is refused;
+    and a resilience cell is taken under push, warm, with no dynamics,
+    hedging or speed axis set."""
     failures = cell.fail_at is not None or cell.fail_spec is not None
+    if _cell_resilience(cell) is not None and (
+            cell.assignment != "push" or not cell.warm or cell.autoscale
+            or failures or cell.hedge_multiple is not None
+            or _cell_profile(cell) is not None):
+        return False
     if (cell.hedge_multiple is not None and cell.hedge_mode == "duplicate"
             and (failures or cell.autoscale) and cell.assignment == "push"):
         return False                 # racing copies under churn
@@ -328,15 +415,36 @@ def _metrics_from_scan(cell: SweepCell, mo: ScanMetrics) -> dict[str, float]:
 def _cell_metrics(cell: SweepCell, res) -> dict[str, float]:
     """Metrics row of a written-back result, with the JAX package's
     ``_cell_metrics`` keys and arithmetic (``summarize`` over the requests
-    in order, its per-function summaries for ``per_function``)."""
-    s = summarize(res.requests, per_function=bool(cell.per_function))
-    metrics = _row(s, res.cold_starts, res.failures, res.backups_issued,
-                   res.steals_won, res.nodes_used)
-    for fn in cell.per_function:
-        sub = s.per_function.get(fn)
-        if sub is not None:
-            metrics[f"R_avg:{fn}"] = sub.response_avg
-            metrics[f"S_avg:{fn}"] = sub.stretch_avg
+    in order, its per-function summaries for ``per_function``, and a
+    resilience cell's ``resilience_row``).  A resilience cell where no call
+    completed gives zeros for the response and stretch columns beside its
+    counts."""
+    resil = _cell_resilience(cell)
+    if resil is not None and not any(r.c is not None for r in res.requests):
+        metrics = {
+            "R_avg": 0.0, "S_avg": 0.0, "max_c": 0.0,
+            "cold": float(res.cold_starts), "n": 0.0,
+            "failures": float(res.failures),
+            "backups": float(res.backups_issued),
+            "steals": float(res.steals_won),
+            "nodes_used": float(res.nodes_used),
+        }
+        for p in PERCENTILES:
+            metrics[f"R_p{p}"] = 0.0
+            metrics[f"S_p{p}"] = 0.0
+    else:
+        s = summarize(res.requests, per_function=bool(cell.per_function))
+        metrics = _row(s, res.cold_starts, res.failures, res.backups_issued,
+                       res.steals_won, res.nodes_used)
+        for fn in cell.per_function:
+            sub = s.per_function.get(fn)
+            if sub is not None:
+                metrics[f"R_avg:{fn}"] = sub.response_avg
+                metrics[f"S_avg:{fn}"] = sub.stretch_avg
+    if resil is not None:
+        metrics.update(resilience_row(
+            res.requests, timed_out=res.timed_out, shed=res.shed,
+            retries_issued=res.retries_issued, wasted_work=res.wasted_work))
     return metrics
 
 
@@ -347,29 +455,34 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
     metrics rows in order.
 
     Single-node cells (one node, whatever their assignment, and no
-    dynamics, speeds or hedging) run through :func:`simulate_cells_scan`
-    and cluster cells through :func:`simulate_cluster_cells_scan`, under
-    pull assignment or push with the least-loaded or home balancer, with
-    their dynamics, node speeds, hedging and warm or cold start, as the
-    JAX package's
-    ``run_cells_scan`` sends them.  A cell outside the scan's regimes (as
-    the JAX package's ``_cluster_scan_capable`` and ``cluster_scan_
-    eligible`` or ``scan_eligible`` answer) raises ``ValueError``.  Rows
-    carry
-    ``R_avg:<fn>`` and ``S_avg:<fn>`` for each function of the cell's
-    ``per_function`` that it calls.  ``metrics_only=True`` shares one
-    generated burst between cells with the same workload and never writes
-    back requests; the rows equal the write-back rows.  ``timings``
-    accumulates ``fill_s``, ``device_s`` and ``fold_s``."""
+    dynamics, speeds, hedging or lifecycle policy) run through
+    :func:`simulate_cells_scan` and cluster cells through
+    :func:`simulate_cluster_cells_scan`, under pull assignment or push
+    with the least-loaded or home balancer, with their dynamics, node
+    speeds, hedging, warm or cold start and request lifecycle, as the JAX
+    package's ``run_cells_scan`` sends them.  A cell outside the scan's
+    regimes (as the JAX package's ``_cluster_scan_capable`` and
+    ``cluster_scan_eligible`` or ``scan_eligible`` answer) raises
+    ``ValueError``.  Rows carry ``R_avg:<fn>`` and ``S_avg:<fn>`` for
+    each function of the cell's ``per_function`` that it calls, and a
+    resilience cell's ``resilience_row`` columns.  ``metrics_only=True``
+    shares one generated burst between cells with the same workload and
+    never writes back requests, but for resilience cells, which get their
+    own burst and write back in a batch of their own (their failed calls
+    have no response), as the JAX package runs them; the rows equal the
+    write-back rows.  ``timings`` accumulates ``fill_s``, ``device_s``
+    and ``fold_s``."""
     dev = resolve_device(device)
     workloads: dict[tuple, list[Request]] = {}
     singles: list[tuple[int, tuple]] = []
     clusters: list[tuple[int, tuple]] = []
+    res_clusters: list[tuple[int, tuple]] = []
     for pos, cell in enumerate(cells):
         if cell.nodes < 1 or cell.assignment not in ("pull", "push"):
             raise ValueError(f"cell {cell.label()} is not a cell of the "
                              "port's scan")
-        if metrics_only:
+        resil = _cell_resilience(cell)
+        if metrics_only and resil is None:
             key = _workload_key(cell)
             reqs = workloads.get(key)
             if reqs is None:
@@ -387,21 +500,26 @@ def run_cells_scan(cells: Sequence[SweepCell], metrics_only: bool = False,
             ok = _scan_capable(cell) and cluster_scan_eligible(
                 reqs, cell.nodes, cell.cores, cell.policy,
                 assignment=cell.assignment, lb=cell.lb, warm=cell.warm,
-                dynamics=dyn, profile=prof, hedging=hedging)
-            clusters.append((pos, (reqs, cell.nodes, cell.cores,
-                                   cell.policy, cell.assignment, cell.lb,
-                                   dyn, prof, hedging, cell.warm)))
+                dynamics=dyn, profile=prof, hedging=hedging,
+                resilience=resil)
+            item = (reqs, cell.nodes, cell.cores, cell.policy,
+                    cell.assignment, cell.lb, dyn, prof, hedging, cell.warm)
+            if resil is None:
+                clusters.append((pos, item))
+            else:
+                res_clusters.append((pos, item + (resil,)))
         if not ok:
             raise ValueError(f"cell {cell.label()} is not scan-eligible")
     results: list = [None] * len(cells)
-    kw = dict(validate=False, metrics_only=metrics_only, device=dev,
-              timings=timings)
-    for group, run in ((singles, simulate_cells_scan),
-                       (clusters, simulate_cluster_cells_scan)):
+    kw = dict(validate=False, device=dev, timings=timings)
+    for group, run, mo in ((singles, simulate_cells_scan, metrics_only),
+                           (clusters, simulate_cluster_cells_scan,
+                            metrics_only),
+                           (res_clusters, simulate_cluster_cells_scan,
+                            False)):
         if group:
             for (pos, _), res in zip(group, run([b for _, b in group],
-                                                 **kw)):
+                                                 metrics_only=mo, **kw)):
                 results[pos] = res
-    if metrics_only:
-        return [_metrics_from_scan(c, r) for c, r in zip(cells, results)]
-    return [_cell_metrics(c, r) for c, r in zip(cells, results)]
+    return [_metrics_from_scan(c, r) if isinstance(r, ScanMetrics)
+            else _cell_metrics(c, r) for c, r in zip(cells, results)]

@@ -5,7 +5,8 @@
 // or cold starts, and the float64 frozen-priority kernel
 // (freeze64_kernel, its body in event_step_freeze64.cuh) for single-node
 // and push cells with them; its hedged sets are built from
-// event_step_hedge.cu and event_step_dup.cu.
+// event_step_hedge.cu and event_step_dup.cu, its resilience set from
+// event_step_res.cu.
 //
 // The pull kernel replaces the TPU kernel
 // repro/kernels/event_step.py::_event_kernel (launched by
@@ -1949,48 +1950,41 @@ int launch_dyn_pl(bool staged, const DArgs& a, const DLayout& L,
 // The instantiation of the bucket's segments: each of the seven sets of
 // cold / het / dyn is compiled for 1 and 2 slots a lane in shared memory
 // (ops.EVENT_STEP_FREEZE64_PER_LANE) and for the wide path; the hedged
-// sets are compiled in csrc/event_step_hedge.cu and csrc/event_step_dup.cu.
+// sets are compiled in csrc/event_step_hedge.cu and csrc/event_step_dup.cu,
+// the resilience set in csrc/event_step_res.cu.
 template <int PL>
-int launch_f64_pl(const F64Args& a, const H64Args& h, const F64Layout& L,
-                  const F64Dims& D, int cell, float horizon,
-                  cudaStream_t stream, int pl, int words) {
+int launch_f64_pl(const F64Args& a, const H64Args& h, const R64Args& r,
+                  const F64Layout& L, const F64Dims& D, int cell,
+                  float horizon, cudaStream_t stream, int pl, int words) {
   const int m = (D.cold ? 1 : 0) | (D.het ? 2 : 0) | (D.dyn ? 4 : 0);
+#define SET(M, C, H, Y)                                                     \
+  case M:                                                                   \
+    return launch_f64<PL, C, H, Y>(a, h, r, L, D, cell, horizon, stream,    \
+                                   pl, words);
   switch (m) {
-    case 1: return launch_f64<PL, true, false, false>(a, h, L, D, cell,
-                                                      horizon, stream, pl,
-                                                      words);
-    case 2: return launch_f64<PL, false, true, false>(a, h, L, D, cell,
-                                                      horizon, stream, pl,
-                                                      words);
-    case 3: return launch_f64<PL, true, true, false>(a, h, L, D, cell,
-                                                     horizon, stream, pl,
-                                                     words);
-    case 4: return launch_f64<PL, false, false, true>(a, h, L, D, cell,
-                                                      horizon, stream, pl,
-                                                      words);
-    case 5: return launch_f64<PL, true, false, true>(a, h, L, D, cell,
-                                                     horizon, stream, pl,
-                                                     words);
-    case 6: return launch_f64<PL, false, true, true>(a, h, L, D, cell,
-                                                     horizon, stream, pl,
-                                                     words);
-    case 7: return launch_f64<PL, true, true, true>(a, h, L, D, cell,
-                                                    horizon, stream, pl,
-                                                    words);
+    SET(1, true, false, false)
+    SET(2, false, true, false)
+    SET(3, true, true, false)
+    SET(4, false, false, true)
+    SET(5, true, false, true)
+    SET(6, false, true, true)
+    SET(7, true, true, true)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SET
 }
 
 int launch_f64_set(int pl_sel, const F64Args& a, const H64Args& h,
-                   const F64Layout& L, const F64Dims& D, int cell,
-                   float horizon, cudaStream_t stream, int pl, int words) {
+                   const R64Args& r, const F64Layout& L, const F64Dims& D,
+                   int cell, float horizon, cudaStream_t stream, int pl,
+                   int words) {
   switch (pl_sel) {
-    case 0: return launch_f64_pl<0>(a, h, L, D, cell, horizon, stream, pl,
-                                    words);
-    case 1: return launch_f64_pl<1>(a, h, L, D, cell, horizon, stream, pl,
-                                    words);
-    case 2: return launch_f64_pl<2>(a, h, L, D, cell, horizon, stream, pl,
-                                    words);
+    case 0: return launch_f64_pl<0>(a, h, r, L, D, cell, horizon, stream,
+                                    pl, words);
+    case 1: return launch_f64_pl<1>(a, h, r, L, D, cell, horizon, stream,
+                                    pl, words);
+    case 2: return launch_f64_pl<2>(a, h, r, L, D, cell, horizon, stream,
+                                    pl, words);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -2205,6 +2199,8 @@ extern "C" int event_step_freeze64_launch(
                   start, finish, prio, node, summ, act_out, dead_out,
                   cold_out, coldq_out, reinterpret_cast<uint32_t*>(scratch)};
   const H64Args h{nullptr, nullptr, nullptr, nullptr, nullptr};
-  return f64_launch_checked(a, h, layout, dims, plan, horizon, stream, false,
-                            launch_f64_set);
+  const R64Args r{nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, nullptr};
+  return f64_launch_checked(a, h, r, layout, dims, plan, horizon, stream,
+                            F64Sets::kPlain, launch_f64_set);
 }

@@ -1,7 +1,8 @@
 // The float64 frozen-priority kernel (freeze64_kernel) and its launch,
-// shared by csrc/event_step.cu (the sets without hedging) and
-// csrc/event_step_hedge.cu / csrc/event_step_dup.cu (the hedged sets), so
-// that each translation unit compiles only its own instantiations.
+// shared by csrc/event_step.cu (the sets without hedging),
+// csrc/event_step_hedge.cu / csrc/event_step_dup.cu (the hedged sets) and
+// csrc/event_step_res.cu (the request lifecycle), so that each translation
+// unit compiles only its own instantiations.
 
 #pragma once
 
@@ -13,11 +14,12 @@ namespace {
 // The float64 frozen-priority regime: single-node and push cells with
 // capacity dynamics (`DYN`: scheduled node failures, the autoscaler; push
 // routes least-loaded), node speeds (`HET`), the cold-start containers
-// (`COLD`) or straggler hedging (`HEDGE`, `DUP`), the freeze branch of
+// (`COLD`), straggler hedging (`HEDGE`, `DUP`) or the request lifecycle
+// (`RES`: timeouts, retries, shedding), the freeze branch of
 // _scan_cell_kernel in float64 that the JAX package runs as XLA's
 // lax.scan (repro/core/fastpath.py:821).  The plain PyTorch version is
 // repro_torch/kernels/event_step.py::freeze_scan_ref with dyn / het /
-// cold / hedge / dup.
+// cold / hedge / dup / res.
 //
 // freeze_kernel's design in float64, with dyn_kernel's clocks and carried
 // candidate events.  A first, exact kernel; what bounds it is the same
@@ -74,19 +76,40 @@ namespace {
 //   attempts + 1 of row j at queue entry c (n+1) + j (a row's features
 //   are read at q mod (n+1)); the first completion of any copy writes the
 //   call's outputs.  Equal frozen keys on a node dispatch by push sequence.
-// - DYN, HET, COLD, HEDGE and DUP are template parameters, so the float32
-//   kernels and every combination carry only the state they use; the
-//   hedged sets are compiled in their own sources.
+// - RES (the request lifecycle: timeouts, retries, shedding; push and
+//   single-node cells on a fixed uniform warm fleet, so none of the flags
+//   above): the res branch of the same body.  Each row carries its timeout
+//   deadline, its retry re-arrival time and the E[p] its admission added
+//   to the shed gauge (float64, in the deadlines' place), its submissions,
+//   failure flag and cause in one word, and its push sequence; each slot
+//   its execution start (in the measured service's place: HET is off);
+//   lane 0 keeps the controller's runtime ring (in the hedge ring's
+//   place).  The earliest deadline and the earliest re-arrival and their
+//   rows are carried as warp-uniform values.  A deadline fire ranks after
+//   completions, a re-arrival after both.  A fire on a queued call takes it
+//   off its node's queue and its E[p] off the gauge; on a running one the
+//   slot's owner frees it, the seconds run join the wasted work and the
+//   node dispatches; then the call re-arrives after its backoff or fails.
+//   An arrival or re-arrival counts a submission and is shed when the
+//   gauge over the fleet's free slots (a warp sum) exceeds the threshold;
+//   else it adds the controller's E[p] to the gauge, arms its deadline and
+//   is inserted as an arrival.  Equal frozen keys on a node dispatch by
+//   push sequence, as under HEDGE.
+// - DYN, HET, COLD, HEDGE, DUP and RES are template parameters, so the
+//   float32 kernels and every combination carry only the state they use;
+//   the hedged and the resilience sets are compiled in their own sources.
 // Outputs: start / finish written at each dispatch (a re-dispatched call
 // keeps its last; under DUP the winning copy's, at its completion), prio /
 // node each row's frozen values (the carry's, overwritten at each arrival
 // and re-arrival; under DUP node is the winner's), the summary, the cold
 // counts and the hedge counts (backups, calls stolen or won by a copy,
-// calls done, steps taken) and each row's attempts at the end.
+// calls done, steps taken) and each row's attempts at the end; under RES
+// the timeouts, sheds, retries, calls resolved, steps taken and wasted
+// seconds, and each row's failure flag, cause and submissions.
 // ---------------------------------------------------------------------------
 
-constexpr int kF64Layout = 52;  // carry entries, see struct F64Layout
-constexpr int kF64Dims = 19;    // integer launch dimensions, see F64Dims
+constexpr int kF64Layout = 71;  // carry entries, see struct F64Layout
+constexpr int kF64Dims = 20;    // integer launch dimensions, see F64Dims
 constexpr int kF64Plan = 5;     // per_lane, staged, wide, cell_bytes, words
 // lane-owned words of the wide path: a slot's completion time and measured
 // service (2 words each), row and launch sequence; a node's channel clock,
@@ -98,8 +121,9 @@ constexpr unsigned long long KEY64_INF = 0xfff0000000000000ull;  // +inf
 
 // Offsets of the carry entries: the first thirteen in the clk plane, the
 // next twenty-two in the ctr plane, then the hedge and dup entries, seven
-// in the clk plane and ten in the ctr plane (EVENT_STEP_FREEZE64_LAYOUT in
-// ops.py); the entries of a segment the bucket lacks are 0.
+// in the clk plane and ten in the ctr plane, then the res entries, eight
+// in the clk plane and eleven in the ctr plane (EVENT_STEP_FREEZE64_LAYOUT
+// in ops.py); the entries of a segment the bucket lacks are 0.
 struct F64Layout {
   int chan, fin_s, fprio, last_t, prev_t, ring, rsum, fcr, sspd, act_t,
       killq, rearr, next_tick;
@@ -108,11 +132,13 @@ struct F64Layout {
       rord;
   int hedge_t, hedge_t2, cring, crsum, win_start, win_fin, start_q;
   int att, nbk, stolen, crlen, crpos, qseq, stepc, unhedge, done0, win_node;
+  int to_t, rto, eps, qep, sst, wst, zring, zrsum;
+  int ratt, nfl, fcz, nto, nsh, nrt, ndn, qsq, stp, zrlen, zrpos;
 };
 
 struct F64Dims {
   int B, n, n_nodes, n_slots, window, n_fns, ncoef, n_ep, f_len, i_len,
-      fc_push, fc_ring, dyn, het, cold, n_steps, hedge, dup, n_copies;
+      fc_push, fc_ring, dyn, het, cold, n_steps, hedge, dup, n_copies, res;
 };
 
 // The hedged sets' inputs and outputs (null without HEDGE).
@@ -125,8 +151,25 @@ struct H64Args {
   int* att_out;          // (B, n + 1): each row's attempts
 };
 
-// The bits of a row's hedge word under its attempts (word >> kAttShift)
+// The resilience sets' inputs and outputs (null without RES).
+struct R64Args {
+  const double* rto_p;   // (B, 4): timeout on, multiple, floor, absolute
+  const double* rrt_p;   // (B, 6): max attempts, backoff base, cap, jitter,
+                         //   retry on timeout, on shed
+  const double* adm_p;   // (B, 2): shedding on, threshold
+  int* rsum;             // (B, 5): timeouts, sheds, retries, calls
+                         //   resolved, steps taken
+  double* wst_out;       // (B,): the wasted execution seconds
+  int* nfl_out;          // (B, n + 1): each row's failure flag
+  int* fcz_out;          // (B, n + 1): its cause (1 timeout, 2 shed)
+  int* ratt_out;         // (B, n + 1): its submissions
+};
+
+// The bits of a row's hedge word under its attempts (word >> kAttShift);
+// under RES the word holds the failure cause (kCause) and flag (kFailed)
+// under the submissions
 constexpr int kStolen = 1, kUnhedge = 2, kDone0 = 4, kAttShift = 3;
+constexpr int kCause = 3, kFailed = 4;
 
 struct F64Args {
   const double* clk;
@@ -161,40 +204,46 @@ struct F64Args {
   uint32_t* scratch;
 };
 
-// The hedge segment's shape in a cell's area: functions (the controller's
-// ring), whether the second deadline (DYN) and the copies (DUP) are there,
-// and the queue entries (n1, or n_copies n1 under DUP).
+// The hedge or res segment's shape in a cell's area: functions (the
+// controller's ring), whether the second deadline (DYN) and the copies
+// (DUP) are there, the queue entries (n1, or n_copies n1 under DUP), and
+// whether it is the res segment (three float64 row arrays in the
+// deadlines' place; no copies, no second deadline).
 struct HShape {
   int F;
   bool hedge, two, dup;
   int nq;
+  bool res = false;
 };
 
-// Bytes of one cell's estimators, queue and free containers, hedge state
-// and (staged) its rows, in shared memory (staged) or the scratch: the
-// float64 arrays (sum, last and previous arrival; the rings; hedge: the
-// controller's sum and ring; the rows; the queue keys; hedge: each row's
-// deadline or two; dup: each entry's start), then the int32 ones (length,
-// position, arrivals, FC ring position; the free containers; the queue
-// nodes; hedge: the controller's length and position, each row's word,
-// each entry's push sequence), then the staged fnid.
+// Bytes of one cell's estimators, queue and free containers, hedge or res
+// state and (staged) its rows, in shared memory (staged) or the scratch:
+// the float64 arrays (sum, last and previous arrival; the rings; hedge or
+// res: the controller's sum and ring; the rows; the queue keys; hedge:
+// each row's deadline or two; res: each row's deadline, re-arrival time
+// and admitted E[p]; dup: each entry's start), then the int32 ones
+// (length, position, arrivals, FC ring position; the free containers; the
+// queue nodes; hedge or res: the controller's length and position, each
+// row's word, each entry's push sequence), then the staged fnid.
 // ops.event_step_freeze64_cell_bytes computes the same.
 __host__ __device__ constexpr int f64_cell_bytes(bool staged, int n1, int E,
                                                  int W, int nfree,
                                                  HShape h = HShape{
                                                      0, false, false, false,
                                                      0}) {
+  const bool ctl = h.hedge || h.res;   // the controller's ring is there
   const int nq = h.hedge ? h.nq : n1;
   return round_up(
       8 * (3 * round_up(E, 2) + round_up(E * W, 2) +
-           (h.hedge ? round_up(h.F, 2) + round_up(h.F * W, 2) : 0) +
+           (ctl ? round_up(h.F, 2) + round_up(h.F * W, 2) : 0) +
            (staged ? 3 : 0) * round_up(n1, 2) + round_up(nq, 2) +
            (h.hedge ? (h.two ? 2 : 1) * round_up(n1, 2) : 0) +
+           (h.res ? 3 * round_up(n1, 2) : 0) +
            (h.dup ? round_up(nq, 2) : 0)) +
           4 * (4 * round_up(E, 4) + round_up(nfree, 4) + round_up(nq, 4) +
-               (h.hedge ? 2 * round_up(h.F, 4) + round_up(n1, 4) +
-                              round_up(nq, 4)
-                        : 0)) +
+               (ctl ? 2 * round_up(h.F, 4) + round_up(n1, 4) +
+                          round_up(nq, 4)
+                    : 0)) +
           (staged ? round_up(n1, 16) : 0),
       16);
 }
@@ -214,13 +263,18 @@ __host__ __device__ constexpr long f64_scratch_words(bool wide, int pls,
          (fc_push ? 2L * E * RF : 0L);
 }
 
-template <int PL, bool COLD, bool HET, bool DYN, bool HEDGE, bool DUP>
+template <int PL, bool COLD, bool HET, bool DYN, bool HEDGE, bool DUP,
+          bool RES>
 __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
-    freeze64_kernel(const F64Args a, const H64Args h, const F64Layout L,
-                    const F64Dims D, const int cells_per_block,
-                    const int bytes_per_cell, const float horizon_f,
-                    const int pl_wide, const int words) {
+    freeze64_kernel(const F64Args a, const H64Args h, const R64Args r,
+                    const F64Layout L, const F64Dims D,
+                    const int cells_per_block, const int bytes_per_cell,
+                    const float horizon_f, const int pl_wide,
+                    const int words) {
   static_assert(!DUP || (HEDGE && !DYN), "DUP needs HEDGE, excludes DYN");
+  static_assert(!RES || !(COLD || HET || DYN || HEDGE || DUP),
+                "RES excludes COLD, HET, DYN, HEDGE and DUP");
+  constexpr bool CTL = HEDGE || RES;   // the controller's ring
   constexpr bool STAGED = PL > 0;      // the register path stages
   constexpr int NQ = PL > 0 ? 1 : 0;   // nodes a lane: 1, or the scratch
   extern __shared__ __align__(16) unsigned char smem[];
@@ -245,7 +299,7 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   // row features are its row's
   const int nq = DUP ? D.n_copies * n1 : n1;
   auto rw = [&](int q) { return DUP ? q % n1 : q; };
-  const HShape hs{F, HEDGE, HEDGE && DYN, DUP, nq};
+  const HShape hs{F, HEDGE, HEDGE && DYN, DUP, nq, RES};
 
   // -- the cell's scratch: (wide) lane arrays, estimators and queue; then
   // the per-row dynamics arrays and the FC rings
@@ -262,6 +316,8 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     if constexpr (PL == 0) wp += 32 * cnt;
     return p;
   };
+  // a slot's completion time and measured service (HET), or under RES its
+  // execution start
   Lane<double, PL> s_fin(dbl(pls)), s_v(dbl(pls));
   Lane<int, PL> s_row(i32(pls)), s_dseq(i32(pls));
   Lane<double, NQ> n_chan(dbl(pln)), n_act(dbl(pln)), n_kill(dbl(pln)),
@@ -281,16 +337,19 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   double* const e_last = e_rsum + E2;
   double* const e_prev = e_last + E2;
   double* const ring = e_prev + E2;
-  // the controller's ring (HEDGE): its sums, then its F x W entries
+  // the controller's ring (HEDGE, RES): its sums, then its F x W entries
   double* const c_rsum = ring + round_up(E * W, 2);
-  double* const cring = c_rsum + (HEDGE ? round_up(F, 2) : 0);
-  double* const rows_d = cring + (HEDGE ? round_up(F * W, 2) : 0);
+  double* const cring = c_rsum + (CTL ? round_up(F, 2) : 0);
+  double* const rows_d = cring + (CTL ? round_up(F * W, 2) : 0);
   unsigned long long* const q_key = reinterpret_cast<unsigned long long*>(
       rows_d + (STAGED ? 3 * N2 : 0));
-  // each row's deadline (and second one), each entry's start (DUP)
+  // each row's deadline (and second one), each entry's start (DUP); under
+  // RES each row's timeout deadline, retry re-arrival time and admitted
+  // E[p]
   double* const h_t = reinterpret_cast<double*>(q_key + Q2);
-  double* const h_t2 = h_t + (HEDGE ? N2 : 0);
-  double* const start_q = h_t2 + (HEDGE && DYN ? N2 : 0);
+  double* const h_t2 = h_t + (CTL ? N2 : 0);
+  double* const r_eps = h_t2 + ((HEDGE && DYN) || RES ? N2 : 0);
+  double* const start_q = r_eps + (RES ? N2 : 0);
   int* const e_rlen = reinterpret_cast<int*>(start_q + (DUP ? Q2 : 0));
   int* const e_rpos = e_rlen + E4;
   int* const e_narr = e_rpos + E4;
@@ -298,12 +357,13 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   int* const fcnt = e_fcp + E4;
   int* const q_node = fcnt + round_up(nfree, 4);
   // the controller's lengths and positions, each row's hedge word (its
-  // attempts and flags), each entry's push sequence
+  // attempts and flags; RES: its submissions, failure flag and cause),
+  // each entry's push sequence
   int* const c_rlen = q_node + Q4;
-  int* const c_rpos = c_rlen + (HEDGE ? round_up(F, 4) : 0);
-  int* const hst = c_rpos + (HEDGE ? round_up(F, 4) : 0);
-  int* const qseq = hst + (HEDGE ? round_up(n1, 4) : 0);
-  int* const i_end = qseq + (HEDGE ? Q4 : 0);
+  int* const c_rpos = c_rlen + (CTL ? round_up(F, 4) : 0);
+  int* const hst = c_rpos + (CTL ? round_up(F, 4) : 0);
+  int* const qseq = hst + (CTL ? round_up(n1, 4) : 0);
+  int* const i_end = qseq + (CTL ? Q4 : 0);
   double* const r_rearr = reinterpret_cast<double*>(wp);
   int* const r_rord = reinterpret_cast<int*>(r_rearr + N2);
   double* const fcr = reinterpret_cast<double*>(
@@ -355,6 +415,15 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     q_node[i] = pend ? nd : -1;
     if (pend) hi = i + 1;
     if constexpr (HEDGE) qseq[i] = __ldg(ctr + L.qseq + i);
+    if constexpr (RES) {
+      qseq[i] = __ldg(ctr + L.qsq + i);
+      h_t[i] = __ldg(clk + L.to_t + i);
+      h_t2[i] = __ldg(clk + L.rto + i);
+      r_eps[i] = __ldg(clk + L.eps + i);
+      hst[i] = (__ldg(ctr + L.ratt + i) << kAttShift) |
+               (__ldg(ctr + L.nfl + i) ? kFailed : 0) |
+               (__ldg(ctr + L.fcz + i) & kCause);
+    }
     if constexpr (DUP) {
       start_q[i] = __ldg(clk + L.start_q + i);
       if (i >= n1) continue;
@@ -383,14 +452,16 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
                (DUP && __ldg(ctr + L.done0 + i) ? kDone0 : 0);
     }
   }
-  if constexpr (HEDGE) {
+  if constexpr (CTL) {
     // the controller's ring: lane 0 reads and writes it
+    const int Ls = HEDGE ? L.crsum : L.zrsum, Ll = HEDGE ? L.crlen : L.zrlen;
+    const int Lp = HEDGE ? L.crpos : L.zrpos, Lr = HEDGE ? L.cring : L.zring;
     for (int i = lane; i < F; i += 32) {
-      c_rsum[i] = __ldg(clk + L.crsum + i);
-      c_rlen[i] = __ldg(ctr + L.crlen + i);
-      c_rpos[i] = __ldg(ctr + L.crpos + i);
+      c_rsum[i] = __ldg(clk + Ls + i);
+      c_rlen[i] = __ldg(ctr + Ll + i);
+      c_rpos[i] = __ldg(ctr + Lp + i);
     }
-    for (int i = lane; i < F * W; i += 32) cring[i] = __ldg(clk + L.cring + i);
+    for (int i = lane; i < F * W; i += 32) cring[i] = __ldg(clk + Lr + i);
   }
   hi = __reduce_max_sync(FULL, hi);
   if constexpr (DYN) n_re = __reduce_add_sync(FULL, n_re);
@@ -426,6 +497,42 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     hfloor = __ldg(h.hfloor + b);
     hmax = __ldg(h.hmax + b);
   }
+  // RES: the timeout (on, multiple, floor, absolute), the retries (max
+  // attempts, backoff base, cap, jitter, on timeout, on shed), the
+  // shedding (on, threshold)
+  bool to_on = false, on_to = false, on_sh = false, adm_on = false;
+  double to_mult = 0.0, to_floor = 0.0, to_abs = 0.0, rt_base = 0.0,
+         rt_cap = 0.0, rt_jit = 0.0, adm_thr = 0.0;
+  int maxa = 1;
+  if constexpr (RES) {
+    const double* tp = r.rto_p + static_cast<size_t>(b) * 4;
+    const double* rp = r.rrt_p + static_cast<size_t>(b) * 6;
+    const double* ap = r.adm_p + static_cast<size_t>(b) * 2;
+    to_on = __ldg(tp) > 0.0;
+    to_mult = __ldg(tp + 1);
+    to_floor = __ldg(tp + 2);
+    to_abs = __ldg(tp + 3);
+    maxa = static_cast<int>(__ldg(rp));
+    rt_base = __ldg(rp + 1);
+    rt_cap = __ldg(rp + 2);
+    rt_jit = __ldg(rp + 3);
+    on_to = __ldg(rp + 4) > 0.0;
+    on_sh = __ldg(rp + 5) > 0.0;
+    adm_on = __ldg(ap) > 0.0;
+    adm_thr = __ldg(ap + 1);
+  }
+  // RetryPolicy.delay after failed submission `att` of row `seq`, term for
+  // term: the 16-bit jitter hash, the power of two as a shift
+  auto retry_delay = [&](int seq, int att) {
+    const long long hsh =
+        (static_cast<long long>(seq) * 7919 +
+         static_cast<long long>(att) * 104729 + 12345) % 65536;
+    const double u = __ddiv_rn(static_cast<double>(hsh), 65536.0);
+    const double shift = static_cast<double>(1 << max(att - 1, 0));
+    const double raw = fmin(rt_cap, __dmul_rn(rt_base, shift));
+    return __dmul_rn(raw, __dadd_rn(__dsub_rn(1.0, rt_jit),
+                                    __dmul_rn(rt_jit, u)));
+  };
 
   // -- slots and nodes, from the planes into the owning lanes
 #pragma unroll
@@ -436,7 +543,8 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     s_row[q] = se ? min(max(__ldg(ctr + L.idx_s + e), 0), nq - 1) : n;
     s_v[q] = HET && se ? __ddiv_rn(R.p(rw(s_row[q])),
                                    __ldg(clk + L.sspd + e))
-                       : 0.0;
+             : RES && se ? __ldg(clk + L.sst + e)
+                         : 0.0;
     s_dseq[q] = DYN && se ? __ldg(ctr + L.dseq + e) : 0;
   }
   bool qn_zero = true;
@@ -468,7 +576,20 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   int dcnt = DYN ? __ldg(ctr + L.dcnt) : 0;
   double next_tick = DYN ? __ldg(clk + L.next_tick) : inf;
   int nbk = HEDGE ? __ldg(ctr + L.nbk) : 0;
-  int stepc = HEDGE ? __ldg(ctr + L.stepc) : 0;
+  // the step count (RES: the push sequence's clock too)
+  int stepc = HEDGE ? __ldg(ctr + L.stepc) : RES ? __ldg(ctr + L.stp) : 0;
+  // RES: the timeouts, sheds and retries, the calls resolved (in ndone),
+  // the shed gauge and the wasted seconds
+  int nto = 0, nsh = 0, nrt = 0;
+  double qep = 0.0, wst = 0.0;
+  if constexpr (RES) {
+    nto = __ldg(ctr + L.nto);
+    nsh = __ldg(ctr + L.nsh);
+    nrt = __ldg(ctr + L.nrt);
+    ndone = __ldg(ctr + L.ndn);
+    qep = __ldg(clk + L.qep);
+    wst = __ldg(clk + L.wst);
+  }
 
   unsigned long long nx_key;
   double nx_t;
@@ -514,29 +635,51 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     if constexpr (DYN) return e < NN && n_act[q] <= now && !n_dead[q];
     else return e < nodes;
   };
-  // the earliest deadline and its row (the first on equal times)
-  double h_min = inf;
-  int h_row = 0;
-  auto find_deadline = [&]() {
+  // the least time of a per-row array and its row (the first on equal
+  // times), each row read by its lane
+  auto find_row_min = [&](const double* arr, double& t_min, int& t_row) {
     unsigned long long k = NO_KEY64;
     int idx = INT_MAX;
     for (int i = lane; i < n1; i += 32) {
-      const unsigned long long kv = order_key64(h_t[i]);
+      const unsigned long long kv = order_key64(arr[i]);
       if (kv < k) { k = kv; idx = i; }
     }
     int at;
     const unsigned long long m = warp_argmin64(k, idx, &at);
-    h_min = m == NO_KEY64 ? inf : key_double(m);
-    h_row = at == INT_MAX ? 0 : at;
+    t_min = m == NO_KEY64 ? inf : key_double(m);
+    t_row = at == INT_MAX ? 0 : at;
   };
-  // row w's deadline became v (written by its lane): the earliest moves
-  // to it, or is found again when it was w's and grew
+  // row w's time became v (written by its lane): the least moves to it, or
+  // is found again when it was w's and grew
+  auto row_min_set = [&](const double* arr, double& t_min, int& t_row, int w,
+                         double v) {
+    if (w == t_row) {
+      if (v <= t_min) t_min = v; else find_row_min(arr, t_min, t_row);
+    } else if (v < t_min || (v == t_min && w < t_row)) {
+      t_min = v;
+      t_row = w;
+    }
+  };
+  // the earliest deadline (HEDGE: the watch's; RES: the timeout's) and
+  // under RES the earliest retry re-arrival, with their rows
+  double h_min = inf, rt_min = inf;
+  int h_row = 0, rt_row = 0;
+  auto find_deadline = [&]() { find_row_min(h_t, h_min, h_row); };
   auto deadline_set = [&](int w, double v) {
-    if (w == h_row) {
-      if (v <= h_min) h_min = v; else find_deadline();
-    } else if (v < h_min || (v == h_min && w < h_row)) {
-      h_min = v;
-      h_row = w;
+    row_min_set(h_t, h_min, h_row, w, v);
+  };
+  auto find_retry = [&]() { find_row_min(h_t2, rt_min, rt_row); };
+  auto retry_set = [&](int w, double v) {
+    row_min_set(h_t2, rt_min, rt_row, w, v);
+  };
+  // the first queued row moves past the rows no longer queued
+  auto advance_lo = [&]() {
+    for (int base = lo & ~31;; base += 32) {
+      const int r = base + lane;
+      const unsigned m =
+          __ballot_sync(FULL, r >= lo && r < hi && q_node[r] >= 0);
+      if (m != 0) { lo = base + __ffs(m) - 1; break; }
+      if (base + 32 >= hi) { lo = hi; break; }
     }
   };
   find_completion();
@@ -545,7 +688,8 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     find_node(false);
     if (n_re > 0) find_rearr();
   }
-  if constexpr (HEDGE) find_deadline();
+  if constexpr (CTL) find_deadline();
+  if constexpr (RES) find_retry();
 
   for (int step = 0; step < D.n_steps; ++step) {
     // -- event selection: (kill <) arrival <= completion (< re-arrival <
@@ -564,8 +708,11 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
       ev = t_a <= nx_t ? 1 : 2;
       now = ev == 1 ? t_a : nx_t;
     }
-    // the earliest deadline ranks last
+    // the earliest deadline ranks last; under RES the earliest timeout
+    // ranks after completions, the earliest retry re-arrival after both
     if (HEDGE && h_min < now) { now = h_min; ev = 6; }
+    if (RES && h_min < now) { now = h_min; ev = 7; }
+    if (RES && rt_min < now) { now = rt_min; ev = 8; }
     if (now == inf) break;      // no event left: the carry is fixed
 
     int k_d = -1;               // the node a dispatch is tried on
@@ -646,7 +793,7 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
         rg[pos] = v;
         e_rlen[ec] = full ? rl : rl + 1;
         e_rpos[ec] = pos + 1 == W ? 0 : pos + 1;
-        if constexpr (HEDGE) {
+        if constexpr (CTL) {
           // the controller's ring logs the raw p
           const double pr = R.p(jr);
           const int cl = c_rlen[f_done], cp = c_rpos[f_done];
@@ -667,7 +814,12 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
         }
       }
       if constexpr (COLD) nevt += __shfl_sync(FULL, evict, 0);
-      if constexpr (DYN || (HEDGE && !DUP)) ndone += 1;
+      if constexpr (DYN || (HEDGE && !DUP) || RES) ndone += 1;
+      if constexpr (RES) {
+        // the completion clears its call's deadline
+        if ((jr & 31) == lane) h_t[jr] = inf;
+        deadline_set(jr, inf);
+      }
       if constexpr (DUP) {
         // the first completion among a call's copies is the call's: its
         // start, finish and node; it clears the watch, and a copy's win
@@ -813,8 +965,128 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
       if ((ins & 31) == lane) r_rearr[ins] = inf;
       n_re -= 1;
       if (n_re > 0) find_rearr(); else re_min = inf;
+    } else if (RES && ev == 7) {
+      // -- the earliest timeout fires: its call leaves its node's queue,
+      // or frees its slot mid-run and the node dispatches; then it
+      // re-arrives after its backoff, or fails
+      const int jt = h_row;
+      int old = -1, word = 0;
+      double e_jt = 0.0;
+      if ((jt & 31) == lane) {
+        old = q_node[jt];
+        word = hst[jt];
+        e_jt = r_eps[jt];
+        h_t[jt] = inf;
+        q_node[jt] = -1;
+      }
+      old = __shfl_sync(FULL, old, jt & 31);
+      word = __shfl_sync(FULL, word, jt & 31);
+      e_jt = __shfl_sync(FULL, e_jt, jt & 31);
+      find_deadline();
+      if (old >= 0) {
+        // queued: off its node's queue, its E[p] off the gauge
+        for (int q = 0; q < pln; ++q)
+          if (lane * pln + q == old) n_qn[q] -= 1;
+        qep = __dsub_rn(qep, e_jt);
+        if (jt == lo) advance_lo();
+      } else {
+        // running: its slot's owner frees it, the seconds run are wasted
+        int se = INT_MAX;
+#pragma unroll
+        for (int q = pls - 1; q >= 0; --q)
+          if (lane * pls + q < NSL && s_row[q] == jt && s_fin[q] != inf)
+            se = lane * pls + q;
+        se = __reduce_min_sync(FULL, se);
+        if (se != INT_MAX) {
+          const double s0 = lane_get(s_v, pls, se);
+#pragma unroll
+          for (int q = 0; q < pls; ++q)
+            if (lane * pls + q == se) s_fin[q] = inf;
+          const int rn = se / NS;
+          for (int q = 0; q < pln; ++q)
+            if (lane * pln + q == rn) n_busy[q] -= 1;
+          wst = __dadd_rn(wst, fmax(__dsub_rn(now, s0), 0.0));
+          find_completion();
+          k_d = rn;
+        }
+      }
+      nto += 1;
+      // retry or fail: the submissions counted are the failed attempt's
+      // number
+      const int att = word >> kAttShift;
+      if (on_to && att < maxa) {
+        const double back = __dadd_rn(now, retry_delay(jt, att));
+        if ((jt & 31) == lane) h_t2[jt] = back;
+        retry_set(jt, back);
+        nrt += 1;
+      } else {
+        if ((jt & 31) == lane) hst[jt] = (word & ~kCause) | kFailed | 1;
+        ndone += 1;
+      }
+    } else if (RES && ev == 8) {
+      // -- the earliest retry re-arrives, through the arrival's path
+      ins = rt_row;
+      if ((ins & 31) == lane) h_t2[ins] = inf;
+      find_retry();
     } else {
       k_d = act_k;               // ev 4: the activation's node
+    }
+
+    if (RES && ins >= 0) {
+      // -- admission: count the submission, then shed it when the gauge
+      // over the fleet's free slots exceeds the threshold (no node sees
+      // it), else add the controller's E[p] to the gauge and arm its
+      // deadline
+      const int i = ins;
+      int word = 0;
+      if ((i & 31) == lane) {
+        word = hst[i] + (1 << kAttShift);
+        hst[i] = word;
+      }
+      word = __shfl_sync(FULL, word, i & 31);
+      const int att = word >> kAttShift;
+      double est_z = 0.0;
+      if (lane == 0) {
+        const int f = R.fn(i), cl = c_rlen[f];
+        est_z = cl > 0 ? __ddiv_rn(c_rsum[f], static_cast<double>(cl)) : 0.0;
+      }
+      est_z = __shfl_sync(FULL, est_z, 0);
+      int free_n = 0;
+      for (int q = 0; q < pln; ++q) {
+        const int e = lane * pln + q;
+        if (e < NN && e < nodes) free_n += cores - n_busy[q];
+      }
+      free_n = __reduce_add_sync(FULL, free_n);
+      if (adm_on &&
+          __ddiv_rn(qep, static_cast<double>(max(free_n, 1))) > adm_thr) {
+        nsh += 1;
+        if (on_sh && att < maxa) {
+          const double back = __dadd_rn(now, retry_delay(i, att));
+          if ((i & 31) == lane) h_t2[i] = back;
+          retry_set(i, back);
+          nrt += 1;
+        } else {
+          if ((i & 31) == lane) hst[i] = (word & ~kCause) | kFailed | 2;
+          ndone += 1;
+        }
+        if (ev == 1) {
+          ++ai;
+          hi = max(hi, ai);
+          t_a = ai <= n ? R.t(ai) : inf;
+        }
+        ins = -1;
+      } else {
+        qep = __dadd_rn(qep, est_z);
+        const double dl =
+            to_abs > 0.0
+                ? __dadd_rn(now, to_abs)
+                : __dadd_rn(now, __dmul_rn(to_mult, fmax(est_z, to_floor)));
+        if ((i & 31) == lane) {
+          r_eps[i] = est_z;
+          if (to_on) h_t[i] = dl;
+        }
+        if (to_on) deadline_set(i, dl);
+      }
     }
 
     if (ins >= 0) {
@@ -898,7 +1170,7 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
         q_node[i] = k_arr;
         if (!DUP || i < n1) o_prio[i] = prio;
         if (!DUP) o_node[i] = k_arr;
-        if constexpr (HEDGE) qseq[i] = stepc;
+        if constexpr (CTL) qseq[i] = stepc;
       }
       for (int q = 0; q < pln; ++q)
         if (lane * pln + q == k_arr) n_qn[q] += 1;
@@ -946,7 +1218,7 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
 
     // -- dispatch on the node the event touched, when it is active, has a
     // free slot below cores and a call queued: the least frozen priority,
-    // then (HEDGE) the least push sequence, then the least entry
+    // then (HEDGE, RES) the least push sequence, then the least entry
     bool can = false;
     if (k_d >= 0 && k_d < NN) {
       bool ok = lane_get(n_busy, pln, k_d) < cores &&
@@ -964,7 +1236,7 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
         for (; i < hi; i += 32) {
           if (q_node[i] == k_d) {
             const unsigned long long k = q_key[i];
-            if constexpr (HEDGE) {
+            if constexpr (CTL) {
               const int sq = qseq[i];
               if (k < bk || (k == bk && sq < bs)) { bk = k; bj = i; bs = sq; }
             } else {
@@ -972,7 +1244,7 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
             }
           }
         }
-        if constexpr (HEDGE) {
+        if constexpr (CTL) {
           kmin = warp_min64(bk);
           const int sm = __reduce_min_sync(FULL, bk == kmin ? bs : INT_MAX);
           j = __reduce_min_sync(FULL, bk == kmin && bs == sm ? bj : INT_MAX);
@@ -1032,7 +1304,7 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
           if (lane * pls + q == se) {
             s_fin[q] = fin_j;
             s_row[q] = j;
-            s_v[q] = v_j;
+            s_v[q] = RES ? exec_start : v_j;
             s_dseq[q] = dcnt;
           }
         }
@@ -1044,8 +1316,10 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
           }
         }
         if constexpr (DYN) ++dcnt;
+        double e_j = 0.0;
         if ((j & 31) == lane) {
           q_node[j] = -1;
+          if constexpr (RES) e_j = r_eps[j];
           if constexpr (DUP) {
             start_q[j] = exec_start;
           } else {
@@ -1060,22 +1334,15 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
           }
         }
         if (HEDGE && j < n1) deadline_set(j, inf);
+        // RES: the call's E[p] leaves the gauge
+        if constexpr (RES) qep = __dsub_rn(qep, __shfl_sync(FULL, e_j, j & 31));
         if (none_free) {
           find_completion();
         } else {
           const unsigned long long kj = order_key64(fin_j);
           if (kj < nx_key) { nx_key = kj; nx_t = fin_j; }
         }
-        // the first queued row moves past the rows no longer queued
-        if (j == lo) {
-          for (int base = lo & ~31;; base += 32) {
-            const int r = base + lane;
-            const unsigned m =
-                __ballot_sync(FULL, r >= lo && r < hi && q_node[r] >= 0);
-            if (m != 0) { lo = base + __ffs(m) - 1; break; }
-            if (base + 32 >= hi) { lo = hi; break; }
-          }
-        }
+        if (j == lo) advance_lo();
       }
     }
     if constexpr (DYN) {
@@ -1090,7 +1357,7 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
         }
       }
     }
-    if constexpr (HEDGE) ++stepc;
+    if constexpr (CTL) ++stepc;
   }
 
   if (COLD && lane == 0) {
@@ -1112,6 +1379,23 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
       }
     }
   }
+  if constexpr (RES) {
+    for (int i = lane; i < n1; i += 32) {
+      const int w = hst[i];
+      r.nfl_out[row + i] = (w & kFailed) ? 1 : 0;
+      r.fcz_out[row + i] = w & kCause;
+      r.ratt_out[row + i] = w >> kAttShift;
+    }
+    if (lane == 0) {
+      int* const rs = r.rsum + static_cast<size_t>(b) * 5;
+      rs[0] = nto;
+      rs[1] = nsh;
+      rs[2] = nrt;
+      rs[3] = ndone;
+      rs[4] = stepc;
+      r.wst_out[b] = wst;
+    }
+  }
   if constexpr (HEDGE) {
     int stolen = 0;
     for (int i = lane; i < n1; i += 32) {
@@ -1130,32 +1414,38 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
 }
 
 template <int PL, bool COLD, bool HET, bool DYN, bool HEDGE = false,
-          bool DUP = false>
-int launch_f64(const F64Args& a, const H64Args& h, const F64Layout& L,
-               const F64Dims& D, int cell, float horizon,
+          bool DUP = false, bool RES = false>
+int launch_f64(const F64Args& a, const H64Args& h, const R64Args& r,
+               const F64Layout& L, const F64Dims& D, int cell, float horizon,
                cudaStream_t stream, int pl, int words) {
-  auto kernel = freeze64_kernel<PL, COLD, HET, DYN, HEDGE, DUP>;
+  auto kernel = freeze64_kernel<PL, COLD, HET, DYN, HEDGE, DUP, RES>;
   int cpb = 0, blocks = 0;
   const int e = block_shape(kernel, D.B, cell, &cpb, &blocks);
   if (e != 0) return e;
   kernel<<<blocks, 32 * cpb, static_cast<size_t>(cpb) * cell, stream>>>(
-      a, h, L, D, cpb, cell, horizon, pl, words);
+      a, h, r, L, D, cpb, cell, horizon, pl, words);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One set's launch at `pl` slots a lane (1 or 2 in shared memory, 0 the
 // wide path): each translation unit passes its own instantiations.
 using F64Launch = int (*)(int pl_sel, const F64Args&, const H64Args&,
-                          const F64Layout&, const F64Dims&, int cell,
-                          float horizon, cudaStream_t, int pl, int words);
+                          const R64Args&, const F64Layout&, const F64Dims&,
+                          int cell, float horizon, cudaStream_t, int pl,
+                          int words);
+
+// The sets a translation unit compiles: without hedging or resilience (at
+// least one of cold / het / dyn; csrc/event_step.cu), hedged (steal or
+// duplicate), or the resilience set.
+enum class F64Sets { kPlain, kHedged, kRes };
 
 // Checks a bucket's launch arguments and plan, then launches it through
-// `launch_set`.  `hedged` says which sets the caller compiled: without
-// hedging (at least one of cold / het / dyn), or with it.
+// `launch_set`; `sets` says which sets the caller compiled.
 inline int f64_launch_checked(const F64Args& a, const H64Args& h,
-                              const int* layout, const int* dims,
-                              const int* plan, float horizon, void* stream,
-                              bool hedged, F64Launch launch_set) {
+                              const R64Args& r, const int* layout,
+                              const int* dims, const int* plan,
+                              float horizon, void* stream, F64Sets sets,
+                              F64Launch launch_set) {
   F64Layout L;
   F64Dims D;
   int P[kF64Plan];
@@ -1173,12 +1463,14 @@ inline int f64_launch_checked(const F64Args& a, const H64Args& h,
   const int E = D.n_nodes * D.n_fns;
   const int pln = (D.n_nodes + 31) / 32;
   const bool dyn = D.dyn != 0, het = D.het != 0, cold = D.cold != 0;
-  const bool hedge = D.hedge != 0, dup = D.dup != 0;
+  const bool hedge = D.hedge != 0, dup = D.dup != 0, res = D.res != 0;
   const int nfree = cold ? E : 0;
   const HShape hs{D.n_fns, hedge, hedge && dyn, dup,
-                  dup ? D.n_copies * n1 : n1};
+                  dup ? D.n_copies * n1 : n1, res};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (hedge != hedged || (!hedged && !(dyn || het || cold)) ||
+  if (hedge != (sets == F64Sets::kHedged) || res != (sets == F64Sets::kRes) ||
+      (sets == F64Sets::kPlain && !(dyn || het || cold)) ||
+      (res && (dyn || het || cold || hedge)) ||
       (dup && (!hedge || dyn || D.n_copies < 1)) ||
       (!dup && D.n_copies != 1) || pl < 1 || 32 * pl < NSL ||
       D.fc_ring < 1 || D.ncoef < 4 || wide == staged ||
@@ -1194,16 +1486,20 @@ inline int f64_launch_checked(const F64Args& a, const H64Args& h,
       (cold && (a.cold_out == nullptr || a.coldq_out == nullptr)) ||
       (hedge && (h.hmult == nullptr || h.hfloor == nullptr ||
                  h.hmax == nullptr || h.hsum == nullptr ||
-                 h.att_out == nullptr)))
+                 h.att_out == nullptr)) ||
+      (res && (r.rto_p == nullptr || r.rrt_p == nullptr ||
+               r.adm_p == nullptr || r.rsum == nullptr ||
+               r.wst_out == nullptr || r.nfl_out == nullptr ||
+               r.fcz_out == nullptr || r.ratt_out == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (wide) {
     if (cell != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_set(0, a, h, L, D, 0, horizon, s, pl, words);
+    return launch_set(0, a, h, r, L, D, 0, horizon, s, pl, words);
   }
   if (cell != f64_cell_bytes(true, n1, E, D.window, nfree, hs) ||
       (pl != 1 && pl != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_set(pl, a, h, L, D, cell, horizon, s, pl, words);
+  return launch_set(pl, a, h, r, L, D, cell, horizon, s, pl, words);
 }
 
 // The hedged sets of one mode at `PL` slots a lane: steal mode (!DUP) with
@@ -1211,13 +1507,13 @@ inline int f64_launch_checked(const F64Args& a, const H64Args& h,
 // (DUP) with or without cold starts and node speeds.  A translation unit
 // that calls it compiles that mode's sets alone.
 template <int PL, bool DUP>
-int launch_hedged_pl(const F64Args& a, const H64Args& h, const F64Layout& L,
-                     const F64Dims& D, int cell, float horizon,
-                     cudaStream_t stream, int pl, int words) {
+int launch_hedged_pl(const F64Args& a, const H64Args& h, const R64Args& r,
+                     const F64Layout& L, const F64Dims& D, int cell,
+                     float horizon, cudaStream_t stream, int pl, int words) {
   const int m = (D.cold ? 1 : 0) | (D.het ? 2 : 0) | (D.dyn ? 4 : 0);
 #define SET(M, C, H, Y)                                                     \
   case M:                                                                   \
-    return launch_f64<PL, C, H, Y, true, DUP>(a, h, L, D, cell, horizon,    \
+    return launch_f64<PL, C, H, Y, true, DUP>(a, h, r, L, D, cell, horizon, \
                                               stream, pl, words);
   switch (m) {
     SET(0, false, false, false)
@@ -1239,37 +1535,48 @@ int launch_hedged_pl(const F64Args& a, const H64Args& h, const F64Layout& L,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool DUP>
-int launch_hedged_set(int pl_sel, const F64Args& a, const H64Args& h,
-                      const F64Layout& L, const F64Dims& D, int cell,
-                      float horizon, cudaStream_t stream, int pl,
-                      int words) {
+// The hedged sets of one mode (DUP false: steal, true: duplicate) or (RES)
+// the resilience set, at `pl_sel` slots a lane (0: the wide path).
+template <bool DUP, bool RES>
+int launch_f64_family(int pl_sel, const F64Args& a, const H64Args& h,
+                      const R64Args& r, const F64Layout& L,
+                      const F64Dims& D, int cell, float horizon,
+                      cudaStream_t stream, int pl, int words) {
   if ((D.dup != 0) != DUP) return static_cast<int>(cudaErrorInvalidValue);
   switch (pl_sel) {
-    case 0:
-      return launch_hedged_pl<0, DUP>(a, h, L, D, cell, horizon, stream, pl,
-                                      words);
-    case 1:
-      return launch_hedged_pl<1, DUP>(a, h, L, D, cell, horizon, stream, pl,
-                                      words);
-    case 2:
-      return launch_hedged_pl<2, DUP>(a, h, L, D, cell, horizon, stream, pl,
-                                      words);
+#define PL_CASE(P)                                                          \
+  case P:                                                                   \
+    if constexpr (RES)                                                      \
+      return launch_f64<P, false, false, false, false, false, true>(        \
+          a, h, r, L, D, cell, horizon, stream, pl, words);                 \
+    else                                                                    \
+      return launch_hedged_pl<P, DUP>(a, h, r, L, D, cell, horizon,         \
+                                      stream, pl, words);
+    PL_CASE(0)
+    PL_CASE(1)
+    PL_CASE(2)
+#undef PL_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// Defines `extern "C" int NAME(...)`, the launcher of the hedged sets of
-// one mode (DUP false: steal, true: duplicate).  It launches the float64
-// frozen-priority scan of D.B hedged cells on `stream`:
+// Defines `extern "C" int NAME(...)`, the launcher of one family of sets
+// compiled in its own source: the hedged sets of one mode (RES false; DUP
+// false: steal, true: duplicate) or (RES true) the resilience set.  It
+// launches the float64 frozen-priority scan of D.B cells on `stream`:
 // event_step_freeze64_launch's arguments (csrc/event_step.cu), with the
 // hedge inputs `hmult` / `hfloor` / `hmax` (B,) and outputs `hsum` (B, 4:
 // backups, calls stolen or won by a copy, calls done, steps taken) and
-// `att_out` (B, n + 1: each row's attempts).  Returns cudaGetLastError()
-// after the launch, or the error that stopped it.
-#define EVENT_STEP_HEDGED_LAUNCHER(NAME, DUP)                               \
+// `att_out` (B, n + 1: each row's attempts), and the resilience inputs
+// `rto_p` (B, 4) / `rrt_p` (B, 6) / `adm_p` (B, 2) and outputs `rsum` (B,
+// 5: timeouts, sheds, retries, calls resolved, steps taken), `wst_out`
+// (B: wasted seconds) and `nfl_out` / `fcz_out` / `ratt_out` (B, n + 1:
+// each row's failure flag, cause and submissions), the family's own set
+// (the other's null).  Returns cudaGetLastError() after the launch, or the
+// error that stopped it.
+#define EVENT_STEP_F64_FAMILY_LAUNCHER(NAME, DUP, RES)                      \
   extern "C" int NAME(                                                      \
       const double* clk, const int* ctr, const double* t, const int* fnid,  \
       const double* p, const double* cost, const double* coef,              \
@@ -1278,9 +1585,11 @@ int launch_hedged_set(int pl_sel, const F64Args& a, const H64Args& h,
       const int* maxn, const int* nreq, const double* spd, const int* epn,  \
       const double* ept0, const double* ept1, const double* epf,            \
       const double* hmult, const double* hfloor, const int* hmax,           \
+      const double* rto_p, const double* rrt_p, const double* adm_p,        \
       double* start, double* finish, double* prio, int* node, int* summ,    \
       double* act_out, int* dead_out, int* cold_out, int* coldq_out,        \
-      int* hsum, int* att_out, int* scratch, const int* layout,             \
+      int* hsum, int* att_out, int* rsum, double* wst_out, int* nfl_out,    \
+      int* fcz_out, int* ratt_out, int* scratch, const int* layout,         \
       const int* dims, const int* plan, float horizon, void* stream) {      \
     const F64Args a{clk, ctr, t, fnid, p, cost, coef, cores, nodes, cnt,    \
                     home0, route, dynp, maxn, nreq, spd, epn, ept0, ept1,   \
@@ -1288,6 +1597,10 @@ int launch_hedged_set(int pl_sel, const F64Args& a, const H64Args& h,
                     dead_out, cold_out, coldq_out,                          \
                     reinterpret_cast<uint32_t*>(scratch)};                  \
     const H64Args h{hmult, hfloor, hmax, hsum, att_out};                    \
-    return f64_launch_checked(a, h, layout, dims, plan, horizon, stream,    \
-                              true, launch_hedged_set<DUP>);                \
+    const R64Args r{rto_p, rrt_p, adm_p, rsum, wst_out, nfl_out, fcz_out,   \
+                    ratt_out};                                              \
+    return f64_launch_checked(a, h, r, layout, dims, plan, horizon,         \
+                              stream,                                       \
+                              RES ? F64Sets::kRes : F64Sets::kHedged,       \
+                              launch_f64_family<DUP, RES>);                 \
   }

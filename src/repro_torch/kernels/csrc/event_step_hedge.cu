@@ -9,4 +9,4 @@
 
 #include "event_step_freeze64.cuh"
 
-EVENT_STEP_HEDGED_LAUNCHER(event_step_hedge_launch, false)
+EVENT_STEP_F64_FAMILY_LAUNCHER(event_step_hedge_launch, false, false)

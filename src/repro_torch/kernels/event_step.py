@@ -14,8 +14,9 @@ the contiguous tail of its arrival sequence ``fn_ev[f]``, so the global best
 is found over the F queue heads, ties going to the smallest event index.
 
 Single-node and push cells run the frozen-priority regime
-(``freeze``; with capacity dynamics, node speeds or cold starts in
-float64, see :func:`freeze_scan_ref`): each arrival is routed at once -- to the least-loaded node
+(``freeze``; with capacity dynamics, node speeds, cold starts, hedging or
+the request lifecycle in float64, see :func:`freeze_scan_ref`): each
+arrival is routed at once -- to the least-loaded node
 (least ``busy + queued``, first on ties) or, under the home balancer, to
 the first node with a free slot on a walk from its home invoker -- and its
 priority
@@ -53,12 +54,17 @@ def event_step_supported(*, freeze, use_fc, fc_push, dyn, het, hedge, cold,
     ``use_fc``), each with or without capacity dynamics (``dyn``), node
     speeds (``het``) and the cold-start containers (``cold``), and under
     ``freeze`` with or without straggler hedging (``hedge``; its duplicate
-    mode ``dup`` without ``dyn``) -- the base pull configuration is the
-    scope of the JAX package's Pallas ``event_step``, the rest its
-    oracle's.  The chunked stream and the resilience segment (``res``) are
-    not ported."""
-    if stream or res:
+    mode ``dup`` without ``dyn``), and under ``freeze`` alone the request
+    lifecycle (``res``: timeouts, retries, shedding; none of ``dyn``,
+    ``het``, ``cold``, ``hedge`` or ``dup`` beside it, as the JAX oracle
+    asserts) -- the base pull configuration is the scope of the JAX
+    package's Pallas ``event_step``, the rest its oracle's.  The chunked
+    stream is not ported."""
+    if stream:
         return False
+    if res:
+        return (freeze and not use_fc
+                and not (dyn or het or cold or hedge or dup))
     if hedge or dup:
         return (freeze and hedge and not use_fc
                 and not (dup and dyn))
@@ -101,11 +107,11 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                    n_steps: int, freeze: bool = False, fc_push: bool = False,
                    fc_ring: int = 1, dyn: bool = False, het: bool = False,
                    cold: bool = False, hedge: bool = False, dup: bool = False,
-                   n_copies: int = 1):
+                   n_copies: int = 1, res: bool = False):
     """Plain PyTorch event scan of a bucket of cells.  ``freeze`` runs the
     frozen-priority regime (:func:`freeze_scan_ref`, with or without
-    ``dyn`` / ``het`` / ``cold`` / ``hedge`` / ``dup``); the rest of this
-    docstring is the pull regime's.
+    ``dyn`` / ``het`` / ``cold`` / ``hedge`` / ``dup``, or with ``res``);
+    the rest of this docstring is the pull regime's.
 
     ``clk``/``ctr`` are the ``(B, f_len)`` / ``(B, i_len)`` initial carry
     planes (``repro_torch.core.planes.make_planes``), left unchanged;
@@ -158,7 +164,9 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                                fc_push=fc_push, fc_ring=fc_ring,
                                horizon=horizon, n_steps=n_steps, dyn=dyn,
                                het=het, cold=cold, hedge=hedge, dup=dup,
-                               n_copies=n_copies)
+                               n_copies=n_copies, res=res)
+    if res:
+        raise ValueError("res needs freeze")
     t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
     coef, cumf, fn_ev = inp["coef"], inp["cumf"], inp["fn_ev"].long()
     cores, nodes = inp["cores"].long(), inp["nodes"].long()
@@ -460,7 +468,7 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                     horizon: float, n_steps: int, dyn: bool = False,
                     het: bool = False, cold: bool = False,
                     hedge: bool = False, dup: bool = False,
-                    n_copies: int = 1):
+                    n_copies: int = 1, res: bool = False):
     """Plain PyTorch event scan of a bucket of frozen-priority cells
     (single node, or push with the least-loaded or home balancer).
 
@@ -512,6 +520,27 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     completion of any copy is the call's (its start, finish and node),
     clears the watch, and counts a steal when a copy won.
 
+    ``res`` (alone: none of the flags above) is the request lifecycle, the
+    JAX oracle's ``res`` branch; ``inp`` adds ``rto_p`` (B, 4: timeout on,
+    multiple, floor, absolute), ``rrt_p`` (B, 6: max attempts, backoff
+    base, cap, jitter, retry on timeout, on shed) and ``adm_p`` (B, 2:
+    shedding on, threshold), ``ResilienceSpec.arrays()``.  Four candidate
+    events a step, the first on equal times: the next arrival, the earliest
+    completion, the earliest timeout deadline and the earliest retry
+    re-arrival.  A completion clears its call's deadline and logs its raw
+    ``p`` in the controller's ring.  A deadline fire on a queued call takes
+    it off its node's queue and its E[p] off the shed gauge; on a running
+    one it frees the slot, adds the seconds run to the wasted work and
+    dispatches on that node; then the call re-arrives after the backoff
+    (``RetryPolicy.delay`` of its row and submissions) while it has
+    attempts left and retries timeouts, else it fails (cause 1).  An
+    arrival or re-arrival counts a submission, then is shed when the gauge
+    over the free slots of the fleet exceeds the threshold (a retry, or
+    cause 2), else adds the controller's E[p] to the gauge, arms its
+    deadline and is routed and ranked as an arrival.  A dispatch takes its
+    E[p] off the gauge and stamps its slot's start; equal priorities on a
+    node dispatch by push sequence (``qsq``, the step count at insertion).
+
     Returns ``(start, finish, prio, node, aux)``, the first four ``(B,
     n+1)``: ``prio`` and ``node`` are the carry's ``fprio`` and
     ``node_of`` at the end, each call's values fixed at its (last)
@@ -521,7 +550,12 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     and with ``hedge`` each cell's backups (``nbk``), calls stolen or won
     by a copy (``nstl``), calls done (``ndone``, first completions), steps
     taken (``stepc``: the carry's count and one for each step with an
-    event, a no-op fire included) and each row's attempts (``att``)."""
+    event, a no-op fire included) and each row's attempts (``att``); with
+    ``res`` the timeouts (``nto``), sheds (``nsh``), retries (``nrt``),
+    wasted seconds (``wst``), calls resolved (``ndn``: completions and
+    terminal failures), steps taken (``stepc``, as under ``hedge``), and
+    each row's failure flag (``nfl``), cause (``fcz``) and submissions
+    (``ratt``)."""
     t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
     cnt, home0, coef = inp["cnt"], inp["home0"].long(), inp["coef"]
     cores, nodes = inp["cores"].long(), inp["nodes"].long()
@@ -532,6 +566,8 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     dev, ft = t.device, t.dtype
     if dup and not hedge:
         raise ValueError("dup needs hedge")
+    if res and (dyn or het or cold or hedge):
+        raise ValueError("res takes no dyn, het, cold or hedge")
     nq = n_copies * n1 if dup else n1
     if dup:
         # a queue entry's row features are its original row's
@@ -540,7 +576,7 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
                           fc_ring=fc_ring, dyn=dyn, het=het, cold=cold,
-                          hedge=hedge, dup=dup, n_copies=n_copies)
+                          hedge=hedge, dup=dup, n_copies=n_copies, res=res)
     st = {k: v.clone() for k, v in layout.unpack(clk, ctr).items()}
     ai = st["ai"].long()
     fin_s, idx_s = st["fin_s"], st["idx_s"].long()
@@ -597,6 +633,31 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         done0, start_q = st["done0"], st["start_q"]
         win_start, win_fin = st["win_start"], st["win_fin"]
         win_node = st["win_node"]
+    if res:
+        to_t, rto, eps, qep = st["to_t"], st["rto"], st["eps"], st["qep"]
+        ratt, nfl, fcz = st["ratt"].long(), st["nfl"], st["fcz"].long()
+        sst, wst = st["sst"], st["wst"]
+        nto, nsh, nrt = st["nto"].long(), st["nsh"].long(), st["nrt"].long()
+        ndn, qsq, stp = st["ndn"].long(), st["qsq"].long(), st["stp"].long()
+        zring, zrsum = st["zring"], st["zrsum"]
+        zrlen, zrpos = st["zrlen"].long(), st["zrpos"].long()
+        stp0 = stp.clone()
+        rto_p, rrt_p, adm_p = inp["rto_p"], inp["rrt_p"], inp["adm_p"]
+        maxa = rrt_p[:, 0].long()
+        on_to, on_sh = rrt_p[:, 4] > 0, rrt_p[:, 5] > 0
+        cwin_ids = torch.arange(window, device=dev)[None, None]
+        cfn_ids = torch.arange(n_fns, device=dev)[None]
+
+        def res_delay(seq, a):
+            """RetryPolicy.delay in float64, term for term: the 16-bit
+            jitter hash of (row, attempt) and the power of two as a
+            shift."""
+            base, cap, jit = rrt_p[:, 1], rrt_p[:, 2], rrt_p[:, 3]
+            u = ((seq * 7919 + a * 104729 + 12345) % 65536).to(ft) / 65536.0
+            shift = torch.bitwise_left_shift(torch.ones_like(a),
+                                             (a - 1).clamp(min=0)).to(ft)
+            raw = torch.minimum(cap, base * shift)
+            return raw * ((1.0 - jit) + jit * u)
     start = torch.zeros(B, n1, dtype=ft, device=dev)
     finish = torch.zeros(B, n1, dtype=ft, device=dev)
     nstep = torch.zeros(B, dtype=torch.long, device=dev)
@@ -627,6 +688,13 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             cand = torch.stack([t_a, t_c, hedge_t.min(1).values], 1)
             e = cand.argmin(1)
             now = cand[rows, e]
+        elif res:
+            # timeout fires rank after completions, retry re-arrivals after
+            # both
+            cand = torch.stack([t_a, t_c, to_t.min(1).values,
+                                rto.min(1).values], 1)
+            e = cand.argmin(1)
+            now = cand[rows, e]
         else:
             e = (t_a > t_c).long()
             now = torch.where(t_a <= t_c, t_a, t_c)
@@ -638,6 +706,14 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         do_comp = (e == off + 1) & ~none_left
         if hedge:
             do_hedge = (e == (6 if dyn else 2)) & ~none_left
+        if res:
+            do_to = (e == 2) & ~none_left
+            do_rto = (e == 3) & ~none_left
+            # whether any cell fires a deadline or admits a call this step
+            # (one read back; a block no cell needs changes nothing and is
+            # skipped)
+            any_to, any_ins = torch.stack(
+                [do_to.any(), (do_arr | do_rto).any()]).tolist()
         if dyn:
             do_kill = (e == 0) & ~none_left
             do_re = (e == 3) & ~none_left
@@ -684,6 +760,25 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                                 p_done[:, None, None], cring)
             crlen = torch.where(m_cfd & ~cfull[:, None], crlen + 1, crlen)
             crpos = torch.where(m_cfd, (cpos + 1)[:, None] % window, crpos)
+        if res:
+            # the completion clears its call's deadline and the controller's
+            # ring (admission's and the deadlines' estimate) logs its raw p
+            to_t = torch.where((req_ids == j_done[:, None])
+                               & do_comp[:, None], inf, to_t)
+            ndn = ndn + do_comp.long()
+            zpos = zrpos[rows, f_done]
+            zfull = zrlen[rows, f_done] == window
+            zold = zring[rows, f_done, zpos]
+            m_zfd = (cfn_ids == f_done[:, None]) & do_comp[:, None]
+            p_done = p[rows, j_done]
+            zrsum = torch.where(
+                m_zfd, zrsum + p_done[:, None]
+                - torch.where(zfull, zold, zero)[:, None], zrsum)
+            zring = torch.where(m_zfd[:, :, None]
+                                & (cwin_ids == zpos[:, None, None]),
+                                p_done[:, None, None], zring)
+            zrlen = torch.where(m_zfd & ~zfull[:, None], zrlen + 1, zrlen)
+            zrpos = torch.where(m_zfd, (zpos + 1)[:, None] % window, zrpos)
         m_kn = (node_ids == kn[:, None]) & do_comp[:, None]
         busy = busy - m_kn.long()
         fin_s = torch.where(m_kn[:, :, None] & (slot_ids == ks[:, None, None]),
@@ -788,10 +883,52 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                                                 now + interval),
                                     next_tick)
 
+        if res and any_to:
+            # -- the earliest deadline fires on its call, queued or running
+            jt = to_t.argmin(1)
+            m_jt = req_ids == jt[:, None]
+            is_q = pend[rows, jt] & do_to
+            slot_match = (idx_s == jt[:, None, None]) & torch.isfinite(fin_s)
+            flat_m = slot_match.reshape(B, -1)
+            is_run = do_to & ~is_q & flat_m.any(1)
+            # queued: off its node's queue, its E[p] off the gauge
+            pend = pend & ~(m_jt & is_q[:, None])
+            qn = qn - ((node_ids == node_of[rows, jt].long()[:, None])
+                       & is_q[:, None]).long()
+            qep = qep - torch.where(is_q, eps[rows, jt], zero)
+            # running: the slot is freed, the seconds run are wasted
+            m_rc = slot_match & is_run[:, None, None]
+            rn = flat_m.to(torch.int32).argmax(1) // n_slots
+            sst_v = torch.where(m_rc, sst, zero).reshape(B, -1).sum(1)
+            wst = wst + torch.where(is_run, torch.maximum(now - sst_v, zero),
+                                    zero)
+            fin_s = torch.where(m_rc, inf, fin_s)
+            busy = busy - ((node_ids == rn[:, None]) & is_run[:, None]).long()
+            nto = nto + do_to.long()
+            to_t = torch.where(m_jt & do_to[:, None], inf, to_t)
+            # retry or fail: the submissions counted are the failed
+            # attempt's number
+            a_jt = ratt[rows, jt]
+            can_rt = do_to & on_to & (a_jt < maxa)
+            rto = torch.where(m_jt & can_rt[:, None],
+                              (now + res_delay(jt, a_jt))[:, None], rto)
+            nrt = nrt + can_rt.long()
+            died = do_to & ~can_rt
+            nfl = nfl | (m_jt & died[:, None])
+            fcz = torch.where(m_jt & died[:, None], 1, fcz)
+            ndn = ndn + died.long()
+
         # -- arrival, re-arrival or steal: route, observe on the routed
         # node -----------------------------------------------------------
         i_ins = ai.clamp(max=n)
         do_ins = do_arr
+        if res:
+            # a retry re-arrives through the arrival's path
+            jr = rto.argmin(1)
+            rto = torch.where((req_ids == jr[:, None]) & do_rto[:, None],
+                              inf, rto)
+            do_ins = do_arr | do_rto
+            i_ins = torch.where(do_arr, i_ins, jr)
         if hedge:
             # a steal re-inserts the call; a copy enters at its entry
             alt = (((att[rows, jh] + 1) * n1 + jh).clamp(max=nq - 1)
@@ -819,6 +956,38 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             do_ins = do_ins | do_re
             i_ins = torch.where(do_re, ir, i_ins)
         f_i = fnid[rows, i_ins]
+        if res and any_ins:
+            # -- admission: count the submission, shed it when the gauge
+            # over the fleet's free slots exceeds the threshold (no node
+            # sees it), else add the controller's E[p] to the gauge and arm
+            # the deadline
+            do_ins0 = do_ins
+            m_i = req_ids == i_ins[:, None]
+            ratt = ratt + (m_i & do_ins0[:, None]).long()
+            a_i = ratt[rows, i_ins]
+            n_z = zrlen[rows, f_i]
+            est_z = torch.where(n_z > 0, zrsum[rows, f_i]
+                                / n_z.clamp(min=1).to(ft), zero)
+            free_tot = torch.where(active, cores[:, None] - busy, 0).sum(1)
+            shed_now = (do_ins0 & (adm_p[:, 0] > 0)
+                        & (qep / free_tot.clamp(min=1).to(ft) > adm_p[:, 1]))
+            nsh = nsh + shed_now.long()
+            sh_rt = shed_now & on_sh & (a_i < maxa)
+            rto = torch.where(m_i & sh_rt[:, None],
+                              (now + res_delay(i_ins, a_i))[:, None], rto)
+            nrt = nrt + sh_rt.long()
+            sh_die = shed_now & ~sh_rt
+            nfl = nfl | (m_i & sh_die[:, None])
+            fcz = torch.where(m_i & sh_die[:, None], 2, fcz)
+            ndn = ndn + sh_die.long()
+            do_ins = do_ins0 & ~shed_now
+            eps = torch.where(m_i & do_ins[:, None], est_z[:, None], eps)
+            qep = qep + torch.where(do_ins, est_z, zero)
+            dl = torch.where(rto_p[:, 3] > 0, now + rto_p[:, 3],
+                             now + rto_p[:, 1] * torch.maximum(est_z,
+                                                               rto_p[:, 2]))
+            to_t = torch.where(m_i & (do_ins & (rto_p[:, 0] > 0))[:, None],
+                               dl[:, None], to_t)
         # least-loaded: least busy + queued, first on ties; inactive nodes
         # never win
         load = torch.where(active, busy + qn, 2 ** 30)
@@ -906,19 +1075,24 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                 if not dyn:
                     ndone = ndone + do_comp.long()
             qseq = torch.where(m_ins, stepc[:, None], qseq)
+        if res:
+            qsq = torch.where(m_ins, stp[:, None], qsq)
 
         # -- dispatch on the node the event touched (an activation's: the
-        # new node): its least frozen priority, first index (under hedge:
-        # least push sequence) on ties
+        # new node; a running call's deadline: its node): its least frozen
+        # priority, first index (under hedge and res: least push sequence)
+        # on ties
         k_d = torch.where(do_ins, k_arr, kn)
         if dyn:
             ka = torch.where(act_pend, act_t, inf).argmin(1)
             k_d = torch.where(do_act, ka, k_d)
+        if res and any_to:
+            k_d = torch.where(do_to & is_run, rn, k_d)
         prio_vec = torch.where(pend & (node_of == k_d[:, None]), fprio, inf)
-        if hedge:
+        if hedge or res:
             prio_j = prio_vec.min(1).values
-            j = torch.where(prio_vec == prio_j[:, None], qseq,
-                            2 ** 30).argmin(1)
+            j = torch.where(prio_vec == prio_j[:, None],
+                            qseq if hedge else qsq, 2 ** 30).argmin(1)
         else:
             j = prio_vec.argmin(1)
             prio_j = prio_vec[rows, j]
@@ -928,6 +1102,12 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         elif hedge:
             can = ((do_ins | do_comp) & (busy[rows, k_d] < cores)
                    & (prio_j < inf))
+        elif res:
+            # a queued call's deadline and a shed free no slot
+            freed = do_ins | do_comp
+            if any_to:
+                freed = freed | (do_to & is_run)
+            can = freed & (busy[rows, k_d] < cores) & (prio_j < inf)
         else:
             can = ~none_left & (busy[rows, k_d] < cores) & (prio_j < inf)
         cost_j, p_j = cost[rows, j], p[rows, j]
@@ -966,6 +1146,10 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             dcnt = dcnt + can.long()
         if het:
             sspd = torch.where(m_ds, eff[:, None, None], sspd)
+        if res:
+            # the slot's start (wasted work), the call's E[p] off the gauge
+            sst = torch.where(m_ds, exec_start[:, None, None], sst)
+            qep = qep - torch.where(can, eps[rows, j], zero)
         busy = busy + m_kd.long()
         qn = qn - m_kd.long()
         m_j = (req_ids == j[:, None]) & can[:, None]
@@ -980,6 +1164,9 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             # every step counts, the no-op fires too; the steps past a
             # cell's last event change nothing
             stepc = stepc + 1
+            nstep = nstep + (~none_left).long()
+        if res:
+            stp = stp + 1
             nstep = nstep + (~none_left).long()
         if dup:
             start_q = torch.where(m_j, exec_start[:, None], start_q)
@@ -1007,6 +1194,10 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         aux.update(nbk=nbk.to(i32), nstl=stolen.sum(1).to(i32),
                    att=att.to(i32), ndone=ndone.to(i32),
                    stepc=(stepc0 + nstep).to(i32))
+    if res:
+        aux.update(nto=nto.to(i32), nsh=nsh.to(i32), nrt=nrt.to(i32),
+                   wst=wst, nfl=nfl, fcz=fcz.to(i32), ratt=ratt.to(i32),
+                   ndn=ndn.to(i32), stepc=(stp0 + nstep).to(i32))
     if dup:
         return win_start, win_fin, fprio[:, :n1], win_node, aux
     return start, finish, fprio, node_of, aux

@@ -15,6 +15,8 @@ capacity dynamics, node speeds or cold starts), ``FREEZE64_LAUNCHES`` /
 (single-node and push buckets with them), ``HEDGE_LAUNCHES`` /
 ``HEDGE_REF_LAUNCHES`` for that kernel's hedged instantiations (push
 buckets with straggler hedging, steal or duplicate; their own sources),
+``RES_LAUNCHES`` / ``RES_REF_LAUNCHES`` for its resilience instantiations
+(push buckets with timeouts, retries or shedding; their own source),
 ``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
 ``DECODE_REF_LAUNCHES`` for the attention kernels, ``RGLRU_LAUNCHES`` /
 ``RGLRU_REF_LAUNCHES`` and ``RWKV6_LAUNCHES`` / ``RWKV6_REF_LAUNCHES`` for
@@ -53,6 +55,8 @@ FREEZE64_LAUNCHES = 0
 FREEZE64_REF_LAUNCHES = 0
 HEDGE_LAUNCHES = 0
 HEDGE_REF_LAUNCHES = 0
+RES_LAUNCHES = 0
+RES_REF_LAUNCHES = 0
 FLASH_LAUNCHES = 0
 FLASH_REF_LAUNCHES = 0
 DECODE_LAUNCHES = 0
@@ -71,6 +75,7 @@ _COUNTS = {
     "event_step_dyn": ("DYN_LAUNCHES", "DYN_REF_LAUNCHES"),
     "event_step_freeze64": ("FREEZE64_LAUNCHES", "FREEZE64_REF_LAUNCHES"),
     "event_step_hedge": ("HEDGE_LAUNCHES", "HEDGE_REF_LAUNCHES"),
+    "event_step_res": ("RES_LAUNCHES", "RES_REF_LAUNCHES"),
     "flash_attention": ("FLASH_LAUNCHES", "FLASH_REF_LAUNCHES"),
     "decode_attention": ("DECODE_LAUNCHES", "DECODE_REF_LAUNCHES"),
     "rglru_scan": ("RGLRU_LAUNCHES", "RGLRU_REF_LAUNCHES"),
@@ -163,7 +168,9 @@ EVENT_STEP_FREEZE64_LAYOUT = (
     "nevt", "coldq", "dead", "act_pend", "prov", "nfail", "ndone", "dseq",
     "dcnt", "rord", "hedge_t", "hedge_t2", "cring", "crsum", "win_start",
     "win_fin", "start_q", "att", "nbk", "stolen", "crlen", "crpos", "qseq",
-    "stepc", "unhedge", "done0", "win_node")
+    "stepc", "unhedge", "done0", "win_node", "to_t", "rto", "eps", "qep",
+    "sst", "wst", "zring", "zrsum", "ratt", "nfl", "fcz", "nto", "nsh", "nrt",
+    "ndn", "qsq", "stp", "zrlen", "zrpos")
 # lane-owned words of the float64 frozen-priority kernel's wide path
 # (``kF64SlotWords``, ``kF64NodeWords``): 6 a slot, 12 a node
 EVENT_STEP_FREEZE64_WIDE_WORDS = (6, 12)
@@ -174,15 +181,19 @@ EVENT_STEP_FREEZE64_PER_LANE = (1, 2)
 
 # the event-step launchers and their pointer arguments: inputs, outputs,
 # scratch, layout, dims, plan; each in csrc/event_step.cu but the hedged
-# ones, in their own sources (``EVENT_STEP_SOURCES``)
+# and the resilience ones, in their own sources (``EVENT_STEP_SOURCES``),
+# which share one signature (``EVENT_STEP_F64_FAMILY_LAUNCHER`` in
+# csrc/event_step_freeze64.cuh)
 EVENT_STEP_LAUNCHERS = {"event_step_launch": 19,
                         "event_step_freeze_launch": 20,
                         "event_step_dyn_launch": 31,
                         "event_step_freeze64_launch": 33,
-                        "event_step_hedge_launch": 38,
-                        "event_step_dup_launch": 38}
+                        "event_step_hedge_launch": 46,
+                        "event_step_dup_launch": 46,
+                        "event_step_res_launch": 46}
 EVENT_STEP_SOURCES = {"event_step_hedge_launch": "event_step_hedge",
-                      "event_step_dup_launch": "event_step_dup"}
+                      "event_step_dup_launch": "event_step_dup",
+                      "event_step_res_launch": "event_step_res"}
 _event_step_fns: dict = {}
 
 
@@ -242,29 +253,35 @@ def _dyn_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int, window: int,
 def event_step_freeze64_cell_bytes(staged: bool, n1: int, n_nodes: int,
                                    n_fns: int, window: int, cold: bool,
                                    hedge: bool = False, dyn: bool = False,
-                                   dup: bool = False,
-                                   n_copies: int = 1) -> int:
-    """Bytes of one cell's estimators, queue and free containers, hedge
-    state and, when ``staged``, its rows, in the float64 frozen-priority
-    kernel (``f64_cell_bytes`` in csrc/event_step_freeze64.cuh): the
-    float64 arrays (sum, last and previous arrival, rings; with ``hedge``
-    the controller's sums and ring; rows t / p / cost; queue keys; with
-    ``hedge`` each row's deadline, two with ``dyn``; with ``dup`` each
-    queue entry's start), the int32 ones (length, position, arrivals, FC
-    ring position; with ``cold`` the free containers; queue nodes; with
-    ``hedge`` the controller's lengths and positions, each row's attempts
-    and flags, each entry's push sequence) and the 8-bit fnid.  Under
-    ``dup`` the queue has ``n_copies * n1`` entries."""
+                                   dup: bool = False, n_copies: int = 1,
+                                   res: bool = False) -> int:
+    """Bytes of one cell's estimators, queue and free containers, hedge or
+    res state and, when ``staged``, its rows, in the float64
+    frozen-priority kernel (``f64_cell_bytes`` in
+    csrc/event_step_freeze64.cuh): the float64 arrays (sum, last and
+    previous arrival, rings; with ``hedge`` or ``res`` the controller's
+    sums and ring; rows t / p / cost; queue keys; with ``hedge`` each row's
+    deadline, two with ``dyn``; with ``res`` each row's deadline, retry
+    re-arrival time and admitted E[p]; with ``dup`` each queue entry's
+    start), the int32 ones (length, position, arrivals, FC ring position;
+    with ``cold`` the free containers; queue nodes; with ``hedge`` or
+    ``res`` the controller's lengths and positions, each row's word -- its
+    attempts and flags, or submissions, failure flag and cause -- and each
+    entry's push sequence) and the 8-bit fnid.  Under ``dup`` the queue has
+    ``n_copies * n1`` entries."""
     e = n_nodes * n_fns
     nq = n_copies * n1 if dup else n1
     r2, q2, q4 = _round_up(n1, 2), _round_up(nq, 2), _round_up(nq, 4)
     f64 = (3 * _round_up(e, 2) + _round_up(e * window, 2)
            + (3 if staged else 0) * r2 + q2)
     i32 = 4 * _round_up(e, 4) + _round_up(e if cold else 0, 4) + q4
-    if hedge:
-        f64 += (_round_up(n_fns, 2) + _round_up(n_fns * window, 2)
-                + (2 if dyn else 1) * r2 + (q2 if dup else 0))
+    if hedge or res:
+        f64 += _round_up(n_fns, 2) + _round_up(n_fns * window, 2)
         i32 += 2 * _round_up(n_fns, 4) + _round_up(n1, 4) + q4
+    if hedge:
+        f64 += (2 if dyn else 1) * r2 + (q2 if dup else 0)
+    if res:
+        f64 += 3 * r2
     nbytes = 8 * f64 + 4 * i32 + (_round_up(n1, 16) if staged else 0)
     return _round_up(nbytes, 16)
 
@@ -272,13 +289,13 @@ def event_step_freeze64_cell_bytes(staged: bool, n1: int, n_nodes: int,
 def _freeze64_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int,
                    window: int, fc_push: bool, fc_ring: int, dyn: bool,
                    cold: bool, hedge: bool, dup: bool,
-                   n_copies: int) -> dict:
+                   n_copies: int, res: bool = False) -> dict:
     """The float64 frozen-priority kernel's plan (see
     :func:`event_step_plan`)."""
     nsl = n_nodes * n_slots
     per_lane = next((pl for pl in EVENT_STEP_FREEZE64_PER_LANE
                      if 32 * pl >= nsl), None)
-    hs = dict(hedge=hedge, dyn=dyn, dup=dup, n_copies=n_copies)
+    hs = dict(hedge=hedge, dyn=dyn, dup=dup, n_copies=n_copies, res=res)
     cell = event_step_freeze64_cell_bytes(True, n1, n_nodes, n_fns, window,
                                           cold, **hs)
     staged = (per_lane is not None and n_nodes <= 32 and n_fns <= 256
@@ -303,7 +320,7 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
                     fc_ring: int = 1, f64: bool = False,
                     dyn: bool = False, cold: bool = False,
                     hedge: bool = False, dup: bool = False,
-                    n_copies: int = 1) -> dict:
+                    n_copies: int = 1, res: bool = False) -> dict:
     """How the kernel runs a bucket of this shape, from the shape alone:
     the pull kernel's plan, with ``freeze`` the frozen-priority kernel's
     (whose push FC rings, ``fc_push``, take ``fc_ring`` entries), with
@@ -317,7 +334,9 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     the free containers (``cold``), the queue (a 64-bit key and a node a
     row) and with ``hedge`` the controller's ring, each row's deadlines
     and hedge word and each entry's push sequence (``dup``: ``n_copies``
-    queue entries a row, each with its start) when one cell's fit (n_b up
+    queue entries a row, each with its start; ``res``: the controller's
+    ring, each row's deadline, retry re-arrival time, admitted E[p] and
+    word and each entry's push sequence) when one cell's fit (n_b up
     to ~5,000 at the push widths, ~1,600 with 4 copies); else,
     or past 64 slots, 32 nodes or 256 functions, it takes the wide path
     (``per_lane`` = ceil(slots / 32)): all of that and its lane arrays in
@@ -353,7 +372,7 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     words a cell."""
     if f64 and freeze:
         return _freeze64_plan(n1, n_nodes, n_slots, n_fns, window, fc_push,
-                              fc_ring, dyn, cold, hedge, dup, n_copies)
+                              fc_ring, dyn, cold, hedge, dup, n_copies, res)
     if f64:
         return _dyn_plan(n1, n_nodes, n_slots, n_fns, window, dyn, cold)
     if freeze:
@@ -623,7 +642,8 @@ def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
 
 def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
                               horizon, n_steps, fc_push, fc_ring, dyn, het,
-                              cold, hedge=False, dup=False, n_copies=1):
+                              cold, hedge=False, dup=False, n_copies=1,
+                              res=False):
     dev = clk.device
     B, n1 = inp["t"].shape
     n_fns, ncoef = inp["ring0"].shape[2], inp["coef"].shape[1]
@@ -631,7 +651,7 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
                           fc_ring=fc_ring, dyn=dyn, het=het, cold=cold,
-                          hedge=hedge, dup=dup, n_copies=n_copies)
+                          hedge=hedge, dup=dup, n_copies=n_copies, res=res)
     n_ep = inp["epn"].shape[1] if het else 1
 
     def opt(on, key, dtype, shape):
@@ -647,15 +667,21 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
         opt(het, "ept0", f64, (B, n_ep)), opt(het, "ept1", f64, (B, n_ep)),
         opt(het, "epf", f64, (B, n_ep)),
     ]
-    if hedge:
-        args += [_checked(inp["hmult"], "hmult", f64, (B,), dev),
-                 _checked(inp["hfloor"], "hfloor", f64, (B,), dev),
-                 _checked(inp["hmax"], "hmax", i32, (B,), dev)]
+    # the hedged and the resilience launchers share one signature, each
+    # family's inputs and outputs null in the other's
+    family = hedge or res
+    if family:
+        args += [opt(hedge, "hmult", f64, (B,)),
+                 opt(hedge, "hfloor", f64, (B,)),
+                 opt(hedge, "hmax", i32, (B,)),
+                 opt(res, "rto_p", f64, (B, 4)),
+                 opt(res, "rrt_p", f64, (B, 6)),
+                 opt(res, "adm_p", f64, (B, 2))]
     plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
                            n_fns=n_fns, window=window, freeze=True, f64=True,
                            fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
                            cold=cold, hedge=hedge, dup=dup,
-                           n_copies=n_copies)
+                           n_copies=n_copies, res=res)
     outs = [torch.zeros(B, n1, dtype=f64, device=dev) for _ in range(3)]
     outs.append(torch.zeros(B, n1, dtype=i32, device=dev))
     summ = act = dead = csum = coldq = None
@@ -668,31 +694,39 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
         # carry's in first)
         csum = torch.zeros(B, 2, dtype=i32, device=dev)
         coldq = torch.empty(B, n1, dtype=i32, device=dev)
-    hout = []
+    hout, rout = [None, None], [None] * 5
     if hedge:
         # backups, calls stolen or won by a copy, calls done, steps taken;
         # each row's attempts
         hout = [torch.zeros(B, 4, dtype=i32, device=dev),
                 torch.zeros(B, n1, dtype=i32, device=dev)]
+    if res:
+        # timeouts, sheds, retries, calls resolved, steps taken; the wasted
+        # seconds; each row's failure flag, cause and submissions
+        rout = [torch.zeros(B, 5, dtype=i32, device=dev),
+                torch.zeros(B, dtype=f64, device=dev),
+                *(torch.zeros(B, n1, dtype=i32, device=dev)
+                  for _ in range(3))]
     scratch = (torch.empty(B * plan["scratch_words"], dtype=i32, device=dev)
                if plan["scratch_words"] else None)
     offs = layout.offsets()
     lay = (ctypes.c_int * len(EVENT_STEP_FREEZE64_LAYOUT))(
         *(offs.get(k, 0) for k in EVENT_STEP_FREEZE64_LAYOUT))
-    dims = (ctypes.c_int * 19)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
+    dims = (ctypes.c_int * 20)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
                                ncoef, n_ep, layout.f_len, layout.i_len,
                                int(bool(fc_push)), fc_ring, int(dyn),
                                int(het), int(cold), n_steps, int(hedge),
-                               int(dup), n_copies)
+                               int(dup), n_copies, int(res))
     plan_c = (ctypes.c_int * 5)(plan["per_lane"], int(plan["staged"]),
                                 int(plan["wide"]), plan["cell_bytes"],
                                 plan["scratch_words"])
-    name = ("event_step_dup_launch" if dup else "event_step_hedge_launch"
-            if hedge else "event_step_freeze64_launch")
+    name = ("event_step_res_launch" if res else "event_step_dup_launch"
+            if dup else "event_step_hedge_launch" if hedge
+            else "event_step_freeze64_launch")
     fn = _event_step_lib(name)
     ptrs = [None if x is None else x.data_ptr()
-            for x in args + outs + [summ, act, dead, csum, coldq] + hout
-            + [scratch]]
+            for x in args + outs + [summ, act, dead, csum, coldq]
+            + (hout + rout if family else []) + [scratch]]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, ctypes.addressof(lay), ctypes.addressof(dims),
@@ -710,6 +744,11 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
         hsum, att = hout
         aux.update(nbk=hsum[:, 0], nstl=hsum[:, 1], att=att,
                    ndone=hsum[:, 2], stepc=hsum[:, 3])
+    if res:
+        rsum, wst, nfl, fcz, ratt = rout
+        aux.update(nto=rsum[:, 0], nsh=rsum[:, 1], nrt=rsum[:, 2],
+                   wst=wst, nfl=nfl.to(torch.bool), fcz=fcz, ratt=ratt,
+                   ndn=rsum[:, 3], stepc=rsum[:, 4])
     return (*outs, aux)
 
 
@@ -735,7 +774,9 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     f64=True)``); ``hedge`` buckets (frozen-priority only; ``dup`` without
     ``dyn``, its ``n_copies`` queue entries a call) to that kernel's hedged
     instantiations (csrc/event_step_hedge.cu, csrc/event_step_dup.cu),
-    counted apart as ``event_step_hedge``.  Returns ``(start, finish,
+    counted apart as ``event_step_hedge``; ``res`` buckets (frozen-priority
+    alone) to its resilience instantiations (csrc/event_step_res.cu),
+    counted apart as ``event_step_res``.  Returns ``(start, finish,
     prio, node, aux)``: rows ``[:n]`` are the per-request records (a call
     dispatched twice keeps its last dispatch; under ``dup`` the winning
     copy's) and row ``n`` is the no-op sentinel (the kernels leave it 0);
@@ -743,6 +784,8 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     ``prov`` (B,), ``act_t`` and ``dead`` (B, nodes) at the end, with
     ``cold`` its ``ncold``, ``nevt`` (B,) and ``coldq`` (B, n+1), and with
     ``hedge`` its ``nbk``, ``nstl``, ``ndone``, ``stepc`` (B,) and ``att``
+    (B, n+1), and with ``res`` its ``nto``, ``nsh``, ``nrt``, ``ndn``,
+    ``stepc`` (B,), ``wst`` (B,; float64) and ``nfl``, ``fcz``, ``ratt``
     (B, n+1) (``event_step.event_step_ref``).
     The kernel keeps the FC counts itself from ``t`` and ``fnid`` and does
     not read ``cumf``, which must equal ``event_step.fc_prefix_counts`` of
@@ -757,26 +800,31 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     global KERNEL_LAUNCHES, REF_LAUNCHES, FREEZE_LAUNCHES, FREEZE_REF_LAUNCHES
     global DYN_LAUNCHES, DYN_REF_LAUNCHES, FREEZE64_LAUNCHES
     global FREEZE64_REF_LAUNCHES, HEDGE_LAUNCHES, HEDGE_REF_LAUNCHES
+    global RES_LAUNCHES, RES_REF_LAUNCHES
     _check_force(force)
     if not event_step_supported(use_fc=use_fc, **flags):
         raise NotImplementedError(
             "event_step covers the pull and the frozen-priority regimes, "
-            "with or without dyn / het / cold, and hedge / dup under the "
-            "frozen-priority regime (dup without dyn); no stream/res, no "
-            "pull FC counts under freeze, no push FC rings under pull")
+            "with or without dyn / het / cold, and hedge / dup (dup "
+            "without dyn) or res (alone) under the frozen-priority regime; "
+            "no stream, no pull FC counts under freeze, no push FC rings "
+            "under pull")
     freeze, fc_push = bool(flags.get("freeze")), bool(flags.get("fc_push"))
     dyn, het = bool(flags.get("dyn")), bool(flags.get("het"))
     cold, hedge = bool(flags.get("cold")), bool(flags.get("hedge"))
     dup, n_copies = bool(flags.get("dup")), int(flags.get("n_copies", 1))
-    f64 = dyn or het or cold or hedge
+    res = bool(flags.get("res"))
+    f64 = dyn or het or cold or hedge or res
     static = dict(n_nodes=n_nodes, n_slots=n_slots, window=window,
                   horizon=horizon, n_steps=n_steps)
     if force == "ref" or clk.device.type != "cuda":
         out = event_step_ref(clk, ctr, inp, use_fc=use_fc, freeze=freeze,
                              fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
                              het=het, cold=cold, hedge=hedge, dup=dup,
-                             n_copies=n_copies, **static)
-        if hedge:
+                             n_copies=n_copies, res=res, **static)
+        if res:
+            RES_REF_LAUNCHES += 1
+        elif hedge:
             HEDGE_REF_LAUNCHES += 1
         elif freeze and f64:
             FREEZE64_REF_LAUNCHES += 1
@@ -791,8 +839,10 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
         out = _event_step_freeze64_cuda(clk, ctr, inp, fc_push=fc_push,
                                         fc_ring=fc_ring, dyn=dyn, het=het,
                                         cold=cold, hedge=hedge, dup=dup,
-                                        n_copies=n_copies, **static)
-        if hedge:
+                                        n_copies=n_copies, res=res, **static)
+        if res:
+            RES_LAUNCHES += 1
+        elif hedge:
             HEDGE_LAUNCHES += 1
         else:
             FREEZE64_LAUNCHES += 1

@@ -2,7 +2,7 @@
 
     python3 tools/scan_bench.py [--src DIR]
                                 [--mode scans|event_step|freeze|dyn|
-                                        freeze64|hedge|sweep|serve]
+                                        freeze64|hedge|res|sweep|serve]
                                 [--profile] [--repeat N] [--arch ARCH]
 
 Imports ``repro_torch`` from DIR (default: the ``src`` of the checkout
@@ -48,6 +48,13 @@ autoscaler, the dup matrix's push cells at intensity 16, a cold bucket
 with node speeds, one node, 3 x 24 cores): ``ms`` and ``ns_per_step``
 (over the longest cell's steps, which the kernel counts).  DIR must have
 hedging.
+
+``--mode res``: the float64 frozen-priority kernel's resilience
+instantiations on ``chip_smoke.py``'s six checks of them (the retry
+storm's bucket, FC with backoff and shedding at intensity 40, the home
+balancer with immediate retries, an absolute timeout, one node, 3 x 24
+cores): ``ms`` and ``ns_per_step`` (over the longest cell's steps, which
+the kernel counts).  DIR must have resilience.
 
 ``--mode sweep``: the sweep's main path as ``chip_smoke.py`` runs it
 (``chip_smoke.main_sweep``, 2,000 cells), once on one seed to warm up and
@@ -342,6 +349,21 @@ def hedge_cases(chip_smoke):
                      ops.event_step(clk, ctr, inp, **static))
 
 
+def res_cases(chip_smoke):
+    """(name, fn) of each resilience case: ``chip_smoke.py``'s checks of
+    the res kernel, built by the imported tree's bucket runner."""
+    from repro_torch.core import fastpath
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    for name, _, prepared in chip_smoke.res_check_cases():
+        key = tuple(max(col) for col in zip(*{c.bucket() for c in prepared}))
+        inp, clk, ctr, static = chip_smoke.bucket_tensors(
+            key, fastpath._fill_bucket(key, prepared), dev, prepared)
+        yield name, (lambda clk=clk, ctr=ctr, inp=inp, static=static:
+                     ops.event_step(clk, ctr, inp, **static))
+
+
 def serve_case(chip_smoke, arch: str) -> dict:
     """``--mode serve``'s numbers for ``arch`` on the imported tree."""
     from repro_torch.models import decode_step, init_cache
@@ -380,8 +402,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--mode", choices=("scans", "event_step", "freeze",
-                                       "dyn", "freeze64", "hedge", "sweep",
-                                       "serve"),
+                                       "dyn", "freeze64", "hedge", "res",
+                                       "sweep", "serve"),
                     default="scans")
     ap.add_argument("--arch", default="qwen3_1_7b",
                     help="the arch served (--mode serve)")
@@ -424,13 +446,14 @@ def main() -> int:
     modes = {"freeze": ("event_step_freeze", freeze_cases),
              "dyn": ("event_step_dyn", dyn_cases),
              "freeze64": ("event_step_freeze64", freeze64_cases),
-             "hedge": ("event_step_hedge", hedge_cases)}
+             "hedge": ("event_step_hedge", hedge_cases),
+             "res": ("event_step_res", res_cases)}
     if args.mode in modes:
         kernel, cases = modes[args.mode]
         for name, fn in cases(chip_smoke):
             out = {"src": args.src, "kernel": kernel, "case": name,
                    "ms": time_call(fn, 10)}
-            if args.mode == "hedge":
+            if args.mode in ("hedge", "res"):
                 steps = int(fn()[4]["stepc"].max())
                 out["ns_per_step"] = out["ms"] * 1e6 / steps
             print(json.dumps(out), flush=True)
