@@ -163,11 +163,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import fastpath  # noqa: E402
 from repro_torch.core import sweep  # noqa: E402
+from repro_torch.core.cluster import ClusterDynamics  # noqa: E402
 from repro_torch.core.planes import carry_layout, make_planes  # noqa: E402
+from repro_torch.core.request import Request  # noqa: E402
 from repro_torch.core.workload import generate_trace_burst  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -1987,6 +1990,405 @@ def res_paths(dev, kern_fz: dict) -> dict:
            for f in ("cells_per_s", "device_share")}}
 
 
+# -- 3h: the chunked stream replay on pull ------------------------------------
+# the planet fleet (benchmarks/engine_bench.py:892-935): a synthetic
+# Azure-calibrated day (data/azure_trace_slice.csv fitted, its catalog
+# extended to 10,000 functions with a Zipf tail of 0.7, the rate scaled to
+# ~175 invocations/s) on 96 single-core nodes, SEPT, pull, 4 MB containers,
+# the autoscaler growing the fleet to 128 nodes
+PLANET_SEED = 7
+PLANET_FNS = 10_000
+PLANET_TAIL_ALPHA = 0.7
+PLANET_RATE_SCALE = 40.0
+PLANET_CHUNK = 4096
+# the two planet replays together should take about this long; a card that
+# would take longer replays the first cut of PLANET_CUTS that fits, and
+# says so
+PLANET_BUDGET_S = 90.0
+PLANET_CUTS = ((1 << 20, 1 << 19), (1 << 18, 1 << 17), (1 << 16, 1 << 15))
+# the materialized prefixes held to the whole-burst scan (planet_rows)
+PLANET_PREFIXES = (2_000, 5_000, 8_000)
+# the mid-stream chunk checked: the first one after this many invocations
+PLANET_MID = 20_000
+
+
+def planet_model():
+    # imported here, so that tools/scan_bench.py can import this script
+    # beside a tree from before the stream
+    from repro_torch.core import synth
+
+    return synth.expand_catalog(
+        synth.fit_azure_csv(ROOT / "data" / "azure_trace_slice.csv"),
+        PLANET_FNS, rate_scale=PLANET_RATE_SCALE,
+        tail_alpha=PLANET_TAIL_ALPHA)
+
+
+def planet_fleet() -> dict:
+    return dict(nodes=96, cores_per_node=1, policy="sept", assignment="pull",
+                warm=True, container_mb=4,
+                dynamics=ClusterDynamics(
+                    autoscale=True, autoscale_interval_s=15.0,
+                    scale_up_queue_per_slot=0.5, provision_delay_s=60.0,
+                    max_nodes=128))
+
+
+def capture_chunk(stream, dev, chunk: int, pick, **kw) -> tuple[dict, object]:
+    """Replay ``stream`` on the card and keep a copy of the first chunk that
+    ``pick(index, invocations before it)`` takes: its inputs, start planes
+    and static arguments, as ``ops.event_step`` gets them.  Returns the
+    chunk and the replay's result."""
+    from repro_torch.core import streamscan
+
+    done = [0]
+    got: dict = {}
+
+    def hook(i, inp, clk, ctr, static):
+        if not got and pick(i, done[0]):
+            got.update(index=i, before=done[0], static=dict(static),
+                       inp={k: v.clone() for k, v in inp.items()},
+                       clk=clk.clone(), ctr=ctr.clone())
+
+    def progress(chunks, events, wall):
+        done[0] = events
+
+    res = streamscan.simulate_cluster_stream(
+        stream, chunk=chunk, device=dev, chunk_hook=hook, progress=progress,
+        **kw)
+    if not got:
+        raise AssertionError("no chunk of the stream was picked")
+    return got, res
+
+
+def chunk_rows(inp, st0: dict) -> dict:
+    """A chunk's rows: history (before the first fresh arrival and in no
+    flight), carried (in flight at the boundary: running, queued,
+    re-queued or waiting to re-arrive) and fresh."""
+    t = inp["t"][0].cpu().numpy()
+    n_rows = int(np.isfinite(t).sum())
+    ai0 = int(st0["ai"][0])
+    live = set(st0["idx_s"][0][np.isfinite(st0["fin_s"][0])].tolist())
+    fnev, fnst = inp["fnev"][0].cpu().numpy(), inp["fnst"][0].cpu().numpy()
+    for f in np.nonzero(st0["qcnt"][0])[0].tolist():
+        live.update(fnev[fnst[f]:fnst[f] + st0["qcnt"][0][f]].tolist())
+    for k in ("xq", "rearr"):
+        if k in st0:
+            v = st0[k][0]
+            live.update(np.nonzero(v if k == "xq" else np.isfinite(v))[0]
+                        .tolist())
+    carried = sum(1 for r in live if r < ai0)
+    return {"rows": n_rows, "history": ai0 - carried, "carried": carried,
+            "fresh": n_rows - ai0}
+
+
+def check_stream(case: str, cap: dict, n_fns: int, dev) -> dict:
+    """A pull kernel's stream instantiation against the plain version on
+    the card, from one handed-off chunk's start planes: rows [:n] of start,
+    finish, prio and node, the summary and the final carry planes
+    bit-identical; then its time, ns an event step (over the chunk's
+    arrivals and completions: its few autoscaler ticks and activations are
+    not counted), the plain version's time (the comparison run), the plan
+    and the bound of the chunk's work (``n_fns``: the stream's functions,
+    whatever the padded width)."""
+    inp, clk, ctr, static = cap["inp"], cap["clk"], cap["ctr"], cap["static"]
+    n1 = inp["t"].shape[1]
+    plain = []                       # the plain version, run once
+    plain_ms = time_call(lambda: plain.append(ops.event_step(
+        clk, ctr, inp, force="ref", **static)), reps=1, warmup=False)
+    ref = plain[0]
+    k0 = ops.STREAM_LAUNCHES
+    got = ops.event_step(clk, ctr, inp, **static)
+    torch.cuda.synchronize()
+    if ops.STREAM_LAUNCHES != k0 + 1:
+        raise AssertionError(f"{case}: event_step did not launch the stream "
+                             "kernel")
+    err = 0.0
+    for name, a, b in zip(("start", "finish", "prio", "node"), ref, got):
+        a, b = a[:, :n1 - 1], b[:, :n1 - 1]
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:5].tolist()
+            raise AssertionError(f"stream event_step {name} differs from "
+                                 f"the plain version ({case}) at {bad}")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    if ref[4].keys() != got[4].keys():
+        raise AssertionError(f"{case}: summaries of different keys")
+    for k in ref[4]:
+        if not torch.equal(ref[4][k], got[4][k]):
+            raise AssertionError(f"stream event_step {k} differs from the "
+                                 f"plain version ({case})")
+    f64 = clk.dtype == torch.float64
+    fsz = 8 if f64 else 4
+    n_fb = inp["ring0"].shape[2]
+    layout = carry_layout(n_nodes=static["n_nodes"],
+                          n_slots=static["n_slots"],
+                          window=static["window"], n_fns=n_fb, n1=n1,
+                          dyn=static["dyn"], cold=static["cold"], stream=True)
+    st0 = {k: v.cpu().numpy() for k, v in layout.unpack(clk, ctr).items()}
+    st1 = {k: v.cpu().numpy() for k, v in layout.unpack(
+        got[4]["clk"], got[4]["ctr"]).items()}
+    rows = chunk_rows(inp, st0)
+    finish = got[1][0, :n1 - 1].cpu().numpy()
+    dispatched = int((finish > 0).sum())
+    running0 = int(np.isfinite(st0["fin_s"]).sum())
+    running1 = int(np.isfinite(st1["fin_s"]).sum())
+    arrivals = int(st1["ai"][0]) - int(st0["ai"][0])
+    if static["dyn"]:
+        completions = int(st1["ndone"][0]) - int(st0["ndone"][0])
+        lost = int(st1["nfail"][0]) - int(st0["nfail"][0])
+    else:
+        completions, lost = running0 + dispatched - running1, 0
+    steps = arrivals + completions + 2 * lost
+    plan = ops.event_step_plan(n1=n1, n_nodes=static["n_nodes"],
+                               n_slots=static["n_slots"], n_fns=n_fb,
+                               window=static["window"], f64=f64,
+                               dyn=static["dyn"], cold=static["cold"],
+                               stream=True)
+    out = {"case": case, "chunk": cap["index"],
+           "invocations_before": cap["before"], "n_b": n1 - 1, **rows,
+           "nodes": static["n_nodes"], "slots": static["n_slots"],
+           "fns": n_fns, "fns_padded": n_fb, "dyn": static["dyn"],
+           "het": static["het"], "cold": static["cold"],
+           "use_fc": static["use_fc"], "arrivals": arrivals,
+           "completions": completions, "dispatches": dispatched,
+           "nodes_provisioned": (int(st1["prov"][0]) if static["dyn"]
+                                 else None),
+           "n_steps_budget": static["n_steps"], "max_abs_err": err,
+           "plan": plan}
+    out["ms"] = time_call(lambda: ops.event_step(clk, ctr, inp, **static),
+                          reps=3)
+    out["plain_ms"] = plain_ms
+    out["ns_per_step"] = out["ms"] * 1e6 / max(steps, 1)
+    # bytes: the rows' t / p / cost and fnid, their CSR entries, each
+    # function's first entry, the horizon, five coefficients, cores and
+    # nodes; with dyn each node's activation and kill time, five dynamics
+    # parameters, the cap and call count; the carry planes at the stream's
+    # own widths read and written; the dispatched rows' records and, with
+    # dyn / cold, the summaries
+    nodes_real = static["n_nodes"]
+    lay = carry_layout(n_nodes=nodes_real, n_slots=static["n_slots"],
+                       window=static["window"], n_fns=n_fns,
+                       n1=rows["rows"] + 1, dyn=static["dyn"],
+                       cold=static["cold"], stream=True)
+    nbytes = ((3 * fsz + 8) * rows["rows"] + 4 * n_fns + fsz + 5 * fsz + 8
+              + 2 * (fsz * lay.f_len + 4 * lay.i_len)
+              + (3 * fsz + 4) * dispatched)
+    if static["dyn"]:
+        nbytes += 2 * fsz * nodes_real + 5 * fsz + 8 + 12 + 12 * nodes_real
+    if static["cold"]:
+        nbytes += 4 * rows["rows"] + 8
+    # operations: a completion's ring update (3); a dispatch's priority
+    # over the stream's functions (5 each, 7 with the enqueue clock, 9 with
+    # FC counts) and its start and finish (2, 6 with a speed, one more with
+    # the prewarm charge)
+    per_fn = 5 + 2 * static["dyn"] + 2 * static["use_fc"]
+    ops_n = 3 * completions + dispatched * (
+        n_fns * per_fn + 2 + 4 * static["het"] + static["cold"])
+    out["bytes"], out["operations"] = nbytes, ops_n
+    out["bound_ms"], out["bound_by"] = bound(
+        nbytes, ops_n, torch.float64 if f64 else torch.float32)
+    return out
+
+
+def materialized(model, k: int) -> list:
+    """The first ``k`` invocations of the planet stream as requests."""
+    reqs = []
+    for ch in model.stream(PLANET_SEED, max_invocations=k).iter_chunks():
+        reqs.extend(Request(fn=model.fns[fi], r=float(t), p_true=float(p))
+                    for t, fi, p in zip(ch.r, ch.fn, ch.p))
+    return reqs
+
+
+def planet_prefixes(model, dev) -> list[dict]:
+    """Stream against whole-burst scan on the card, on the planet's
+    materialized prefixes (benchmarks/engine_bench.py::planet_rows): the
+    counters exact, every call's start and finish equal."""
+    from repro_torch.core import streamscan
+
+    fleet = planet_fleet()
+    out = []
+    for k in PLANET_PREFIXES:
+        reqs = materialized(model, k)
+        t0 = time.perf_counter()
+        ref = fastpath.simulate_cluster_scan(
+            [Request(fn=q.fn, r=q.r, p_true=q.p_true) for q in reqs],
+            device=dev, **fleet)
+        t_single = time.perf_counter() - t0
+        stream, order = streamscan.stream_from_requests(reqs, chunk=1024)
+        t0 = time.perf_counter()
+        pr = streamscan.simulate_cluster_stream(stream, chunk=1024,
+                                                device=dev, **fleet)
+        t_stream = time.perf_counter() - t0
+        for key, want in (("failures", ref.failures),
+                          ("cold_starts", ref.cold_starts),
+                          ("evictions", ref.evictions)):
+            if pr.counters[key] != want:
+                raise AssertionError(f"planet prefix {k}: {key} stream "
+                                     f"{pr.counters[key]}, whole {want}")
+        if pr.nodes_used != ref.nodes_used:
+            raise AssertionError(f"planet prefix {k}: nodes_used stream "
+                                 f"{pr.nodes_used}, whole {ref.nodes_used}")
+        for f in ("start", "finish"):
+            want = np.array([getattr(r, f) for r in ref.requests])[order]
+            if not np.array_equal(getattr(pr, f), want):
+                raise AssertionError(f"planet prefix {k}: {f} differs")
+        out.append({"invocations": k, "chunks": pr.chunks,
+                    "nodes_used": pr.nodes_used, "stream_s": t_stream,
+                    "whole_s": t_single})
+    return out
+
+
+def planet_replay(model, n_inv: int, dev) -> dict:
+    """The planet replay, the main path of the stream: ``n_inv``
+    invocations at chunk PLANET_CHUNK, every count set to 0 just before and
+    read just after (the stream kernel launched, no plain version and no
+    other kernel); every call served, R_avg and R_p95 finite."""
+    from repro_torch.core import streamscan
+
+    timings: dict = {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = streamscan.simulate_cluster_stream(
+        model.stream(PLANET_SEED, max_invocations=n_inv), chunk=PLANET_CHUNK,
+        device=dev, timings=timings, **planet_fleet())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    st = counts["event_step_stream"]
+    if (st["kernel"] == 0 or any(v["plain"] for v in counts.values())
+            or any(v["kernel"] for k, v in counts.items()
+                   if k != "event_step_stream")):
+        raise AssertionError(f"planet replay launches: {counts}")
+    if res.n != n_inv or not np.isfinite(res.finish).all():
+        raise AssertionError(f"planet replay of {n_inv}: {res.n} calls, "
+                             f"{int(np.isnan(res.finish).sum())} unserved")
+    s = res.summary()
+    out = {"invocations": res.n, "chunks": res.chunks,
+           "peak_rows": res.peak_rows, "peak_bytes": res.peak_bytes,
+           "wall_s": wall, "invocations_per_s": res.n / wall,
+           "device_s": timings["device_s"], "fill_s": timings["fill_s"],
+           "device_share": timings["device_s"] / wall,
+           "launches": st["kernel"], "plain_launches": st["plain"],
+           "nodes_used": res.nodes_used, "R_avg": s["mean_resp"],
+           "R_p95": float(np.percentile(res.resp, 95)), "R_p99": s["p99"],
+           "sim_hours": float(res.t[-1] - res.t[0]) / 3600.0}
+    for k in ("R_avg", "R_p95"):
+        if not math.isfinite(out[k]):
+            raise AssertionError(f"planet replay: {k}={out[k]}")
+    print(f"planet replay: {res.n} invocations in {wall:.3f} s = "
+          f"{out['invocations_per_s']:.1f} invocations/s, {res.chunks} "
+          f"chunks, peak_rows {res.peak_rows}, peak_bytes {res.peak_bytes} "
+          f"(fill {timings['fill_s']:.3f} s, device "
+          f"{timings['device_s']:.3f} s = {out['device_share']:.1%} of the "
+          f"wall); stream kernel launches {st['kernel']}, plain launches "
+          f"{st['plain']}; nodes_used {res.nodes_used}, R_avg "
+          f"{out['R_avg']:.4f} s, R_p95 {out['R_p95']:.4f} s", flush=True)
+    return out
+
+
+def stream_paths(dev) -> dict:
+    """The chunked stream replay on pull: the stream kernels against the
+    plain version on handed-off chunks (the planet's first chunk at a
+    budget of 512, its first chunk after PLANET_MID invocations, a static
+    float32 stream of SEPT and of FC on 2 x 4 nodes at chunk 256 (a
+    16-core burst at intensity 60; FC's chunk has history rows), the cold
+    matrix's FC v96 cell at chunk 1,024), the planet's prefixes against the
+    whole-burst scan, then the planet replay and its half for the memory
+    evidence.  Returns the stream kernel's row."""
+    from repro_torch.core import streamscan
+
+    model = planet_model()
+    fleet = planet_fleet()
+    nf = len(model.fns)
+    caps = {}
+    caps["planet_first_512"], _ = capture_chunk(
+        model.stream(PLANET_SEED, max_invocations=1024), dev, 512,
+        lambda i, before: True, **fleet)
+    t0 = time.perf_counter()
+    caps["planet_mid"], mid_res = capture_chunk(
+        model.stream(PLANET_SEED, max_invocations=PLANET_MID
+                     + 2 * PLANET_CHUNK), dev, PLANET_CHUNK,
+        lambda i, before: before >= PLANET_MID, **fleet)
+    probe_rate = mid_res.n / (time.perf_counter() - t0)
+    checks = {k: check_stream(k, c, nf, dev) for k, c in caps.items()}
+    for policy in ("sept", "fc"):
+        c = sweep.SweepCell(policy=policy, nodes=2, cores=4, intensity=60,
+                            seed=0, workload_cores=8)
+        stream, _ = streamscan.stream_from_requests(sweep.make_workload(c))
+        cap, _ = capture_chunk(stream, dev, 256, lambda i, before: i == 1,
+                               nodes=2, cores_per_node=4, policy=policy)
+        checks[f"static_{policy}_2x4"] = check_stream(
+            f"static {policy} 2 x 4", cap, len(stream.fns), dev)
+    c = next(c for c in cold_pull_cells()
+             if c.policy == "fc" and c.intensity == 96)
+    stream, _ = streamscan.stream_from_requests(sweep.make_workload(c))
+    cap, _ = capture_chunk(stream, dev, 1024, lambda i, before: i == 1,
+                           nodes=c.nodes, cores_per_node=c.cores,
+                           policy="fc", warm=False)
+    checks["cold_fc_v96"] = check_stream("cold matrix fc v96", cap,
+                                         len(stream.fns), dev)
+    for r in checks.values():
+        print("stream event_step vs plain: " + json.dumps(r), flush=True)
+    if checks["static_fc_2x4"]["history"] == 0:
+        raise AssertionError("the FC stream's chunk has no history rows")
+    mid = checks["planet_mid"]
+    if mid["carried"] == 0 or mid["nodes_provisioned"] <= 96:
+        raise AssertionError(f"the mid-stream planet chunk: {mid}")
+    if not (mid["plan"]["wide"] and checks["planet_first_512"]["plan"]
+            ["wide"]):
+        raise AssertionError("the planet chunks are not on the wide path")
+
+    t0 = time.perf_counter()
+    prefixes = planet_prefixes(model, dev)
+    print(f"planet prefixes: {', '.join(str(p['invocations']) for p in prefixes)}"
+          " invocations, stream against whole-burst scan on the card: "
+          "counters exact, starts and finishes equal ("
+          + json.dumps(prefixes) + f"; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    # the replays' length: the first cut whose two replays the probe's rate
+    # puts within PLANET_BUDGET_S
+    n_full, n_half = next(
+        (cut for cut in PLANET_CUTS
+         if sum(cut) / probe_rate <= PLANET_BUDGET_S), PLANET_CUTS[-1])
+    if n_full != PLANET_CUTS[0][0]:
+        print(f"planet replays cut to {n_full} and {n_half} invocations "
+              f"(the {PLANET_CUTS[0][0]}-invocation day and its half would "
+              f"take ~{sum(PLANET_CUTS[0]) / probe_rate:.0f} s at the probe's "
+              f"{probe_rate:.0f} invocations/s, over {PLANET_BUDGET_S:.0f} s)",
+              flush=True)
+    full = planet_replay(model, n_full, dev)
+    half = planet_replay(model, n_half, dev)
+    if full["peak_rows"] != half["peak_rows"]:
+        raise AssertionError(f"planet peak not flat: peak_rows "
+                             f"{full['peak_rows']} at {n_full}, "
+                             f"{half['peak_rows']} at {n_half}")
+    print(f"planet memory: peak_rows {full['peak_rows']} at {n_full} "
+          f"invocations and at {n_half}", flush=True)
+    paths = {f"planet {n_full}-invocation replay": full["launches"],
+             f"planet {n_half}-invocation replay": half["launches"]}
+    return {
+        "name": "event_step_stream", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/event_step_stream.cu",
+        "sources": {"set": "src/repro_torch/kernels/csrc/event_step_stream.cu",
+                    "body": "src/repro_torch/kernels/csrc/"
+                            "event_step_pull.cuh"},
+        "replaces": "src/repro/core/fastpath.py:821",
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+        "ms": mid["ms"], "plain_ms": mid["plain_ms"],
+        "bound_ms": mid["bound_ms"], "bound_by": mid["bound_by"],
+        "library_ms": None,
+        "shape": f"planet chunk {mid['chunk']} (after "
+                 f"{mid['invocations_before']} invocations), n_b="
+                 f"{mid['n_b']}, {mid['nodes']} nodes x 1 slot, "
+                 f"{mid['fns_padded']} functions",
+        "ns_per_step": mid["ns_per_step"],
+        "cases": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "ns_per_step", "n_b",
+                                         "plan")}
+                  for k, r in checks.items()},
+        "planet": {"full": full, "half": half, "probe_rate": probe_rate}}
+
+
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
     """The least time (ms) the card could take: bytes over the memory rate
     or operations over the peak rate of ``dtype``, whichever is larger."""
@@ -3292,6 +3694,10 @@ def main() -> int:
     kern_res = res_paths(dev, kern_fz)
 
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # -- 3h. the chunked stream replay on pull: the planet fleet -----------
+    kern_stream = stream_paths(dev)
+
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 4. attention kernels vs plain on the card ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -3501,6 +3907,7 @@ def main() -> int:
         kern_f64,
         kern_hedge,
         kern_res,
+        kern_stream,
         flash_row,
         row("decode_attention", dec["decode_32k"],
             {"main_path": dec["serving"], "rg": dec["rg_ring_2k"],

@@ -37,7 +37,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops as _kops
 from .cluster import timeline_from_scan
-from .planes import make_planes
+from .planes import carry_layout, make_planes
 from .request import Request
 from .traces import stable_hash
 from .simulator import (
@@ -105,7 +105,8 @@ LB_ROUTE = {"least_loaded": 0, "home": 1}
 # node under push), bit 3 ``cold`` (the warm=False containers), bit 4
 # ``hedge`` (straggler hedging under push), bit 5 ``dup`` (its duplicate
 # mode), bit 6 ``het`` (node speeds), bit 7 ``dyn`` (capacity dynamics),
-# bit 8 ``res`` (the request lifecycle); the port sets no other bit
+# bit 8 ``res`` (the request lifecycle), bit 9 ``stream`` (the chunked
+# stream replay, ``core.streamscan``; pull only); the port sets no other bit
 _FREEZE_MASK = 1 << 0
 _USE_FC_MASK = 1 << 1
 _FC_PUSH_MASK = 1 << 2
@@ -115,6 +116,7 @@ _DUP_MASK = 1 << 5
 _HET_MASK = 1 << 6
 _DYN_MASK = 1 << 7
 _RES_MASK = 1 << 8
+_STREAM_MASK = 1 << 9
 
 # cells per chunk: a one-warp block per cell needs thousands of cells in
 # flight on the card; the CPU's plain version runs a few hundred at a time.
@@ -470,11 +472,15 @@ class _ScanCell:
 def _key_flags(key: tuple) -> dict[str, bool]:
     """The feature flags a bucket key's mask enables: ``freeze``,
     ``use_fc``, ``fc_push``, ``cold``, ``hedge``, ``dup``, ``het``,
-    ``dyn`` and ``res``.  Any other segment, or a combination no cell of
-    the port makes, raises ``NotImplementedError``."""
+    ``dyn``, ``res`` and ``stream``.  Any other segment, or a combination
+    no cell of the port makes, raises ``NotImplementedError``; so does a
+    stream bucket of the frozen-priority regime (push and single-node
+    streams are not ported).  A stream bucket always has extra steps (its
+    chunk's budget, ``core.streamscan``)."""
     mask = key[0]
     known = (_FREEZE_MASK | _USE_FC_MASK | _FC_PUSH_MASK | _COLD_MASK
-             | _HEDGE_MASK | _DUP_MASK | _HET_MASK | _DYN_MASK | _RES_MASK)
+             | _HEDGE_MASK | _DUP_MASK | _HET_MASK | _DYN_MASK | _RES_MASK
+             | _STREAM_MASK)
     flags = {"freeze": bool(mask & _FREEZE_MASK),
              "use_fc": bool(mask & _USE_FC_MASK),
              "fc_push": bool(mask & _FC_PUSH_MASK),
@@ -483,14 +489,17 @@ def _key_flags(key: tuple) -> dict[str, bool]:
              "dup": bool(mask & _DUP_MASK),
              "het": bool(mask & _HET_MASK),
              "dyn": bool(mask & _DYN_MASK),
-             "res": bool(mask & _RES_MASK)}
+             "res": bool(mask & _RES_MASK),
+             "stream": bool(mask & _STREAM_MASK)}
+    extra = (flags["dyn"] or flags["hedge"] or flags["res"]
+             or flags["stream"])
     if (mask & ~known
             or (key[9] != 1) != flags["dup"] or key[9] < 1
             or (flags["hedge"] and not flags["freeze"])
             or (flags["dup"] and (not flags["hedge"] or flags["dyn"]))
             or (key[8] != 1 and not flags["het"])
-            or (key[10] != 0) != (flags["dyn"] or flags["hedge"]
-                                  or flags["res"])
+            or (key[10] != 0) != extra
+            or (flags["stream"] and (flags["freeze"] or key[5] != 1))
             or (flags["res"] and (not flags["freeze"] or flags["dyn"]
                                   or flags["het"] or flags["cold"]
                                   or flags["hedge"]))
@@ -502,21 +511,31 @@ def _key_flags(key: tuple) -> dict[str, bool]:
     return flags
 
 
+def _use64(flags: dict) -> bool:
+    """Does a bucket of these feature flags scan in float64?  ``dyn``,
+    ``het``, ``cold``, ``hedge`` and ``res`` buckets do (the JAX package's
+    ``_use64``: failure, autoscaler, cold-start, backup, timeout and shed
+    accounting hang on exact orderings of completions against kills,
+    deadlines and dispatches); ``stream`` alone does not."""
+    return (flags["dyn"] or flags["het"] or flags["cold"] or flags["hedge"]
+            or flags["res"])
+
+
 def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
     """Host input arrays of one bucket at batch ``bsz``.  ``t`` is +inf and
     ``cores`` 0, so an unfilled row is an idle padded cell.  Floats are
-    float64 in ``dyn``, ``het``, ``cold``, ``hedge`` and ``res`` buckets
-    (the JAX package's ``_use64``: failure, autoscaler, cold-start, backup,
-    timeout and shed accounting hang on exact orderings of completions
-    against kills, deadlines and dispatches), float32 else."""
+    float64 where :func:`_use64` says so, float32 else.  A ``stream``
+    bucket adds each cell's chunk horizon ``t_stop`` (+inf: run to the
+    end) and its queues as CSR lists (``fnev``, the rows grouped by
+    function, the sentinel row ``n`` past the last entry; ``fnst``, each
+    function's first entry) in place of the dense ``fn_ev``."""
     flags = _key_flags(key)
     freeze, use_fc = flags["freeze"], flags["use_fc"]
     _, n_b, nodes_b, _, f_b, kq, window, _, n_ep = key[:9]
     n1 = n_b + 1
     # one estimator a node in frozen-priority mode, the controller's else
     n_est = nodes_b if freeze else 1
-    fdt = (np.float64 if (flags["dyn"] or flags["het"] or flags["cold"]
-                          or flags["hedge"] or flags["res"]) else np.float32)
+    fdt = np.float64 if _use64(flags) else np.float32
     i32 = np.int32
     inp = {
         "t": np.full((bsz, n1), np.inf, dtype=fdt),
@@ -533,9 +552,14 @@ def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
         # FC pull counts and the per-function queue sequences come from the
         # static arrival stream; freeze buckets get dummy rows
         "cumf": np.zeros((bsz, n1 if use_fc else 1, f_b), dtype=fdt),
-        "fn_ev": (np.zeros((bsz, 1, 1), dtype=i32) if freeze
+        "fn_ev": (np.zeros((bsz, 1, 1), dtype=i32)
+                  if freeze or flags["stream"]
                   else np.full((bsz, f_b, kq), n_b, dtype=i32)),
     }
+    if flags["stream"]:
+        inp["t_stop"] = np.full(bsz, np.inf, dtype=fdt)
+        inp["fnev"] = np.full((bsz, n1), n_b, dtype=i32)
+        inp["fnst"] = np.zeros((bsz, f_b), dtype=i32)
     if freeze:
         # single-node FC's static window counts, the home route's start
         # node per call, and the balancer per cell
@@ -675,6 +699,33 @@ def _bucket_static(key: tuple, cells: list[_ScanCell]) -> dict:
     return _scan_static(key, _pow2(max(
         c.dyn_budget() + c.hedge_budget_full() + c.res_budget_full()
         for c in cells)))
+
+
+def _bucket_bytes(key: tuple, bsz: int) -> int:
+    """Device bytes of one bucket at batch ``bsz`` in the port: its inputs,
+    the carry planes in and (a stream bucket's) out, the four per-row
+    outputs and the kernel's scratch (``ops.event_step_plan``)."""
+    flags = _key_flags(key)
+    _, n_b, nodes_b, slots_b, f_b, _, window, fc_ring = key[:8]
+    n1 = n_b + 1
+    per_cell = sum(v.nbytes for v in _alloc_bucket_inputs(key, 1).values())
+    fsz = 8 if _use64(flags) else 4
+    lay = carry_layout(n_nodes=nodes_b, n_slots=slots_b, window=window,
+                       n_fns=f_b, freeze=flags["freeze"],
+                       fc_push=flags["fc_push"], n1=n1, fc_ring=fc_ring,
+                       dyn=flags["dyn"], het=flags["het"], cold=flags["cold"],
+                       hedge=flags["hedge"], dup=flags["dup"],
+                       n_copies=key[9], res=flags["res"],
+                       stream=flags["stream"])
+    planes = (fsz * lay.f_len + 4 * lay.i_len) * (2 if flags["stream"] else 1)
+    plan = _kops.event_step_plan(
+        n1=n1, n_nodes=nodes_b, n_slots=slots_b, n_fns=f_b, window=window,
+        freeze=flags["freeze"], fc_push=flags["fc_push"], fc_ring=fc_ring,
+        f64=_use64(flags), dyn=flags["dyn"], cold=flags["cold"],
+        hedge=flags["hedge"], dup=flags["dup"], n_copies=key[9],
+        res=flags["res"], stream=flags["stream"])
+    outs = (3 * fsz + 4) * n1
+    return (per_cell + planes + outs + 4 * plan["scratch_words"]) * bsz
 
 
 def _chunk_cells(key: tuple, device: torch.device) -> int:

@@ -3,8 +3,9 @@
 for the base pull carry, the frozen-priority segments ``freeze`` and
 ``fc_push``, the container segment ``cold``, the straggler-hedging
 segments ``hedge`` and ``dup``, the per-slot speeds ``het`` of the
-frozen-priority regime, the capacity-dynamics segment ``dyn`` and the
-request-lifecycle segment ``res``).
+frozen-priority regime, the capacity-dynamics segment ``dyn``, the
+request-lifecycle segment ``res`` and the chunked-stream segment
+``stream`` of the pull regime).
 
 Every float entry of a cell's carry flattens into one **clocks plane**
 (``clk``, in the bucket's float type: float32, or float64 for dynamic,
@@ -29,8 +30,8 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                freeze: bool = False, fc_push: bool = False, n1: int = 0,
                fc_ring: int = 1, dyn: bool = False, het: bool = False,
                cold: bool = False, hedge: bool = False, dup: bool = False,
-               n_copies: int = 1,
-               res: bool = False) -> dict[str, tuple[tuple[int, ...], str]]:
+               n_copies: int = 1, res: bool = False,
+               stream: bool = False) -> dict[str, tuple[tuple[int, ...], str]]:
     """Shapes and kinds of one cell's carry: slots, queue heads, channel
     clocks and the estimator rings -- the controller's (an estimator axis
     of length 1) in the pull regime, one per node with ``freeze`` -- then,
@@ -61,7 +62,11 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
     row's submissions, terminal-failure flag and cause (1 timeout, 2 shed),
     each slot's execution start, the timeouts, sheds and retries counted,
     the wasted seconds, the calls resolved, each row's push sequence and
-    the step count, and the controller's estimator ring)."""
+    the step count, and the controller's estimator ring), and last the
+    chunked stream of the pull regime (``stream`` without ``freeze``: each
+    function's chunk-rebased count of the calls its queue window holds,
+    ``qcnt``, which the head-window validity test reads in place of the
+    cumulative ``narr``)."""
     n_est = n_nodes if freeze else 1
     nq = n_copies * n1 if dup else n1
     spec = {
@@ -127,6 +132,8 @@ def carry_spec(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                     stp=((), _INT), zring=((n_fns, window), _FLOAT),
                     zrsum=((n_fns,), _FLOAT), zrlen=((n_fns,), _INT),
                     zrpos=((n_fns,), _INT))
+    if stream and not freeze:
+        spec["qcnt"] = ((n_fns,), _INT)
     return spec
 
 
@@ -185,19 +192,21 @@ def carry_layout(*, n_nodes: int, n_slots: int, window: int, n_fns: int,
                  freeze: bool = False, fc_push: bool = False, n1: int = 0,
                  fc_ring: int = 1, dyn: bool = False, het: bool = False,
                  cold: bool = False, hedge: bool = False, dup: bool = False,
-                 n_copies: int = 1, res: bool = False) -> PlaneLayout:
+                 n_copies: int = 1, res: bool = False,
+                 stream: bool = False) -> PlaneLayout:
     return PlaneLayout(carry_spec(n_nodes=n_nodes, n_slots=n_slots,
                                   window=window, n_fns=n_fns, freeze=freeze,
                                   fc_push=fc_push, n1=n1, fc_ring=fc_ring,
                                   dyn=dyn, het=het, cold=cold, hedge=hedge,
-                                  dup=dup, n_copies=n_copies, res=res))
+                                  dup=dup, n_copies=n_copies, res=res,
+                                  stream=stream))
 
 
 def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
                 fc_ring: int = 1, dyn: bool = False, het: bool = False,
                 cold: bool = False, hedge: bool = False, dup: bool = False,
-                n_copies: int = 1, res: bool = False
+                n_copies: int = 1, res: bool = False, stream: bool = False
                 ) -> dict[str, torch.Tensor]:
     """Initial batched carry of a bucket: empty slots and queues, idle
     channels, the estimator rings from the bucket's inputs, with ``freeze``
@@ -212,7 +221,8 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
     and under pull every row enqueued at its receive time, with ``freeze``
     no launch counted and every rank 0, and with ``res`` no deadline or
     retry pending, nothing counted, the gauge at 0 and the controller's
-    ring empty (nodes get the warm-up's seed, the controller none)."""
+    ring empty (nodes get the warm-up's seed, the controller none), and
+    with ``stream`` under pull no call counted in any queue window."""
     t = inp["t"]
     B, ft, dev = t.shape[0], t.dtype, t.device
     n_est, n_fns = inp["ring0"].shape[1], inp["ring0"].shape[2]
@@ -309,6 +319,8 @@ def make_state0(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                   zrsum=torch.zeros(B, n_fns, **fz),
                   zrlen=torch.zeros(B, n_fns, **i32),
                   zrpos=torch.zeros(B, n_fns, **i32))
+    if stream and not freeze:
+        st["qcnt"] = torch.zeros(B, n_fns, **i32)
     return st
 
 
@@ -316,13 +328,13 @@ def make_planes(inp: dict[str, torch.Tensor], *, n_nodes: int, n_slots: int,
                 window: int, freeze: bool = False, fc_push: bool = False,
                 fc_ring: int = 1, dyn: bool = False, het: bool = False,
                 cold: bool = False, hedge: bool = False, dup: bool = False,
-                n_copies: int = 1, res: bool = False):
+                n_copies: int = 1, res: bool = False, stream: bool = False):
     """Per-cell initial carry of a bucket as the packed ``(clk, ctr)``
     planes, shapes ``(B, f_len)`` in the bucket's float type and ``(B,
     i_len)`` int32."""
     seg = dict(freeze=freeze, fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
                het=het, cold=cold, hedge=hedge, dup=dup, n_copies=n_copies,
-               res=res)
+               res=res, stream=stream)
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=inp["ring0"].shape[2],
                           n1=inp["t"].shape[1], **seg)

@@ -1,5 +1,6 @@
 """Azure-Functions-style traces as workloads (own copy of the parts of
-``repro.core.traces`` that a sweep cell's ``arrival="trace"`` needs).
+``repro.core.traces`` that a sweep cell's ``arrival="trace"`` and the
+chunked stream replay need: the lazily tiled trace as a stream).
 
 A trace CSV holds one row per function and its per-minute invocation
 counts (header optional)::
@@ -116,3 +117,69 @@ def generate_trace_requests(path: str | Path, seed: int = 0,
         trace = tile_trace(trace, repeat=repeat, scale=scale)
     return requests_from_trace(trace, seed, minute_s=minute_s,
                                max_minutes=max_minutes)
+
+
+# ---------------------------------------------------------------------------
+# lazy tiling: the tiled trace as a stream, one minute at a time
+# ---------------------------------------------------------------------------
+def _scaled_count(count: int, scale: float) -> int:
+    return int(round(count * scale)) if scale != 1.0 else count
+
+
+def _minute_arrivals(trace: dict[str, list[int]], minute: int, seed: int,
+                     minute_s: float, scale: float, fns: list[str],
+                     src_minute: int):
+    """One tiled minute as time-sorted (r, fn index, p_true) arrays.
+    ``src_minute`` indexes the source trace (tiling is ``minute %
+    len(counts)``); ``minute`` is the output minute and seeds the
+    generator, so every tiled copy of a source minute draws anew."""
+    rng = np.random.default_rng([seed, minute])
+    ts, fs, ps = [], [], []
+    for fi, fn in enumerate(fns):
+        counts = trace[fn]
+        count = _scaled_count(counts[src_minute % len(counts)], scale)
+        if count <= 0:
+            continue
+        ts.append(rng.uniform(minute * minute_s, (minute + 1) * minute_s,
+                              size=count))
+        fs.append(np.full(count, fi, dtype=np.int64))
+        ps.append(np.maximum(
+            PROFILES[profile_for(fn)].sample(rng, count), 1e-4))
+    if not ts:
+        z = np.zeros(0)
+        return z, np.zeros(0, dtype=np.int64), z
+    t = np.concatenate(ts)
+    order = np.argsort(t, kind="stable")
+    return (t[order], np.concatenate(fs)[order], np.concatenate(ps)[order])
+
+
+def iter_tiled_chunks(trace: dict[str, list[int]], seed: int = 0,
+                      repeat: int = 1, scale: float = 1.0,
+                      minute_s: float = 60.0):
+    """The tiled trace as time-ordered ``streamscan.StreamChunk`` slabs,
+    one a minute, lazily: one minute in host memory whatever ``repeat``."""
+    from .streamscan import StreamChunk
+
+    if repeat < 1:
+        raise ValueError(f"repeat must be >= 1, got {repeat}")
+    if scale <= 0:
+        raise ValueError(f"scale must be > 0, got {scale}")
+    fns = sorted(trace)
+    n_min = max(len(c) for c in trace.values())
+    for minute in range(repeat * n_min):
+        t, f, p = _minute_arrivals(trace, minute, seed, minute_s, scale,
+                                   fns, minute % n_min)
+        if t.size:
+            yield StreamChunk(r=t, fn=f, p=p)
+
+
+def tiled_stream(trace: dict[str, list[int]], seed: int = 0, repeat: int = 1,
+                 scale: float = 1.0, minute_s: float = 60.0):
+    """The lazily tiled trace as a replayable
+    ``streamscan.ArrivalStream``."""
+    from .streamscan import ArrivalStream
+
+    return ArrivalStream(
+        fns=tuple(sorted(trace)),
+        chunks=lambda: iter_tiled_chunks(trace, seed=seed, repeat=repeat,
+                                         scale=scale, minute_s=minute_s))

@@ -57,10 +57,11 @@ def event_step_supported(*, freeze, use_fc, fc_push, dyn, het, hedge, cold,
     mode ``dup`` without ``dyn``), and under ``freeze`` alone the request
     lifecycle (``res``: timeouts, retries, shedding; none of ``dyn``,
     ``het``, ``cold``, ``hedge`` or ``dup`` beside it, as the JAX oracle
-    asserts) -- the base pull configuration is the scope of the JAX
-    package's Pallas ``event_step``, the rest its oracle's.  The chunked
-    stream is not ported."""
-    if stream:
+    asserts), and under pull alone the chunked stream (``stream``) -- the
+    base pull configuration is the scope of the JAX package's Pallas
+    ``event_step``, the rest its oracle's.  A stream of the frozen-priority
+    regime is not ported."""
+    if stream and freeze:
         return False
     if res:
         return (freeze and not use_fc
@@ -107,7 +108,8 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                    n_steps: int, freeze: bool = False, fc_push: bool = False,
                    fc_ring: int = 1, dyn: bool = False, het: bool = False,
                    cold: bool = False, hedge: bool = False, dup: bool = False,
-                   n_copies: int = 1, res: bool = False):
+                   n_copies: int = 1, res: bool = False,
+                   stream: bool = False):
     """Plain PyTorch event scan of a bucket of cells.  ``freeze`` runs the
     frozen-priority regime (:func:`freeze_scan_ref`, with or without
     ``dyn`` / ``het`` / ``cold`` / ``hedge`` / ``dup``, or with ``res``);
@@ -150,6 +152,19 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     node's speed divides it (a cold start, ``ncold``), and writes the
     call's flag (``coldq``; a call dispatched twice keeps its last).
 
+    ``stream`` scans one chunk of the chunked stream replay
+    (``repro_torch.core.streamscan``), as the JAX oracle's ``stream``
+    branch: every event at ``now >= t_stop`` (``inp["t_stop"]``, (B,))
+    defers to the next chunk, so the scan stops there with the carry as
+    it was; the queues are CSR lists, ``fnev`` (B, n+1: the rows grouped
+    by function) from ``fnst`` (B, F: each function's first entry) in place
+    of ``fn_ev``, a head's entry ``fnev[clip(fnst + head, 0, n)]``, valid
+    while ``head < qcnt`` (the carry's chunk-rebased count of each
+    function's queued calls, which an arrival adds to; ``narr`` stays
+    cumulative for RECT's first arrival).  ``aux`` then adds the final
+    carry planes ``clk`` / ``ctr``, every entry at its place in the
+    layout.
+
     Returns ``(start, finish, prio, node, aux)``, the first four ``(B,
     n+1)`` (row ``n`` is the sentinel that no-op events write; a call
     dispatched twice keeps its last dispatch) and ``aux`` empty, or with
@@ -159,6 +174,8 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     (``ncold``), evictions (``nevt``) and each row's cold-start flag
     (``coldq``, (B, n+1) bool)."""
     if freeze:
+        if stream:
+            raise ValueError("stream needs pull")
         return freeze_scan_ref(clk, ctr, inp, n_nodes=n_nodes,
                                n_slots=n_slots, window=window,
                                fc_push=fc_push, fc_ring=fc_ring,
@@ -172,11 +189,15 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     cores, nodes = inp["cores"].long(), inp["nodes"].long()
     B, n1 = t.shape
     n = n1 - 1
-    n_fns, kq = fn_ev.shape[1], fn_ev.shape[2]
+    n_fns, kq = inp["ring0"].shape[2], fn_ev.shape[2]
     dev, ft = t.device, t.dtype
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
-                          n_fns=n_fns, n1=n1, dyn=dyn, cold=cold)
+                          n_fns=n_fns, n1=n1, dyn=dyn, cold=cold,
+                          stream=stream)
     st = {k: v.clone() for k, v in layout.unpack(clk, ctr).items()}
+    if stream:
+        fnev, fnst = inp["fnev"].long(), inp["fnst"].long()
+        t_stop, qcnt = inp["t_stop"], st["qcnt"].long()
     ai = st["ai"].long()
     head = st["head"].long()
     fin_s, idx_s = st["fin_s"], st["idx_s"].long()
@@ -191,7 +212,6 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     node_ids = torch.arange(n_nodes, device=dev)[None]
     slot_ids = torch.arange(n_slots, device=dev)[None, None]
     fn_ids = torch.arange(n_fns, device=dev)[None]
-    win_ids = torch.arange(window, device=dev)[None, None]
     inf = torch.tensor(float("inf"), dtype=ft, device=dev)
     zero = torch.tensor(0.0, dtype=ft, device=dev)
     c0, c1, c2, c3 = (coef[:, i:i + 1] for i in range(4))
@@ -240,6 +260,10 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             e = (t_a > t_c).long()
             now = torch.where(t_a <= t_c, t_a, t_c)
         none_left = torch.isinf(now)
+        if stream:
+            # the chunk's horizon: an event at or past it is the next
+            # chunk's
+            none_left = none_left | (now >= t_stop)
         if bool(none_left.all()):
             break                # no event left anywhere: the carry is fixed
         off = 1 if dyn else 0
@@ -257,23 +281,22 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                 [do_kill.any(), do_re.any(), do_act.any(), do_tick.any(),
                  xq.any()]).tolist()
 
-        # -- completion: free the slot, feed the controller ring -----------
+        # -- completion: free the slot, feed the controller ring (one
+        # function's entries a cell, updated in place) ---------------------
         kn = kflat // n_slots
         ks = kflat % n_slots
         j_done = idx_s.reshape(B, -1)[rows, kflat]
         f_done = fnid[rows, j_done]
-        m_cf = (fn_ids == f_done[:, None]) & do_comp[:, None]
         pos = rpos[rows, f_done]
         v = p[rows, j_done]
         old = ring[rows, f_done, pos]
         full = rlen[rows, f_done] == window
-        rsum = torch.where(
-            m_cf, rsum + v[:, None] - torch.where(full, old, zero)[:, None],
-            rsum)
-        ring = torch.where(m_cf[:, :, None] & (win_ids == pos[:, None, None]),
-                           v[:, None, None], ring)
-        rlen = torch.where(m_cf & ~full[:, None], rlen + 1, rlen)
-        rpos = torch.where(m_cf, (rpos + 1) % window, rpos)
+        sum_f = rsum[rows, f_done]
+        rsum[rows, f_done] = torch.where(
+            do_comp, sum_f + v - torch.where(full, old, zero), sum_f)
+        ring[rows, f_done, pos] = torch.where(do_comp, v, old)
+        rlen[rows, f_done] += (do_comp & ~full).long()
+        rpos[rows, f_done] = torch.where(do_comp, (pos + 1) % window, pos)
         m_kn = (node_ids == kn[:, None]) & do_comp[:, None]
         busy = busy - m_kn.long()
         fin_s = torch.where(m_kn[:, :, None] & (slot_ids == ks[:, None, None]),
@@ -341,11 +364,13 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             i_ins = torch.where(do_arr, i_ins, ir)
         f_i = fnid[rows, i_ins]
         first = narr[rows, f_i] == 0
-        prev_used = torch.where(first, now, last_t[rows, f_i])
-        m_af = (fn_ids == f_i[:, None]) & do_arr[:, None]
-        prev_t = torch.where(m_af, prev_used[:, None], prev_t)
-        last_t = torch.where(m_af, now[:, None], last_t)
-        narr = narr + m_af.long()
+        last_f = last_t[rows, f_i]
+        prev_used = torch.where(first, now, last_f)
+        prev_t[rows, f_i] = torch.where(do_arr, prev_used, prev_t[rows, f_i])
+        last_t[rows, f_i] = torch.where(do_arr, now, last_f)
+        narr[rows, f_i] += do_arr.long()
+        if stream:
+            qcnt[rows, f_i] += do_arr.long()
         qn = qn + ((node_ids == 0) & do_ins[:, None]).long()
         ai = ai + do_arr.long()
 
@@ -353,8 +378,14 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         fs = torch.where(active, cores[:, None] - busy, -1)
         k_d = fs.argmax(1)
         est_f = torch.where(rlen > 0, rsum / rlen.clamp(min=1).to(ft), zero)
-        idx_f = fn_ev.gather(2, head.clamp(max=kq - 1)[:, :, None])[:, :, 0]
-        valid = head < narr
+        if stream:
+            # a head past its function's entries clips onto the sentinel
+            idx_f = fnev.gather(1, (fnst + head).clamp(0, n))
+            valid = head < qcnt
+        else:
+            idx_f = fn_ev.gather(2, head.clamp(max=kq - 1)[:, :, None])[:, :,
+                                                                        0]
+            valid = head < narr
         if use_fc:
             # FC window count from the static stream: calls of f among the
             # arrivals in (now - horizon, now]
@@ -429,8 +460,7 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             xq = xq & ~(m_j & pick_x[:, None])
             adv = can & ~pick_x
             rq_rt = torch.where(m_j, now[:, None], rq_rt)
-        head = head + ((fn_ids == fnid[rows, j][:, None])
-                       & adv[:, None]).long()
+        head[rows, fnid[rows, j]] += adv.long()
         if dyn and any_act:
             # the activation event stays pending while the new node can
             # take more of the queue
@@ -454,6 +484,23 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                "prov": prov.to(i32), "act_t": act_t, "dead": dead}
     if cold:
         aux.update(ncold=ncold.to(i32), nevt=nevt.to(i32), coldq=coldq)
+    if stream:
+        # the final carry, every entry (the estimator axis of length 1
+        # restored)
+        fin = {"ai": ai, "head": head, "fin_s": fin_s, "idx_s": idx_s,
+               "busy": busy, "qn": qn, "chan": chan, "ring": ring[:, None],
+               "rsum": rsum[:, None], "rlen": rlen[:, None],
+               "rpos": rpos[:, None], "last_t": last_t[:, None],
+               "prev_t": prev_t[:, None], "narr": narr[:, None],
+               "qcnt": qcnt}
+        if dyn:
+            fin.update(act_t=act_t, dead=dead, killq=killq,
+                       act_pend=act_pend, rearr=rearr, next_tick=next_tick,
+                       prov=prov, nfail=nfail, ndone=ndone, xq=xq,
+                       rq_rt=rq_rt, enq_t=enq_t)
+        if cold:
+            fin.update(freec=freec, ncold=ncold, nevt=nevt, coldq=coldq)
+        aux["clk"], aux["ctr"] = layout.pack(fin)
     return start, finish, prio, node, aux
 
 

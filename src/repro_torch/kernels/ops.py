@@ -17,6 +17,9 @@ capacity dynamics, node speeds or cold starts), ``FREEZE64_LAUNCHES`` /
 buckets with straggler hedging, steal or duplicate; their own sources),
 ``RES_LAUNCHES`` / ``RES_REF_LAUNCHES`` for its resilience instantiations
 (push buckets with timeouts, retries or shedding; their own source),
+``STREAM_LAUNCHES`` / ``STREAM_REF_LAUNCHES`` for the pull kernels' stream
+instantiations (one chunk of the chunked stream replay, float32 or float64;
+their own source),
 ``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
 ``DECODE_REF_LAUNCHES`` for the attention kernels, ``RGLRU_LAUNCHES`` /
 ``RGLRU_REF_LAUNCHES`` and ``RWKV6_LAUNCHES`` / ``RWKV6_REF_LAUNCHES`` for
@@ -57,6 +60,8 @@ HEDGE_LAUNCHES = 0
 HEDGE_REF_LAUNCHES = 0
 RES_LAUNCHES = 0
 RES_REF_LAUNCHES = 0
+STREAM_LAUNCHES = 0
+STREAM_REF_LAUNCHES = 0
 FLASH_LAUNCHES = 0
 FLASH_REF_LAUNCHES = 0
 DECODE_LAUNCHES = 0
@@ -76,6 +81,7 @@ _COUNTS = {
     "event_step_freeze64": ("FREEZE64_LAUNCHES", "FREEZE64_REF_LAUNCHES"),
     "event_step_hedge": ("HEDGE_LAUNCHES", "HEDGE_REF_LAUNCHES"),
     "event_step_res": ("RES_LAUNCHES", "RES_REF_LAUNCHES"),
+    "event_step_stream": ("STREAM_LAUNCHES", "STREAM_REF_LAUNCHES"),
     "flash_attention": ("FLASH_LAUNCHES", "FLASH_REF_LAUNCHES"),
     "decode_attention": ("DECODE_LAUNCHES", "DECODE_REF_LAUNCHES"),
     "rglru_scan": ("RGLRU_LAUNCHES", "RGLRU_REF_LAUNCHES"),
@@ -121,17 +127,21 @@ def _check_force(force) -> None:
     if force not in (None, "ref"):
         raise ValueError(f"force must be None or 'ref', not {force!r}")
 
-# carry entries in the order of ``struct Layout`` in csrc/event_step.cu
+# carry entries in the order of ``struct Layout`` in
+# csrc/event_step_pull.cuh (qcnt: a stream bucket's; absent, 0)
 EVENT_STEP_LAYOUT = ("chan", "fin_s", "last_t", "prev_t", "ring", "rsum",
                      "ai", "busy", "head", "idx_s", "narr", "qn", "rlen",
-                     "rpos")
+                     "rpos", "qcnt")
 
 # slots, nodes and functions one lane of the kernel holds in registers
 # (``PL`` in csrc/event_step.cu): up to 32 * 8 = 256 of each a cell; a wider
 # cell keeps them in device memory (the wide path)
 EVENT_STEP_PER_LANE = (1, 2, 4, 8)
-# lane-owned arrays of the wide path (``kWideArrays``)
+# lane-owned arrays of the wide path (``kWideArrays``), and those a stream
+# bucket adds (``kStreamWideArrays``: each slot's row, each node's queue
+# length, each function's qcnt)
 EVENT_STEP_WIDE_ARRAYS = 20
+EVENT_STEP_STREAM_WIDE_ARRAYS = 3
 # shared memory one block may take on sm_90 (227 KB, opted in)
 SMEM_BLOCK_BYTES = 232448
 
@@ -150,13 +160,15 @@ EVENT_STEP_FREEZE_WIDE_ARRAYS = 8
 EVENT_STEP_FREEZE_EST_ARRAYS = 7
 
 # carry entries of the float64 pull kernel, in the order of ``struct
-# DLayout`` in csrc/event_step.cu (an entry of a segment the bucket lacks
-# is 0: the dyn entries in a het or cold bucket, the cold ones without it)
+# DLayout`` in csrc/event_step_pull.cuh (an entry of a segment the bucket
+# lacks is 0: the dyn entries in a het or cold bucket, the cold ones
+# without it, qcnt outside a stream bucket)
 EVENT_STEP_DYN_LAYOUT = ("chan", "fin_s", "last_t", "prev_t", "ring", "rsum",
                          "act_t", "killq", "rearr", "next_tick", "rq_rt",
                          "enq_t", "ai", "busy", "head", "idx_s", "narr", "qn",
                          "rlen", "rpos", "dead", "act_pend", "prov", "nfail",
-                         "ndone", "xq", "freec", "ncold", "nevt", "coldq")
+                         "ndone", "xq", "freec", "ncold", "nevt", "coldq",
+                         "qcnt")
 
 # carry entries of the float64 frozen-priority kernel, in the order of
 # ``struct F64Layout`` in csrc/event_step_freeze64.cuh (an entry of a
@@ -180,9 +192,10 @@ EVENT_STEP_FREEZE64_WIDE_WORDS = (6, 12)
 EVENT_STEP_FREEZE64_PER_LANE = (1, 2)
 
 # the event-step launchers and their pointer arguments: inputs, outputs,
-# scratch, layout, dims, plan; each in csrc/event_step.cu but the hedged
-# and the resilience ones, in their own sources (``EVENT_STEP_SOURCES``),
-# which share one signature (``EVENT_STEP_F64_FAMILY_LAUNCHER`` in
+# scratch, layout, dims, plan; each in csrc/event_step.cu but the hedged,
+# the resilience and the stream ones, in their own sources
+# (``EVENT_STEP_SOURCES``); the hedged and resilience ones share one
+# signature (``EVENT_STEP_F64_FAMILY_LAUNCHER`` in
 # csrc/event_step_freeze64.cuh)
 EVENT_STEP_LAUNCHERS = {"event_step_launch": 19,
                         "event_step_freeze_launch": 20,
@@ -190,10 +203,14 @@ EVENT_STEP_LAUNCHERS = {"event_step_launch": 19,
                         "event_step_freeze64_launch": 33,
                         "event_step_hedge_launch": 46,
                         "event_step_dup_launch": 46,
-                        "event_step_res_launch": 46}
+                        "event_step_res_launch": 46,
+                        "event_step_stream_launch": 22,
+                        "event_step_dyn_stream_launch": 35}
 EVENT_STEP_SOURCES = {"event_step_hedge_launch": "event_step_hedge",
                       "event_step_dup_launch": "event_step_dup",
-                      "event_step_res_launch": "event_step_res"}
+                      "event_step_res_launch": "event_step_res",
+                      "event_step_stream_launch": "event_step_stream",
+                      "event_step_dyn_stream_launch": "event_step_stream"}
 _event_step_fns: dict = {}
 
 
@@ -227,7 +244,7 @@ def event_step_dyn_cell_bytes(staged: bool, n1: int, n_fns: int,
 
 
 def _dyn_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int, window: int,
-              dyn: bool, cold: bool) -> dict:
+              dyn: bool, cold: bool, stream: bool = False) -> dict:
     """The float64 pull kernel's plan (see :func:`event_step_plan`)."""
     nsl = n_nodes * n_slots
     per_lane = next((pl for pl in EVENT_STEP_PER_LANE if 32 * pl >= nsl),
@@ -237,9 +254,11 @@ def _dyn_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int, window: int,
     staged, cell, words = False, 0, 0
     if wide:
         per_lane = max(1, -(-nsl // 32))
+        sw = int(stream)         # a node's qn, a function's qcnt
         words = (2 * _round_up(n_fns * window, 2)
-                 + 32 * (3 * per_lane + 11 * -(-n_nodes // 32)
-                         + 16 * -(-n_fns // 32)) + _round_up(n_free, 2))
+                 + 32 * (3 * per_lane + (11 + sw) * -(-n_nodes // 32)
+                         + (16 + sw) * -(-n_fns // 32))
+                 + _round_up(n_free, 2))
     else:
         staged = event_step_dyn_cell_bytes(True, n1, n_fns, window,
                                            n_free) <= SMEM_BLOCK_BYTES
@@ -320,7 +339,8 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
                     fc_ring: int = 1, f64: bool = False,
                     dyn: bool = False, cold: bool = False,
                     hedge: bool = False, dup: bool = False,
-                    n_copies: int = 1, res: bool = False) -> dict:
+                    n_copies: int = 1, res: bool = False,
+                    stream: bool = False) -> dict:
     """How the kernel runs a bucket of this shape, from the shape alone:
     the pull kernel's plan, with ``freeze`` the frozen-priority kernel's
     (whose push FC rings, ``fc_push``, take ``fc_ring`` entries), with
@@ -369,12 +389,17 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     shared memory) keeps what its lanes own (``per_lane`` = ceil(widest /
     32)) in the scratch too, so every width is taken.  The push FC rings
     are always in the scratch.  ``scratch_words``: the scratch's 32-bit
-    words a cell."""
+    words a cell.  A pull ``stream`` bucket's wide path keeps more there:
+    ``EVENT_STEP_STREAM_WIDE_ARRAYS`` arrays in float32, a word a node and
+    a function in float64."""
+    if stream and freeze:
+        raise NotImplementedError("a stream bucket is pull")
     if f64 and freeze:
         return _freeze64_plan(n1, n_nodes, n_slots, n_fns, window, fc_push,
                               fc_ring, dyn, cold, hedge, dup, n_copies, res)
     if f64:
-        return _dyn_plan(n1, n_nodes, n_slots, n_fns, window, dyn, cold)
+        return _dyn_plan(n1, n_nodes, n_slots, n_fns, window, dyn, cold,
+                         stream)
     if freeze:
         widest = max(n_nodes * n_slots, n_nodes)
     else:
@@ -404,10 +429,11 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
                                                     window),
                 "scratch_words": 0}
     per_lane = max(1, -(-widest // 32))
+    arrays = EVENT_STEP_WIDE_ARRAYS + (EVENT_STEP_STREAM_WIDE_ARRAYS
+                                       if stream else 0)
     return {"per_lane": per_lane, "wide": True, "staged": False,
             "cell_bytes": 0,
-            "scratch_words": (EVENT_STEP_WIDE_ARRAYS * 32 * per_lane
-                              + n_fns * window)}
+            "scratch_words": arrays * 32 * per_lane + n_fns * window}
 
 
 def event_step_freeze_est_words(n_nodes: int, n_fns: int,
@@ -487,9 +513,11 @@ def _bucket_args(clk, ctr, inp, layout, ncoef: int,
 
 
 def _launch_event_step(name: str, args: list, order: tuple, layout, dims,
-                       plan_c, plan: dict, horizon: float):
-    """Launch ``name`` of csrc/event_step.cu on ``args``: zero-filled
-    outputs (start, finish, prio float32; node int32), the scratch of
+                       plan_c, plan: dict, horizon: float,
+                       planes_out: tuple = ()):
+    """Launch ``name`` of csrc/event_step.cu (or its source) on ``args``:
+    zero-filled outputs (start, finish, prio float32; node int32), then
+    ``planes_out`` (a stream launch's final carry planes), the scratch of
     ``plan["scratch_words"]`` words a cell (the kernel fills it), the
     carry offsets in ``order`` (an entry the layout lacks is 0), the dims
     and the plan; raises on a CUDA error."""
@@ -498,6 +526,7 @@ def _launch_event_step(name: str, args: list, order: tuple, layout, dims,
     outs = [torch.zeros(B, n1, dtype=torch.float32, device=dev)
             for _ in range(3)]
     outs.append(torch.zeros(B, n1, dtype=torch.int32, device=dev))
+    outs += list(planes_out)
     scratch = (torch.empty(B * plan["scratch_words"], dtype=torch.int32,
                            device=dev)
                if plan["scratch_words"] else None)
@@ -515,29 +544,53 @@ def _launch_event_step(name: str, args: list, order: tuple, layout, dims,
     return tuple(outs)
 
 
+def _stream_args(inp, B: int, n1: int, n_fns: int, f: torch.dtype,
+                 dev) -> list:
+    """A stream bucket's CSR queue lists and horizons, checked."""
+    i32 = torch.int32
+    return [_checked(inp["fnev"], "fnev", i32, (B, n1), dev),
+            _checked(inp["fnst"], "fnst", i32, (B, n_fns), dev),
+            _checked(inp["t_stop"], "t_stop", f, (B,), dev)]
+
+
 def _event_step_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
-                     horizon, n_steps):
+                     horizon, n_steps, stream=False):
     dev = clk.device
     B, n1 = inp["t"].shape
-    n_fns, kq = inp["fn_ev"].shape[1], inp["fn_ev"].shape[2]
+    n_fns, kq = inp["ring0"].shape[2], inp["fn_ev"].shape[2]
     nc, ncoef = inp["cumf"].shape[1], inp["coef"].shape[1]
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
-                          n_fns=n_fns)
+                          n_fns=n_fns, stream=stream)
     if use_fc and nc != n1:
         raise ValueError(f"use_fc needs cumf rows = {n1}, got {nc}")
-    args = _bucket_args(clk, ctr, inp, layout, ncoef) + [
-        _checked(inp["cumf"], "cumf", torch.float32, (B, nc, n_fns), dev),
-        _checked(inp["fn_ev"], "fn_ev", torch.int32, (B, n_fns, kq), dev),
-    ]
+    args = _bucket_args(clk, ctr, inp, layout, ncoef)
+    if stream:
+        kq = 1
+        args += _stream_args(inp, B, n1, n_fns, torch.float32, dev)
+    else:
+        args += [
+            _checked(inp["cumf"], "cumf", torch.float32, (B, nc, n_fns),
+                     dev),
+            _checked(inp["fn_ev"], "fn_ev", torch.int32, (B, n_fns, kq),
+                     dev),
+        ]
     plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
-                           n_fns=n_fns, window=window)
+                           n_fns=n_fns, window=window, stream=stream)
     dims = (ctypes.c_int * 13)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
                                kq, nc, ncoef, layout.f_len, layout.i_len,
                                int(bool(use_fc)), n_steps)
     plan_c = (ctypes.c_int * 4)(plan["per_lane"], int(plan["staged"]),
                                 plan["cell_bytes"], plan["scratch_words"])
-    return _launch_event_step("event_step_launch", args, EVENT_STEP_LAYOUT,
-                              layout, dims, plan_c, plan, horizon)
+    if not stream:
+        return (*_launch_event_step("event_step_launch", args,
+                                    EVENT_STEP_LAYOUT, layout, dims, plan_c,
+                                    plan, horizon), {})
+    # the final planes start as copies: the kernel writes every entry back
+    planes = (args[0].clone(), args[1].clone())
+    out = _launch_event_step("event_step_stream_launch", args,
+                             EVENT_STEP_LAYOUT, layout, dims, plan_c, plan,
+                             horizon, planes)
+    return (*out[:4], {"clk": out[4], "ctr": out[5]})
 
 
 def _event_step_freeze_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
@@ -568,14 +621,15 @@ def _event_step_freeze_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
 
 
 def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
-                         horizon, n_steps, dyn, het, cold):
+                         horizon, n_steps, dyn, het, cold, stream=False):
     dev = clk.device
     B, n1 = inp["t"].shape
-    n_fns, kq = inp["fn_ev"].shape[1], inp["fn_ev"].shape[2]
+    n_fns, kq = inp["ring0"].shape[2], inp["fn_ev"].shape[2]
     ncoef = inp["coef"].shape[1]
     f64, i32 = torch.float64, torch.int32
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
-                          n_fns=n_fns, n1=n1, dyn=dyn, cold=cold)
+                          n_fns=n_fns, n1=n1, dyn=dyn, cold=cold,
+                          stream=stream)
     if dyn and ncoef < 5:
         raise ValueError(f"dyn needs 5 coef columns, got {ncoef}")
     nc = inp["cumf"].shape[1]
@@ -586,8 +640,14 @@ def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
     def opt(on, key, dtype, shape):
         return _checked(inp[key], key, dtype, shape, dev) if on else None
 
-    args = _bucket_args(clk, ctr, inp, layout, ncoef, f64) + [
-        _checked(inp["fn_ev"], "fn_ev", i32, (B, n_fns, kq), dev),
+    args = _bucket_args(clk, ctr, inp, layout, ncoef, f64)
+    if stream:
+        kq = 1
+        args += _stream_args(inp, B, n1, n_fns, f64, dev)
+    else:
+        args.append(_checked(inp["fn_ev"], "fn_ev", i32, (B, n_fns, kq),
+                             dev))
+    args += [
         opt(dyn, "dynp", f64, (B, 5)), opt(dyn, "maxn", i32, (B,)),
         opt(dyn, "nreq", i32, (B,)),
         opt(het, "spd", f64, (B, n_nodes)), opt(het, "epn", i32, (B, n_ep)),
@@ -596,7 +656,7 @@ def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
     ]
     plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
                            n_fns=n_fns, window=window, f64=True, dyn=dyn,
-                           cold=cold)
+                           cold=cold, stream=stream)
     outs = [torch.zeros(B, n1, dtype=f64, device=dev) for _ in range(3)]
     outs.append(torch.zeros(B, n1, dtype=i32, device=dev))
     summ = act = dead = csum = coldq = None
@@ -621,15 +681,21 @@ def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
     plan_c = (ctypes.c_int * 5)(plan["per_lane"], int(plan["staged"]),
                                 int(plan["wide"]), plan["cell_bytes"],
                                 plan["scratch_words"])
-    fn = _event_step_lib("event_step_dyn_launch")
+    name = ("event_step_dyn_stream_launch" if stream
+            else "event_step_dyn_launch")
+    # a stream launch's final planes start as copies: the kernel writes
+    # every entry back
+    planes = [args[0].clone(), args[1].clone()] if stream else []
+    fn = _event_step_lib(name)
     ptrs = [None if x is None else x.data_ptr()
-            for x in args + outs + [summ, act, dead, csum, coldq, scratch]]
+            for x in args + outs + [summ, act, dead, csum, coldq] + planes
+            + [scratch]]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cu_stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, ctypes.addressof(lay), ctypes.addressof(dims),
-                 ctypes.addressof(plan_c), float(horizon), stream)
+                 ctypes.addressof(plan_c), float(horizon), cu_stream)
     if err != 0:
-        raise RuntimeError(f"event_step_dyn_launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
     aux = {}
     if dyn:
         aux = {"nfail": summ[:, 0], "ndone": summ[:, 1], "prov": summ[:, 2],
@@ -637,6 +703,8 @@ def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
     if cold:
         aux.update(ncold=csum[:, 0], nevt=csum[:, 1],
                    coldq=coldq.to(torch.bool))
+    if stream:
+        aux.update(clk=planes[0], ctr=planes[1])
     return (*outs, aux)
 
 
@@ -787,6 +855,12 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     (B, n+1), and with ``res`` its ``nto``, ``nsh``, ``nrt``, ``ndn``,
     ``stepc`` (B,), ``wst`` (B,; float64) and ``nfl``, ``fcz``, ``ratt``
     (B, n+1) (``event_step.event_step_ref``).
+    ``stream`` (pull only) scans one chunk of the chunked stream replay
+    (``repro_torch.core.streamscan``) through the pull kernels' stream
+    instantiations (csrc/event_step_stream.cu), counted apart as
+    ``event_step_stream``: ``inp`` has ``fnev`` / ``fnst`` / ``t_stop``
+    in place of ``fn_ev``, and ``aux`` adds the final carry planes
+    ``clk`` / ``ctr``.
     The kernel keeps the FC counts itself from ``t`` and ``fnid`` and does
     not read ``cumf``, which must equal ``event_step.fc_prefix_counts`` of
     them (their prefix count over the real rows), as the bucket runner
@@ -800,20 +874,21 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     global KERNEL_LAUNCHES, REF_LAUNCHES, FREEZE_LAUNCHES, FREEZE_REF_LAUNCHES
     global DYN_LAUNCHES, DYN_REF_LAUNCHES, FREEZE64_LAUNCHES
     global FREEZE64_REF_LAUNCHES, HEDGE_LAUNCHES, HEDGE_REF_LAUNCHES
-    global RES_LAUNCHES, RES_REF_LAUNCHES
+    global RES_LAUNCHES, RES_REF_LAUNCHES, STREAM_LAUNCHES
+    global STREAM_REF_LAUNCHES
     _check_force(force)
     if not event_step_supported(use_fc=use_fc, **flags):
         raise NotImplementedError(
             "event_step covers the pull and the frozen-priority regimes, "
             "with or without dyn / het / cold, and hedge / dup (dup "
-            "without dyn) or res (alone) under the frozen-priority regime; "
-            "no stream, no pull FC counts under freeze, no push FC rings "
-            "under pull")
+            "without dyn) or res (alone) under the frozen-priority regime, "
+            "and stream under pull; no stream under freeze, no pull FC "
+            "counts under freeze, no push FC rings under pull")
     freeze, fc_push = bool(flags.get("freeze")), bool(flags.get("fc_push"))
     dyn, het = bool(flags.get("dyn")), bool(flags.get("het"))
     cold, hedge = bool(flags.get("cold")), bool(flags.get("hedge"))
     dup, n_copies = bool(flags.get("dup")), int(flags.get("n_copies", 1))
-    res = bool(flags.get("res"))
+    res, stream = bool(flags.get("res")), bool(flags.get("stream"))
     f64 = dyn or het or cold or hedge or res
     static = dict(n_nodes=n_nodes, n_slots=n_slots, window=window,
                   horizon=horizon, n_steps=n_steps)
@@ -821,8 +896,11 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
         out = event_step_ref(clk, ctr, inp, use_fc=use_fc, freeze=freeze,
                              fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
                              het=het, cold=cold, hedge=hedge, dup=dup,
-                             n_copies=n_copies, res=res, **static)
-        if res:
+                             n_copies=n_copies, res=res, stream=stream,
+                             **static)
+        if stream:
+            STREAM_REF_LAUNCHES += 1
+        elif res:
             RES_REF_LAUNCHES += 1
         elif hedge:
             HEDGE_REF_LAUNCHES += 1
@@ -854,12 +932,18 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
         return (*out, {})
     if f64:
         out = _event_step_dyn_cuda(clk, ctr, inp, use_fc=use_fc, dyn=dyn,
-                                   het=het, cold=cold, **static)
+                                   het=het, cold=cold, stream=stream,
+                                   **static)
+    else:
+        out = _event_step_cuda(clk, ctr, inp, use_fc=use_fc, stream=stream,
+                               **static)
+    if stream:
+        STREAM_LAUNCHES += 1
+    elif f64:
         DYN_LAUNCHES += 1
-        return out
-    out = _event_step_cuda(clk, ctr, inp, use_fc=use_fc, **static)
-    KERNEL_LAUNCHES += 1
-    return (*out, {})
+    else:
+        KERNEL_LAUNCHES += 1
+    return out
 
 
 def flash_attention(q, k, v, *, causal=True, window=-1, softmax_scale=None,

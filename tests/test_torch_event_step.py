@@ -203,20 +203,22 @@ def test_supported_matrix_equals_jax():
     racing copies ``dup`` without ``dyn``; ``tests/test_torch_hedge_
     scan.py``) -- and the pull regime with ``dyn``, ``het`` and ``cold``,
     with or without FC counts (``tests/test_torch_dyn_scan.py``,
-    ``tests/test_torch_cold_scan.py``).  Hedging under pull and the
-    chunked stream stay out."""
-    others = ("hedge", "dup", "stream")
+    ``tests/test_torch_cold_scan.py``), each with or without the chunked
+    stream (``tests/test_torch_stream_scan.py``).  Hedging under pull and
+    the stream of the frozen-priority regime stay out."""
+    others = ("hedge", "dup")
     for bits in itertools.product([False, True], repeat=len(FEATURES) + 2):
         flags = dict(zip(FEATURES + ("use_fc", "stream"), bits))
         frozen = (flags["freeze"] and not flags["use_fc"]
                   and not flags["stream"]
                   and (not flags["dup"]
                        or (flags["hedge"] and not flags["dyn"])))
-        pull64 = (not flags["freeze"] and not flags["fc_push"]
-                  and (flags["dyn"] or flags["het"] or flags["cold"])
-                  and not any(flags[k] for k in others))
-        assert event_step_supported(**flags) == (jax_supported(**flags)
-                                                 or frozen or pull64), flags
+        pull = (not flags["freeze"] and not flags["fc_push"]
+                and not any(flags[k] for k in others))
+        pull64 = pull and (flags["dyn"] or flags["het"] or flags["cold"])
+        pull_stream = pull and flags["stream"]
+        assert event_step_supported(**flags) == (
+            jax_supported(**flags) or frozen or pull64 or pull_stream), flags
 
 
 def _freeze64_equals_jax(feat):
@@ -292,6 +294,10 @@ def test_unsupported_flags_raise(feat):
         # segment, still not ported, it raises
         _freeze64_equals_jax(feat)
         flags.update(freeze=True, res=True)
+    if feat == "stream":
+        # the chunked stream is in scope under pull; a stream of the
+        # frozen-priority regime is not ported
+        flags["freeze"] = True
     with pytest.raises(NotImplementedError):
         tops.event_step(clk_t, ctr_t, tens, **{**static, **flags})
 

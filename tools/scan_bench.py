@@ -2,8 +2,10 @@
 
     python3 tools/scan_bench.py [--src DIR]
                                 [--mode scans|event_step|freeze|dyn|
-                                        freeze64|hedge|res|sweep|serve]
+                                        freeze64|hedge|res|stream|sweep|
+                                        serve]
                                 [--profile] [--repeat N] [--arch ARCH]
+                                [--invocations N]
 
 Imports ``repro_torch`` from DIR (default: the ``src`` of the checkout
 this script is in), builds its kernels, and prints one JSON line per case
@@ -55,6 +57,15 @@ storm's bucket, FC with backoff and shedding at intensity 40, the home
 balancer with immediate retries, an absolute timeout, one node, 3 x 24
 cores): ``ms`` and ``ns_per_step`` (over the longest cell's steps, which
 the kernel counts).  DIR must have resilience.
+
+``--mode stream``: the chunked stream replay on the planet fleet as
+``chip_smoke.py`` runs it (``chip_smoke.planet_fleet``: 10,000 functions,
+96 nodes autoscaling to 128, chunk 4,096) over the first
+``--invocations`` invocations (default 32,768): one JSON line with the
+replay's invocations/s and chunks, and the stream kernel's ``ms`` on the
+first chunk past half the prefix (its start planes replayed 3 times, after
+one check against the plain version) with ``ns_per_step`` over its
+arrivals and completions.  DIR must have the stream.
 
 ``--mode sweep``: the sweep's main path as ``chip_smoke.py`` runs it
 (``chip_smoke.main_sweep``, 2,000 cells), once on one seed to warm up and
@@ -364,6 +375,28 @@ def res_cases(chip_smoke):
                      ops.event_step(clk, ctr, inp, **static))
 
 
+def stream_case(chip_smoke, invocations: int) -> dict:
+    """``--mode stream``'s numbers: the planet prefix's replay, then the
+    stream kernel on its first chunk past half the prefix."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    half = invocations // 2
+    cap, res = chip_smoke.capture_chunk(
+        chip_smoke.planet_model().stream(chip_smoke.PLANET_SEED,
+                                         max_invocations=invocations),
+        dev, chip_smoke.PLANET_CHUNK, lambda i, before: before >= half,
+        **chip_smoke.planet_fleet())
+    row = chip_smoke.check_stream("planet", cap, len(res.fns), dev)
+    return {"kernel": "event_step_stream", "case": "planet",
+            "invocations": res.n, "chunks": res.chunks,
+            "invocations_per_s": res.n / res.wall_s, "wall_s": res.wall_s,
+            "chunk": row["chunk"], "n_b": row["n_b"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "ns_per_step": row["ns_per_step"],
+            "bound_ms": row["bound_ms"], "max_abs_err": row["max_abs_err"],
+            "launches": ops.launches()["event_step_stream"]}
+
+
 def serve_case(chip_smoke, arch: str) -> dict:
     """``--mode serve``'s numbers for ``arch`` on the imported tree."""
     from repro_torch.models import decode_step, init_cache
@@ -403,8 +436,10 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--mode", choices=("scans", "event_step", "freeze",
                                        "dyn", "freeze64", "hedge", "res",
-                                       "sweep", "serve"),
+                                       "stream", "sweep", "serve"),
                     default="scans")
+    ap.add_argument("--invocations", type=int, default=1 << 15,
+                    help="the planet prefix replayed (--mode stream)")
     ap.add_argument("--arch", default="qwen3_1_7b",
                     help="the arch served (--mode serve)")
     ap.add_argument("--repeat", type=int, default=3,
@@ -427,6 +462,10 @@ def main() -> int:
         print(json.dumps({"src": args.src} | serve_case(chip_smoke,
                                                         args.arch)),
               flush=True)
+        return 0
+    if args.mode == "stream":
+        print(json.dumps({"src": args.src} | stream_case(
+            chip_smoke, args.invocations)), flush=True)
         return 0
     if args.mode == "sweep":
         dev = torch.device("cuda")
