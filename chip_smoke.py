@@ -2001,11 +2001,13 @@ PLANET_FNS = 10_000
 PLANET_TAIL_ALPHA = 0.7
 PLANET_RATE_SCALE = 40.0
 PLANET_CHUNK = 4096
-# the two planet replays together should take about this long; a card that
+# the two planet replays together should take about this long (45 s since
+# phase 3i joined the run, which should stay under ~800 s); a card that
 # would take longer replays the first cut of PLANET_CUTS that fits, and
 # says so
-PLANET_BUDGET_S = 90.0
-PLANET_CUTS = ((1 << 20, 1 << 19), (1 << 18, 1 << 17), (1 << 16, 1 << 15))
+PLANET_BUDGET_S = 45.0
+PLANET_CUTS = ((1 << 20, 1 << 19), (1 << 18, 1 << 17), (1 << 16, 1 << 15),
+               (1 << 15, 1 << 14))
 # the materialized prefixes held to the whole-burst scan (planet_rows)
 PLANET_PREFIXES = (2_000, 5_000, 8_000)
 # the mid-stream chunk checked: the first one after this many invocations
@@ -2034,16 +2036,16 @@ def planet_fleet() -> dict:
 
 def capture_chunk(stream, dev, chunk: int, pick, **kw) -> tuple[dict, object]:
     """Replay ``stream`` on the card and keep a copy of the first chunk that
-    ``pick(index, invocations before it)`` takes: its inputs, start planes
-    and static arguments, as ``ops.event_step`` gets them.  Returns the
-    chunk and the replay's result."""
+    ``pick(index, invocations before it, static arguments)`` takes: its
+    inputs, start planes and static arguments, as ``ops.event_step`` gets
+    them.  Returns the chunk and the replay's result."""
     from repro_torch.core import streamscan
 
     done = [0]
     got: dict = {}
 
     def hook(i, inp, clk, ctr, static):
-        if not got and pick(i, done[0]):
+        if not got and pick(i, done[0], static):
             got.update(index=i, before=done[0], static=dict(static),
                        inp={k: v.clone() for k, v in inp.items()},
                        clk=clk.clone(), ctr=ctr.clone())
@@ -2197,15 +2199,17 @@ def materialized(model, k: int) -> list:
     return reqs
 
 
-def planet_prefixes(model, dev) -> list[dict]:
+def planet_prefixes(model, dev, fleet: dict | None = None,
+                    prefixes=PLANET_PREFIXES) -> list[dict]:
     """Stream against whole-burst scan on the card, on the planet's
-    materialized prefixes (benchmarks/engine_bench.py::planet_rows): the
-    counters exact, every call's start and finish equal."""
+    materialized prefixes (benchmarks/engine_bench.py::planet_rows) on
+    ``fleet`` (the pull fleet by default): the counters exact, every call's
+    start and finish equal."""
     from repro_torch.core import streamscan
 
-    fleet = planet_fleet()
+    fleet = fleet or planet_fleet()
     out = []
-    for k in PLANET_PREFIXES:
+    for k in prefixes:
         reqs = materialized(model, k)
         t0 = time.perf_counter()
         ref = fastpath.simulate_cluster_scan(
@@ -2219,7 +2223,8 @@ def planet_prefixes(model, dev) -> list[dict]:
         t_stream = time.perf_counter() - t0
         for key, want in (("failures", ref.failures),
                           ("cold_starts", ref.cold_starts),
-                          ("evictions", ref.evictions)):
+                          ("evictions", ref.evictions),
+                          ("backups_issued", ref.backups_issued)):
             if pr.counters[key] != want:
                 raise AssertionError(f"planet prefix {k}: {key} stream "
                                      f"{pr.counters[key]}, whole {want}")
@@ -2236,30 +2241,34 @@ def planet_prefixes(model, dev) -> list[dict]:
     return out
 
 
-def planet_replay(model, n_inv: int, dev) -> dict:
+def planet_replay(model, n_inv: int, dev, fleet: dict | None = None,
+                  kernel: str = "event_step_stream",
+                  label: str = "planet replay") -> dict:
     """The planet replay, the main path of the stream: ``n_inv``
-    invocations at chunk PLANET_CHUNK, every count set to 0 just before and
-    read just after (the stream kernel launched, no plain version and no
-    other kernel); every call served, R_avg and R_p95 finite."""
+    invocations at chunk PLANET_CHUNK on ``fleet`` (the pull fleet by
+    default), every count set to 0 just before and read just after (the
+    stream kernel ``kernel`` launched, no plain version and no other
+    kernel); every call served, R_avg and R_p95 finite."""
     from repro_torch.core import streamscan
 
     timings: dict = {}
+    log: list = []
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = streamscan.simulate_cluster_stream(
         model.stream(PLANET_SEED, max_invocations=n_inv), chunk=PLANET_CHUNK,
-        device=dev, timings=timings, **planet_fleet())
+        device=dev, timings=timings, chunk_log=log,
+        **(fleet or planet_fleet()))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launches()
-    st = counts["event_step_stream"]
+    st = counts[kernel]
     if (st["kernel"] == 0 or any(v["plain"] for v in counts.values())
-            or any(v["kernel"] for k, v in counts.items()
-                   if k != "event_step_stream")):
-        raise AssertionError(f"planet replay launches: {counts}")
+            or any(v["kernel"] for k, v in counts.items() if k != kernel)):
+        raise AssertionError(f"{label} launches: {counts}")
     if res.n != n_inv or not np.isfinite(res.finish).all():
-        raise AssertionError(f"planet replay of {n_inv}: {res.n} calls, "
+        raise AssertionError(f"{label} of {n_inv}: {res.n} calls, "
                              f"{int(np.isnan(res.finish).sum())} unserved")
     s = res.summary()
     out = {"invocations": res.n, "chunks": res.chunks,
@@ -2270,19 +2279,71 @@ def planet_replay(model, n_inv: int, dev) -> dict:
            "launches": st["kernel"], "plain_launches": st["plain"],
            "nodes_used": res.nodes_used, "R_avg": s["mean_resp"],
            "R_p95": float(np.percentile(res.resp, 95)), "R_p99": s["p99"],
-           "sim_hours": float(res.t[-1] - res.t[0]) / 3600.0}
+           "sim_hours": float(res.t[-1] - res.t[0]) / 3600.0,
+           "rows": row_shape_check(res, log, PLANET_CHUNK, label)}
     for k in ("R_avg", "R_p95"):
         if not math.isfinite(out[k]):
-            raise AssertionError(f"planet replay: {k}={out[k]}")
-    print(f"planet replay: {res.n} invocations in {wall:.3f} s = "
+            raise AssertionError(f"{label}: {k}={out[k]}")
+    print(f"{label}: {res.n} invocations in {wall:.3f} s = "
           f"{out['invocations_per_s']:.1f} invocations/s, {res.chunks} "
           f"chunks, peak_rows {res.peak_rows}, peak_bytes {res.peak_bytes} "
           f"(fill {timings['fill_s']:.3f} s, device "
           f"{timings['device_s']:.3f} s = {out['device_share']:.1%} of the "
-          f"wall); stream kernel launches {st['kernel']}, plain launches "
+          f"wall); {kernel} kernel launches {st['kernel']}, plain launches "
           f"{st['plain']}; nodes_used {res.nodes_used}, R_avg "
-          f"{out['R_avg']:.4f} s, R_p95 {out['R_p95']:.4f} s", flush=True)
+          f"{out['R_avg']:.4f} s, R_p95 {out['R_p95']:.4f} s; rows: "
+          f"{json.dumps(out['rows'])}", flush=True)
     return out
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def row_shape_check(res, log: list, chunk: int, label: str) -> dict:
+    """The memory evidence of a replay of a policy without FC history rows
+    (SEPT), from its ``chunk_log``: each chunk's carried rows are the calls
+    that the replay's own finishes put in flight at the horizon before it
+    (arrived by then, finishing at or after it: running or queued), its
+    fresh slice is the target that the budget and the carried rows leave
+    (longer only across a run of equal arrival times; the last chunk takes
+    what is left), its row shape the least power of two over its rows,
+    never shrinking, and peak_rows the largest shape.  So the rows a chunk
+    holds are the budget or the calls in flight, whatever the stream's
+    length.  Raises on the first chunk that breaks a rule; returns the
+    peak and the chunk that set it."""
+    budget, floor = _pow2(chunk), max(_pow2(chunk) // 8, 1)
+    if res.peak_rows != max(c["n_b"] for c in log) or log[-1]["invocations"] \
+            != res.n:
+        raise AssertionError(f"{label}: peak_rows {res.peak_rows}, chunk "
+                             f"log {log}")
+    n_b, before, peak = 0, 0, None
+    for k, c in enumerate(log):
+        in_flight = 0
+        if k:
+            prev = log[k - 1]
+            in_flight = int(np.count_nonzero(
+                res.finish[:prev["invocations"]] >= prev["t_stop"]))
+        want = max(max(budget, n_b) - c["carried"], floor)
+        rows = c["history"] + c["carried"] + c["fresh"]
+        tie = (c["fresh"] > want and res.t[before + c["fresh"] - 1]
+               == res.t[before + want - 1])
+        if (c["history"] or c["carried"] != in_flight
+                or c["invocations"] != before + c["fresh"]
+                or (not c["final"] and (c["target"] != want or not (
+                    c["fresh"] == want or tie)))
+                or c["n_b"] != max(n_b, _pow2(rows))):
+            raise AssertionError(
+                f"{label}: chunk {k} breaks the row rule: {c} (calls in "
+                f"flight at its horizon {in_flight}, target {want}, row "
+                f"shape before {n_b})")
+        if c["n_b"] > n_b:
+            peak = {"chunk": k, "rows": rows, "carried": c["carried"],
+                    "fresh": c["fresh"]}
+        n_b, before = c["n_b"], c["invocations"]
+    return {"peak_rows": n_b, "set_by": peak,
+            "max_carried": max(c["carried"] for c in log),
+            "budget": budget}
 
 
 def stream_paths(dev) -> dict:
@@ -2302,26 +2363,27 @@ def stream_paths(dev) -> dict:
     caps = {}
     caps["planet_first_512"], _ = capture_chunk(
         model.stream(PLANET_SEED, max_invocations=1024), dev, 512,
-        lambda i, before: True, **fleet)
+        lambda i, before, st: True, **fleet)
     t0 = time.perf_counter()
     caps["planet_mid"], mid_res = capture_chunk(
         model.stream(PLANET_SEED, max_invocations=PLANET_MID
                      + 2 * PLANET_CHUNK), dev, PLANET_CHUNK,
-        lambda i, before: before >= PLANET_MID, **fleet)
+        lambda i, before, st: before >= PLANET_MID, **fleet)
     probe_rate = mid_res.n / (time.perf_counter() - t0)
     checks = {k: check_stream(k, c, nf, dev) for k, c in caps.items()}
     for policy in ("sept", "fc"):
         c = sweep.SweepCell(policy=policy, nodes=2, cores=4, intensity=60,
                             seed=0, workload_cores=8)
         stream, _ = streamscan.stream_from_requests(sweep.make_workload(c))
-        cap, _ = capture_chunk(stream, dev, 256, lambda i, before: i == 1,
-                               nodes=2, cores_per_node=4, policy=policy)
+        cap, _ = capture_chunk(stream, dev, 256,
+                               lambda i, before, st: i == 1, nodes=2,
+                               cores_per_node=4, policy=policy)
         checks[f"static_{policy}_2x4"] = check_stream(
             f"static {policy} 2 x 4", cap, len(stream.fns), dev)
     c = next(c for c in cold_pull_cells()
              if c.policy == "fc" and c.intensity == 96)
     stream, _ = streamscan.stream_from_requests(sweep.make_workload(c))
-    cap, _ = capture_chunk(stream, dev, 1024, lambda i, before: i == 1,
+    cap, _ = capture_chunk(stream, dev, 1024, lambda i, before, st: i == 1,
                            nodes=c.nodes, cores_per_node=c.cores,
                            policy="fc", warm=False)
     checks["cold_fc_v96"] = check_stream("cold matrix fc v96", cap,
@@ -2387,6 +2449,322 @@ def stream_paths(dev) -> dict:
                                          "plan")}
                   for k, r in checks.items()},
         "planet": {"full": full, "half": half, "probe_rate": probe_rate}}
+
+
+# -- 3i: the chunked stream replay on push and one node ----------------------
+# the planet fleet under push (the OpenWhisk shape: the controller pushes
+# each call to an invoker, which queues it by its own estimator):
+# planet_fleet() with assignment="push", least-loaded (the one balancer the
+# JAX package streams with capacity dynamics)
+PLANET_PUSH_PREFIXES = (2_000, 5_000)
+# the push replays climb a ladder of power-of-two cuts from 2^12: the next
+# rung is run while it and the last one (about three times the last's
+# time) should fit PLANET_PUSH_BUDGET_S; the last two rungs are the replay
+# and its half
+PLANET_PUSH_BUDGET_S = 25.0
+PLANET_PUSH_LADDER = tuple(1 << k for k in range(12, 21))
+
+
+def planet_push_fleet() -> dict:
+    return dict(planet_fleet(), assignment="push", lb="least_loaded")
+
+
+def freeze_chunk_rows(inp, st0: dict) -> dict:
+    """A frozen-priority chunk's rows: carried (in flight at the boundary:
+    running, queued, waiting to re-arrive or to retry) and fresh; such a
+    chunk has no history rows."""
+    t = inp["t"][0].cpu().numpy()
+    n_rows = int(np.isfinite(t).sum())
+    ai0 = int(st0["ai"][0])
+    live = np.zeros(t.shape[0], dtype=bool)
+    live[st0["idx_s"][0][np.isfinite(st0["fin_s"][0])]] = True
+    live |= st0["pend"][0].astype(bool)
+    for k in ("rearr", "rto"):
+        if k in st0:
+            live |= np.isfinite(st0[k][0])
+    carried = int(live[:ai0].sum())
+    return {"rows": n_rows, "history": ai0 - carried, "carried": carried,
+            "fresh": n_rows - ai0}
+
+
+def check_freeze_stream(case: str, cap: dict, n_fns: int, dev) -> dict:
+    """A frozen-priority kernel's stream instantiation against the plain
+    version on the card, from one handed-off chunk's start planes: rows
+    [:n] of start, finish, prio and node, the summary and the final carry
+    planes bit-identical (``max_abs_err`` over all of them); then its time,
+    ns an event step (the kernel's own count under hedging and res, else
+    the chunk's arrivals, completions and twice its lost calls), the plain
+    version's time (the comparison run), the plan and the bound of the
+    chunk's work (``n_fns``: the stream's functions, whatever the padded
+    width)."""
+    inp, clk, ctr, static = cap["inp"], cap["clk"], cap["ctr"], cap["static"]
+    n1 = inp["t"].shape[1]
+    plain = []                       # the plain version, run once
+    plain_ms = time_call(lambda: plain.append(ops.event_step(
+        clk, ctr, inp, force="ref", **static)), reps=1, warmup=False)
+    ref = plain[0]
+    k0 = ops.FREEZE_STREAM_LAUNCHES
+    got = ops.event_step(clk, ctr, inp, **static)
+    torch.cuda.synchronize()
+    if ops.FREEZE_STREAM_LAUNCHES != k0 + 1:
+        raise AssertionError(f"{case}: event_step did not launch the "
+                             "frozen-priority stream kernel")
+    err = 0.0
+    pairs = [(name, a[:, :n1 - 1], b[:, :n1 - 1]) for name, a, b in zip(
+        ("start", "finish", "prio", "node"), ref, got)]
+    if ref[4].keys() != got[4].keys():
+        raise AssertionError(f"{case}: summaries of different keys")
+    pairs += [(k, ref[4][k], got[4][k]) for k in ref[4]]
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:5].tolist()
+            raise AssertionError(f"freeze stream event_step {name} differs "
+                                 f"from the plain version ({case}) at {bad}")
+        d = (a.double() - b.double()).abs()
+        if a.is_floating_point():
+            d = d[torch.isfinite(a)]       # equal infinities differ by nan
+        if d.numel():
+            err = max(err, float(d.max()))
+    f64 = clk.dtype == torch.float64
+    fsz = 8 if f64 else 4
+    n_fb = inp["ring0"].shape[2]
+    seg = {k: static[k] for k in ("fc_push", "fc_ring", "dyn", "het",
+                                  "cold", "hedge", "res")}
+    layout = carry_layout(n_nodes=static["n_nodes"],
+                          n_slots=static["n_slots"], window=static["window"],
+                          n_fns=n_fb, n1=n1, freeze=True, stream=True, **seg)
+    st0 = {k: v.cpu().numpy() for k, v in layout.unpack(clk, ctr).items()}
+    st1 = {k: v.cpu().numpy() for k, v in layout.unpack(
+        got[4]["clk"], got[4]["ctr"]).items()}
+    rows = freeze_chunk_rows(inp, st0)
+    finish = got[1][0, :n1 - 1].cpu().numpy()
+    dispatched = int((finish > 0).sum())
+    running0 = int(np.isfinite(st0["fin_s"]).sum())
+    running1 = int(np.isfinite(st1["fin_s"]).sum())
+    arrivals = int(st1["ai"][0]) - int(st0["ai"][0])
+    lost = (int(st1["nfail"][0]) - int(st0["nfail"][0]) if static["dyn"]
+            else 0)
+    if static["dyn"] or static["hedge"]:
+        completions = int(st1["ndone"][0]) - int(st0["ndone"][0])
+    elif static["res"]:
+        completions = int(st1["ndn"][0]) - int(st0["ndn"][0])
+    else:
+        completions = running0 + dispatched - running1
+    if static["hedge"] or static["res"]:
+        steps = int(got[4]["stepc"][0]) - int(
+            st0["stepc" if static["hedge"] else "stp"][0])
+    else:
+        steps = arrivals + completions + 2 * lost
+    plan = ops.event_step_plan(n1=n1, n_nodes=static["n_nodes"],
+                               n_slots=static["n_slots"], n_fns=n_fb,
+                               window=static["window"], freeze=True,
+                               fc_push=static["fc_push"],
+                               fc_ring=static["fc_ring"], f64=f64,
+                               dyn=static["dyn"], cold=static["cold"],
+                               hedge=static["hedge"], res=static["res"],
+                               stream=True)
+    out = {"case": case, "chunk": cap["index"],
+           "invocations_before": cap["before"], "n_b": n1 - 1, **rows,
+           "nodes": static["n_nodes"], "slots": static["n_slots"],
+           "fns": n_fns, "fns_padded": n_fb, **seg,
+           "arrivals": arrivals, "completions": completions, "lost": lost,
+           "dispatches": dispatched, "steps": steps,
+           "nodes_provisioned": (int(st1["prov"][0]) if static["dyn"]
+                                 else None),
+           "n_steps_budget": static["n_steps"], "max_abs_err": err,
+           "plan": plan}
+    out["ms"] = time_call(lambda: ops.event_step(clk, ctr, inp, **static),
+                          reps=3)
+    out["plain_ms"] = plain_ms
+    out["ns_per_step"] = out["ms"] * 1e6 / max(steps, 1)
+    # bytes: the rows' t / p / cost and fnid, (home) home0 and (single-node
+    # FC) cnt, the horizon, the coefficients, cores, nodes and the route;
+    # with dyn each node's activation and kill time, five dynamics
+    # parameters, the cap and call count; the carry planes at the stream's
+    # own widths read and written; the dispatched rows' records and the
+    # summaries
+    nodes_real = static["n_nodes"]
+    lay = carry_layout(n_nodes=nodes_real, n_slots=static["n_slots"],
+                       window=static["window"], n_fns=n_fns,
+                       n1=rows["rows"] + 1, freeze=True, stream=True, **seg)
+    nbytes = ((3 * fsz + 8 + fsz) * rows["rows"] + 6 * fsz + 12
+              + 2 * (fsz * lay.f_len + 4 * lay.i_len)
+              + (3 * fsz + 4) * dispatched)
+    if static["dyn"]:
+        nbytes += 2 * fsz * nodes_real + 5 * fsz + 8 + 12 + 12 * nodes_real
+    # operations: an arrival's estimate and frozen priority (6; with the
+    # FC rings, one compare an entry), a completion's ring update (3), a
+    # dispatch's start and finish (2, 6 with a speed, one more with the
+    # prewarm charge)
+    ops_n = (arrivals * (6 + (static["fc_ring"] if static["fc_push"]
+                              else 0))
+             + 3 * completions
+             + dispatched * (2 + 4 * static["het"] + static["cold"]))
+    out["bytes"], out["operations"] = nbytes, ops_n
+    out["bound_ms"], out["bound_by"] = bound(
+        nbytes, ops_n, torch.float64 if f64 else torch.float32)
+    return out
+
+
+def freeze_stream_paths(dev, pull: dict) -> dict:
+    """The chunked stream replay on push and one node: the frozen-priority
+    stream kernels against the plain version on handed-off chunks (the
+    planet push fleet's first chunk at a budget of 512; push FC on 2 x 4
+    nodes at chunk 256, the chunk after its FC rings grew; push home SEPT
+    on 2 x 4; single-node FC; steal hedging with node speeds; the storm's
+    backoff-and-shedding lifecycle on 2 x 4 push SEPT over four of its
+    bursts back to back, chunk 256; the cold matrix's push FC v18 cell at
+    chunk 1,024), the planet push prefixes against the whole-burst scan,
+    then the planet push replay and its half for the memory evidence,
+    beside phase 3h's pull replay (``pull``) of the same cut.  Returns the
+    frozen-priority stream kernel's row."""
+    from repro_torch.core import streamscan
+    from repro_torch.core.stragglers import HedgingSpec, NodeSpeedProfile
+
+    model = planet_model()
+    fleet = planet_push_fleet()
+    nf = len(model.fns)
+    checks = {}
+    cap, _ = capture_chunk(
+        model.stream(PLANET_SEED, max_invocations=1024), dev, 512,
+        lambda i, before, st: True, **fleet)
+    checks["planet_push_first_512"] = check_freeze_stream(
+        "planet push first chunk, budget 512", cap, nf, dev)
+
+    def small(key, case, reqs, chunk, pick, **kw):
+        stream, _ = streamscan.stream_from_requests(reqs)
+        cap, res = capture_chunk(stream, dev, chunk, pick,
+                                 assignment="push", **kw)
+        checks[key] = check_freeze_stream(case, cap, len(stream.fns), dev)
+        checks[key]["replay_counters"] = {
+            k: v for k, v in res.counters.items() if v}
+
+    def cell_calls(policy, nodes, cores, intensity, wcores):
+        return sweep.make_workload(sweep.SweepCell(
+            policy=policy, nodes=nodes, cores=cores, intensity=intensity,
+            seed=0, workload_cores=wcores))
+
+    rings = []
+
+    def grown(i, before, st):
+        rings.append(st["fc_ring"])
+        return len(rings) > 1 and st["fc_ring"] > rings[0]
+
+    small("push_fc_2x4", "push fc 2 x 4 v60, chunk 256, the chunk after "
+          "the FC rings grew", cell_calls("fc", 2, 4, 60, 8), 256, grown,
+          nodes=2, cores_per_node=4, policy="fc")
+    small("push_home_sept_2x4", "push home sept 2 x 4 v60, chunk 256",
+          cell_calls("sept", 2, 4, 60, 8), 256,
+          lambda i, before, st: i == 1, nodes=2, cores_per_node=4,
+          policy="sept", lb="home")
+    small("single_fc_c8", "one node fc c8 v60 (static counts), chunk 256",
+          cell_calls("fc", 1, 8, 60, 8), 256, lambda i, before, st: i == 1,
+          nodes=1, cores_per_node=8, policy="fc")
+    small("steal_speeds_3x4", "push fc 3 x 4 v30, speeds 0.2 / 0.7 / 1.0, "
+          "steal 2x, chunk 128", cell_calls("fc", 3, 4, 30, 12), 128,
+          lambda i, before, st: i == 1, nodes=3, cores_per_node=4,
+          policy="fc", profile=NodeSpeedProfile(speeds=(0.2, 0.7, 1.0)),
+          hedging=HedgingSpec(mode="steal", multiple=2.0))
+    storm = [Request(fn=q.fn, r=q.r + s * STORM_T, p_true=q.p_true)
+             for s in range(4) for q in storm_burst(s)]
+    small("storm_backoff_shed", "storm backoff+shed, 2 x 4 push sept, "
+          "four bursts back to back, chunk 256", storm, 256,
+          lambda i, before, st: i == 3, nodes=2, cores_per_node=4,
+          policy="sept", resilience=storm_spec("backoff", True))
+    c = next(c for c in cold_push_cells() if c.policy == "fc")
+    small("cold_push_fc_v18", "cold matrix push fc 4 x 8 v18, chunk 1,024",
+          sweep.make_workload(c), 1024, lambda i, before, st: i == 0,
+          nodes=c.nodes, cores_per_node=c.cores, policy="fc", warm=False)
+    for r in checks.values():
+        print("freeze stream event_step vs plain: " + json.dumps(r),
+              flush=True)
+    first = checks["planet_push_first_512"]
+    if not (first["plan"]["wide"] and first["dyn"]):
+        raise AssertionError(f"the planet push chunk: {first}")
+    if checks["storm_backoff_shed"]["carried"] == 0:
+        raise AssertionError("the storm's chunk carries no call")
+    if checks["steal_speeds_3x4"]["replay_counters"].get(
+            "backups_issued", 0) == 0:
+        raise AssertionError("the steal replay issued no backup")
+
+    t0 = time.perf_counter()
+    prefixes = planet_prefixes(model, dev, fleet, PLANET_PUSH_PREFIXES)
+    print(f"planet push prefixes: "
+          f"{', '.join(str(p['invocations']) for p in prefixes)} "
+          "invocations, stream against whole-burst scan on the card: "
+          "counters exact, starts and finishes equal ("
+          + json.dumps(prefixes) + f"; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    rungs, ladder = [], []
+    for n in PLANET_PUSH_LADDER:
+        r = planet_replay(model, n, dev, fleet=fleet,
+                          kernel="event_step_freeze_stream",
+                          label="planet push replay")
+        if r["launches"] != r["chunks"]:
+            raise AssertionError(f"planet push replay: {r['launches']} "
+                                 f"launches for {r['chunks']} chunks")
+        ladder.append(dict({k: r[k] for k in (
+            "invocations", "wall_s", "invocations_per_s", "chunks",
+            "peak_rows", "R_avg", "R_p95", "R_p99", "nodes_used",
+            "device_share")}, max_carried=r["rows"]["max_carried"]))
+        rungs.append(r)
+        if 3.2 * r["wall_s"] > PLANET_PUSH_BUDGET_S:
+            break
+    if len(rungs) < 2:
+        raise AssertionError("planet push ladder: fewer than two rungs")
+    full, half = rungs[-1], rungs[-2]
+    n_full, n_half = full["invocations"], half["invocations"]
+    # the memory evidence: every chunk of both replays met the row rule
+    # (row_shape_check), so the rows a chunk holds are the budget or the
+    # calls in flight; under push these grow with the day's backlog
+    print(f"planet push replays: {n_full} and {n_half} invocations (the "
+          f"ladder's last two rungs, {full['wall_s'] + half['wall_s']:.1f} s "
+          f"against a {PLANET_PUSH_BUDGET_S:.0f} s budget); memory: "
+          f"peak_rows {full['peak_rows']} and {half['peak_rows']}, each the "
+          "least power of two over the budget or its chunk's calls in "
+          f"flight (most carried {full['rows']['max_carried']} and "
+          f"{half['rows']['max_carried']}, budget {full['rows']['budget']})",
+          flush=True)
+    # push against pull on the largest cut both replayed (phase 3h's)
+    both = [(r, pull[k]) for r in (full, half) for k in ("full", "half")
+            if pull[k]["invocations"] == r["invocations"]]
+    if both:
+        cmp_push, same = both[0]
+    else:
+        cmp_push, same = full, planet_replay(model, n_full, dev)
+    print(f"planet push against pull, {cmp_push['invocations']} invocations "
+          "on the card: "
+          + ", ".join(f"{k} push {cmp_push[k]:.6g} pull {same[k]:.6g}"
+                      for k in ("invocations_per_s", "device_share",
+                                "nodes_used", "R_avg", "R_p95", "R_p99",
+                                "chunks", "peak_rows")), flush=True)
+    paths = {f"planet push {n_full}-invocation replay": full["launches"],
+             f"planet push {n_half}-invocation replay": half["launches"]}
+    return {
+        "name": "event_step_freeze_stream", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/event_step_freeze_stream.cu",
+        "sources": {
+            "set": "src/repro_torch/kernels/csrc/event_step_freeze_stream.cu",
+            "body_f32": "src/repro_torch/kernels/csrc/event_step_freeze.cuh",
+            "body_f64": "src/repro_torch/kernels/csrc/"
+                        "event_step_freeze64.cuh"},
+        "replaces": "src/repro/core/fastpath.py:821",
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None,
+        "shape": f"planet push chunk 0, n_b={first['n_b']}, "
+                 f"{first['nodes']} nodes x 1 slot, {first['fns_padded']} "
+                 "functions (the float64 wide path)",
+        "ns_per_step": first["ns_per_step"],
+        "cases": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "ns_per_step", "n_b",
+                                         "plan")}
+                  for k, r in checks.items()},
+        "planet_push": {"full": full, "half": half, "pull_same_cut": same,
+                        "same_cut": cmp_push["invocations"],
+                        "ladder": ladder, "prefixes": prefixes}}
 
 
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
@@ -3698,6 +4076,11 @@ def main() -> int:
     kern_stream = stream_paths(dev)
 
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # -- 3i. the chunked stream replay on push and one node: the planet
+    # fleet under push ----------------------------------------------------
+    kern_fstream = freeze_stream_paths(dev, kern_stream["planet"])
+
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 4. attention kernels vs plain on the card ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -3908,6 +4291,7 @@ def main() -> int:
         kern_hedge,
         kern_res,
         kern_stream,
+        kern_fstream,
         flash_row,
         row("decode_attention", dec["decode_32k"],
             {"main_path": dec["serving"], "rg": dec["rg_ring_2k"],

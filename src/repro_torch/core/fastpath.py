@@ -106,7 +106,8 @@ LB_ROUTE = {"least_loaded": 0, "home": 1}
 # ``hedge`` (straggler hedging under push), bit 5 ``dup`` (its duplicate
 # mode), bit 6 ``het`` (node speeds), bit 7 ``dyn`` (capacity dynamics),
 # bit 8 ``res`` (the request lifecycle), bit 9 ``stream`` (the chunked
-# stream replay, ``core.streamscan``; pull only); the port sets no other bit
+# stream replay, ``core.streamscan``; not beside ``dup``); the port sets no
+# other bit
 _FREEZE_MASK = 1 << 0
 _USE_FC_MASK = 1 << 1
 _FC_PUSH_MASK = 1 << 2
@@ -473,10 +474,9 @@ def _key_flags(key: tuple) -> dict[str, bool]:
     """The feature flags a bucket key's mask enables: ``freeze``,
     ``use_fc``, ``fc_push``, ``cold``, ``hedge``, ``dup``, ``het``,
     ``dyn``, ``res`` and ``stream``.  Any other segment, or a combination
-    no cell of the port makes, raises ``NotImplementedError``; so does a
-    stream bucket of the frozen-priority regime (push and single-node
-    streams are not ported).  A stream bucket always has extra steps (its
-    chunk's budget, ``core.streamscan``)."""
+    no cell of the port makes (a stream bucket with ``dup``, or with a
+    queue capacity), raises ``NotImplementedError``.  A stream bucket
+    always has extra steps (its chunk's budget, ``core.streamscan``)."""
     mask = key[0]
     known = (_FREEZE_MASK | _USE_FC_MASK | _FC_PUSH_MASK | _COLD_MASK
              | _HEDGE_MASK | _DUP_MASK | _HET_MASK | _DYN_MASK | _RES_MASK
@@ -499,7 +499,7 @@ def _key_flags(key: tuple) -> dict[str, bool]:
             or (flags["dup"] and (not flags["hedge"] or flags["dyn"]))
             or (key[8] != 1 and not flags["het"])
             or (key[10] != 0) != extra
-            or (flags["stream"] and (flags["freeze"] or key[5] != 1))
+            or (flags["stream"] and (flags["dup"] or key[5] != 1))
             or (flags["res"] and (not flags["freeze"] or flags["dyn"]
                                   or flags["het"] or flags["cold"]
                                   or flags["hedge"]))
@@ -526,9 +526,11 @@ def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
     ``cores`` 0, so an unfilled row is an idle padded cell.  Floats are
     float64 where :func:`_use64` says so, float32 else.  A ``stream``
     bucket adds each cell's chunk horizon ``t_stop`` (+inf: run to the
-    end) and its queues as CSR lists (``fnev``, the rows grouped by
-    function, the sentinel row ``n`` past the last entry; ``fnst``, each
-    function's first entry) in place of the dense ``fn_ev``."""
+    end), under pull its queues as CSR lists (``fnev``, the rows grouped
+    by function, the sentinel row ``n`` past the last entry; ``fnst``, each
+    function's first entry) in place of the dense ``fn_ev``, and with
+    ``res`` each row's global arrival rank ``gseq`` (the retry jitter's
+    key)."""
     flags = _key_flags(key)
     freeze, use_fc = flags["freeze"], flags["use_fc"]
     _, n_b, nodes_b, _, f_b, kq, window, _, n_ep = key[:9]
@@ -558,8 +560,11 @@ def _alloc_bucket_inputs(key: tuple, bsz: int) -> dict[str, np.ndarray]:
     }
     if flags["stream"]:
         inp["t_stop"] = np.full(bsz, np.inf, dtype=fdt)
-        inp["fnev"] = np.full((bsz, n1), n_b, dtype=i32)
-        inp["fnst"] = np.zeros((bsz, f_b), dtype=i32)
+        if not freeze:
+            inp["fnev"] = np.full((bsz, n1), n_b, dtype=i32)
+            inp["fnst"] = np.zeros((bsz, f_b), dtype=i32)
+        if flags["res"]:
+            inp["gseq"] = np.zeros((bsz, n1), dtype=i32)
     if freeze:
         # single-node FC's static window counts, the home route's start
         # node per call, and the balancer per cell

@@ -5,7 +5,8 @@ for the base pull carry, the frozen-priority segments ``freeze`` and
 segments ``hedge`` and ``dup``, the per-slot speeds ``het`` of the
 frozen-priority regime, the capacity-dynamics segment ``dyn``, the
 request-lifecycle segment ``res`` and the chunked-stream segment
-``stream`` of the pull regime).
+``stream``, which only the pull regime's carry grows: a frozen-priority
+stream carries what its whole-burst scan does, as in the JAX package).
 
 Every float entry of a cell's carry flattens into one **clocks plane**
 (``clk``, in the bucket's float type: float32, or float64 for dynamic,

@@ -1,8 +1,10 @@
 // The float64 frozen-priority kernel (freeze64_kernel) and its launch,
 // shared by csrc/event_step.cu (the sets without hedging),
-// csrc/event_step_hedge.cu / csrc/event_step_dup.cu (the hedged sets) and
-// csrc/event_step_res.cu (the request lifecycle), so that each translation
-// unit compiles only its own instantiations.
+// csrc/event_step_hedge.cu / csrc/event_step_dup.cu (the hedged sets),
+// csrc/event_step_res.cu (the request lifecycle) and
+// csrc/event_step_freeze_stream.cu (the chunked stream replay, STREAM =
+// true), so that each translation unit compiles only its own
+// instantiations.
 
 #pragma once
 
@@ -53,7 +55,8 @@ namespace {
 // - HET: the node's speed at dispatch divides cost and runtime as
 //   (x * slowdown) / speed, as XLA compiles the oracle's x / (speed /
 //   slowdown); the slot keeps the call's measured service p / eff (eff =
-//   speed / slowdown), which its completion logs in the node's ring.
+//   speed / slowdown), which its completion logs in the node's ring (under
+//   STREAM it keeps eff, the carry's sspd, and the completion divides).
 // - COLD: a dispatch takes a free container of the node and function (lane
 //   0) or starts cold, adding kPrewarmExtra to the cost before the speed
 //   divides it; a completion returns the container or evicts it at
@@ -95,9 +98,26 @@ namespace {
 //   else it adds the controller's E[p] to the gauge, arms its deadline and
 //   is inserted as an arrival.  Equal frozen keys on a node dispatch by
 //   push sequence, as under HEDGE.
-// - DYN, HET, COLD, HEDGE, DUP and RES are template parameters, so the
-//   float32 kernels and every combination carry only the state they use;
-//   the hedged and the resilience sets are compiled in their own sources.
+// - STREAM (one chunk of the chunked stream replay, the stream branch of
+//   _scan_cell_kernel on this regime; freeze_scan_ref with stream; not
+//   beside DUP): the scan stops at the first event at or past the cell's
+//   t_stop, ahead of every candidate; RES's retry jitter hashes each row's
+//   global arrival rank (gseq) in place of its row; the arrival cursor
+//   starts the queue's scan window (hi) at the chunk's first fresh row, so
+//   that a carried call's re-arrival or retry is seen; and at the end
+//   every carry entry goes back out to clk_out / ctr_out (copies of the
+//   planes the wrapper makes) at the offsets it was read from -- slots,
+//   nodes, the queue with each row's per-row state (dynamics, hedge, res),
+//   the controller's ring, the counters and clocks -- with the step count
+//   at the JAX scan's (all n_steps counted).  On the wide path (every
+//   stream set's) the per-(node, function) estimators and rings, FC rings
+//   and free containers are read and written in place in clk_out /
+//   ctr_out instead of the scratch: a warp copying them in and out took
+//   ~0.5 s a chunk at the planet fleet's ~250 MB.
+// - DYN, HET, COLD, HEDGE, DUP, RES and STREAM are template parameters, so
+//   the float32 kernels and every combination carry only the state they
+//   use; the hedged, the resilience and the stream sets are compiled in
+//   their own sources.
 // Outputs: start / finish written at each dispatch (a re-dispatched call
 // keeps its last; under DUP the winning copy's, at its completion), prio /
 // node each row's frozen values (the carry's, overwritten at each arrival
@@ -170,6 +190,14 @@ struct R64Args {
 // under the submissions
 constexpr int kStolen = 1, kUnhedge = 2, kDone0 = 4, kAttShift = 3;
 constexpr int kCause = 3, kFailed = 4;
+
+// The stream sets' inputs and outputs (null without STREAM).
+struct S64Args {
+  const double* t_stop;  // (B,): each cell's horizon
+  const int* gseq;       // (B, n + 1): each row's global arrival rank (RES)
+  double* clk_out;       // (B, f_len), (B, i_len): the final carry planes
+  int* ctr_out;
+};
 
 struct F64Args {
   const double* clk;
@@ -250,30 +278,36 @@ __host__ __device__ constexpr int f64_cell_bytes(bool staged, int n1, int E,
 
 // Scratch words of one cell: (wide) the lane arrays and the estimators and
 // queue, then (dyn) each row's re-arrival time and rank, then (push FC)
-// the float64 rings.  ops.event_step_plan computes the same.
+// the float64 rings.  A stream cell (the wide path) keeps its per-(node,
+// function) arrays in its output planes: none of them here.
+// ops.event_step_plan computes the same.
 __host__ __device__ constexpr long f64_scratch_words(bool wide, int pls,
                                                      int pln, int n1, int E,
                                                      int W, int nfree,
                                                      bool dyn, bool fc_push,
-                                                     int RF, HShape h) {
+                                                     int RF, HShape h,
+                                                     bool stream) {
+  const int ex = stream ? 0 : E;
   return (wide ? 32L * (kF64SlotWords * pls + kF64NodeWords * pln) +
-                     f64_cell_bytes(false, n1, E, W, nfree, h) / 4
+                     f64_cell_bytes(false, n1, ex, W, stream ? 0 : nfree,
+                                    h) / 4
                : 0L) +
          (dyn ? 2L * round_up(n1, 2) + round_up(n1, 4) : 0L) +
-         (fc_push ? 2L * E * RF : 0L);
+         (fc_push ? 2L * ex * RF : 0L);
 }
 
 template <int PL, bool COLD, bool HET, bool DYN, bool HEDGE, bool DUP,
-          bool RES>
+          bool RES, bool STREAM>
 __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     freeze64_kernel(const F64Args a, const H64Args h, const R64Args r,
-                    const F64Layout L, const F64Dims D,
+                    const S64Args sa, const F64Layout L, const F64Dims D,
                     const int cells_per_block, const int bytes_per_cell,
                     const float horizon_f, const int pl_wide,
                     const int words) {
   static_assert(!DUP || (HEDGE && !DYN), "DUP needs HEDGE, excludes DYN");
   static_assert(!RES || !(COLD || HET || DYN || HEDGE || DUP),
                 "RES excludes COLD, HET, DYN, HEDGE and DUP");
+  static_assert(!(STREAM && DUP), "STREAM excludes DUP");
   constexpr bool CTL = HEDGE || RES;   // the controller's ring
   constexpr bool STAGED = PL > 0;      // the register path stages
   constexpr int NQ = PL > 0 ? 1 : 0;   // nodes a lane: 1, or the scratch
@@ -316,29 +350,43 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     if constexpr (PL == 0) wp += 32 * cnt;
     return p;
   };
-  // a slot's completion time and measured service (HET), or under RES its
-  // execution start
+  // a slot's completion time and measured service (HET; under STREAM its
+  // effective speed), or under RES its execution start
   Lane<double, PL> s_fin(dbl(pls)), s_v(dbl(pls));
   Lane<int, PL> s_row(i32(pls)), s_dseq(i32(pls));
   Lane<double, NQ> n_chan(dbl(pln)), n_act(dbl(pln)), n_kill(dbl(pln)),
       n_spd(dbl(pln));
   Lane<int, NQ> n_busy(i32(pln)), n_qn(i32(pln)), n_dead(i32(pln)),
       n_pend(i32(pln));
+  // STREAM on the wide path: the per-(node, function) arrays -- estimators,
+  // rings, FC rings, free containers -- are read and written where they
+  // lie in the output planes (copies of the input planes), so that no warp
+  // copies them in and out (~250 MB a chunk at the planet fleet's widths);
+  // the scratch holds none of them (ex entries, nfx free counts)
+  constexpr bool ALIAS = STREAM && PL == 0;
+  const int ex = ALIAS ? 0 : E, nfx = ALIAS ? 0 : nfree;
   unsigned char* cb;
   if constexpr (STAGED) {
     cb = smem + static_cast<size_t>(warp) * bytes_per_cell;
   } else {
     cb = reinterpret_cast<unsigned char*>(wp);
-    wp += f64_cell_bytes(false, n1, E, W, nfree, hs) / 4;
+    wp += f64_cell_bytes(false, n1, ex, W, nfx, hs) / 4;
   }
-  const int E2 = round_up(E, 2), E4 = round_up(E, 4), N2 = round_up(n1, 2);
+  const int E2 = round_up(ex, 2), E4 = round_up(ex, 4), N2 = round_up(n1, 2);
   const int Q2 = round_up(nq, 2), Q4 = round_up(nq, 4);
-  double* const e_rsum = reinterpret_cast<double*>(cb);
-  double* const e_last = e_rsum + E2;
-  double* const e_prev = e_last + E2;
-  double* const ring = e_prev + E2;
+  // STREAM: this cell's output planes
+  double* const co = STREAM ? sa.clk_out + static_cast<size_t>(b) * D.f_len
+                            : nullptr;
+  int* const io = STREAM ? sa.ctr_out + static_cast<size_t>(b) * D.i_len
+                         : nullptr;
+  double* const x_rsum = reinterpret_cast<double*>(cb);
+  double* const x_ring = x_rsum + 3 * E2;
+  double* const e_rsum = ALIAS ? co + L.rsum : x_rsum;
+  double* const e_last = ALIAS ? co + L.last_t : x_rsum + E2;
+  double* const e_prev = ALIAS ? co + L.prev_t : x_rsum + 2 * E2;
+  double* const ring = ALIAS ? co + L.ring : x_ring;
   // the controller's ring (HEDGE, RES): its sums, then its F x W entries
-  double* const c_rsum = ring + round_up(E * W, 2);
+  double* const c_rsum = x_ring + round_up(ex * W, 2);
   double* const cring = c_rsum + (CTL ? round_up(F, 2) : 0);
   double* const rows_d = cring + (CTL ? round_up(F * W, 2) : 0);
   unsigned long long* const q_key = reinterpret_cast<unsigned long long*>(
@@ -350,12 +398,16 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   double* const h_t2 = h_t + (CTL ? N2 : 0);
   double* const r_eps = h_t2 + ((HEDGE && DYN) || RES ? N2 : 0);
   double* const start_q = r_eps + (RES ? N2 : 0);
-  int* const e_rlen = reinterpret_cast<int*>(start_q + (DUP ? Q2 : 0));
-  int* const e_rpos = e_rlen + E4;
-  int* const e_narr = e_rpos + E4;
-  int* const e_fcp = e_narr + E4;
-  int* const fcnt = e_fcp + E4;
-  int* const q_node = fcnt + round_up(nfree, 4);
+  int* const x_rlen = reinterpret_cast<int*>(start_q + (DUP ? Q2 : 0));
+  int* const e_rlen = ALIAS ? io + L.rlen : x_rlen;
+  int* const e_rpos = ALIAS ? io + L.rpos : x_rlen + E4;
+  int* const e_narr = ALIAS ? io + L.narr : x_rlen + 2 * E4;
+  // (an arrival reads its FC ring position, used only with the rings:
+  // under ALIAS without them it reads its arrival count instead, as the
+  // scratch holds no (node, function) entry)
+  int* const e_fcp = ALIAS ? io + (FCP ? L.fcp : L.narr) : x_rlen + 3 * E4;
+  int* const fcnt = ALIAS && COLD ? io + L.freec : x_rlen + 4 * E4;
+  int* const q_node = x_rlen + 4 * E4 + round_up(nfx, 4);
   // the controller's lengths and positions, each row's hedge word (its
   // attempts and flags; RES: its submissions, failure flag and cause),
   // each entry's push sequence
@@ -366,8 +418,10 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   int* const i_end = qseq + (CTL ? Q4 : 0);
   double* const r_rearr = reinterpret_cast<double*>(wp);
   int* const r_rord = reinterpret_cast<int*>(r_rearr + N2);
-  double* const fcr = reinterpret_cast<double*>(
-      wp + (DYN ? 2 * N2 + round_up(n1, 4) : 0));
+  double* const fcr =
+      ALIAS && FCP ? co + L.fcr
+                   : reinterpret_cast<double*>(
+                         wp + (DYN ? 2 * N2 + round_up(n1, 4) : 0));
 
   DRows<STAGED> R;
   if constexpr (STAGED) {
@@ -385,19 +439,22 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   } else {
     R = DRows<STAGED>{a.t + row, a.p + row, a.cost + row, a.fnid + row};
   }
-  for (int i = lane; i < E; i += 32) {
-    e_rsum[i] = __ldg(clk + L.rsum + i);
-    e_last[i] = __ldg(clk + L.last_t + i);
-    e_prev[i] = __ldg(clk + L.prev_t + i);
-    e_rlen[i] = __ldg(ctr + L.rlen + i);
-    e_rpos[i] = __ldg(ctr + L.rpos + i);
-    e_narr[i] = __ldg(ctr + L.narr + i);
-    e_fcp[i] = FCP ? __ldg(ctr + L.fcp + i) : 0;
-    if constexpr (COLD) fcnt[i] = __ldg(ctr + L.freec + i);
+  if constexpr (!ALIAS) {
+    for (int i = lane; i < E; i += 32) {
+      e_rsum[i] = __ldg(clk + L.rsum + i);
+      e_last[i] = __ldg(clk + L.last_t + i);
+      e_prev[i] = __ldg(clk + L.prev_t + i);
+      e_rlen[i] = __ldg(ctr + L.rlen + i);
+      e_rpos[i] = __ldg(ctr + L.rpos + i);
+      e_narr[i] = __ldg(ctr + L.narr + i);
+      e_fcp[i] = FCP ? __ldg(ctr + L.fcp + i) : 0;
+      if constexpr (COLD) fcnt[i] = __ldg(ctr + L.freec + i);
+    }
+    for (int i = lane; i < E * W; i += 32) ring[i] = __ldg(clk + L.ring + i);
+    if (FCP)
+      for (int i = lane; i < E * RF; i += 32)
+        fcr[i] = __ldg(clk + L.fcr + i);
   }
-  for (int i = lane; i < E * W; i += 32) ring[i] = __ldg(clk + L.ring + i);
-  if (FCP)
-    for (int i = lane; i < E * RF; i += 32) fcr[i] = __ldg(clk + L.fcr + i);
   // the queue, the frozen outputs and the per-row carry: row i by lane
   // i % 32
   double* const o_start = a.start + row;
@@ -521,9 +578,11 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     adm_on = __ldg(ap) > 0.0;
     adm_thr = __ldg(ap + 1);
   }
-  // RetryPolicy.delay after failed submission `att` of row `seq`, term for
-  // term: the 16-bit jitter hash, the power of two as a shift
-  auto retry_delay = [&](int seq, int att) {
+  // RetryPolicy.delay after failed submission `att` of row `i`, term for
+  // term: the 16-bit jitter hash of its arrival rank (the row, or under
+  // STREAM its global rank) and the attempt, the power of two as a shift
+  auto retry_delay = [&](int i, int att) {
+    const int seq = STREAM ? __ldg(sa.gseq + row + i) : i;
     const long long hsh =
         (static_cast<long long>(seq) * 7919 +
          static_cast<long long>(att) * 104729 + 12345) % 65536;
@@ -541,8 +600,9 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     const bool se = e < NSL;
     s_fin[q] = se ? __ldg(clk + L.fin_s + e) : inf;
     s_row[q] = se ? min(max(__ldg(ctr + L.idx_s + e), 0), nq - 1) : n;
-    s_v[q] = HET && se ? __ddiv_rn(R.p(rw(s_row[q])),
-                                   __ldg(clk + L.sspd + e))
+    s_v[q] = HET && se ? (STREAM ? __ldg(clk + L.sspd + e)
+                                 : __ddiv_rn(R.p(rw(s_row[q])),
+                                             __ldg(clk + L.sspd + e)))
              : RES && se ? __ldg(clk + L.sst + e)
                          : 0.0;
     s_dseq[q] = DYN && se ? __ldg(ctr + L.dseq + e) : 0;
@@ -567,7 +627,11 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   const bool counted = !carried && __all_sync(FULL, qn_zero);
   int ai = __ldg(ctr + L.ai);
   int lo = 0;     // the first queued row (none before it)
+  // a carried row (before the cursor) that re-arrives or retries is
+  // queued below it
+  hi = max(hi, min(ai, n));
   double t_a = ai <= n ? R.t(ai) : inf;
+  const double t_stop = STREAM ? __ldg(sa.t_stop + b) : inf;
   int ncold = COLD ? __ldg(ctr + L.ncold) : 0;
   int nevt = COLD ? __ldg(ctr + L.nevt) : 0;
   int nfail = DYN ? __ldg(ctr + L.nfail) : 0;
@@ -578,6 +642,7 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   int nbk = HEDGE ? __ldg(ctr + L.nbk) : 0;
   // the step count (RES: the push sequence's clock too)
   int stepc = HEDGE ? __ldg(ctr + L.stepc) : RES ? __ldg(ctr + L.stp) : 0;
+  const int stepc0 = stepc;
   // RES: the timeouts, sheds and retries, the calls resolved (in ndone),
   // the shed gauge and the wasted seconds
   int nto = 0, nsh = 0, nrt = 0;
@@ -713,7 +778,8 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     if (HEDGE && h_min < now) { now = h_min; ev = 6; }
     if (RES && h_min < now) { now = h_min; ev = 7; }
     if (RES && rt_min < now) { now = rt_min; ev = 8; }
-    if (now == inf) break;      // no event left: the carry is fixed
+    // no event left (STREAM: none before the horizon): the carry is fixed
+    if (now == inf || (STREAM && now >= t_stop)) break;
 
     int k_d = -1;               // the node a dispatch is tried on
     int ins = -1;               // the entry an (re-)arrival inserts
@@ -775,7 +841,8 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
       const int j_done = lane_get(s_row, pls, kflat);
       const int jr = rw(j_done);
       const int kn = kflat / NS;
-      const double v = HET ? lane_get(s_v, pls, kflat) : R.p(jr);
+      double v = HET ? lane_get(s_v, pls, kflat) : R.p(jr);
+      if constexpr (HET && STREAM) v = __ddiv_rn(R.p(jr), v);
 #pragma unroll
       for (int q = 0; q < pls; ++q)
         if (lane * pls + q == kflat) s_fin[q] = inf;
@@ -1275,14 +1342,16 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
         }
         if constexpr (HET) {
           // the node's speed at dispatch divides cost and runtime, as
-          // (x * slowdown) / speed; the slot keeps p / (speed / slowdown)
+          // (x * slowdown) / speed; the slot keeps p / (speed / slowdown),
+          // or under STREAM speed / slowdown itself
           double slow = 1.0;
           for (int ep = 0; ep < D.n_ep; ++ep)
             if (__ldg(epn + ep) == k_d && __ldg(ept0 + ep) <= now &&
                 now < __ldg(ept1 + ep))
               slow = __dmul_rn(slow, __ldg(epf + ep));
           const double spd_k = lane_get(n_spd, pln, k_d);
-          v_j = __ddiv_rn(p_j, __ddiv_rn(spd_k, slow));
+          const double eff = __ddiv_rn(spd_k, slow);
+          v_j = STREAM ? eff : __ddiv_rn(p_j, eff);
           cost_j = __ddiv_rn(__dmul_rn(cost_j, slow), spd_k);
           p_j = __ddiv_rn(__dmul_rn(p_j, slow), spd_k);
         }
@@ -1411,41 +1480,158 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
       hsum[3] = stepc;
     }
   }
+
+  if constexpr (STREAM) {
+    // -- the final carry, every entry at the offset it was read from (the
+    // per-row arrays by their rows' lanes, after the warp's writes; on the
+    // wide path the per-(node, function) arrays are there already)
+    __syncwarp();
+    if (lane == 0) {
+      io[L.ai] = ai;
+      if constexpr (COLD) {
+        io[L.ncold] = ncold;
+        io[L.nevt] = nevt;
+      }
+      if constexpr (DYN) {
+        io[L.nfail] = nfail;
+        io[L.prov] = prov;
+        io[L.dcnt] = dcnt;
+        co[L.next_tick] = next_tick;
+      }
+      if constexpr (DYN || HEDGE) io[L.ndone] = ndone;
+      if constexpr (HEDGE) {
+        io[L.nbk] = nbk;
+        io[L.stepc] = stepc0 + D.n_steps;
+      }
+      if constexpr (RES) {
+        io[L.nto] = nto;
+        io[L.nsh] = nsh;
+        io[L.nrt] = nrt;
+        io[L.ndn] = ndone;
+        io[L.stp] = stepc0 + D.n_steps;
+        co[L.qep] = qep;
+        co[L.wst] = wst;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < pls; ++q) {
+      const int e = lane * pls + q;
+      if (e < NSL) {
+        co[L.fin_s + e] = s_fin[q];
+        io[L.idx_s + e] = s_row[q];
+        if constexpr (HET) co[L.sspd + e] = s_v[q];
+        if constexpr (RES) co[L.sst + e] = s_v[q];
+        if constexpr (DYN) io[L.dseq + e] = s_dseq[q];
+      }
+    }
+    for (int q = 0; q < pln; ++q) {
+      const int e = lane * pln + q;
+      if (e < NN) {
+        io[L.busy + e] = n_busy[q];
+        io[L.qn + e] = n_qn[q];
+        co[L.chan + e] = n_chan[q];
+        if constexpr (DYN) {
+          co[L.act_t + e] = n_act[q];
+          co[L.killq + e] = n_kill[q];
+          io[L.dead + e] = n_dead[q];
+          io[L.act_pend + e] = n_pend[q];
+        }
+      }
+    }
+    if constexpr (!ALIAS) {
+      for (int i = lane; i < E; i += 32) {
+        co[L.rsum + i] = e_rsum[i];
+        co[L.last_t + i] = e_last[i];
+        co[L.prev_t + i] = e_prev[i];
+        io[L.rlen + i] = e_rlen[i];
+        io[L.rpos + i] = e_rpos[i];
+        io[L.narr + i] = e_narr[i];
+        if (FCP) io[L.fcp + i] = e_fcp[i];
+        if constexpr (COLD) io[L.freec + i] = fcnt[i];
+      }
+      for (int i = lane; i < E * W; i += 32) co[L.ring + i] = ring[i];
+      if (FCP)
+        for (int i = lane; i < E * RF; i += 32) co[L.fcr + i] = fcr[i];
+    }
+    if constexpr (CTL) {
+      const int Ls = HEDGE ? L.crsum : L.zrsum, Ll = HEDGE ? L.crlen : L.zrlen;
+      const int Lp = HEDGE ? L.crpos : L.zrpos, Lr = HEDGE ? L.cring : L.zring;
+      for (int i = lane; i < F; i += 32) {
+        co[Ls + i] = c_rsum[i];
+        io[Ll + i] = c_rlen[i];
+        io[Lp + i] = c_rpos[i];
+      }
+      for (int i = lane; i < F * W; i += 32) co[Lr + i] = cring[i];
+    }
+    for (int i = lane; i < n1; i += 32) {
+      co[L.fprio + i] = o_prio[i];
+      io[L.node_of + i] = o_node[i];
+      io[L.pend + i] = q_node[i] >= 0 ? 1 : 0;
+      if constexpr (COLD) io[L.coldq + i] = o_coldq[i];
+      if constexpr (DYN) {
+        co[L.rearr + i] = r_rearr[i];
+        io[L.rord + i] = r_rord[i];
+      }
+      if constexpr (HEDGE) {
+        const int w = hst[i];
+        co[L.hedge_t + i] = h_t[i];
+        io[L.att + i] = w >> kAttShift;
+        io[L.stolen + i] = (w & kStolen) ? 1 : 0;
+        io[L.qseq + i] = qseq[i];
+        if constexpr (DYN) {
+          co[L.hedge_t2 + i] = h_t2[i];
+          io[L.unhedge + i] = (w & kUnhedge) ? 1 : 0;
+        }
+      }
+      if constexpr (RES) {
+        const int w = hst[i];
+        co[L.to_t + i] = h_t[i];
+        co[L.rto + i] = h_t2[i];
+        co[L.eps + i] = r_eps[i];
+        io[L.ratt + i] = w >> kAttShift;
+        io[L.nfl + i] = (w & kFailed) ? 1 : 0;
+        io[L.fcz + i] = w & kCause;
+        io[L.qsq + i] = qseq[i];
+      }
+    }
+  }
 }
 
 template <int PL, bool COLD, bool HET, bool DYN, bool HEDGE = false,
-          bool DUP = false, bool RES = false>
+          bool DUP = false, bool RES = false, bool STREAM = false>
 int launch_f64(const F64Args& a, const H64Args& h, const R64Args& r,
-               const F64Layout& L, const F64Dims& D, int cell, float horizon,
-               cudaStream_t stream, int pl, int words) {
-  auto kernel = freeze64_kernel<PL, COLD, HET, DYN, HEDGE, DUP, RES>;
+               const S64Args& s, const F64Layout& L, const F64Dims& D,
+               int cell, float horizon, cudaStream_t stream, int pl,
+               int words) {
+  auto kernel = freeze64_kernel<PL, COLD, HET, DYN, HEDGE, DUP, RES, STREAM>;
   int cpb = 0, blocks = 0;
   const int e = block_shape(kernel, D.B, cell, &cpb, &blocks);
   if (e != 0) return e;
   kernel<<<blocks, 32 * cpb, static_cast<size_t>(cpb) * cell, stream>>>(
-      a, h, r, L, D, cpb, cell, horizon, pl, words);
+      a, h, r, s, L, D, cpb, cell, horizon, pl, words);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One set's launch at `pl` slots a lane (1 or 2 in shared memory, 0 the
 // wide path): each translation unit passes its own instantiations.
 using F64Launch = int (*)(int pl_sel, const F64Args&, const H64Args&,
-                          const R64Args&, const F64Layout&, const F64Dims&,
-                          int cell, float horizon, cudaStream_t, int pl,
-                          int words);
+                          const R64Args&, const S64Args&, const F64Layout&,
+                          const F64Dims&, int cell, float horizon,
+                          cudaStream_t, int pl, int words);
 
 // The sets a translation unit compiles: without hedging or resilience (at
 // least one of cold / het / dyn; csrc/event_step.cu), hedged (steal or
-// duplicate), or the resilience set.
-enum class F64Sets { kPlain, kHedged, kRes };
+// duplicate), the resilience set, or the stream sets (every set but the
+// duplicate ones, on the wide path alone).
+enum class F64Sets { kPlain, kHedged, kRes, kStream };
 
 // Checks a bucket's launch arguments and plan, then launches it through
 // `launch_set`; `sets` says which sets the caller compiled.
 inline int f64_launch_checked(const F64Args& a, const H64Args& h,
-                              const R64Args& r, const int* layout,
-                              const int* dims, const int* plan,
-                              float horizon, void* stream, F64Sets sets,
-                              F64Launch launch_set) {
+                              const R64Args& r, const S64Args& s,
+                              const int* layout, const int* dims,
+                              const int* plan, float horizon, void* stream,
+                              F64Sets sets, F64Launch launch_set) {
   F64Layout L;
   F64Dims D;
   int P[kF64Plan];
@@ -1467,16 +1653,21 @@ inline int f64_launch_checked(const F64Args& a, const H64Args& h,
   const int nfree = cold ? E : 0;
   const HShape hs{D.n_fns, hedge, hedge && dyn, dup,
                   dup ? D.n_copies * n1 : n1, res};
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (hedge != (sets == F64Sets::kHedged) || res != (sets == F64Sets::kRes) ||
+  const auto cs = static_cast<cudaStream_t>(stream);
+  const bool streamed = sets == F64Sets::kStream;
+  if ((!streamed && (hedge != (sets == F64Sets::kHedged) ||
+                     res != (sets == F64Sets::kRes))) ||
       (sets == F64Sets::kPlain && !(dyn || het || cold)) ||
+      (streamed && (dup || !wide || s.t_stop == nullptr ||
+                    s.clk_out == nullptr || s.ctr_out == nullptr ||
+                    (res && s.gseq == nullptr))) ||
       (res && (dyn || het || cold || hedge)) ||
       (dup && (!hedge || dyn || D.n_copies < 1)) ||
       (!dup && D.n_copies != 1) || pl < 1 || 32 * pl < NSL ||
       D.fc_ring < 1 || D.ncoef < 4 || wide == staged ||
       (!wide && (D.n_nodes > 32 || D.n_fns > 256)) ||
       words != f64_scratch_words(wide, pl, pln, n1, E, D.window, nfree, dyn,
-                                 D.fc_push != 0, D.fc_ring, hs) ||
+                                 D.fc_push != 0, D.fc_ring, hs, streamed) ||
       (words % 2 != 0) || (words > 0 && a.scratch == nullptr) ||
       (dyn && (a.dynp == nullptr || a.maxn == nullptr || a.nreq == nullptr ||
                a.summ == nullptr || a.act_out == nullptr ||
@@ -1494,12 +1685,12 @@ inline int f64_launch_checked(const F64Args& a, const H64Args& h,
     return static_cast<int>(cudaErrorInvalidValue);
   if (wide) {
     if (cell != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_set(0, a, h, r, L, D, 0, horizon, s, pl, words);
+    return launch_set(0, a, h, r, s, L, D, 0, horizon, cs, pl, words);
   }
   if (cell != f64_cell_bytes(true, n1, E, D.window, nfree, hs) ||
       (pl != 1 && pl != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_set(pl, a, h, r, L, D, cell, horizon, s, pl, words);
+  return launch_set(pl, a, h, r, s, L, D, cell, horizon, cs, pl, words);
 }
 
 // The hedged sets of one mode at `PL` slots a lane: steal mode (!DUP) with
@@ -1508,13 +1699,14 @@ inline int f64_launch_checked(const F64Args& a, const H64Args& h,
 // that calls it compiles that mode's sets alone.
 template <int PL, bool DUP>
 int launch_hedged_pl(const F64Args& a, const H64Args& h, const R64Args& r,
-                     const F64Layout& L, const F64Dims& D, int cell,
-                     float horizon, cudaStream_t stream, int pl, int words) {
+                     const S64Args& s, const F64Layout& L, const F64Dims& D,
+                     int cell, float horizon, cudaStream_t stream, int pl,
+                     int words) {
   const int m = (D.cold ? 1 : 0) | (D.het ? 2 : 0) | (D.dyn ? 4 : 0);
 #define SET(M, C, H, Y)                                                     \
   case M:                                                                   \
-    return launch_f64<PL, C, H, Y, true, DUP>(a, h, r, L, D, cell, horizon, \
-                                              stream, pl, words);
+    return launch_f64<PL, C, H, Y, true, DUP>(a, h, r, s, L, D, cell,       \
+                                              horizon, stream, pl, words);
   switch (m) {
     SET(0, false, false, false)
     SET(1, true, false, false)
@@ -1539,7 +1731,7 @@ int launch_hedged_pl(const F64Args& a, const H64Args& h, const R64Args& r,
 // the resilience set, at `pl_sel` slots a lane (0: the wide path).
 template <bool DUP, bool RES>
 int launch_f64_family(int pl_sel, const F64Args& a, const H64Args& h,
-                      const R64Args& r, const F64Layout& L,
+                      const R64Args& r, const S64Args& s, const F64Layout& L,
                       const F64Dims& D, int cell, float horizon,
                       cudaStream_t stream, int pl, int words) {
   if ((D.dup != 0) != DUP) return static_cast<int>(cudaErrorInvalidValue);
@@ -1548,9 +1740,9 @@ int launch_f64_family(int pl_sel, const F64Args& a, const H64Args& h,
   case P:                                                                   \
     if constexpr (RES)                                                      \
       return launch_f64<P, false, false, false, false, false, true>(        \
-          a, h, r, L, D, cell, horizon, stream, pl, words);                 \
+          a, h, r, s, L, D, cell, horizon, stream, pl, words);              \
     else                                                                    \
-      return launch_hedged_pl<P, DUP>(a, h, r, L, D, cell, horizon,         \
+      return launch_hedged_pl<P, DUP>(a, h, r, s, L, D, cell, horizon,      \
                                       stream, pl, words);
     PL_CASE(0)
     PL_CASE(1)
@@ -1599,7 +1791,8 @@ int launch_f64_family(int pl_sel, const F64Args& a, const H64Args& h,
     const H64Args h{hmult, hfloor, hmax, hsum, att_out};                    \
     const R64Args r{rto_p, rrt_p, adm_p, rsum, wst_out, nfl_out, fcz_out,   \
                     ratt_out};                                              \
-    return f64_launch_checked(a, h, r, layout, dims, plan, horizon,         \
+    const S64Args s{nullptr, nullptr, nullptr, nullptr};                    \
+    return f64_launch_checked(a, h, r, s, layout, dims, plan, horizon,      \
                               stream,                                       \
                               RES ? F64Sets::kRes : F64Sets::kHedged,       \
                               launch_f64_family<DUP, RES>);                 \

@@ -57,11 +57,10 @@ def event_step_supported(*, freeze, use_fc, fc_push, dyn, het, hedge, cold,
     mode ``dup`` without ``dyn``), and under ``freeze`` alone the request
     lifecycle (``res``: timeouts, retries, shedding; none of ``dyn``,
     ``het``, ``cold``, ``hedge`` or ``dup`` beside it, as the JAX oracle
-    asserts), and under pull alone the chunked stream (``stream``) -- the
-    base pull configuration is the scope of the JAX package's Pallas
-    ``event_step``, the rest its oracle's.  A stream of the frozen-priority
-    regime is not ported."""
-    if stream and freeze:
+    asserts), and the chunked stream (``stream``) of either regime, but
+    not beside ``dup`` -- the base pull configuration is the scope of the
+    JAX package's Pallas ``event_step``, the rest its oracle's."""
+    if stream and dup:
         return False
     if res:
         return (freeze and not use_fc
@@ -101,6 +100,20 @@ def _slowdown(inp, k_d, now):
     for e in range(1, fac.shape[1]):
         slow = slow * fac[:, e]
     return slow
+
+
+def _ring_push(ring, rsum, rlen, rpos, e, v, do, window: int, zero):
+    """Log ``v`` into the runtime ring at entry ``e`` (an index tuple, one
+    entry a cell) where ``do``, in place: the ring's sum drops the value it
+    evicts once the ring holds ``window``."""
+    pos = rpos[e]
+    old = ring[e + (pos,)]
+    full = rlen[e] == window
+    s0 = rsum[e]
+    rsum[e] = torch.where(do, s0 + v - torch.where(full, old, zero), s0)
+    ring[e + (pos,)] = torch.where(do, v, old)
+    rlen[e] += (do & ~full).long()
+    rpos[e] = torch.where(do, (pos + 1) % window, pos)
 
 
 def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
@@ -174,14 +187,12 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     (``ncold``), evictions (``nevt``) and each row's cold-start flag
     (``coldq``, (B, n+1) bool)."""
     if freeze:
-        if stream:
-            raise ValueError("stream needs pull")
         return freeze_scan_ref(clk, ctr, inp, n_nodes=n_nodes,
                                n_slots=n_slots, window=window,
                                fc_push=fc_push, fc_ring=fc_ring,
                                horizon=horizon, n_steps=n_steps, dyn=dyn,
                                het=het, cold=cold, hedge=hedge, dup=dup,
-                               n_copies=n_copies, res=res)
+                               n_copies=n_copies, res=res, stream=stream)
     if res:
         raise ValueError("res needs freeze")
     t, fnid, p, cost = inp["t"], inp["fnid"].long(), inp["p"], inp["cost"]
@@ -287,16 +298,8 @@ def event_step_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         ks = kflat % n_slots
         j_done = idx_s.reshape(B, -1)[rows, kflat]
         f_done = fnid[rows, j_done]
-        pos = rpos[rows, f_done]
-        v = p[rows, j_done]
-        old = ring[rows, f_done, pos]
-        full = rlen[rows, f_done] == window
-        sum_f = rsum[rows, f_done]
-        rsum[rows, f_done] = torch.where(
-            do_comp, sum_f + v - torch.where(full, old, zero), sum_f)
-        ring[rows, f_done, pos] = torch.where(do_comp, v, old)
-        rlen[rows, f_done] += (do_comp & ~full).long()
-        rpos[rows, f_done] = torch.where(do_comp, (pos + 1) % window, pos)
+        _ring_push(ring, rsum, rlen, rpos, (rows, f_done), p[rows, j_done],
+                   do_comp, window, zero)
         m_kn = (node_ids == kn[:, None]) & do_comp[:, None]
         busy = busy - m_kn.long()
         fin_s = torch.where(m_kn[:, :, None] & (slot_ids == ks[:, None, None]),
@@ -515,7 +518,8 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
                     horizon: float, n_steps: int, dyn: bool = False,
                     het: bool = False, cold: bool = False,
                     hedge: bool = False, dup: bool = False,
-                    n_copies: int = 1, res: bool = False):
+                    n_copies: int = 1, res: bool = False,
+                    stream: bool = False):
     """Plain PyTorch event scan of a bucket of frozen-priority cells
     (single node, or push with the least-loaded or home balancer).
 
@@ -588,6 +592,18 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     E[p] off the gauge and stamps its slot's start; equal priorities on a
     node dispatch by push sequence (``qsq``, the step count at insertion).
 
+    ``stream`` (not beside ``dup``) scans one chunk of the chunked stream
+    replay (``repro_torch.core.streamscan``), as the JAX oracle's
+    ``stream`` branch on this regime: every event at ``now >= t_stop``
+    (``inp["t_stop"]``, (B,)) defers to the next chunk, so the scan stops
+    there with the carry as it was; under ``res`` the retry jitter hashes
+    each row's global arrival rank ``inp["gseq"]`` (B, n+1) in place of its
+    row.  ``aux`` then adds the final carry planes ``clk`` / ``ctr``, every
+    entry at its place in the layout; the step counts ``stepc`` / ``stp``
+    there are the JAX scan's, one for each of the ``n_steps`` steps.  Each
+    estimator, ring and free-container entry is updated in place (one entry
+    an event), never by a mask over the whole (node, function) plane.
+
     Returns ``(start, finish, prio, node, aux)``, the first four ``(B,
     n+1)``: ``prio`` and ``node`` are the carry's ``fprio`` and
     ``node_of`` at the end, each call's values fixed at its (last)
@@ -613,6 +629,8 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     dev, ft = t.device, t.dtype
     if dup and not hedge:
         raise ValueError("dup needs hedge")
+    if stream and dup:
+        raise ValueError("stream takes no dup")
     if res and (dyn or het or cold or hedge):
         raise ValueError("res takes no dyn, het, cold or hedge")
     nq = n_copies * n1 if dup else n1
@@ -623,7 +641,8 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
                           fc_ring=fc_ring, dyn=dyn, het=het, cold=cold,
-                          hedge=hedge, dup=dup, n_copies=n_copies, res=res)
+                          hedge=hedge, dup=dup, n_copies=n_copies, res=res,
+                          stream=stream)
     st = {k: v.clone() for k, v in layout.unpack(clk, ctr).items()}
     ai = st["ai"].long()
     fin_s, idx_s = st["fin_s"], st["idx_s"].long()
@@ -636,12 +655,11 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     if fc_push:
         fcr, fcp = st["fcr"], st["fcp"].long()
 
+    if stream:
+        t_stop = inp["t_stop"]
     rows = torch.arange(B, device=dev)
     node_ids = torch.arange(n_nodes, device=dev)[None]
     slot_ids = torch.arange(n_slots, device=dev)[None, None]
-    fn_ids = torch.arange(n_fns, device=dev)[None, None]
-    win_ids = torch.arange(window, device=dev)[None, None, None]
-    fc_ids = torch.arange(fc_ring, device=dev)[None, None, None]
     req_ids = torch.arange(nq, device=dev)[None]
     oreq_ids = torch.arange(n1, device=dev)[None]
     inf = torch.tensor(float("inf"), dtype=ft, device=dev)
@@ -674,8 +692,6 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         hmult, hfloor, hmax = inp["hmult"], inp["hfloor"], inp["hmax"].long()
         if dyn:
             unhedge, hedge_t2 = st["unhedge"], st["hedge_t2"]
-        cwin_ids = torch.arange(window, device=dev)[None, None]
-        cfn_ids = torch.arange(n_fns, device=dev)[None]
     if dup:
         done0, start_q = st["done0"], st["start_q"]
         win_start, win_fin = st["win_start"], st["win_fin"]
@@ -692,13 +708,13 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         rto_p, rrt_p, adm_p = inp["rto_p"], inp["rrt_p"], inp["adm_p"]
         maxa = rrt_p[:, 0].long()
         on_to, on_sh = rrt_p[:, 4] > 0, rrt_p[:, 5] > 0
-        cwin_ids = torch.arange(window, device=dev)[None, None]
-        cfn_ids = torch.arange(n_fns, device=dev)[None]
 
-        def res_delay(seq, a):
+        def res_delay(i, a):
             """RetryPolicy.delay in float64, term for term: the 16-bit
-            jitter hash of (row, attempt) and the power of two as a
-            shift."""
+            jitter hash of (arrival rank, attempt) and the power of two as
+            a shift; the rank is row ``i``, or under ``stream`` its global
+            rank."""
+            seq = inp["gseq"][rows, i].long() if stream else i
             base, cap, jit = rrt_p[:, 1], rrt_p[:, 2], rrt_p[:, 3]
             u = ((seq * 7919 + a * 104729 + 12345) % 65536).to(ft) / 65536.0
             shift = torch.bitwise_left_shift(torch.ones_like(a),
@@ -708,11 +724,6 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
     start = torch.zeros(B, n1, dtype=ft, device=dev)
     finish = torch.zeros(B, n1, dtype=ft, device=dev)
     nstep = torch.zeros(B, dtype=torch.long, device=dev)
-
-    def node_fn(k, f):
-        """(B, nodes, F) mask of entry (k, f) of each cell."""
-        return ((node_ids[:, :, None] == k[:, None, None])
-                & (fn_ids == f[:, None, None]))
 
     for _ in range(n_steps):
         # -- event selection: (kill <) arrival <= completion (< re-arrival
@@ -746,6 +757,10 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             e = (t_a > t_c).long()
             now = torch.where(t_a <= t_c, t_a, t_c)
         none_left = torch.isinf(now)
+        if stream:
+            # the chunk's horizon: an event at or past it is the next
+            # chunk's
+            none_left = none_left | (now >= t_stop)
         if bool(none_left.all()):
             break                # no event left anywhere: the carry is fixed
         off = 1 if dyn else 0
@@ -777,55 +792,23 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         ks = kflat % n_slots
         j_done = idx_s.reshape(B, -1)[rows, kflat]
         f_done = fnid[rows, j_done]
-        m_cf = node_fn(kn, f_done) & do_comp[:, None, None]
-        pos = rpos[rows, kn, f_done]
         v = p[rows, j_done]
         if het:
             v = v / sspd.reshape(B, -1)[rows, kflat]
-        old = ring[rows, kn, f_done, pos]
-        full = rlen[rows, kn, f_done] == window
-        rsum = torch.where(
-            m_cf, rsum + v[:, None, None]
-            - torch.where(full, old, zero)[:, None, None], rsum)
-        ring = torch.where(m_cf[..., None] & (win_ids == pos[:, None, None,
-                                                            None]),
-                           v[:, None, None, None], ring)
-        rlen = torch.where(m_cf & ~full[:, None, None], rlen + 1, rlen)
-        rpos = torch.where(m_cf, (rpos + 1) % window, rpos)
+        _ring_push(ring, rsum, rlen, rpos, (rows, kn, f_done), v, do_comp,
+                   window, zero)
         if hedge:
             # the controller's ring logs every completion's raw p
-            cpos = crpos[rows, f_done]
-            cfull = crlen[rows, f_done] == window
-            cold_v = cring[rows, f_done, cpos]
-            m_cfd = (cfn_ids == f_done[:, None]) & do_comp[:, None]
-            p_done = p[rows, j_done]
-            crsum = torch.where(
-                m_cfd, crsum + p_done[:, None]
-                - torch.where(cfull, cold_v, zero)[:, None], crsum)
-            cring = torch.where(m_cfd[:, :, None]
-                                & (cwin_ids == cpos[:, None, None]),
-                                p_done[:, None, None], cring)
-            crlen = torch.where(m_cfd & ~cfull[:, None], crlen + 1, crlen)
-            crpos = torch.where(m_cfd, (cpos + 1)[:, None] % window, crpos)
+            _ring_push(cring, crsum, crlen, crpos, (rows, f_done),
+                       p[rows, j_done], do_comp, window, zero)
         if res:
             # the completion clears its call's deadline and the controller's
             # ring (admission's and the deadlines' estimate) logs its raw p
             to_t = torch.where((req_ids == j_done[:, None])
                                & do_comp[:, None], inf, to_t)
             ndn = ndn + do_comp.long()
-            zpos = zrpos[rows, f_done]
-            zfull = zrlen[rows, f_done] == window
-            zold = zring[rows, f_done, zpos]
-            m_zfd = (cfn_ids == f_done[:, None]) & do_comp[:, None]
-            p_done = p[rows, j_done]
-            zrsum = torch.where(
-                m_zfd, zrsum + p_done[:, None]
-                - torch.where(zfull, zold, zero)[:, None], zrsum)
-            zring = torch.where(m_zfd[:, :, None]
-                                & (cwin_ids == zpos[:, None, None]),
-                                p_done[:, None, None], zring)
-            zrlen = torch.where(m_zfd & ~zfull[:, None], zrlen + 1, zrlen)
-            zrpos = torch.where(m_zfd, (zpos + 1)[:, None] % window, zrpos)
+            _ring_push(zring, zrsum, zrlen, zrpos, (rows, f_done),
+                       p[rows, j_done], do_comp, window, zero)
         m_kn = (node_ids == kn[:, None]) & do_comp[:, None]
         busy = busy - m_kn.long()
         fin_s = torch.where(m_kn[:, :, None] & (slot_ids == ks[:, None, None]),
@@ -834,9 +817,7 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             # -- release: the container returns to its free pool, or is
             # evicted when the pool already holds `cores`
             cap = freec[rows, kn, f_done] >= cores
-            freec = torch.where(node_fn(kn, f_done)
-                                & (do_comp & ~cap)[:, None, None],
-                                freec + 1, freec)
+            freec[rows, kn, f_done] += (do_comp & ~cap).long()
             nevt = nevt + (do_comp & cap).long()
         if dup:
             # -- the first completion among a call's copies wins
@@ -1058,12 +1039,13 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             load_x = torch.where(peer_ok, busy + qn, 2 ** 30)
             k_tgt = torch.where(peer_ok.any(1), load_x.argmin(1), old_node)
             k_arr = torch.where(steal_ok, k_tgt, k_arr)
-        first = narr[rows, k_arr, f_i] == 0
-        prev_used = torch.where(first, now, last_t[rows, k_arr, f_i])
-        m_af = node_fn(k_arr, f_i) & do_ins[:, None, None]
-        prev_t = torch.where(m_af, prev_used[:, None, None], prev_t)
-        last_t = torch.where(m_af, now[:, None, None], last_t)
-        narr = narr + m_af.long()
+        e_i = (rows, k_arr, f_i)
+        first = narr[e_i] == 0
+        last_i = last_t[e_i]
+        prev_used = torch.where(first, now, last_i)
+        prev_t[e_i] = torch.where(do_ins, prev_used, prev_t[e_i])
+        last_t[e_i] = torch.where(do_ins, now, last_i)
+        narr[e_i] += do_ins.long()
         if hedge and not dup:
             # the stolen call leaves its old node's queue
             qn = qn - ((node_ids == old_node[:, None])
@@ -1073,14 +1055,11 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         if fc_push:
             # log the arrival in the node's ring, then count the window
             # (the logged time itself is inside it)
-            pos_fc = fcp[rows, k_arr, f_i]
-            fcr = torch.where(m_af[..., None]
-                              & (fc_ids == pos_fc[:, None, None, None]),
-                              now[:, None, None, None], fcr)
-            fcp = torch.where(m_af, (pos_fc + 1)[:, None, None] % fc_ring,
-                              fcp)
-            cnt_i = (fcr[rows, k_arr, f_i] > (now - horizon)[:, None]
-                     ).sum(1).to(ft)
+            pos_fc = fcp[e_i]
+            fcr[rows, k_arr, f_i, pos_fc] = torch.where(
+                do_ins, now, fcr[rows, k_arr, f_i, pos_fc])
+            fcp[e_i] = torch.where(do_ins, (pos_fc + 1) % fc_ring, pos_fc)
+            cnt_i = (fcr[e_i] > (now - horizon)[:, None]).sum(1).to(ft)
         else:
             cnt_i = cnt[rows, i_ins]
         n_k = rlen[rows, k_arr, f_i]
@@ -1165,9 +1144,7 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
             f_j = fnid[rows, j]
             warm_hit = freec[rows, k_d, f_j] > 0
             cost_j = cost_j + torch.where(warm_hit, zero, extra)
-            freec = torch.where(node_fn(k_d, f_j)
-                                & (can & warm_hit)[:, None, None],
-                                freec - 1, freec)
+            freec[rows, k_d, f_j] -= (can & warm_hit).long()
             ncold = ncold + (can & ~warm_hit).long()
             coldq = torch.where((oreq_ids == j[:, None]) & can[:, None],
                                 ~warm_hit[:, None], coldq)
@@ -1245,6 +1222,37 @@ def freeze_scan_ref(clk, ctr, inp, *, n_nodes: int, n_slots: int,
         aux.update(nto=nto.to(i32), nsh=nsh.to(i32), nrt=nrt.to(i32),
                    wst=wst, nfl=nfl, fcz=fcz.to(i32), ratt=ratt.to(i32),
                    ndn=ndn.to(i32), stepc=(stp0 + nstep).to(i32))
+    if stream:
+        # the final carry, every entry; the step counts are the JAX scan's,
+        # which counts all n_steps steps
+        fin = {"ai": ai, "head": st["head"], "fin_s": fin_s, "idx_s": idx_s,
+               "busy": busy, "qn": qn, "chan": chan, "ring": ring,
+               "rsum": rsum, "rlen": rlen, "rpos": rpos, "last_t": last_t,
+               "prev_t": prev_t, "narr": narr, "pend": pend, "fprio": fprio,
+               "node_of": node_of}
+        if fc_push:
+            fin.update(fcr=fcr, fcp=fcp)
+        if cold:
+            fin.update(freec=freec, ncold=ncold, nevt=nevt, coldq=coldq)
+        if hedge:
+            fin.update(hedge_t=hedge_t, att=att, nbk=nbk, stolen=stolen,
+                       cring=cring, crsum=crsum, crlen=crlen, crpos=crpos,
+                       qseq=qseq, stepc=stepc0 + n_steps, ndone=ndone)
+            if dyn:
+                fin.update(unhedge=unhedge, hedge_t2=hedge_t2)
+        if het:
+            fin["sspd"] = sspd
+        if dyn:
+            fin.update(act_t=act_t, dead=dead, killq=killq,
+                       act_pend=act_pend, rearr=rearr, next_tick=next_tick,
+                       prov=prov, nfail=nfail, ndone=ndone, dseq=dseq,
+                       dcnt=dcnt, rord=rord)
+        if res:
+            fin.update(to_t=to_t, rto=rto, eps=eps, qep=qep, ratt=ratt,
+                       nfl=nfl, fcz=fcz, sst=sst, nto=nto, nsh=nsh, nrt=nrt,
+                       wst=wst, ndn=ndn, qsq=qsq, stp=stp0 + n_steps,
+                       zring=zring, zrsum=zrsum, zrlen=zrlen, zrpos=zrpos)
+        aux["clk"], aux["ctr"] = layout.pack(fin)
     if dup:
         return win_start, win_fin, fprio[:, :n1], win_node, aux
     return start, finish, fprio, node_of, aux

@@ -19,7 +19,10 @@ buckets with straggler hedging, steal or duplicate; their own sources),
 (push buckets with timeouts, retries or shedding; their own source),
 ``STREAM_LAUNCHES`` / ``STREAM_REF_LAUNCHES`` for the pull kernels' stream
 instantiations (one chunk of the chunked stream replay, float32 or float64;
-their own source),
+their own source), ``FREEZE_STREAM_LAUNCHES`` /
+``FREEZE_STREAM_REF_LAUNCHES`` for the two frozen-priority kernels' stream
+instantiations (one chunk of a push or single-node stream, float32 or
+float64, the hedged and resilience sets included; their own source),
 ``FLASH_LAUNCHES`` / ``FLASH_REF_LAUNCHES`` and ``DECODE_LAUNCHES`` /
 ``DECODE_REF_LAUNCHES`` for the attention kernels, ``RGLRU_LAUNCHES`` /
 ``RGLRU_REF_LAUNCHES`` and ``RWKV6_LAUNCHES`` / ``RWKV6_REF_LAUNCHES`` for
@@ -62,6 +65,8 @@ RES_LAUNCHES = 0
 RES_REF_LAUNCHES = 0
 STREAM_LAUNCHES = 0
 STREAM_REF_LAUNCHES = 0
+FREEZE_STREAM_LAUNCHES = 0
+FREEZE_STREAM_REF_LAUNCHES = 0
 FLASH_LAUNCHES = 0
 FLASH_REF_LAUNCHES = 0
 DECODE_LAUNCHES = 0
@@ -82,6 +87,8 @@ _COUNTS = {
     "event_step_hedge": ("HEDGE_LAUNCHES", "HEDGE_REF_LAUNCHES"),
     "event_step_res": ("RES_LAUNCHES", "RES_REF_LAUNCHES"),
     "event_step_stream": ("STREAM_LAUNCHES", "STREAM_REF_LAUNCHES"),
+    "event_step_freeze_stream": ("FREEZE_STREAM_LAUNCHES",
+                                 "FREEZE_STREAM_REF_LAUNCHES"),
     "flash_attention": ("FLASH_LAUNCHES", "FLASH_REF_LAUNCHES"),
     "decode_attention": ("DECODE_LAUNCHES", "DECODE_REF_LAUNCHES"),
     "rglru_scan": ("RGLRU_LAUNCHES", "RGLRU_REF_LAUNCHES"),
@@ -152,8 +159,10 @@ EVENT_STEP_FREEZE_LAYOUT = ("chan", "fin_s", "fprio", "last_t", "prev_t",
                             "narr", "node_of", "pend", "qn", "rlen", "rpos",
                             "fcp")
 # lane-owned arrays of the frozen-priority kernel's wide path
-# (``kFreezeWideArrays``): 5 a slot, 3 a node
+# (``kFreezeWideArrays``): 5 a slot, 3 a node; a stream bucket keeps each
+# slot's row too (``kFreezeStreamWideArrays``)
 EVENT_STEP_FREEZE_WIDE_ARRAYS = 8
+EVENT_STEP_FREEZE_STREAM_WIDE_ARRAYS = 1
 # per-(node, function) estimator arrays of the frozen-priority kernel
 # (``kEstArrays``): sum, last and previous arrival, length, position,
 # arrivals, FC ring position
@@ -205,12 +214,17 @@ EVENT_STEP_LAUNCHERS = {"event_step_launch": 19,
                         "event_step_dup_launch": 46,
                         "event_step_res_launch": 46,
                         "event_step_stream_launch": 22,
-                        "event_step_dyn_stream_launch": 35}
-EVENT_STEP_SOURCES = {"event_step_hedge_launch": "event_step_hedge",
-                      "event_step_dup_launch": "event_step_dup",
-                      "event_step_res_launch": "event_step_res",
-                      "event_step_stream_launch": "event_step_stream",
-                      "event_step_dyn_stream_launch": "event_step_stream"}
+                        "event_step_dyn_stream_launch": 35,
+                        "event_step_freeze_stream_launch": 23,
+                        "event_step_freeze64_stream_launch": 50}
+EVENT_STEP_SOURCES = {
+    "event_step_hedge_launch": "event_step_hedge",
+    "event_step_dup_launch": "event_step_dup",
+    "event_step_res_launch": "event_step_res",
+    "event_step_stream_launch": "event_step_stream",
+    "event_step_dyn_stream_launch": "event_step_stream",
+    "event_step_freeze_stream_launch": "event_step_freeze_stream",
+    "event_step_freeze64_stream_launch": "event_step_freeze_stream"}
 _event_step_fns: dict = {}
 
 
@@ -308,28 +322,36 @@ def event_step_freeze64_cell_bytes(staged: bool, n1: int, n_nodes: int,
 def _freeze64_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int,
                    window: int, fc_push: bool, fc_ring: int, dyn: bool,
                    cold: bool, hedge: bool, dup: bool,
-                   n_copies: int, res: bool = False) -> dict:
+                   n_copies: int, res: bool = False,
+                   stream: bool = False) -> dict:
     """The float64 frozen-priority kernel's plan (see
     :func:`event_step_plan`)."""
     nsl = n_nodes * n_slots
-    per_lane = next((pl for pl in EVENT_STEP_FREEZE64_PER_LANE
-                     if 32 * pl >= nsl), None)
+    # the stream sets are built for the wide path alone (a stream bucket is
+    # one cell, so no block shares its shared memory), which keeps their
+    # source's build within that of the others
+    per_lane = None if stream else next(
+        (pl for pl in EVENT_STEP_FREEZE64_PER_LANE if 32 * pl >= nsl), None)
     hs = dict(hedge=hedge, dyn=dyn, dup=dup, n_copies=n_copies, res=res)
     cell = event_step_freeze64_cell_bytes(True, n1, n_nodes, n_fns, window,
                                           cold, **hs)
     staged = (per_lane is not None and n_nodes <= 32 and n_fns <= 256
               and cell <= SMEM_BLOCK_BYTES)
     words = 0
+    # a stream cell keeps its per-(node, function) arrays (estimators,
+    # rings, FC rings, free containers) in its output planes: the scratch
+    # holds none of them (no node's, as far as its size goes)
+    e_nodes = 0 if stream else n_nodes
     if not staged:
         per_lane = max(1, -(-nsl // 32))
         slot_w, node_w = EVENT_STEP_FREEZE64_WIDE_WORDS
         words = (32 * (slot_w * per_lane + node_w * -(-n_nodes // 32))
                  + event_step_freeze64_cell_bytes(
-                     False, n1, n_nodes, n_fns, window, cold, **hs) // 4)
+                     False, n1, e_nodes, n_fns, window, cold, **hs) // 4)
     if dyn:
         words += 2 * _round_up(n1, 2) + _round_up(n1, 4)
     if fc_push:
-        words += 2 * n_nodes * n_fns * fc_ring
+        words += 2 * e_nodes * n_fns * fc_ring
     return {"per_lane": per_lane, "wide": not staged, "staged": staged,
             "cell_bytes": cell if staged else 0, "scratch_words": words}
 
@@ -391,12 +413,19 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     are always in the scratch.  ``scratch_words``: the scratch's 32-bit
     words a cell.  A pull ``stream`` bucket's wide path keeps more there:
     ``EVENT_STEP_STREAM_WIDE_ARRAYS`` arrays in float32, a word a node and
-    a function in float64."""
-    if stream and freeze:
-        raise NotImplementedError("a stream bucket is pull")
+    a function in float64.  A frozen-priority ``stream`` bucket keeps
+    each slot's row too: one more array a slot on the float32 kernel's wide
+    path; the float64 kernel's stream sets take its wide path, whatever the
+    width.  Unstaged, a frozen-priority ``stream`` bucket reads and writes
+    its per-(node, function) estimators, rings, FC rings and free
+    containers in place in its output planes, so its scratch holds none of
+    them."""
+    if stream and dup:
+        raise NotImplementedError("a stream bucket has no dup")
     if f64 and freeze:
         return _freeze64_plan(n1, n_nodes, n_slots, n_fns, window, fc_push,
-                              fc_ring, dyn, cold, hedge, dup, n_copies, res)
+                              fc_ring, dyn, cold, hedge, dup, n_copies, res,
+                              stream)
     if f64:
         return _dyn_plan(n1, n_nodes, n_slots, n_fns, window, dyn, cold,
                          stream)
@@ -412,12 +441,17 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
             per_lane = -(-widest // 32)
         cell = event_step_freeze_cell_bytes(n1, n_nodes, n_fns, window)
         staged = not wide and n_fns <= 256 and cell <= SMEM_BLOCK_BYTES
-        words = EVENT_STEP_FREEZE_WIDE_ARRAYS * 32 * per_lane if wide else 0
+        arrays = EVENT_STEP_FREEZE_WIDE_ARRAYS + (
+            EVENT_STEP_FREEZE_STREAM_WIDE_ARRAYS if stream else 0)
+        words = arrays * 32 * per_lane if wide else 0
+        # an unstaged stream cell keeps its estimators, rings and FC rings
+        # in its output planes: the scratch holds none of them
+        e_nodes = 0 if stream and not staged else n_nodes
         if not staged:
-            words += (event_step_freeze_est_words(n_nodes, n_fns, window)
+            words += (event_step_freeze_est_words(e_nodes, n_fns, window)
                       + 2 * _round_up(n1, 4))
         if fc_push:
-            words += n_nodes * n_fns * fc_ring
+            words += e_nodes * n_fns * fc_ring
         return {"per_lane": per_lane, "wide": wide, "staged": staged,
                 "cell_bytes": cell if staged else 0, "scratch_words": words}
     if (per_lane is not None and event_step_cell_bytes(
@@ -594,30 +628,41 @@ def _event_step_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
 
 
 def _event_step_freeze_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
-                            horizon, n_steps, fc_push, fc_ring):
+                            horizon, n_steps, fc_push, fc_ring,
+                            stream=False):
     dev = clk.device
     B, n1 = inp["t"].shape
     n_fns, ncoef = inp["ring0"].shape[2], inp["coef"].shape[1]
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
-                          fc_ring=fc_ring)
+                          fc_ring=fc_ring, stream=stream)
     args = _bucket_args(clk, ctr, inp, layout, ncoef) + [
         _checked(inp["cnt"], "cnt", torch.float32, (B, n1), dev),
         _checked(inp["home0"], "home0", torch.int32, (B, n1), dev),
         _checked(inp["route"], "route", torch.int32, (B,), dev),
     ]
+    if stream:
+        args.append(_checked(inp["t_stop"], "t_stop", torch.float32, (B,),
+                             dev))
     plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
                            n_fns=n_fns, window=window, freeze=True,
-                           fc_push=fc_push, fc_ring=fc_ring)
+                           fc_push=fc_push, fc_ring=fc_ring, stream=stream)
     dims = (ctypes.c_int * 12)(B, n1 - 1, n_nodes, n_slots, window, n_fns,
                                ncoef, layout.f_len, layout.i_len,
                                int(bool(fc_push)), fc_ring, n_steps)
     plan_c = (ctypes.c_int * 5)(plan["per_lane"], int(plan["staged"]),
                                 int(plan["wide"]), plan["cell_bytes"],
                                 plan["scratch_words"])
-    return _launch_event_step("event_step_freeze_launch", args,
-                              EVENT_STEP_FREEZE_LAYOUT, layout, dims, plan_c,
-                              plan, horizon)
+    if not stream:
+        return (*_launch_event_step("event_step_freeze_launch", args,
+                                    EVENT_STEP_FREEZE_LAYOUT, layout, dims,
+                                    plan_c, plan, horizon), {})
+    # the final planes start as copies: the kernel writes every entry back
+    planes = (args[0].clone(), args[1].clone())
+    out = _launch_event_step("event_step_freeze_stream_launch", args,
+                             EVENT_STEP_FREEZE_LAYOUT, layout, dims, plan_c,
+                             plan, horizon, planes)
+    return (*out[:4], {"clk": out[4], "ctr": out[5]})
 
 
 def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
@@ -711,7 +756,7 @@ def _event_step_dyn_cuda(clk, ctr, inp, *, n_nodes, n_slots, window, use_fc,
 def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
                               horizon, n_steps, fc_push, fc_ring, dyn, het,
                               cold, hedge=False, dup=False, n_copies=1,
-                              res=False):
+                              res=False, stream=False):
     dev = clk.device
     B, n1 = inp["t"].shape
     n_fns, ncoef = inp["ring0"].shape[2], inp["coef"].shape[1]
@@ -719,7 +764,8 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
     layout = carry_layout(n_nodes=n_nodes, n_slots=n_slots, window=window,
                           n_fns=n_fns, freeze=True, fc_push=fc_push, n1=n1,
                           fc_ring=fc_ring, dyn=dyn, het=het, cold=cold,
-                          hedge=hedge, dup=dup, n_copies=n_copies, res=res)
+                          hedge=hedge, dup=dup, n_copies=n_copies, res=res,
+                          stream=stream)
     n_ep = inp["epn"].shape[1] if het else 1
 
     def opt(on, key, dtype, shape):
@@ -736,8 +782,9 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
         opt(het, "epf", f64, (B, n_ep)),
     ]
     # the hedged and the resilience launchers share one signature, each
-    # family's inputs and outputs null in the other's
-    family = hedge or res
+    # family's inputs and outputs null in the other's; the stream launcher
+    # takes both families' and the horizon, the ranks (res) and the planes
+    family = hedge or res or stream
     if family:
         args += [opt(hedge, "hmult", f64, (B,)),
                  opt(hedge, "hfloor", f64, (B,)),
@@ -745,11 +792,14 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
                  opt(res, "rto_p", f64, (B, 4)),
                  opt(res, "rrt_p", f64, (B, 6)),
                  opt(res, "adm_p", f64, (B, 2))]
+    if stream:
+        args += [opt(True, "t_stop", f64, (B,)),
+                 opt(res, "gseq", i32, (B, n1))]
     plan = event_step_plan(n1=n1, n_nodes=n_nodes, n_slots=n_slots,
                            n_fns=n_fns, window=window, freeze=True, f64=True,
                            fc_push=fc_push, fc_ring=fc_ring, dyn=dyn,
                            cold=cold, hedge=hedge, dup=dup,
-                           n_copies=n_copies, res=res)
+                           n_copies=n_copies, res=res, stream=stream)
     outs = [torch.zeros(B, n1, dtype=f64, device=dev) for _ in range(3)]
     outs.append(torch.zeros(B, n1, dtype=i32, device=dev))
     summ = act = dead = csum = coldq = None
@@ -788,17 +838,21 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
     plan_c = (ctypes.c_int * 5)(plan["per_lane"], int(plan["staged"]),
                                 int(plan["wide"]), plan["cell_bytes"],
                                 plan["scratch_words"])
-    name = ("event_step_res_launch" if res else "event_step_dup_launch"
+    name = ("event_step_freeze64_stream_launch" if stream
+            else "event_step_res_launch" if res else "event_step_dup_launch"
             if dup else "event_step_hedge_launch" if hedge
             else "event_step_freeze64_launch")
+    # a stream launch's final planes start as copies: the kernel writes
+    # every entry back
+    planes = [args[0].clone(), args[1].clone()] if stream else []
     fn = _event_step_lib(name)
     ptrs = [None if x is None else x.data_ptr()
             for x in args + outs + [summ, act, dead, csum, coldq]
-            + (hout + rout if family else []) + [scratch]]
+            + (hout + rout if family else []) + planes + [scratch]]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cu_stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, ctypes.addressof(lay), ctypes.addressof(dims),
-                 ctypes.addressof(plan_c), float(horizon), stream)
+                 ctypes.addressof(plan_c), float(horizon), cu_stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
     aux = {}
@@ -817,6 +871,8 @@ def _event_step_freeze64_cuda(clk, ctr, inp, *, n_nodes, n_slots, window,
         aux.update(nto=rsum[:, 0], nsh=rsum[:, 1], nrt=rsum[:, 2],
                    wst=wst, nfl=nfl.to(torch.bool), fcz=fcz, ratt=ratt,
                    ndn=rsum[:, 3], stepc=rsum[:, 4])
+    if stream:
+        aux.update(clk=planes[0], ctr=planes[1])
     return (*outs, aux)
 
 
@@ -855,12 +911,15 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     (B, n+1), and with ``res`` its ``nto``, ``nsh``, ``nrt``, ``ndn``,
     ``stepc`` (B,), ``wst`` (B,; float64) and ``nfl``, ``fcz``, ``ratt``
     (B, n+1) (``event_step.event_step_ref``).
-    ``stream`` (pull only) scans one chunk of the chunked stream replay
-    (``repro_torch.core.streamscan``) through the pull kernels' stream
-    instantiations (csrc/event_step_stream.cu), counted apart as
-    ``event_step_stream``: ``inp`` has ``fnev`` / ``fnst`` / ``t_stop``
-    in place of ``fn_ev``, and ``aux`` adds the final carry planes
-    ``clk`` / ``ctr``.
+    ``stream`` (not beside ``dup``) scans one chunk of the chunked stream
+    replay (``repro_torch.core.streamscan``): a pull bucket through the
+    pull kernels' stream instantiations (csrc/event_step_stream.cu),
+    counted apart as ``event_step_stream``, with ``fnev`` / ``fnst`` in
+    place of ``fn_ev``; a frozen-priority bucket through the two
+    frozen-priority kernels' (csrc/event_step_freeze_stream.cu), counted
+    apart as ``event_step_freeze_stream``, with each row's global rank
+    ``gseq`` under ``res``.  ``inp`` adds each cell's horizon ``t_stop``,
+    and ``aux`` the final carry planes ``clk`` / ``ctr``.
     The kernel keeps the FC counts itself from ``t`` and ``fnid`` and does
     not read ``cumf``, which must equal ``event_step.fc_prefix_counts`` of
     them (their prefix count over the real rows), as the bucket runner
@@ -875,15 +934,16 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
     global DYN_LAUNCHES, DYN_REF_LAUNCHES, FREEZE64_LAUNCHES
     global FREEZE64_REF_LAUNCHES, HEDGE_LAUNCHES, HEDGE_REF_LAUNCHES
     global RES_LAUNCHES, RES_REF_LAUNCHES, STREAM_LAUNCHES
-    global STREAM_REF_LAUNCHES
+    global STREAM_REF_LAUNCHES, FREEZE_STREAM_LAUNCHES
+    global FREEZE_STREAM_REF_LAUNCHES
     _check_force(force)
     if not event_step_supported(use_fc=use_fc, **flags):
         raise NotImplementedError(
             "event_step covers the pull and the frozen-priority regimes, "
             "with or without dyn / het / cold, and hedge / dup (dup "
             "without dyn) or res (alone) under the frozen-priority regime, "
-            "and stream under pull; no stream under freeze, no pull FC "
-            "counts under freeze, no push FC rings under pull")
+            "and stream under both but beside dup; no pull FC counts under "
+            "freeze, no push FC rings under pull")
     freeze, fc_push = bool(flags.get("freeze")), bool(flags.get("fc_push"))
     dyn, het = bool(flags.get("dyn")), bool(flags.get("het"))
     cold, hedge = bool(flags.get("cold")), bool(flags.get("hedge"))
@@ -898,7 +958,9 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
                              het=het, cold=cold, hedge=hedge, dup=dup,
                              n_copies=n_copies, res=res, stream=stream,
                              **static)
-        if stream:
+        if stream and freeze:
+            FREEZE_STREAM_REF_LAUNCHES += 1
+        elif stream:
             STREAM_REF_LAUNCHES += 1
         elif res:
             RES_REF_LAUNCHES += 1
@@ -917,8 +979,11 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
         out = _event_step_freeze64_cuda(clk, ctr, inp, fc_push=fc_push,
                                         fc_ring=fc_ring, dyn=dyn, het=het,
                                         cold=cold, hedge=hedge, dup=dup,
-                                        n_copies=n_copies, res=res, **static)
-        if res:
+                                        n_copies=n_copies, res=res,
+                                        stream=stream, **static)
+        if stream:
+            FREEZE_STREAM_LAUNCHES += 1
+        elif res:
             RES_LAUNCHES += 1
         elif hedge:
             HEDGE_LAUNCHES += 1
@@ -927,9 +992,13 @@ def event_step(clk, ctr, inp, *, force: str | None = None, n_nodes: int,
         return out
     if freeze:
         out = _event_step_freeze_cuda(clk, ctr, inp, fc_push=fc_push,
-                                      fc_ring=fc_ring, **static)
-        FREEZE_LAUNCHES += 1
-        return (*out, {})
+                                      fc_ring=fc_ring, stream=stream,
+                                      **static)
+        if stream:
+            FREEZE_STREAM_LAUNCHES += 1
+        else:
+            FREEZE_LAUNCHES += 1
+        return out
     if f64:
         out = _event_step_dyn_cuda(clk, ctr, inp, use_fc=use_fc, dyn=dyn,
                                    het=het, cold=cold, stream=stream,

@@ -204,13 +204,14 @@ def test_supported_matrix_equals_jax():
     scan.py``) -- and the pull regime with ``dyn``, ``het`` and ``cold``,
     with or without FC counts (``tests/test_torch_dyn_scan.py``,
     ``tests/test_torch_cold_scan.py``), each with or without the chunked
-    stream (``tests/test_torch_stream_scan.py``).  Hedging under pull and
-    the stream of the frozen-priority regime stay out."""
+    stream (``tests/test_torch_stream_scan.py``,
+    ``tests/test_torch_freeze_stream_scan.py``).  Hedging under pull and
+    the stream beside duplicate hedging stay out."""
     others = ("hedge", "dup")
     for bits in itertools.product([False, True], repeat=len(FEATURES) + 2):
         flags = dict(zip(FEATURES + ("use_fc", "stream"), bits))
         frozen = (flags["freeze"] and not flags["use_fc"]
-                  and not flags["stream"]
+                  and not (flags["stream"] and flags["dup"])
                   and (not flags["dup"]
                        or (flags["hedge"] and not flags["dyn"])))
         pull = (not flags["freeze"] and not flags["fc_push"]
@@ -295,9 +296,10 @@ def test_unsupported_flags_raise(feat):
         _freeze64_equals_jax(feat)
         flags.update(freeze=True, res=True)
     if feat == "stream":
-        # the chunked stream is in scope under pull; a stream of the
-        # frozen-priority regime is not ported
-        flags["freeze"] = True
+        # the chunked stream is in scope under pull and the frozen-priority
+        # regime; beside duplicate hedging, as in the JAX package, it is
+        # not
+        flags.update(freeze=True, hedge=True, dup=True)
     with pytest.raises(NotImplementedError):
         tops.event_step(clk_t, ctr_t, tens, **{**static, **flags})
 

@@ -27,7 +27,8 @@ Contracts (tolerance 0):
   equal the port's whole-burst scan; and on the planet fleet at full width
   (benchmarks/engine_bench.py::_planet_fleet: 10,000 functions, 96 nodes
   autoscaling to 128) over a 3,000-invocation prefix at chunk 1,024;
-* a push stream raises ``NotImplementedError``, a duplicate-hedging stream
+* a push stream replays (``tests/test_torch_freeze_stream_scan.py`` holds
+  it to the JAX package's), a duplicate-hedging stream raises
   ``ValueError``, and a chunk whose step budget runs out
   ``StreamBudgetError``.
 
@@ -309,12 +310,15 @@ def test_planet_prefix_equals_jax(jax_runs):
     _equal_replays(got, want)
 
 
-def test_push_and_duplicate_streams_refused():
+def test_push_stream_replays_and_duplicate_refused():
+    """A push stream replays (``tests/test_torch_freeze_stream_scan.py``
+    holds it to the JAX package's); duplicate hedging is refused."""
     stream, _ = ts.stream_from_requests(_requests(TReq, n=20))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ts.simulate_cluster_stream(stream, nodes=2, cores_per_node=2,
-                                   policy="sept", assignment="push",
-                                   device="cpu")
+    got = ts.simulate_cluster_stream(stream, nodes=2, cores_per_node=2,
+                                     policy="sept", assignment="push",
+                                     chunk=8, device="cpu")
+    assert got.n == 20 and got.chunks > 1
+    assert np.isfinite(got.finish).all() and (got.failed == 0).all()
     with pytest.raises(ValueError):
         ts.simulate_cluster_stream(stream, nodes=2, cores_per_node=2,
                                    policy="sept", device="cpu",

@@ -5,7 +5,7 @@
                                         freeze64|hedge|res|stream|sweep|
                                         serve]
                                 [--profile] [--repeat N] [--arch ARCH]
-                                [--invocations N]
+                                [--invocations N] [--assignment pull|push]
 
 Imports ``repro_torch`` from DIR (default: the ``src`` of the checkout
 this script is in), builds its kernels, and prints one JSON line per case
@@ -65,7 +65,12 @@ the kernel counts).  DIR must have resilience.
 replay's invocations/s and chunks, and the stream kernel's ``ms`` on the
 first chunk past half the prefix (its start planes replayed 3 times, after
 one check against the plain version) with ``ns_per_step`` over its
-arrivals and completions.  DIR must have the stream.
+arrivals and completions.  DIR must have the stream.  ``--assignment
+push`` replays the planet fleet under push instead
+(``chip_smoke.planet_push_fleet``, least-loaded) through the
+frozen-priority stream kernels, and times the float64 kernel on the same
+chunk (``chip_smoke.check_freeze_stream``, ``ns_per_step`` over the
+kernel's steps); DIR must have the push stream.
 
 ``--mode sweep``: the sweep's main path as ``chip_smoke.py`` runs it
 (``chip_smoke.main_sweep``, 2,000 cells), once on one seed to warm up and
@@ -375,26 +380,34 @@ def res_cases(chip_smoke):
                      ops.event_step(clk, ctr, inp, **static))
 
 
-def stream_case(chip_smoke, invocations: int) -> dict:
-    """``--mode stream``'s numbers: the planet prefix's replay, then the
-    stream kernel on its first chunk past half the prefix."""
+def stream_case(chip_smoke, invocations: int, push: bool = False) -> dict:
+    """``--mode stream``'s numbers: the planet prefix's replay (under push
+    with ``push``), then the stream kernel on its first chunk past half the
+    prefix."""
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
     half = invocations // 2
+    fleet = (chip_smoke.planet_push_fleet() if push
+             else chip_smoke.planet_fleet())
+    timings: dict = {}
     cap, res = chip_smoke.capture_chunk(
         chip_smoke.planet_model().stream(chip_smoke.PLANET_SEED,
                                          max_invocations=invocations),
-        dev, chip_smoke.PLANET_CHUNK, lambda i, before: before >= half,
-        **chip_smoke.planet_fleet())
-    row = chip_smoke.check_stream("planet", cap, len(res.fns), dev)
-    return {"kernel": "event_step_stream", "case": "planet",
+        dev, chip_smoke.PLANET_CHUNK, lambda i, before, st: before >= half,
+        timings=timings, **fleet)
+    kernel = "event_step_freeze_stream" if push else "event_step_stream"
+    launches = ops.launches()[kernel]
+    check = chip_smoke.check_freeze_stream if push else chip_smoke.check_stream
+    row = check("planet push" if push else "planet", cap, len(res.fns), dev)
+    return {"kernel": kernel, "case": "planet push" if push else "planet",
             "invocations": res.n, "chunks": res.chunks,
             "invocations_per_s": res.n / res.wall_s, "wall_s": res.wall_s,
+            "fill_s": timings["fill_s"], "device_s": timings["device_s"],
             "chunk": row["chunk"], "n_b": row["n_b"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "ns_per_step": row["ns_per_step"],
             "bound_ms": row["bound_ms"], "max_abs_err": row["max_abs_err"],
-            "launches": ops.launches()["event_step_stream"]}
+            "launches": launches}
 
 
 def serve_case(chip_smoke, arch: str) -> dict:
@@ -440,6 +453,8 @@ def main() -> int:
                     default="scans")
     ap.add_argument("--invocations", type=int, default=1 << 15,
                     help="the planet prefix replayed (--mode stream)")
+    ap.add_argument("--assignment", choices=("pull", "push"), default="pull",
+                    help="the planet fleet's regime (--mode stream)")
     ap.add_argument("--arch", default="qwen3_1_7b",
                     help="the arch served (--mode serve)")
     ap.add_argument("--repeat", type=int, default=3,
@@ -465,7 +480,8 @@ def main() -> int:
         return 0
     if args.mode == "stream":
         print(json.dumps({"src": args.src} | stream_case(
-            chip_smoke, args.invocations)), flush=True)
+            chip_smoke, args.invocations, args.assignment == "push")),
+            flush=True)
         return 0
     if args.mode == "sweep":
         dev = torch.device("cuda")
