@@ -59,8 +59,11 @@ version on the card first:
    and summary), on a frontier bucket (FC, 2-5 nodes of 8 cores
    autoscaling to 7 with a 10 s provision delay, a 40-core burst at
    intensity 40), the straggler grid's heavy bucket (4 x 8 cores, a
-   32-core burst at intensity 96, node 0 2-8x slow) and a failure + speed
-   bucket (3 x 6 cores, node 0 killed at 8 s and 5x slow); then
+   32-core burst at intensity 96, node 0 2-8x slow), a failure + speed
+   bucket (3 x 6 cores, node 0 killed at 8 s and 5x slow) and an
+   autoscaled bucket past 32 nodes (34 single-core nodes growing to 40,
+   node 3 killed at 5 s; FIFO, EECT and RECT: the wide path, whose
+   dispatch reads group summaries of the queued heads); then
    ``run_cells_scan(metrics_only=True)`` over the autoscaler frontier
    (benchmarks/engine_bench.py::frontier_spec, 80 cells), its 40-seed cut
    (640 cells) and the straggler grid's pull half (75 cells), with a
@@ -951,6 +954,17 @@ def check_f64(case: str, cells, dev) -> tuple[dict, dict]:
     out["bytes"], out["operations"] = moved, ops_n
     out["bound_ms"], out["bound_by"] = bound(moved, ops_n, torch.float64)
     return out, dict(zip(cells, rows_plain))
+
+
+def wide_dyn_cells() -> list:
+    """Autoscaled pull cells past 32 nodes, a node killed mid-burst: the
+    float64 pull kernel's wide path, under FIFO and EECT (the enqueue
+    clock on every head) and RECT (the previous arrival)."""
+    return [sweep.SweepCell(policy=p, nodes=34, cores=1, intensity=60,
+                            seed=s, workload_cores=34, autoscale=True,
+                            provision_delay=2.0, scale_up=0.5, max_nodes=40,
+                            fail_spec=((3, 5.0),))
+            for p in ("fifo", "eect", "rect") for s in range(2)]
 
 
 def dyn_sample(cells) -> list:
@@ -2177,16 +2191,23 @@ def check_stream(case: str, cap: dict, n_fns: int, dev) -> dict:
         nbytes += 2 * fsz * nodes_real + 5 * fsz + 8 + 12 + 12 * nodes_real
     if static["cold"]:
         nbytes += 4 * rows["rows"] + 8
-    # operations: a completion's ring update (3); a dispatch's priority
-    # over the stream's functions (5 each, 7 with the enqueue clock, 9 with
-    # FC counts) and its start and finish (2, 6 with a speed, one more with
-    # the prewarm charge)
+    # operations these inputs need: a function's priority (5, 7 with the
+    # enqueue clock, 9 with FC counts) each time an event changes it -- an
+    # arrival, a completion (with its ring update, 3) and the dispatch that
+    # moves its head -- and each dispatch's start and finish (2, 6 with a
+    # speed, one more with the prewarm charge).  A priority over all the
+    # stream's functions a dispatch, a scan of every function, gives
+    # ``bound_ms_all_fns``.
     per_fn = 5 + 2 * static["dyn"] + 2 * static["use_fc"]
-    ops_n = 3 * completions + dispatched * (
-        n_fns * per_fn + 2 + 4 * static["het"] + static["cold"])
+    per_disp = 2 + 4 * static["het"] + static["cold"]
+    dt = torch.float64 if f64 else torch.float32
+    ops_n = (per_fn * arrivals + (3 + per_fn) * completions
+             + dispatched * (per_fn + per_disp))
+    ops_all = 3 * completions + dispatched * (n_fns * per_fn + per_disp)
     out["bytes"], out["operations"] = nbytes, ops_n
-    out["bound_ms"], out["bound_by"] = bound(
-        nbytes, ops_n, torch.float64 if f64 else torch.float32)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, ops_n, dt)
+    out["operations_all_fns"] = ops_all
+    out["bound_ms_all_fns"] = bound(nbytes, ops_all, dt)[0]
     return out
 
 
@@ -2438,6 +2459,7 @@ def stream_paths(dev) -> dict:
         "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
         "ms": mid["ms"], "plain_ms": mid["plain_ms"],
         "bound_ms": mid["bound_ms"], "bound_by": mid["bound_by"],
+        "bound_ms_all_fns": mid["bound_ms_all_fns"],
         "library_ms": None,
         "shape": f"planet chunk {mid['chunk']} (after "
                  f"{mid['invocations_before']} invocations), n_b="
@@ -4010,12 +4032,16 @@ def main() -> int:
                  sweep.SweepCell(policy="fc", nodes=3, cores=6,
                                  intensity=v, seed=s, fail_spec=((0, 8.0),),
                                  degrade=((0, 1.0, 300.0, 5.0),))
-                 for v in (16, 45) for s in range(4)])):
+                 for v in (16, 45) for s in range(4)]),
+            ("wide", "pull 34 x 1 core -> 40 nodes, node 3 killed at 5 s, "
+             "fifo / eect / rect v60 (the wide path)", wide_dyn_cells())):
         dy[k], rows_k = check_f64(case, cells, dev)
         plain.update(rows_k)
         print("dyn event_step vs plain: " + json.dumps(dy[k]), flush=True)
     if sum(dy["fail_het"]["failures"]) == 0:
         raise AssertionError("the failure bucket lost no call")
+    if not dy["wide"]["plan"]["wide"] or sum(dy["wide"]["failures"]) == 0:
+        raise AssertionError(f"the wide bucket: {dy['wide']}")
     frontier, fr_rows = dyn_path("frontier path", fr80, dev, plain)
     fr640 = frontier_cells(40)
     cut, cut_rows = dyn_path("frontier 40-seed path", fr640, dev)

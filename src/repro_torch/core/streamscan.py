@@ -636,9 +636,13 @@ def _chunk_drained(st, t_stop, n_arr, *, dyn, hedge, res) -> bool:
     """Did the chunk take every event strictly before its horizon: every
     fresh arrival, and no completion, kill, re-arrival, activation, tick,
     hedge deadline, timeout or retry left before ``t_stop`` (none at all in
-    the last chunk)?"""
+    the last chunk)?  ``t_stop`` is compared as the scan's gate compares
+    it: rounded to the planes' dtype, so that a float32 event at
+    ``float32(t_stop)``, rightly left for the next chunk, is not taken for
+    one left undone."""
     if int(st["ai"]) < n_arr:
         return False
+    t_stop = float(st["fin_s"].dtype.type(t_stop))
     cands = [float(st["fin_s"].min())]
     if dyn:
         cands.append(float(st["killq"].min()))

@@ -824,8 +824,9 @@ int pull_launch(const Args& a, const Layout& L, const Dims& D, const int* P,
 //
 // What bounds it: the same serial chain of one event a step as the pull
 // kernel above, now of up to 2 n + the dynamics' budget steps, each a few
-// dependent loads and float64 warp reductions.  The design keeps that
-// chain short and simple rather than lean: a first, exact kernel.
+// dependent loads and float64 warp reductions.  On the wide path a step's
+// work is O(1) warp operations and a scan of the group summaries in
+// shared memory (plf / 32 a lane), not O(F) loads from device memory.
 // - One warp a cell, several a block; rows t / p / cost (float64) and fnid
 //   (8 bits) staged in shared memory when they fit (n_b up to ~9,000),
 //   read in place past that (ops.event_step_plan(..., f64=True)).  The
@@ -835,6 +836,25 @@ int pull_launch(const Args& a, const Layout& L, const Dims& D, const int* P,
 //   32 nodes or functions takes the wide path (PL = 0): the same arrays in
 //   a device-memory scratch (entry q of a lane at [q][lane]), ring
 //   included.
+// - The wide path's dispatch reads group summaries, not every function.
+//   Function f lives at lane f / plf, entry f % plf, and its owner updates
+//   it in place.  Group g is entry g of every lane (one coalesced row of
+//   the scratch, 32 functions); its summary, in shared memory, holds the
+//   least (base, head row) of its queued functions, base = c0 t_head + c1
+//   prev + (c2 + c3 cnt) est, and the least head row of any of them.  An
+//   event changes the inputs of one function (an arrival, a completion's
+//   estimate, a dispatch's head, a row leaving or re-entering the FC
+//   window), and its group is summarized again: one load a lane of each
+//   array and one warp reduction.  A dispatch takes the least of the
+//   summaries' priorities (base + c4 now with the enqueue clock), then the
+//   least head row among those equal.  Adding c4 now and rounding keeps
+//   the order but can merge two bases: a group at that priority holding a
+//   head row below the winner's is then scanned in full, entry by entry,
+//   which gives the oracle's first-index tie-break (FIFO's equal bases
+//   need no scan: each group's least row is its summary's).  The
+//   functions' pull-time bases for the re-queued calls are kept current
+//   at each update.  The register paths (PL > 0) scan their 32 functions,
+//   one a lane, at each dispatch.
 // - Six candidate events a step, taken in the oracle's precedence (kill <
 //   arrival <= completion < re-arrival < activation < tick, the first
 //   minimum wins).  Each candidate is carried from step to step as a
@@ -938,12 +958,28 @@ __host__ __device__ constexpr int dyn_cell_bytes(bool staged, int n1, int F,
          4 * round_up(nfree, 4);
 }
 
+// shared memory one block may take on sm_90 (227 KB opted in;
+// ops.SMEM_BLOCK_BYTES)
+constexpr int kSmemBlockBytes = 232448;
+
+// Bytes of the wide path's group summaries (below) of `plf` groups: a
+// base (8 bytes), its head row and the least queued head row (4 each) a
+// group.  They take the cell's shared memory when they fit, else the
+// scratch.  ops.event_step_plan computes the same.
+__host__ __device__ constexpr int dyn_group_bytes(int plf) {
+  return 16 * plf;
+}
+__host__ __device__ constexpr bool dyn_groups_shared(int plf) {
+  return dyn_group_bytes(plf) <= kSmemBlockBytes;
+}
+
 // Scratch words of one cell: on the wide path the ring, the lane-owned
 // arrays (3 words a slot, 11 a node, 16 a function; under STREAM one more a
 // node, its queue length, and a function, its qcnt) and the `nfree`
 // free-container counts, then with dynamics the per-row arrays
 // (re-arrival time, last pull clock, enqueue time: two words each;
-// re-queued flag: one) and each function's pull-time base.
+// re-queued flag: one) and each function's pull-time base, then (wide)
+// the group summaries when shared memory cannot hold them.
 // ops.event_step_plan computes the same.
 __host__ __device__ constexpr long dyn_scratch_words(bool wide, int pls,
                                                      int pln, int plf,
@@ -953,7 +989,9 @@ __host__ __device__ constexpr long dyn_scratch_words(bool wide, int pls,
   const int sw = stream ? 1 : 0;
   return (wide ? 2L * round_up(F * W, 2) +
                      32L * (3 * pls + (11 + sw) * pln + (16 + sw) * plf) +
-                     round_up(nfree, 2)
+                     round_up(nfree, 2) +
+                     (dyn_groups_shared(plf) ? 0L
+                                             : dyn_group_bytes(plf) / 4L)
                : 0L) +
          (dyn ? 7L * round_up(n1, 2) + 2L * F : 0L);
 }
@@ -1164,12 +1202,148 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
   }
   int ai = __ldg(ctr + L.ai);
   // FC counts of the arrivals the carry has already taken
-  for (int i = 0; i < ai && i < n; ++i) {
-    const int f = R.fn(i);
-    if (R.t(i) != inf)
-      for (int q = 0; q < plf; ++q)
-        if (lane * plf + q == f) f_cnt[q] += 1;
+  if constexpr (PL == 0) {
+    // a row a lane, each count at its function's entry
+    int* const cnt0 = &f_cnt[0] - lane;
+    __syncwarp();
+    for (int i = lane; i < ai && i < n; i += 32) {
+      const int f = R.fn(i);
+      if (R.t(i) != inf) atomicAdd(cnt0 + (f % plf) * 32 + f / plf, 1);
+    }
+    __syncwarp();
+  } else {
+    for (int i = 0; i < ai && i < n; ++i) {
+      const int f = R.fn(i);
+      if (R.t(i) != inf)
+        for (int q = 0; q < plf; ++q)
+          if (lane * plf + q == f) f_cnt[q] += 1;
+    }
   }
+  // -- (wide) the group summaries: group g is entry g of every lane; its
+  // summary is kept by lane g % 32, which alone reads and writes it
+  double* g_base = nullptr;   // the least (base, head row)'s base, ...
+  int* g_row = nullptr;       // ... its head row (INT_MAX: none queued)
+  int* g_rmin = nullptr;      // the least head row queued
+  int nq_f = 0;               // functions with a queued head
+  // function entry q's queue holds a call; its pull-time base
+  auto queued = [&](int q) {
+    return f_head[q] < (STREAM ? f_qc[q] : f_narr[q]);
+  };
+  auto fn_base = [&](int q) {
+    double w = c2;
+    if (D.use_fc)
+      w = __dadd_rn(c2, __dmul_rn(c3, static_cast<double>(f_cnt[q])));
+    return __dadd_rn(__dmul_rn(c1, f_prev[q]), __dmul_rn(w, f_est[q]));
+  };
+  // summarize group g again, and keep its functions' bases current
+  auto regroup = [&](int g) {
+    const int e = lane * plf + g;
+    unsigned long long k = NO_KEY64;
+    int r = INT_MAX;
+    double sb = 0.0;
+    if (e < F) {
+      const double bs = fn_base(g);
+      if (DYN) f_base[e] = bs;
+      sb = __dadd_rn(__dmul_rn(c0, f_th[g]), bs);
+      if (queued(g)) k = order_key64(sb);
+      if (k != NO_KEY64) r = f_idx[g];
+    }
+    int at;
+    const unsigned long long m = warp_argmin64(k, r, &at);
+    const int rmin = __reduce_min_sync(FULL, r);
+    const unsigned win = __ballot_sync(FULL, k == m && r == at);
+    const double bw = __shfl_sync(FULL, sb, __ffs(win) - 1);
+    if (lane == (g & 31)) {
+      g_base[g] = bw;
+      g_row[g] = at;
+      g_rmin[g] = rmin;
+    }
+  };
+  if constexpr (PL == 0) {
+    unsigned char* gs =
+        bytes_per_cell > 0
+            ? smem + static_cast<size_t>(warp) * bytes_per_cell
+            : reinterpret_cast<unsigned char*>(
+                  fcnt + round_up(COLD ? NN * F : 0, 2));
+    g_base = reinterpret_cast<double*>(gs);
+    g_row = reinterpret_cast<int*>(g_base + plf);
+    g_rmin = g_row + plf;
+    int nq = 0;
+    for (int g = 0; g < plf; ++g) {
+      regroup(g);
+      nq += lane * plf + g < F && queued(g);
+    }
+    nq_f = __reduce_add_sync(FULL, nq);
+  }
+  // (wide) the least queued head at `now` -- its row into *j (n if none)
+  // and its priority into *prio -- from the group summaries: the least
+  // priority M of a summary (its base + c4 now), then the least head row
+  // among the summaries at M.  With c4 now != 0 the rounding can merge a
+  // larger base into M; a group at M holding a head row below the winner's
+  // is then scanned in full.
+  auto pick_head = [&](double now_, int* j, double* prio) {
+    const double c4n = DYN ? __dmul_rn(c4, now_) : 0.0;
+    const bool merge = DYN && c4n != 0.0;
+    auto summary_key = [&](int g, double* pr) {
+      *pr = DYN ? __dadd_rn(g_base[g], c4n) : g_base[g];
+      return order_key64(*pr);
+    };
+    unsigned long long lk = NO_KEY64;
+    int lr = INT_MAX, lm = INT_MAX;
+    double lv = 0.0;
+    for (int g = lane; g < plf; g += 32) {
+      const int r = g_row[g];
+      if (r == INT_MAX) continue;
+      double pr;
+      const unsigned long long k = summary_key(g, &pr);
+      const int rm = g_rmin[g];
+      if (k < lk) {
+        lk = k; lr = r; lv = pr; lm = rm;
+      } else if (k == lk) {
+        if (r < lr) { lr = r; lv = pr; }
+        lm = min(lm, rm);
+      }
+    }
+    int jw;
+    const unsigned long long m = warp_argmin64(lk, lr, &jw);
+    if (m == NO_KEY64) return;
+    double pw = __shfl_sync(
+        FULL, lv, __ffs(__ballot_sync(FULL, lk == m && lr == jw)) - 1);
+    if (merge && __reduce_min_sync(FULL, lk == m ? lm : INT_MAX) < jw) {
+      // the groups at M with a head row below the winner's, in order
+      for (int gc = -1;;) {
+        int gn = INT_MAX;
+        for (int g = lane; g < plf; g += 32) {
+          double pr;
+          if (g > gc && g_row[g] != INT_MAX && g_rmin[g] < jw &&
+              summary_key(g, &pr) == m) {
+            gn = g;
+            break;
+          }
+        }
+        gn = __reduce_min_sync(FULL, gn);
+        if (gn == INT_MAX) break;
+        unsigned long long k = NO_KEY64;
+        int r = INT_MAX;
+        double pr = 0.0;
+        if (lane * plf + gn < F && queued(gn)) {
+          pr = __dadd_rn(__dadd_rn(__dmul_rn(c0, f_th[gn]), fn_base(gn)),
+                         c4n);
+          k = order_key64(pr);
+          r = f_idx[gn];
+        }
+        const int rr = __reduce_min_sync(FULL, k == m ? r : INT_MAX);
+        if (rr < jw) {
+          jw = rr;
+          pw = __shfl_sync(
+              FULL, pr, __ffs(__ballot_sync(FULL, k == m && r == rr)) - 1);
+        }
+        gc = gn;
+      }
+    }
+    *j = jw;
+    *prio = pw;
+  };
   int k0 = 0;
   double t_k0 = R.t(0), t_km1 = -inf;
   double t_a = ai <= n ? R.t(ai) : inf;
@@ -1258,7 +1432,10 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
         if (lane * pln + q == kn) n_busy[q] -= 1;
       const int f_done = R.fn(j_done);
       const double v = R.p(j_done);
-      for (int q = 0; q < plf; ++q) {
+      // the owner of f_done's entries observes v (wide: addressed directly)
+      const int q_lo = PL == 0 ? f_done % plf : 0;
+      const int q_hi = PL == 0 ? q_lo + 1 : plf;
+      for (int q = q_lo; q < q_hi; ++q) {
         if (lane * plf + q == f_done) {
           const bool full = f_rlen[q] == W;
           const int pos = f_rpos[q];
@@ -1270,6 +1447,7 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
           f_est[q] = __ddiv_rn(f_rsum[q], static_cast<double>(f_rlen[q]));
         }
       }
+      if constexpr (PL == 0) regroup(q_lo);
       if constexpr (COLD) {
         // release: the container returns to its node's free pool of the
         // function, or is evicted when the pool holds `cores`
@@ -1359,14 +1537,23 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
       if (n_re > 0) find_rearr(); else re_min = inf;
     } else if (ev == 1) {
       // -- arrival: enqueue, observe on the controller estimator
-      for (int q = 0; q < plf; ++q) {
+      const int q_lo = PL == 0 ? f_a % plf : 0;
+      const int q_hi = PL == 0 ? q_lo + 1 : plf;
+      int was = 0, is = 0;    // (wide) f_a's head queued before and after
+      for (int q = q_lo; q < q_hi; ++q) {
         if (lane * plf + q == f_a) {
+          if constexpr (PL == 0) was = queued(q);
           f_prev[q] = f_narr[q] == 0 ? now : f_last[q];
           f_last[q] = now;
           f_narr[q] += 1;
           f_cnt[q] += 1;
           if constexpr (STREAM) f_qc[q] += 1;
+          if constexpr (PL == 0) is = queued(q);
         }
+      }
+      if constexpr (PL == 0) {
+        nq_f += __shfl_sync(FULL, is - was, f_a / plf);
+        regroup(q_lo);
       }
       if constexpr (STREAM) {
         if (lane == 0) n_qn[0] += 1;   // every arrival joins node 0's qn
@@ -1382,18 +1569,26 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
     bool can = false;
     if (ev >= 1 && ev <= 4) {
       bool q_any = n_xq > 0;
-      for (int q = 0; q < plf; ++q)
-        q_any |= f_head[q] < (STREAM ? f_qc[q] : f_narr[q]);
-      q_any = __any_sync(FULL, q_any);
+      if constexpr (PL == 0) {
+        q_any = q_any || nq_f > 0;
+      } else {
+        for (int q = 0; q < plf; ++q)
+          q_any |= f_head[q] < (STREAM ? f_qc[q] : f_narr[q]);
+        q_any = __any_sync(FULL, q_any);
+      }
       if (q_any) {
         if (D.use_fc) {
           // -- FC window: k0 passes the rows at or before now - horizon
           const double lim = __dsub_rn(now, horizon);
           while (k0 < n && t_k0 <= lim) {
             const int f = R.fn(k0);
-            if (t_k0 != inf)
-              for (int q = 0; q < plf; ++q)
+            if (t_k0 != inf) {
+              const int q_lo = PL == 0 ? f % plf : 0;
+              const int q_hi = PL == 0 ? q_lo + 1 : plf;
+              for (int q = q_lo; q < q_hi; ++q)
                 if (lane * plf + q == f) f_cnt[q] -= 1;
+              if constexpr (PL == 0) regroup(q_lo);
+            }
             t_km1 = t_k0;
             ++k0;
             t_k0 = R.t(k0);
@@ -1403,9 +1598,13 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
             t_k0 = t_km1;
             t_km1 = k0 > 0 ? R.t(k0 - 1) : -inf;
             const int f = R.fn(k0);
-            if (t_k0 != inf)
-              for (int q = 0; q < plf; ++q)
+            if (t_k0 != inf) {
+              const int q_lo = PL == 0 ? f % plf : 0;
+              const int q_hi = PL == 0 ? q_lo + 1 : plf;
+              for (int q = q_lo; q < q_hi; ++q)
                 if (lane * plf + q == f) f_cnt[q] += 1;
+              if constexpr (PL == 0) regroup(q_lo);
+            }
           }
         }
         // the active invoker with the most free slots (first on ties)
@@ -1426,34 +1625,41 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
           ok = ok && lane_get(n_act, pln, k_d) <= now &&
                !lane_get(n_dead, pln, k_d);
         // the best queue head: least priority, then least event index
-        unsigned long long pk = NO_KEY64;
-        int pj = INT_MAX;
-        double pv = 0.0;
-        for (int q = 0; q < plf; ++q) {
-          double w = c2;
-          if (D.use_fc)
-            w = __dadd_rn(c2, __dmul_rn(c3, static_cast<double>(f_cnt[q])));
-          const double base = __dadd_rn(__dmul_rn(c1, f_prev[q]),
-                                        __dmul_rn(w, f_est[q]));
-          double pr = __dadd_rn(__dmul_rn(c0, f_th[q]), base);
-          if (DYN) pr = __dadd_rn(pr, __dmul_rn(c4, now));
-          const unsigned long long k =
-              f_head[q] < (STREAM ? f_qc[q] : f_narr[q]) ? order_key64(pr)
-                                                         : NO_KEY64;
-          if (k < pk || (k == pk && f_idx[q] < pj)) {
-            pk = k; pj = f_idx[q]; pv = pr;
-          }
-          if (DYN && n_xq > 0 && lane * plf + q < F)
-            f_base[lane * plf + q] = base;
-        }
-        int j;
-        const unsigned long long pmin = warp_argmin64(pk, pj, &j);
+        int j = n;
         double prio_j = inf;
-        if (pmin == NO_KEY64) {
-          j = n;
+        if constexpr (PL == 0) {
+          // (wide) from the group summaries; nothing to pick for a node
+          // that cannot take a call
+          if (ok) pick_head(now, &j, &prio_j);
         } else {
-          const unsigned win = __ballot_sync(FULL, pk == pmin && pj == j);
-          prio_j = __shfl_sync(FULL, pv, __ffs(win) - 1);
+          unsigned long long pk = NO_KEY64;
+          int pj = INT_MAX;
+          double pv = 0.0;
+          for (int q = 0; q < plf; ++q) {
+            double w = c2;
+            if (D.use_fc)
+              w = __dadd_rn(c2,
+                            __dmul_rn(c3, static_cast<double>(f_cnt[q])));
+            const double base = __dadd_rn(__dmul_rn(c1, f_prev[q]),
+                                          __dmul_rn(w, f_est[q]));
+            double pr = __dadd_rn(__dmul_rn(c0, f_th[q]), base);
+            if (DYN) pr = __dadd_rn(pr, __dmul_rn(c4, now));
+            const unsigned long long k =
+                f_head[q] < (STREAM ? f_qc[q] : f_narr[q]) ? order_key64(pr)
+                                                           : NO_KEY64;
+            if (k < pk || (k == pk && f_idx[q] < pj)) {
+              pk = k; pj = f_idx[q]; pv = pr;
+            }
+            if (DYN && n_xq > 0 && lane * plf + q < F)
+              f_base[lane * plf + q] = base;
+          }
+          const unsigned long long pmin = warp_argmin64(pk, pj, &j);
+          if (pmin == NO_KEY64) {
+            j = n;
+          } else {
+            const unsigned win = __ballot_sync(FULL, pk == pmin && pj == j);
+            prio_j = __shfl_sync(FULL, pv, __ffs(win) - 1);
+          }
         }
         bool pick_x = false;
         if (DYN && n_xq > 0) {
@@ -1545,12 +1751,20 @@ __global__ void __launch_bounds__(32 * kMaxCellsPerBlock)
             n_xq -= 1;
           } else {
             const int f_j = R.fn(j);
-            for (int q = 0; q < plf; ++q) {
+            const int q_lo = PL == 0 ? f_j % plf : 0;
+            const int q_hi = PL == 0 ? q_lo + 1 : plf;
+            int is = 1;     // (wide) f_j's head still queued
+            for (int q = q_lo; q < q_hi; ++q) {
               if (lane * plf + q == f_j) {
                 f_head[q] += 1;
                 f_idx[q] = entry(f_j, f_head[q]);
                 f_th[q] = R.t(f_idx[q]);
+                if constexpr (PL == 0) is = queued(q);
               }
+            }
+            if constexpr (PL == 0) {
+              nq_f -= 1 - __shfl_sync(FULL, is, f_j / plf);
+              regroup(q_lo);
             }
           }
           if (lane == 0) {
@@ -1708,7 +1922,8 @@ int launch_dyn_pl(bool staged, const DArgs& a, const DLayout& L,
 
 // The checked launch of the float64 pull kernel on D.B cells: `P` holds
 // the kDPlan entries of ops.event_step_plan(..., f64=True) (slots a lane;
-// staged or not; wide or not; shared-memory bytes a cell; scratch words a
+// staged or not; wide or not; shared-memory bytes a cell, on the wide path
+// its group summaries' or 0 where they are in the scratch; scratch words a
 // cell).  The dyn inputs and summary outputs must be there with D.dyn,
 // the het inputs with D.het, the cold outputs with D.cold, the CSR lists,
 // horizons and final planes with STREAM.  Returns cudaGetLastError() after
@@ -1740,8 +1955,9 @@ int dyn_launch(const DArgs& a, const DLayout& L, const DDims& D,
                   a.ctr_out == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (wide) {
-    if (staged || cell != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_dyn_cold<0, false, STREAM>(cold, a, L, D, 0, horizon, s,
+    if (staged || cell != (dyn_groups_shared(plf) ? dyn_group_bytes(plf) : 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dyn_cold<0, false, STREAM>(cold, a, L, D, cell, horizon, s,
                                              pl, words);
   }
   if (cell != dyn_cell_bytes(staged, n1, D.n_fns, D.window, nfree) ||

@@ -151,6 +151,10 @@ EVENT_STEP_WIDE_ARRAYS = 20
 EVENT_STEP_STREAM_WIDE_ARRAYS = 3
 # shared memory one block may take on sm_90 (227 KB, opted in)
 SMEM_BLOCK_BYTES = 232448
+# bytes of one group summary on the float64 pull kernel's wide path
+# (``dyn_group_bytes`` in csrc/event_step_pull.cuh): the least (base, head
+# row)'s base and row and the least queued head row of 32 functions
+EVENT_STEP_DYN_GROUP_BYTES = 16
 
 # carry entries of the frozen-priority kernel, in the order of ``struct
 # FLayout`` in csrc/event_step.cu (the push FC rings last: absent, 0)
@@ -269,10 +273,17 @@ def _dyn_plan(n1: int, n_nodes: int, n_slots: int, n_fns: int, window: int,
     if wide:
         per_lane = max(1, -(-nsl // 32))
         sw = int(stream)         # a node's qn, a function's qcnt
+        plf = -(-n_fns // 32)    # functions a lane, and groups
         words = (2 * _round_up(n_fns * window, 2)
                  + 32 * (3 * per_lane + (11 + sw) * -(-n_nodes // 32)
-                         + (16 + sw) * -(-n_fns // 32))
+                         + (16 + sw) * plf)
                  + _round_up(n_free, 2))
+        # the group summaries: in shared memory, else in the scratch
+        groups = EVENT_STEP_DYN_GROUP_BYTES * plf
+        if groups <= SMEM_BLOCK_BYTES:
+            cell = groups
+        else:
+            words += groups // 4
     else:
         staged = event_step_dyn_cell_bytes(True, n1, n_fns, window,
                                            n_free) <= SMEM_BLOCK_BYTES
@@ -391,7 +402,10 @@ def event_step_plan(*, n1: int, n_nodes: int, n_slots: int, n_fns: int,
     memory, and stages the rows t / p / cost (float64) and fnid (8-bit) in
     shared memory when one cell's fit (n_b up to ~9,000); past 256 slots or
     32 nodes or functions it takes the wide path (``per_lane`` = ceil(slots
-    / 32); ring and lane arrays in the scratch, rows in place).  With
+    / 32); ring and lane arrays in the scratch, rows in place, and in
+    ``cell_bytes`` of shared memory the summaries of its ceil(functions /
+    32) groups of 32 functions, ``EVENT_STEP_DYN_GROUP_BYTES`` each, or in
+    the scratch when one block's shared memory cannot hold them).  With
     ``dyn`` the scratch adds 7 words a row (re-arrival, last pull clock and
     enqueue times, the re-queued flag) and 2 a function.  With ``cold`` each
     (node, function)'s free containers take a word, in shared memory after

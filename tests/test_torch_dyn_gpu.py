@@ -23,9 +23,20 @@ block; the kernel's own paths, each chosen by shape
 (``ops.event_step_plan(..., f64=True)``): 1, 2, 4 and 8 slots a lane, rows
 too long to stage, and 16 nodes x 18 cores autoscaling to 20 (the wide
 path); and a step budget too small, which the bucket runner refuses.
+
+The wide path's dispatch from group summaries
+(``tests/wide_dispatch_cases.py``): 300 and 2,100 functions (padded to
+512 and 4,096) under all five policies with a kill that re-queues calls
+(FIFO under ``dyn``: every head's priority equal), node speeds without
+dynamics, cold starts, the FC window stepping forward and back (negative
+costs), and EECT buckets whose two bases differ in the last place but
+merge once ``now`` is added, the larger base holding the smaller head row,
+in one group and in two.
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -38,7 +49,18 @@ from repro_torch.core.sweep import (
     _cell_profile,
     make_workload,
 )
+from repro_torch.core.cluster import ClusterDynamics
+from repro_torch.core.request import Request
+from repro_torch.core.stragglers import NodeSpeedProfile
 from repro_torch.kernels import ops
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from wide_dispatch_cases import (  # noqa: E402
+    TIE_CORES,
+    TIE_NODES,
+    many_fn_requests,
+    merged_bases_requests,
+)
 
 POLICIES = ("fifo", "sept", "eect", "rect", "fc")
 
@@ -79,11 +101,12 @@ def _plan(host, static):
                                dyn=static["dyn"])
 
 
-def _matches_plain(host, static, cuda, what):
+def _matches_plain(host, static, cuda, what, complete=True):
     inp = {k: torch.from_numpy(v).to(cuda) for k, v in host.items()}
     clk, ctr = make_planes(inp, n_nodes=static["n_nodes"],
                            n_slots=static["n_slots"],
-                           window=static["window"], dyn=static["dyn"])
+                           window=static["window"], dyn=static["dyn"],
+                           cold=static["cold"])
     assert clk.dtype == torch.float64
     n = inp["t"].shape[1] - 1
     k0, r0 = ops.DYN_LAUNCHES, ops.DYN_REF_LAUNCHES
@@ -97,6 +120,8 @@ def _matches_plain(host, static, cuda, what):
     assert ref[4].keys() == got[4].keys()
     for k in ref[4]:
         assert torch.equal(ref[4][k], got[4][k]), f"{k} diverged ({what})"
+    if not complete:        # hand-made inputs may leave a call unserved
+        return got
     # every real call was dispatched, onto a node the cell could reach
     real = torch.isfinite(inp["t"][:, :n]) & (inp["cores"][:, None] > 0)
     assert bool((got[1][:, :n][real] > 0).all()), what
@@ -259,3 +284,123 @@ def test_an_exhausted_step_budget_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="budget exhausted"):
         tfp._run_scan_bucket(key, cells, cuda)
     assert ops.DYN_LAUNCHES == k0 + 1
+
+
+def _request_cell(reqs, policy, nodes, cores, **kw):
+    return tfp._ScanCell(requests=reqs, feats=tfp._arrival_features(reqs),
+                         cores=cores, nodes=nodes, policy=policy, **kw)
+
+
+def _request_bucket(prepared):
+    key = tuple(max(col) for col in zip(*{c.bucket() for c in prepared}))
+    return tfp._fill_bucket(key, prepared), tfp._scan_static(key), key
+
+
+def _wide_plan(host, static):
+    plan = _plan(host, static)
+    n_fns = host["ring0"].shape[2]
+    assert plan["wide"] and n_fns > 32
+    assert plan["cell_bytes"] == ops.EVENT_STEP_DYN_GROUP_BYTES * (
+        -(-n_fns // 32))
+    return plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fns", [300, 2100])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_dyn_kernel_wide_functions_with_a_kill(cuda, policy, n_fns):
+    """Many functions on 3 x 4 cores, node 1 killed mid-burst: its calls
+    re-queue (``n_xq > 0``) beside the functions' queues."""
+    dyn = ClusterDynamics(fail=((1, 6.0),), failure_detect_s=0.5)
+    prepared = [_request_cell(
+        many_fn_requests(Request, n_fns + 300, n_fns, seed=s, span=25.0),
+        policy, 3, 4, dynamics=dyn) for s in range(2)]
+    host, static, key = _request_bucket(prepared)
+    assert static["dyn"] and key[4] >= n_fns
+    _wide_plan(host, static)
+    got = _matches_plain(host, static, cuda, f"{policy}, {n_fns} functions")
+    assert int(got[4]["nfail"][:2].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["sept", "fc", "rect"])
+def test_dyn_kernel_wide_functions_with_speeds(cuda, policy):
+    """Node speeds without dynamics (no enqueue clock) on 300 functions."""
+    prof = NodeSpeedProfile(speeds=(1.0, 0.3, 5.0))
+    prepared = [_request_cell(many_fn_requests(Request, 700, 300, seed=s,
+                                               span=25.0),
+                              policy, 3, 4, profile=prof) for s in range(2)]
+    host, static, _ = _request_bucket(prepared)
+    assert static["het"] and not static["dyn"]
+    _wide_plan(host, static)
+    _matches_plain(host, static, cuda, f"{policy}, speeds")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["sept", "fc"])
+def test_dyn_kernel_wide_functions_cold(cuda, policy):
+    prepared = [_request_cell(many_fn_requests(Request, 600, 300, seed=s,
+                                               span=25.0),
+                              policy, 3, 4, warm=False) for s in range(2)]
+    host, static, _ = _request_bucket(prepared)
+    assert static["cold"]
+    _wide_plan(host, static)
+    got = _matches_plain(host, static, cuda, f"{policy}, cold")
+    assert int(got[4]["ncold"][:2].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fns", [300, 2100])
+def test_dyn_kernel_wide_fc_window_steps_back(cuda, n_fns):
+    """Negative channel costs let an event land before an earlier one, so
+    now - horizon falls and the FC window's start steps back: each count
+    that moves summarizes its group again."""
+    dyn = ClusterDynamics(fail=((0, 4.0),), failure_detect_s=0.5)
+    prepared = [_request_cell(
+        many_fn_requests(Request, n_fns + 300, n_fns, seed=s, span=25.0),
+        "fc", 3, 4, dynamics=dyn) for s in range(2)]
+    host, static, _ = _request_bucket(prepared)
+    n = host["t"].shape[1] - 1
+    host["cost"][:, :n] = -0.25
+    static = dict(static, horizon=0.5)
+    assert static["use_fc"]
+    _wide_plan(host, static)
+    _matches_plain(host, static, cuda, f"fc window back, {n_fns}",
+                   complete=False)
+
+
+@pytest.mark.gpu
+def test_dyn_kernel_eect_merged_bases(cuda):
+    """Two bases 2^-52 apart merge into one priority once now is added;
+    the larger base holds the smaller head row and wins, in one group of
+    32 functions (cell 0: the group is scanned in full) and across two
+    (cell 1)."""
+    dyn = ClusterDynamics(fail=((0, 1e6),))
+    prepared = [_request_cell(merged_bases_requests(Request, same),
+                              "eect", TIE_NODES, TIE_CORES, dynamics=dyn)
+                for same in (True, False)]
+    host, static, key = _request_bucket(prepared)
+    assert key[4] == 512
+    _wide_plan(host, static)
+    got = _matches_plain(host, static, cuda, "eect merged bases")
+    # rows 4 and 5 are B's and A's second calls: B's, the larger base,
+    # went first
+    start = got[0].cpu().numpy()
+    assert (start[:2, 4] < start[:2, 5]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["fifo", "eect"])
+def test_dyn_kernel_wide_enqueue_clock_ties_at_2048_functions(cuda, policy):
+    """FIFO (every head's base 0) and EECT under the autoscaler on 2,048
+    functions on 34 single-core nodes: the enqueue clock on every head."""
+    dyn = ClusterDynamics(autoscale=True, autoscale_interval_s=1.0,
+                          scale_up_queue_per_slot=0.5, provision_delay_s=2.0,
+                          max_nodes=40)
+    prepared = [_request_cell(many_fn_requests(Request, 3000, 2048, seed=s,
+                                               span=40.0),
+                              policy, 34, 1, dynamics=dyn) for s in range(2)]
+    host, static, key = _request_bucket(prepared)
+    assert key[4] == 2048
+    _wide_plan(host, static)
+    _matches_plain(host, static, cuda, f"{policy} autoscale, 2048")

@@ -20,9 +20,14 @@ a backlog several times: float32 SEPT and FC (FC with history rows) at 1,
 float64 with the autoscaler, with a kill and node speeds, and cold starts;
 34 nodes autoscaling to 40 (the float64 wide path); and the planet fleet's
 first chunks (benchmarks/engine_bench.py::_planet_fleet: 10,000 functions,
-96 nodes autoscaling to 128, chunk 512).
+96 nodes autoscaling to 128, chunk 512).  The float64 wide path's dispatch
+from group summaries (``tests/wide_dispatch_cases.py``): 300 and 2,100
+functions under all five policies with a kill, chunks small enough that
+each hands calls still queued to the next; cold starts on 300 functions;
+and the EECT burst whose two bases merge once ``now`` is added.
 """
 
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +39,14 @@ from repro_torch.core.cluster import ClusterDynamics
 from repro_torch.core.request import Request
 from repro_torch.core.stragglers import NodeSpeedProfile
 from repro_torch.kernels import ops
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from wide_dispatch_cases import (  # noqa: E402
+    TIE_CORES,
+    TIE_NODES,
+    many_fn_requests,
+    merged_bases_requests,
+)
 
 FNS = ("dynamic-html", "uploader", "thumbnailer", "compression")
 TRACE = (Path(__file__).resolve().parent.parent / "data"
@@ -179,3 +192,50 @@ def test_stream_planet_chunks(cuda):
         container_mb=4, dynamics=dyn)
     assert all(p["wide"] and p["per_lane"] == 4 for p in plans)
     assert np.isfinite(got.finish).all() and got.n == 1200
+
+
+POLICIES = ("fifo", "sept", "eect", "rect", "fc")
+
+
+def _check_handoffs(reqs, cuda, chunk, **kw):
+    """``_check``, and the chunks' log: some chunk starts with calls still
+    queued (more carried rows than the slots could hold)."""
+    log: list = []
+    got, plans = _check(reqs, cuda, chunk, chunk_log=log, **kw)
+    slots = kw["nodes"] * kw["cores_per_node"]
+    assert max(c["carried"] for c in log) > slots
+    assert all(p["wide"] for p in plans)
+    return got, plans
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fns", [300, 2100])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_stream_f64_wide_functions(cuda, policy, n_fns):
+    dyn = ClusterDynamics(fail=((1, 6.0),), failure_detect_s=0.5)
+    got, _ = _check_handoffs(
+        many_fn_requests(Request, n_fns + 300, n_fns, seed=11, span=25.0),
+        cuda, 256, nodes=3, cores_per_node=4, policy=policy, dynamics=dyn)
+    assert got.counters["failures"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ("sept", "fc"))
+def test_stream_f64_wide_functions_cold(cuda, policy):
+    got, _ = _check_handoffs(
+        many_fn_requests(Request, 600, 300, seed=12, span=25.0), cuda, 128,
+        nodes=3, cores_per_node=4, policy=policy, warm=False,
+        container_mb=4)
+    assert got.counters["cold_starts"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("same_group", (True, False))
+def test_stream_f64_eect_merged_bases(cuda, same_group):
+    dyn = ClusterDynamics(fail=((0, 1e6),))
+    got, plans = _check(merged_bases_requests(Request, same_group), cuda, 4,
+                        nodes=TIE_NODES, cores_per_node=TIE_CORES,
+                        policy="eect", dynamics=dyn)
+    assert all(p["wide"] for p in plans)
+    # events 4 and 5 are B's and A's second calls: B's went first
+    assert got.start[4] < got.start[5]

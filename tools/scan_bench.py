@@ -34,9 +34,10 @@ FC and SEPT buckets at 10 cores, intensity 120; push FC on 4 x 8 cores,
 least-loaded and home; Fig 6's fleet), each bucket built by DIR's own
 bucket runner: ``ms``.
 
-``--mode dyn``: the float64 pull kernel on ``chip_smoke.py``'s three
+``--mode dyn``: the float64 pull kernel on ``chip_smoke.py``'s four
 float64 checks (the frontier and straggler grids' samples, the failure +
-speed bucket), each bucket built by DIR's own bucket runner: ``ms``.
+speed bucket, the autoscaled bucket past 32 nodes on the wide path), each
+bucket built by DIR's own bucket runner: ``ms``.
 
 ``--mode freeze64``: the float64 frozen-priority kernel on
 ``chip_smoke.py``'s six checks of it (the cold matrix's push buckets, the
@@ -65,7 +66,9 @@ the kernel counts).  DIR must have resilience.
 replay's invocations/s and chunks, and the stream kernel's ``ms`` on the
 first chunk past half the prefix (its start planes replayed 3 times, after
 one check against the plain version) with ``ns_per_step`` over its
-arrivals and completions.  DIR must have the stream.  ``--assignment
+arrivals and completions.  ``--profile`` adds the replay once more under
+``torch.profiler``: the card's ms in the event-step kernels, in copies,
+fills and other kernels, and their share of that replay's wall.  DIR must have the stream.  ``--assignment
 push`` replays the planet fleet under push instead
 (``chip_smoke.planet_push_fleet``, least-loaded) through the
 frozen-priority stream kernels, and times the float64 kernel on the same
@@ -101,8 +104,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -272,7 +277,8 @@ def dyn_cases(chip_smoke):
                                      intensity=v, seed=s,
                                      fail_spec=((0, 8.0),),
                                      degrade=((0, 1.0, 300.0, 5.0),))
-                     for v in (16, 45) for s in range(4)]}
+                     for v in (16, 45) for s in range(4)],
+        "wide": chip_smoke.wide_dyn_cells()}
     for name, cells in cases.items():
         prepared = []
         for c in cells:
@@ -380,10 +386,50 @@ def res_cases(chip_smoke):
                      ops.event_step(clk, ctr, inp, **static))
 
 
-def stream_case(chip_smoke, invocations: int, push: bool = False) -> dict:
+def stream_profile(chip_smoke, invocations: int, fleet: dict) -> dict:
+    """The planet prefix replayed once more under ``torch.profiler``: its
+    wall (the profiler's cost included) and the card's time in the
+    event-step kernels, in copies between host and card, in fills and in
+    other kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import streamscan
+
+    stream = chip_smoke.planet_model().stream(chip_smoke.PLANET_SEED,
+                                              max_invocations=invocations)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        streamscan.simulate_cluster_stream(
+            stream, chunk=chip_smoke.PLANET_CHUNK, device="cuda", **fleet)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms = {"event_step_kernel": 0.0, "memcpy": 0.0, "memset": 0.0,
+          "other": 0.0}
+    calls = 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t, name = chip_smoke._device_us(evt) / 1e3, evt.key
+        if re.search(r"(dyn|freeze64|freeze|event_step)_kernel", name):
+            ms["event_step_kernel"] += t
+            calls += evt.count
+        elif "memcpy" in name.lower():
+            ms["memcpy"] += t
+        elif "memset" in name.lower():
+            ms["memset"] += t
+        else:
+            ms["other"] += t
+    busy = sum(ms.values())
+    return {"wall_s": wall, "device_ms": ms, "kernel_calls": calls,
+            "card_busy_ms": busy, "card_busy_share": busy / 1e3 / wall}
+
+
+def stream_case(chip_smoke, invocations: int, push: bool = False,
+                profiled: bool = False) -> dict:
     """``--mode stream``'s numbers: the planet prefix's replay (under push
     with ``push``), then the stream kernel on its first chunk past half the
-    prefix."""
+    prefix; with ``profiled``, the replay's split of the card's time."""
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
@@ -406,8 +452,12 @@ def stream_case(chip_smoke, invocations: int, push: bool = False) -> dict:
             "fill_s": timings["fill_s"], "device_s": timings["device_s"],
             "chunk": row["chunk"], "n_b": row["n_b"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "ns_per_step": row["ns_per_step"],
-            "bound_ms": row["bound_ms"], "max_abs_err": row["max_abs_err"],
-            "launches": launches}
+            "bound_ms": row["bound_ms"],
+            "bound_ms_all_fns": row.get("bound_ms_all_fns"),
+            "max_abs_err": row["max_abs_err"],
+            "launches": launches} | (
+                {"profile": stream_profile(chip_smoke, invocations, fleet)}
+                if profiled else {})
 
 
 def serve_case(chip_smoke, arch: str) -> dict:
@@ -460,7 +510,8 @@ def main() -> int:
     ap.add_argument("--repeat", type=int, default=3,
                     help="timed sweeps after the warm-up (--mode sweep)")
     ap.add_argument("--profile", action="store_true",
-                    help="add each kernel's device time at S > 1 "
+                    help="add each kernel's device time at S > 1, or "
+                         "the stream replay's split of the card's time "
                          "(torch.profiler)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -480,8 +531,8 @@ def main() -> int:
         return 0
     if args.mode == "stream":
         print(json.dumps({"src": args.src} | stream_case(
-            chip_smoke, args.invocations, args.assignment == "push")),
-            flush=True)
+            chip_smoke, args.invocations, args.assignment == "push",
+            args.profile)), flush=True)
         return 0
     if args.mode == "sweep":
         dev = torch.device("cuda")
