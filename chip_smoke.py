@@ -132,6 +132,21 @@ version on the card first:
    or off, 5 seeds: 80 cells) through ``run_cells_scan(metrics_only=
    True)``, each with a sample recomputed through the plain version.
 
+   Then the sweep runner (phase 3j): ``run_sweep`` over Fig 6's grid
+   (benchmarks/fig6_multinode.py::spec, 5 seeds, ``backends=("scan",)``:
+   every cell runs on the reference event loop in the process pool and
+   is marked ``degraded``, as the routing puts them -- the stock baseline,
+   and FC at 18 cores, outside the warm regime the scan models -- with
+   each configuration's mean response beside the paper's), over the main
+   path's 2,000 cells with a cross-check of 17 cell identities against the
+   reference ``Cluster`` (its one breach, MEGA_XCHECK_BREACHES, a failed
+   row as in the JAX package; every other row equal to phase 1's, a
+   sample and the breached cell recomputed through the plain version on
+   the CPU, cells/s beside phase 1's), and one cell of 68,431 calls
+   (SEPT on 96 pull nodes of 12 cores) that ``run_cell`` replays through
+   the chunked stream, its row equal to ``run_cells_scan``'s whole-burst
+   row.
+
 5. The other decoder-only families served at full width in bfloat16 as
    in 2: deepseek_7b, qwen2_5_14b, gemma3_27b (5 local : 1 global
    windowed attention, 62 layers), qwen2_moe_a2_7b (60 experts, top-4)
@@ -2789,6 +2804,231 @@ def freeze_stream_paths(dev, pull: dict) -> dict:
                         "ladder": ladder, "prefixes": prefixes}}
 
 
+# Fig 6 (benchmarks/fig6_multinode.py): FC on 2, 3 and 4 pull nodes of 18
+# cores against the stock baseline on 4, one 72-core burst at intensity 30,
+# and the paper's mean responses (seconds)
+FIG6_PAPER = {"baseline@4": 240.0, "fc@4": None, "fc@3": 68.0,
+              "fc@2": 100.0}
+# phase 3j's cross-check samples every RUNNER_XCHECK_STRIDE-th cell
+# identity of the mega cut (17 of its 50, each with all of its seeds)
+RUNNER_XCHECK_STRIDE = 3
+# the sampled cells of the 40-seed cut whose float32 scan leaves
+# CLUSTER_XCHECK_RTOL against the reference Cluster: a near-tie order that
+# the JAX package's scan gives too (tests/test_torch_sweep_runner.py::
+# test_pull_tie_cell_raises_in_both), so run_sweep records a failed row
+MEGA_XCHECK_BREACHES = ("ours-sept_c8_v30_n2_scan#seed18",)
+# the stream-routed cell: SEPT on 96 pull nodes of 12 cores (the warm
+# regime the scan models holds to 13 cores a node), a burst sized for its
+# 1,152 cores at intensity 54: 68,431 calls, over STREAM_CELL_THRESHOLD
+STREAM_CELL = dict(policy="sept", nodes=96, cores=12, intensity=54,
+                   workload_cores=1152, backend="scan")
+
+
+def pool_workers() -> int:
+    """The sweep pool's size: the cores this process may use, at most 8."""
+    import os
+    return max(1, min(8, len(os.sched_getaffinity(0))))
+
+
+def off_scan(cells) -> dict:
+    """The cells of a ``backends=("scan",)`` grid that the routing puts off
+    the scan (the JAX package's rules), by reason: the stock baseline,
+    shapes outside the scan's matrix, and workloads outside its regime
+    (``cluster_scan_eligible`` / ``scan_eligible``)."""
+    out = {"baseline": 0, "matrix": 0, "regime": 0}
+    for c in cells:
+        if c.mode == "baseline" or c.policy == "baseline":
+            out["baseline"] += 1
+        elif not sweep._scan_batchable(c):
+            out["matrix"] += 1
+        elif sweep._cluster_scan_capable(c):
+            if not sweep._cluster_scan_ok(c, sweep.make_workload(c),
+                                          c.policy):
+                out["regime"] += 1
+        elif not fastpath.scan_eligible(sweep.make_workload(c), c.cores,
+                                        c.policy, warm=c.warm):
+            out["regime"] += 1
+    return out
+
+
+def runner_paths(dev, main_cells, main_rows, main_wall) -> dict:
+    """Phase 3j, the sweep runner: ``run_sweep`` over Fig 6's grid (5
+    seeds) and over the main path's 2,000 cells with a sampled cross-check
+    against the reference ``Cluster``, and one cell over
+    ``STREAM_CELL_THRESHOLD`` rows that ``run_cell`` replays through the
+    chunked stream, each with the counts set to 0 just before and read
+    just after.  ``main_*`` are phase 1's cells, rows and wall.  Returns
+    the launches by kernel and path."""
+    workers = pool_workers()
+    launched: dict = {}
+
+    def counted(label, fn):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launches()
+        plain = {k: c["plain"] for k, c in counts.items() if c["plain"]}
+        if plain:
+            raise AssertionError(f"{label}: plain launches {plain}")
+        for k, c in counts.items():
+            if c["kernel"]:
+                launched.setdefault(k, {})[label] = c["kernel"]
+        return out, wall, {k: c["kernel"] for k, c in counts.items()
+                           if c["kernel"]}
+
+    # -- Fig 6's grid under backends=("scan",) ------------------------------
+    fig6 = sweep.SweepSpec(
+        policies=("fc",), modes=("ours", "baseline"), nodes=(2, 3, 4),
+        cores=(18,), intensities=(30,), workload_cores=72, seeds=5,
+        backends=("scan",),
+        cell_filter=lambda c: c.mode == "ours" or c.nodes == 4)
+    want = off_scan(fig6.cells())
+    res, wall, counts = counted(
+        "Fig 6 grid", lambda: sweep.run_sweep(fig6, workers=workers,
+                                              device=dev))
+    meta = res.meta
+    if meta["failed"] or meta["degraded"] != sum(want.values()):
+        raise AssertionError(f"Fig 6 grid: meta {meta}, off the scan {want}")
+    print(f"sweep runner, Fig 6 grid: {meta['cells']} cells in {wall:.3f} s "
+          f"on {res.workers} workers (pool start method "
+          f"{sweep._pool_method(None)}); scan_batched "
+          f"{meta['scan_batched']}, degraded {meta['degraded']} (the "
+          f"routing's: {json.dumps(want)}), failed {meta['failed']}; kernel "
+          f"launches {json.dumps(counts)}", flush=True)
+    for label, mode, nodes in (("baseline@4", "baseline", 4),
+                               ("fc@4", "ours", 4), ("fc@3", "ours", 3),
+                               ("fc@2", "ours", 2)):
+        agg = res.find(mode=mode, nodes=nodes)
+        if not (math.isfinite(agg["R_avg"]) and agg["seeds"] == 5):
+            raise AssertionError(f"Fig 6 {label}: {agg}")
+        print(f"Fig 6 {label}: R_avg {agg['R_avg']:.4f} s (paper "
+              f"{FIG6_PAPER[label]}), R_p95 {agg['R_p95']:.4f}, max_c "
+              f"{agg['max_c']:.4f}, degraded {agg['degraded']}", flush=True)
+
+    # -- the main path's cells under run_sweep, cross-checked ---------------
+    n_seeds = len({c.seed for c in main_cells})
+    mega = sweep.SweepSpec(policies=("fifo", "sept", "eect", "rect", "fc"),
+                           nodes=(2, 4), cores=(8,),
+                           intensities=(10, 15, 20, 25, 30), seeds=n_seeds,
+                           workload_cores=16, backends=("scan",),
+                           validate="cross-check",
+                           validate_stride=RUNNER_XCHECK_STRIDE)
+    res, wall, counts = counted(
+        "sweep runner, mega cut", lambda: sweep.run_sweep(
+            mega, workers=workers, device=dev))
+    meta = res.meta
+    sampled = [cr for cr in res.results if cr.cell.cross_check]
+    idents = len({cr.cell.key() for cr in sampled})
+    worst = max(cr.metrics["xcheck_err"] for cr in sampled
+                if "xcheck_err" in cr.metrics)
+    failed = [i for i, cr in enumerate(res.results)
+              if cr.metrics.get("failed")]
+    breaches = set(meta["errors"])
+    if (meta["degraded"] or not sampled
+            or meta["cells"] != len(main_cells)
+            or meta["scan_batched"] + meta["xcheck_sampled"]
+            != meta["cells"] or worst > sweep.CLUSTER_XCHECK_RTOL
+            or not counts.get("event_step")
+            or not len(failed) == meta["failed"] == len(breaches)
+            or not all(res.results[i].cell.cross_check for i in failed)
+            or not all(m.startswith("BackendMismatchError: ")
+                       for m in meta["errors"].values())
+            or (n_seeds == 40 and breaches != set(MEGA_XCHECK_BREACHES))):
+        raise AssertionError(f"mega cut: meta {meta}, worst xcheck_err "
+                             f"{worst}, launches {counts}")
+    # every other row equals phase 1's row of the same cell (metrics-only,
+    # the bucketed scan), the cross-checked ones without their xcheck_err
+    for cr, c, r in zip(res.results, main_cells, main_rows):
+        if dataclasses.replace(cr.cell, backend="reference",
+                               cross_check=False) != c:
+            raise AssertionError(f"cell order: {cr.cell} against {c}")
+        if cr.metrics.get("failed"):
+            continue
+        if {k: v for k, v in cr.metrics.items() if k != "xcheck_err"} != r:
+            raise AssertionError(f"{c.label()} seed {c.seed}: run_sweep's "
+                                 "row differs from run_cells_scan's")
+    # a stratified sample and the breached cells through the plain version
+    # on the CPU: the card's rows (phase 1's for a breached cell) equal
+    strata = sorted({(cr.cell.policy, cr.cell.nodes, cr.cell.intensity)
+                     for cr in res.results})
+    pick = [next(i for i, cr in enumerate(res.results)
+                 if (cr.cell.policy, cr.cell.nodes, cr.cell.intensity) == st
+                 and cr.cell.seed == k % n_seeds)
+            for k, st in enumerate(strata)]
+    pick += [i for i in failed if i not in pick]
+    plain = sweep.run_cells_scan([main_cells[i] for i in pick],
+                                 device="cpu")
+    for i, w in zip(pick, plain):
+        if main_rows[i] != w:
+            raise AssertionError(f"{main_cells[i].label()}: the card's row "
+                                 "differs from the plain row")
+    print(f"sweep runner, mega cut: {meta['cells']} cells in {wall:.3f} s "
+          f"= {meta['cells'] / wall:.1f} cells/s on {res.workers} workers, "
+          f"beside run_cells_scan(metrics_only=True) on the same cells "
+          f"{len(main_cells) / main_wall:.1f} cells/s (phase 1); meta "
+          + json.dumps({k: meta[k] for k in (
+              "scan_batched", "degraded", "failed", "xcheck_sampled",
+              "xcheck_skipped_degraded")})
+          + f"; {idents} cell identities cross-checked against the "
+          f"reference Cluster (stride {RUNNER_XCHECK_STRIDE}), largest "
+          f"xcheck_err of the passing cells {worst:.6g} "
+          f"(CLUSTER_XCHECK_RTOL {sweep.CLUSTER_XCHECK_RTOL}), counts exact; "
+          f"kernel launches {json.dumps(counts)}, plain launches 0; every "
+          f"other row equals phase 1's; sample: {len(pick)} cells "
+          "recomputed through the plain version on the CPU, rows equal",
+          flush=True)
+    for key, msg in sorted(meta["errors"].items()):
+        print(f"sweep runner, cross-check breach (the float32 scan's "
+              f"near-tie order, as in the JAX package; its card row equals "
+              f"the plain row): {key}: {msg.splitlines()[0]}", flush=True)
+    runner = {"cells": meta["cells"], "wall_s": wall,
+              "cells_per_s": meta["cells"] / wall,
+              "scan_cells_per_s": len(main_cells) / main_wall,
+              "xcheck_sampled": meta["xcheck_sampled"],
+              "xcheck_identities": idents, "worst_xcheck_err": worst,
+              "xcheck_breaches": sorted(breaches)}
+
+    # -- one cell over STREAM_CELL_THRESHOLD rows ---------------------------
+    cell = sweep.SweepCell(**STREAM_CELL)
+    n = len(sweep.make_workload(cell))
+    if n <= sweep.STREAM_CELL_THRESHOLD:
+        raise AssertionError(f"stream cell: {n} calls")
+    seen = []
+    routed = sweep._run_stream_cell
+
+    def spy(*a, **kw):
+        out = routed(*a, **kw)
+        seen.append(out.stream)
+        return out
+
+    sweep._run_stream_cell = spy
+    try:
+        row, wall, counts = counted("stream-routed cell",
+                                    lambda: sweep.run_cell(cell, device=dev))
+    finally:
+        sweep._run_stream_cell = routed
+    whole, wall_w, counts_w = counted(
+        "whole-burst cell", lambda: sweep.run_cells_scan([cell],
+                                                         device=dev)[0])
+    if len(seen) != 1 or not counts.get("event_step_stream") or row != whole:
+        raise AssertionError(f"stream cell: routed {len(seen)}, launches "
+                             f"{counts}, rows equal {row == whole}")
+    sr = seen[0]
+    print(f"sweep runner, stream-routed cell ({cell.label()}, {n} calls > "
+          f"STREAM_CELL_THRESHOLD {sweep.STREAM_CELL_THRESHOLD}): run_cell "
+          f"replayed it in {sr.chunks} chunks, peak_rows {sr.peak_rows}, in "
+          f"{wall:.3f} s (launches {json.dumps(counts)}); its row equals "
+          f"run_cells_scan's whole-burst row ({wall_w:.3f} s, launches "
+          f"{json.dumps(counts_w)}): R_avg {row['R_avg']:.6g}, R_p95 "
+          f"{row['R_p95']:.6g}, n {row['n']:.0f}", flush=True)
+    runner.update(stream_chunks=sr.chunks, stream_peak_rows=sr.peak_rows,
+                  stream_wall_s=wall, whole_wall_s=wall_w)
+    return {"launches": launched, "runner": runner}
+
+
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
     """The least time (ms) the card could take: bytes over the memory rate
     or operations over the peak rate of ``dtype``, whichever is larger."""
@@ -3899,6 +4139,7 @@ def main() -> int:
     # -- 3. the main path --------------------------------------------------
     cells, rows, wall, timings, launches, ref_launches = main_sweep(
         args.seeds, dev)
+    phase1 = (cells, rows, wall)      # phase 3j runs the same cells
     if launches == 0 or ref_launches != 0:
         raise AssertionError(f"main path launches: kernel {launches}, "
                              f"plain {ref_launches}")
@@ -4105,6 +4346,16 @@ def main() -> int:
     # -- 3i. the chunked stream replay on push and one node: the planet
     # fleet under push ----------------------------------------------------
     kern_fstream = freeze_stream_paths(dev, kern_stream["planet"])
+
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
+    # -- 3j. the sweep runner: run_sweep, run_cell's stream routing --------
+    rn = runner_paths(dev, *phase1)
+    for row_k in (kern, kern_fz, kern_dy, kern_f64, kern_hedge, kern_res,
+                  kern_stream, kern_fstream):
+        for label, n in rn["launches"].get(row_k["name"], {}).items():
+            row_k["launches_by_path"][label] = n
+            row_k["launches"] += n
+    kern["sweep_runner"] = rn["runner"]
 
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     # -- 4. attention kernels vs plain on the card ------------------------

@@ -49,3 +49,18 @@ class Request:
         of the function as ``p_ref`` (Table I) or the processing time."""
         denom = p_ref if p_ref is not None else self.p_true
         return self.response_time / max(denom, 1e-9)
+
+    @property
+    def wait_time(self) -> float:
+        if self.start is None or self.r_prime is None:
+            raise ValueError("request not started")
+        return self.start - self.r_prime
+
+
+@dataclass(frozen=True)
+class CallRecord:
+    """Completed-call record consumed by the estimator."""
+
+    fn: str
+    finished_at: float
+    processing_time: float

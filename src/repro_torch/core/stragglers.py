@@ -1,5 +1,5 @@
 """Heterogeneous node speeds, straggler hedging and failure schedules (own
-copy of the parts of ``repro.core.stragglers`` that the scan needs):
+copy of ``repro.core.stragglers``):
 :class:`NodeSpeedProfile` with its tensor form, :class:`HedgingSpec` and
 :func:`rolling_restart`."""
 
@@ -76,6 +76,19 @@ class NodeSpeedProfile:
     def is_uniform(self) -> bool:
         """True when every node runs at nominal speed the whole time."""
         return not self.episodes and all(s == 1.0 for s in self.speeds)
+
+    def base_speed(self, node: int) -> float:
+        return self.speeds[node] if node < len(self.speeds) else 1.0
+
+    def slowdown_at(self, node: int, t: float) -> float:
+        for n, t0, t1, f in self.episodes:
+            if n == node and t0 <= t < t1:
+                return f
+        return 1.0
+
+    def speed_at(self, node: int, t: float) -> float:
+        """Effective speed of ``node`` at time ``t`` (dispatch-time rate)."""
+        return self.base_speed(node) / self.slowdown_at(node, t)
 
     def max_slowdown(self) -> float:
         """Worst effective slowdown anywhere in the profile (a cell

@@ -52,6 +52,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops as _kops
 from .cluster import CapacityTimeline, timeline_from_scan
+from .estimator import DEFAULT_FC_HORIZON, DEFAULT_WINDOW
 from .fastpath import (
     CLUSTER_CONTAINER_MB,
     CLUSTER_MEMORY_MB,
@@ -74,10 +75,9 @@ from .fastpath import (
     _pow2,
     _scan_static,
 )
+from .flight import _KIND_RANK, SimTrace, TraceEvent
 from .planes import carry_layout, make_planes
 from .simulator import (
-    DEFAULT_FC_HORIZON,
-    DEFAULT_WINDOW,
     OURS_BASE,
     OURS_SCALE,
     REQ_OVERHEAD_S,
@@ -418,6 +418,39 @@ class StreamResult:
             req.c = req.finish + RESP_OVERHEAD_S
             req.failed = None
             req.attempts = int(self.attempts[e])
+
+    def trace(self, order=None) -> SimTrace:
+        """Canonical flight-recorder stream (arrival / dispatch / complete /
+        fail) from the event-order outputs, with the schema of
+        :func:`~repro_torch.core.flight.trace_from_result`, so a replay is
+        comparable event for event with a traced reference or whole-burst
+        scan run.  ``order`` (the permutation of
+        :func:`stream_from_requests`) labels events with their request
+        index; without it an event's position is its request id."""
+        ids = (np.asarray(order).tolist() if order is not None
+               else list(range(self.n)))
+        events = []
+        for e in range(self.n):
+            rid = int(ids[e])
+            fn = self.fns[int(self.fnid[e])]
+            att = max(int(self.attempts[e]), 0)
+            events.append(TraceEvent(float(self.t[e]), "arrival", rid, -1,
+                                     fn, 0))
+            if int(self.failed[e]):
+                cause = "timeout" if int(self.failed[e]) == 1 else "shed"
+                events.append(TraceEvent(float("nan"), "fail", rid,
+                                         int(self.node[e]), fn, att, cause))
+                continue
+            info = "cold" if bool(self.cold[e]) else ""
+            events.append(TraceEvent(float(self.start[e]), "dispatch", rid,
+                                     int(self.node[e]), fn, att, info))
+            events.append(TraceEvent(float(self.finish[e]), "complete", rid,
+                                     int(self.node[e]), fn, att))
+        events.sort(key=lambda ev: (math.inf if math.isnan(ev.t) else ev.t,
+                                    _KIND_RANK.get(ev.kind, 99), ev.req))
+        return SimTrace(events=events, nodes=self.nodes_used,
+                        meta={"backend": "streamscan", "chunks": self.chunks,
+                              "canonical": True})
 
 
 # ---------------------------------------------------------------------------

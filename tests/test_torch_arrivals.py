@@ -43,14 +43,17 @@ for p in (ROOT, ROOT / "examples"):
 from benchmarks.engine_bench import matrix_specs  # noqa: E402
 from benchmarks.fig5_fairness import spec as fig5_spec  # noqa: E402
 from sweep_grid import build_spec  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TRACE = str(ROOT / "data" / "azure_trace_slice.csv")
 
 
 def _port_cell(jcell) -> tsweep.SweepCell:
-    """The port's cell of a JAX package cell (the port's fields)."""
+    """The port's cell of a JAX package cell, as ``run_cells_scan`` takes
+    it: every field but the backend, which the scan does not read."""
     return tsweep.SweepCell(**{f.name: getattr(jcell, f.name)
-                               for f in dataclasses.fields(tsweep.SweepCell)})
+                               for f in dataclasses.fields(tsweep.SweepCell)
+                               if f.name != "backend"})
 
 
 def _ref_label(jcell) -> str:

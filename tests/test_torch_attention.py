@@ -27,6 +27,7 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models import layers as TL
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ORACLE_TOL = dict(rtol=1e-5, atol=1e-5)
 

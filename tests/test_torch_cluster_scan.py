@@ -34,6 +34,7 @@ from repro_torch.convert import bucket_from_numpy
 from repro_torch.core import fastpath as tfp
 from repro_torch.core import sweep as tsweep
 from repro_torch.core.workload import generate_burst
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 POLICIES = ("fifo", "sept", "eect", "rect", "fc")
@@ -46,8 +47,7 @@ def _mega_shaped(mod, seeds, **kw):
                 intensities=(10, 15, 20, 25, 30), seeds=seeds,
                 workload_cores=16)
     axes.update(kw)
-    if mod is jsweep:
-        axes["backends"] = ("scan",)
+    axes["backends"] = ("scan",)
     return mod.SweepSpec(**axes)
 
 

@@ -59,6 +59,7 @@ if str(ROOT) not in sys.path:
 
 from benchmarks.engine_bench import matrix_specs  # noqa: E402
 from benchmarks.trace_replay import spec as trace_spec  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 POLICIES = ("fifo", "sept", "eect", "rect", "fc")
 
@@ -73,7 +74,8 @@ def x64_alias(monkeypatch):
 
 def _port_cell(jcell) -> tsweep.SweepCell:
     return tsweep.SweepCell(**{f.name: getattr(jcell, f.name)
-                               for f in dataclasses.fields(tsweep.SweepCell)})
+                               for f in dataclasses.fields(tsweep.SweepCell)
+                               if f.name != "backend"})
 
 
 def _cell(policy="fc", nodes=2, cores=4, intensity=12, seed=0, **kw):

@@ -21,6 +21,7 @@ from repro_torch.models import LayerSpec, decode_step, init, init_cache
 from repro_torch.models import scale_down
 from repro_torch.serving import Endpoint, ServingEngine
 from repro_torch.serving.kvcache import Lane, zero_cache
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _small(arch, window=None):

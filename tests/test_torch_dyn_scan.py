@@ -67,6 +67,7 @@ from benchmarks.engine_bench import (  # noqa: E402
     matrix_specs,
     straggler_spec,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 POLICIES = ("fifo", "sept", "eect", "rect", "fc")
 
@@ -80,9 +81,11 @@ def x64_alias(monkeypatch):
 
 
 def _port_cell(jcell) -> tsweep.SweepCell:
-    """The port's cell of a JAX package cell (the port's fields)."""
+    """The port's cell of a JAX package cell, as ``run_cells_scan`` takes
+    it: every field but the backend, which the scan does not read."""
     return tsweep.SweepCell(**{f.name: getattr(jcell, f.name)
-                               for f in dataclasses.fields(tsweep.SweepCell)})
+                               for f in dataclasses.fields(tsweep.SweepCell)
+                               if f.name != "backend"})
 
 
 def _scan_cells(cell: tsweep.SweepCell):
@@ -340,7 +343,7 @@ def test_write_back_equals_jax():
 
 def _ref_label(jcell) -> str:
     """A JAX package cell's label without its backend part (the port's
-    cells have no backend field)."""
+    grids run through ``run_cells_scan`` on the default backend)."""
     return dataclasses.replace(jcell, backend="reference").label()
 
 

@@ -51,6 +51,7 @@ from wide_dispatch_cases import (  # noqa: E402
     many_fn_requests,
     merged_bases_requests,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True)

@@ -38,6 +38,7 @@ from repro_torch.core.workload import generate_burst
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.event_step import (event_step_supported,
                                             fc_prefix_counts)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BASE_FLAGS = dict(freeze=False, use_fc=False, fc_push=False, dyn=False,
                   het=False, hedge=False, cold=False, dup=False)

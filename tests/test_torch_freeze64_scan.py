@@ -66,6 +66,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from benchmarks.engine_bench import matrix_specs, straggler_spec  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True)
@@ -78,7 +79,8 @@ def x64_alias(monkeypatch):
 
 def _port_cell(jcell) -> tsweep.SweepCell:
     return tsweep.SweepCell(**{f.name: getattr(jcell, f.name)
-                               for f in dataclasses.fields(tsweep.SweepCell)})
+                               for f in dataclasses.fields(tsweep.SweepCell)
+                               if f.name != "backend"})
 
 
 def _cell(policy="fc", nodes=3, cores=4, intensity=20, seed=0, **kw):
@@ -510,7 +512,7 @@ def test_eligibility_answers_as_jax():
         if tsweep._cluster_shaped(c):
             want = (jsweep._cluster_scan_capable(jc)
                     and jsweep._cluster_scan_ok(jc, jreqs, c.policy))
-            got = tsweep._scan_capable(c) and tfp.cluster_scan_eligible(
+            got = tsweep._cluster_scan_capable(c) and tfp.cluster_scan_eligible(
                 reqs, c.nodes, c.cores, c.policy, assignment=c.assignment,
                 lb=c.lb, warm=c.warm, dynamics=tsweep._cell_dynamics(c),
                 profile=tsweep._cell_profile(c))
@@ -521,8 +523,8 @@ def test_eligibility_answers_as_jax():
         if not got:
             with pytest.raises(ValueError):
                 tsweep.run_cells_scan([c], metrics_only=True, device="cpu")
-    assert [tsweep._scan_capable(c) for c in cases[:4]] == [False] * 4
-    assert [tsweep._scan_capable(c) for c in cases[-3:]] == \
+    assert [tsweep._cluster_scan_capable(c) for c in cases[:4]] == [False] * 4
+    assert [tsweep._cluster_scan_capable(c) for c in cases[-3:]] == \
         [False, False, True]
     from repro_torch.core.cluster import ClusterDynamics
     from repro_torch.core.stragglers import HedgingSpec as THedgingSpec

@@ -50,6 +50,7 @@ from repro_torch.core import sweep as tsweep
 from repro_torch.core.traces import stable_hash
 from repro_torch.core.workload import PROFILES, generate_burst
 from repro_torch.kernels import ops as tops
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 POLICIES = ("fifo", "sept", "eect", "rect", "fc")
 OFF = dict(dyn=False, het=False, hedge=False, cold=False, dup=False)

@@ -59,6 +59,7 @@ from repro_torch.models import (LayerSpec, decode_step, forward, init,
                                 init_cache, param_shapes, prefill,
                                 scale_down)
 from repro_torch.models.model import check_supported
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 RWKV_BF16_TOL = 1e-1

@@ -49,6 +49,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import decode_step, init_cache, prefill, scale_down
 from repro_torch.models import layers as L
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 BF16_TOL = {"gemma3_27b": 1e-1}

@@ -18,6 +18,7 @@ import torch
 from repro.core import fastpath as jfp
 from repro_torch.convert import bucket_from_numpy
 from repro_torch.core import planes
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 STATE_FLAGS = dict(freeze=False, fc_push=False, dyn=False, het=False,
                    hedge=False, cold=False, dup=False, n_copies=1,

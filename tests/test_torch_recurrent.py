@@ -42,6 +42,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_ref
 from repro_torch.models import layers as TL
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ORACLE_TOL = dict(rtol=1e-5, atol=1e-5)
 RWKV6_TOL = dict(rtol=5e-3, atol=5e-3)

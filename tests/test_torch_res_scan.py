@@ -69,6 +69,7 @@ if str(ROOT) not in sys.path:
 
 from benchmarks.engine_bench import STORM_SCENARIOS  # noqa: E402
 from benchmarks.engine_bench import _storm_resilience  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True)
@@ -93,7 +94,8 @@ def _port_spec(spec):
 
 def _port_cell(jcell) -> tsweep.SweepCell:
     return tsweep.SweepCell(**{f.name: getattr(jcell, f.name)
-                               for f in dataclasses.fields(tsweep.SweepCell)})
+                               for f in dataclasses.fields(tsweep.SweepCell)
+                               if f.name != "backend"})
 
 
 def _jax_cell(c) -> jsweep.SweepCell:
@@ -649,7 +651,7 @@ def test_eligibility_answers_as_jax():
         assert tsweep._cluster_shaped(c)
         want = (jsweep._cluster_scan_capable(jc)
                 and jsweep._cluster_scan_ok(jc, jreqs, c.policy))
-        got = tsweep._scan_capable(c) and tfp.cluster_scan_eligible(
+        got = tsweep._cluster_scan_capable(c) and tfp.cluster_scan_eligible(
             reqs, c.nodes, c.cores, c.policy, assignment=c.assignment,
             lb=c.lb, warm=c.warm, dynamics=tsweep._cell_dynamics(c),
             profile=tsweep._cell_profile(c),

@@ -25,6 +25,7 @@ from repro_torch.launch import serve
 from repro_torch.models import scale_down
 from repro_torch.serving import Endpoint, ServingEngine, SlotPool
 from repro_torch.serving import sampler
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # (time, event, fn, value): arrivals push a call, completions feed the
 # estimator, pops take the best queued call; ties and an FC horizon cutoff

@@ -23,6 +23,7 @@ from repro.core.request import Request as JReq
 from repro_torch.core import fastpath as tfp
 from repro_torch.core import streamscan as ts
 from repro_torch.core.request import Request as TReq
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 FNS = ("dynamic-html", "uploader", "thumbnailer", "compression")
 CELL = dict(nodes=3, cores_per_node=2)

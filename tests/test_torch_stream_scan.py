@@ -59,6 +59,7 @@ from repro_torch.core.cluster import ClusterDynamics as TDyn
 from repro_torch.core.request import Request as TReq
 from repro_torch.core.stragglers import HedgingSpec as THedge
 from repro_torch.core.stragglers import NodeSpeedProfile as TProf
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 TRACE = ROOT / "data" / "azure_trace_slice.csv"
